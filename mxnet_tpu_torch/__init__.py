@@ -1,0 +1,20 @@
+"""mxnet_tpu_torch: the port of ``mxnet_tpu`` to PyTorch and CUDA.
+
+The reference package runs on JAX and a TPU; this one runs on PyTorch and an
+NVIDIA H100, and every Pallas kernel on its path is a CUDA kernel written by
+hand for Hopper (``csrc/``, built with ``nvcc`` at first use).  Importing it
+needs neither ``nvcc`` nor a GPU.  Entry points run on ``gpu(0)`` unless the
+caller passes ``ctx=cpu()``; on the CPU each kernel's plain PyTorch version
+runs instead.
+
+This slice serves: Symbol -> Executor -> Predictor -> ModelServer, with the
+ops a ResNet needs.
+"""
+from .base import MXNetError
+from .context import Context, cpu, current_context, gpu, num_gpus
+from . import ndarray as nd
+from . import symbol as sym
+from .predictor import Predictor
+
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "nd", "sym", "Predictor"]

@@ -30,6 +30,8 @@ def pytest_configure(config):
     # smoke tests don't warn as unknown
     config.addinivalue_line(
         "markers", "slow: long-running (excluded from tier-1 via -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips with a reason without one")
 
 
 @pytest.fixture(autouse=True)

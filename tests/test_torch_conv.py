@@ -1,0 +1,171 @@
+"""Port conv (mxnet_tpu_torch.ops.hopper_conv) vs the Pallas conv kernel of
+mxnet_tpu.ops.pallas_conv, on the CPU.
+
+Same inputs, made with numpy from a seed, go through both; fp32, rtol =
+atol = 1e-4.  On the CPU the port runs its plain version (a per-tap loop of
+fp32 matmuls), so these tests hold the layout work around the CUDA kernel
+(NHWC views, the tap rewrite, the space-to-depth rewrite and its pads) to
+the reference.  The kernel itself is held to the plain version by the
+``cuda`` test below, which skips without a card, and by chip_smoke.py.
+
+The installed jax no longer has ``pl.unblocked``, so ``pallas_call`` of
+``_conv_s1`` fails even in interpret mode (tests/test_pallas_conv.py fails
+the same way).  The reference side therefore runs the kernel the way
+interpret mode would: the reference's own frame plan and row-frame
+flattening, then its kernel body ``_taps_kernel`` once per grid step on the
+element-indexed input slab, with the output blocks stitched as
+``_conv_s1`` does.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+
+import mxnet_tpu  # noqa: F401  (registers ops)
+from mxnet_tpu.ops import pallas_conv as pc
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import hopper_conv as hc
+
+RTOL = ATOL = 1e-4
+
+
+class _Ref:
+    """A Pallas ref over an array: ``pl.ds`` windows read, ``[:]`` writes."""
+
+    def __init__(self, value=None, dtype=None):
+        self.value = value
+        self.dtype = value.dtype if dtype is None else dtype
+
+    def __getitem__(self, idx):
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        return self.value[tuple(slice(i.start, i.start + i.size)
+                                if isinstance(i, type(pl.ds(0, 1))) else i
+                                for i in idx)]
+
+    def __setitem__(self, idx, v):
+        self.value = v
+
+
+def _pallas_conv_s1(x, w_taps, pads, KH, KW):
+    """``pc._conv_s1`` with its grid run step by step (see module doc)."""
+    N, H, W, C = x.shape
+    O = w_taps.shape[-1]
+    p = pc._plan(N, H, W, C, O, KH, KW, pads, 4)
+    xf = pc._flatten_frames(x, pads, p, total=p.total)
+    blocks = []
+    for g in range(p.G):
+        out = _Ref(dtype=x.dtype)
+        pc._taps_kernel(_Ref(xf[g * p.TILE:g * p.TILE + p.SLAB]),
+                        _Ref(w_taps), out, TILE=p.TILE, WP=p.WP, KH=KH, KW=KW)
+        blocks.append(out.value)
+    out = jnp.concatenate(blocks)
+    return (out.reshape(N, p.L, O)[:, :p.F_out]
+            .reshape(N, p.Ho, p.WP, O)[:, :, :p.Wo])
+
+
+def _pallas_conv3x3_same(x, w):
+    """``pc.conv3x3_same``'s forward over the emulated grid."""
+    O, C = w.shape[:2]
+    taps = w.transpose(2, 3, 1, 0).reshape(9, C, O)
+    return pc._nchw(_pallas_conv_s1(pc._nhwc(x), taps, pc._S1_PADS, 3, 3))
+
+
+def _pallas_conv3x3_s2(x, w):
+    """``pc.conv3x3_s2``'s forward over the emulated grid."""
+    w4 = pc._s2d_weight(w)
+    O, C4 = w4.shape[:2]
+    taps = w4.transpose(2, 3, 1, 0).reshape(4, C4, O)
+    return pc._nchw(_pallas_conv_s1(pc._nhwc(pc._s2d_data(x)), taps,
+                                    pc._S2_PADS, 2, 2))
+
+
+def _case(N, C, H, W, O, seed=0):
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((N, C, H, W)).astype(np.float32)
+    w = (r.standard_normal((O, C, 3, 3)) * 0.1).astype(np.float32)
+    return x, w
+
+
+# tests/test_pallas_conv.py's shapes: odd spatial dims, several images
+@pytest.mark.parametrize("N,C,H,W,O", [
+    (2, 8, 6, 6, 16),
+    (4, 16, 5, 7, 8),
+    (3, 8, 7, 9, 8),
+])
+def test_conv3x3_same_matches_pallas(N, C, H, W, O):
+    x, w = _case(N, C, H, W, O)
+    want = np.asarray(_pallas_conv3x3_same(jnp.asarray(x), jnp.asarray(w)))
+    got = hc.conv3x3_same(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("N,C,H,W,O", [
+    (2, 8, 8, 8, 16),
+    (1, 4, 6, 10, 8),
+])
+def test_conv3x3_s2_matches_pallas(N, C, H, W, O):
+    x, w = _case(N, C, H, W, O, seed=1)
+    want = np.asarray(_pallas_conv3x3_s2(jnp.asarray(x), jnp.asarray(w)))
+    got = hc.conv3x3_s2(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("H,W", [(4, 6), (6, 10)])
+def test_s2d_layout_matches_reference(H, W):
+    """The NHWC space-to-depth and the 2x2 tap rewrite are exactly the
+    reference's parity-major (p, q, c) transforms."""
+    x, w = _case(2, 3, H, W, 5, seed=2)
+    want_x = np.asarray(pc._s2d_data(jnp.asarray(x))).transpose(0, 2, 3, 1)
+    got_x = hc.s2d_nhwc(torch.from_numpy(x).permute(0, 2, 3, 1))
+    np.testing.assert_array_equal(got_x.numpy(), want_x)
+    w4 = np.asarray(pc._s2d_weight(jnp.asarray(w)))
+    want_t = w4.transpose(2, 3, 1, 0).reshape(4, w4.shape[1], w4.shape[0])
+    np.testing.assert_array_equal(hc.s2d_taps(torch.from_numpy(w)).numpy(),
+                                  want_t)
+
+
+def test_conv3x3_s2_rejects_odd_spatial():
+    x, w = _case(1, 4, 7, 8, 4)
+    with pytest.raises(MXNetError):
+        hc.conv3x3_s2(torch.from_numpy(x), torch.from_numpy(w))
+
+
+def test_plain_is_the_cpu_arm_and_counts_no_launch():
+    x, w = _case(1, 4, 5, 5, 4)
+    before = hc.launches
+    got = hc.conv3x3_same(torch.from_numpy(x), torch.from_numpy(w))
+    ref = hc.conv3x3_same_plain(torch.from_numpy(x), torch.from_numpy(w))
+    assert torch.equal(got, ref)
+    assert hc.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["s1", "s2"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_kernel_matches_plain_on_card(kind, dtype, tol):
+    """The CUDA kernel vs its plain version on the same card tensors, odd
+    and even spatial dims, a ragged channel count and a ragged tile edge
+    (fp32 FMA vs fp32 matmul: 1e-4; bf16 output rounding: 2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fn, plain = ((hc.conv3x3_same, hc.conv3x3_same_plain) if kind == "s1"
+                 else (hc.conv3x3_s2, hc.conv3x3_s2_plain))
+    shapes = ([(3, 20, 7, 9, 70), (2, 64, 14, 14, 64), (1, 3, 1, 1, 5),
+               (5, 33, 11, 13, 129)] if kind == "s1"
+              else [(3, 20, 8, 6, 70), (2, 64, 14, 14, 64), (1, 3, 2, 2, 5),
+                    (5, 33, 12, 10, 129)])
+    for N, C, H, W, O in shapes:
+        x, w = _case(N, C, H, W, O, seed=3)
+        xt = torch.from_numpy(x).cuda().to(dtype)
+        wt = torch.from_numpy(w).cuda().to(dtype)
+        before = hc.launches
+        got = fn(xt, wt).float()
+        want = plain(xt, wt).float()
+        torch.cuda.synchronize()
+        assert hc.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)

@@ -1,0 +1,149 @@
+"""Port ops (mxnet_tpu_torch.ops) vs mxnet_tpu's ``get_op(name).fn``.
+
+Each case parses the same attribute dict with both registries, feeds both
+functions the same numpy inputs (seeded) on the CPU and compares at
+rtol = 1e-5 (fp32; both sides run the same fp32 arithmetic, summed in a
+different order).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import mxnet_tpu  # noqa: F401  (registers ops)
+from mxnet_tpu.ops.registry import get_op as jax_get_op
+from mxnet_tpu.ops.registry import param as jax_param
+from mxnet_tpu_torch.ops import get_op, nn as tnn
+from mxnet_tpu_torch.ops.registry import param
+
+RTOL = 1e-5
+ATOL = 1e-5
+
+
+def _bn_inputs(r, shape):
+    c = shape[1]
+    return [r.standard_normal(shape), r.uniform(0.5, 1.5, c),
+            r.standard_normal(c), r.standard_normal(c) * 0.1,
+            r.uniform(0.5, 2.0, c)]
+
+
+# (op name, attrs as a Symbol JSON would carry them, input generator)
+CASES = [
+    ("BatchNorm", {"fix_gamma": "True"},
+     lambda r: _bn_inputs(r, (2, 4, 5, 5))),
+    ("BatchNorm", {"fix_gamma": "False"},
+     lambda r: _bn_inputs(r, (2, 4, 5, 5))),
+    ("Pooling", {"kernel": "(3, 3)", "stride": "(2, 2)", "pad": "(1, 1)",
+                 "pool_type": "max"},
+     lambda r: [r.standard_normal((2, 3, 9, 8))]),
+    ("Pooling", {"global_pool": "True", "kernel": "(7, 7)",
+                 "pool_type": "avg"},
+     lambda r: [r.standard_normal((2, 3, 7, 7))]),
+    ("Pooling", {"kernel": "(3, 3)", "stride": "(2, 2)", "pool_type": "max",
+                 "pooling_convention": "full"},
+     lambda r: [r.standard_normal((2, 3, 8, 8))]),
+    ("Pooling", {"kernel": "(3, 3)", "stride": "(2, 2)", "pad": "(1, 1)",
+                 "pool_type": "avg", "pooling_convention": "full"},
+     lambda r: [r.standard_normal((2, 3, 8, 7))]),
+    ("Pooling", {"kernel": "(2, 2)", "stride": "(2, 2)", "pad": "(1, 1)",
+                 "pool_type": "avg", "count_include_pad": "False"},
+     lambda r: [r.standard_normal((1, 2, 5, 5))]),
+    ("Convolution", {"kernel": "(1, 1)", "stride": "(2, 2)",
+                     "num_filter": "8", "no_bias": "True"},
+     lambda r: [r.standard_normal((2, 6, 8, 8)),
+                r.standard_normal((8, 6, 1, 1))]),
+    ("Convolution", {"kernel": "(7, 7)", "stride": "(2, 2)", "pad": "(3, 3)",
+                     "num_filter": "8", "no_bias": "True"},
+     lambda r: [r.standard_normal((2, 3, 16, 16)),
+                r.standard_normal((8, 3, 7, 7)) * 0.1]),
+    ("Convolution", {"kernel": "(3, 3)", "pad": "(1, 1)", "num_filter": "6"},
+     lambda r: [r.standard_normal((2, 4, 7, 5)),
+                r.standard_normal((6, 4, 3, 3)), r.standard_normal(6)]),
+    ("Convolution", {"kernel": "(3, 3)", "stride": "(2, 2)", "pad": "(1, 1)",
+                     "num_filter": "6", "no_bias": "True"},
+     lambda r: [r.standard_normal((2, 4, 8, 6)),
+                r.standard_normal((6, 4, 3, 3))]),
+    ("FullyConnected", {"num_hidden": "5"},
+     lambda r: [r.standard_normal((3, 2, 2, 2)), r.standard_normal((5, 8)),
+                r.standard_normal(5)]),
+    ("Activation", {"act_type": "relu"},
+     lambda r: [r.standard_normal((3, 7))]),
+    ("Activation", {"act_type": "sigmoid"},
+     lambda r: [r.standard_normal((3, 7))]),
+    ("Activation", {"act_type": "tanh"},
+     lambda r: [r.standard_normal((3, 7))]),
+    ("Activation", {"act_type": "softrelu"},
+     lambda r: [r.standard_normal((3, 7))]),
+    ("Activation", {"act_type": "softsign"},
+     lambda r: [r.standard_normal((3, 7))]),
+    ("Activation", {"act_type": "gelu"},
+     lambda r: [r.standard_normal((3, 7))]),
+    ("softmax", {"axis": "1"}, lambda r: [r.standard_normal((4, 10))]),
+    ("SoftmaxOutput", {}, lambda r: [r.standard_normal((4, 10)),
+                                     np.arange(4.0)]),
+    ("Flatten", {}, lambda r: [r.standard_normal((2, 3, 2, 2))]),
+    ("elemwise_add", {}, lambda r: [r.standard_normal((2, 3)),
+                                    r.standard_normal((2, 3))]),
+    ("_plus_scalar", {"scalar": "1.5"}, lambda r: [r.standard_normal((2, 3))]),
+]
+
+
+def _first(out):
+    return out[0] if isinstance(out, (tuple, list)) else out
+
+
+@pytest.mark.parametrize("case", range(len(CASES)),
+                         ids=["%s-%d" % (c[0], i) for i, c in enumerate(CASES)])
+def test_op_matches_reference(case):
+    name, attrs, make = CASES[case]
+    inputs = [np.asarray(a, np.float32)
+              for a in make(np.random.default_rng(case))]
+    jop, top = jax_get_op(name), get_op(name)
+    want = _first(jop.fn(jop.parse_attrs(dict(attrs)),
+                         *[jnp.asarray(a) for a in inputs]))
+    got = _first(top.fn(top.parse_attrs(dict(attrs)),
+                        *[torch.from_numpy(a) for a in inputs]))
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("ptype,value", [
+    ("shape", "(3, 3)"), ("shape", "(1,)"), ("shape", 2), (bool, "True"),
+    (bool, "False"), (bool, "1"), (int, "64"), (float, "1e-3"),
+    (["relu", "tanh"], "relu"), ("dtype", "float32"), ("dtype", "None"),
+])
+def test_param_coercion_matches_reference(ptype, value):
+    assert param(ptype).coerce(value) == jax_param(ptype).coerce(value)
+
+
+def test_registry_names_and_aliases_match_reference():
+    for name in ("Convolution", "BatchNorm", "Pooling", "Activation",
+                 "FullyConnected", "softmax", "SoftmaxOutput", "Flatten",
+                 "elemwise_add", "broadcast_add", "_plus_scalar"):
+        top, jop = get_op(name), jax_get_op(name)
+        assert top.name == jop.name
+        assert top.arg_names == jop.arg_names
+        assert top.aux_inputs == jop.aux_inputs
+
+
+@pytest.mark.parametrize("attrs,shape,mode", [
+    ({"kernel": "(3, 3)", "pad": "(1, 1)"}, (1, 4, 5, 7), "s1"),
+    ({"kernel": "(3, 3)", "stride": "(2, 2)", "pad": "(1, 1)"},
+     (1, 4, 8, 6), "s2"),
+    ({"kernel": "(3, 3)", "stride": "(2, 2)", "pad": "(1, 1)"},
+     (1, 4, 7, 6), None),
+    ({"kernel": "(1, 1)", "stride": "(2, 2)"}, (1, 4, 8, 8), None),
+    ({"kernel": "(7, 7)", "stride": "(2, 2)", "pad": "(3, 3)"},
+     (1, 3, 8, 8), None),
+    ({"kernel": "(3, 3)", "pad": "(1, 1)", "num_group": "2"},
+     (1, 4, 5, 5), None),
+    ({"kernel": "(3, 3)", "pad": "(1, 1)", "dilate": "(2, 2)"},
+     (1, 4, 5, 5), None),
+])
+def test_conv_dispatch_classes(attrs, shape, mode):
+    """The 3x3 s1 / s2 classes go to the hand-written kernel, every other
+    conv to F.conv2d."""
+    a = get_op("Convolution").parse_attrs(dict(attrs, num_filter="4"))
+    assert tnn.hopper_conv_mode(a, torch.empty(shape, device="meta")) == mode
