@@ -7,14 +7,22 @@ needs neither ``nvcc`` nor a GPU.  Entry points run on ``gpu(0)`` unless the
 caller passes ``ctx=cpu()``; on the CPU each kernel's plain PyTorch version
 runs instead.
 
-This slice serves: Symbol -> Executor -> Predictor -> ModelServer, with the
-ops a ResNet needs.
+Slice 1 serves: Symbol -> Executor -> Predictor -> ModelServer, with the
+ops a ResNet needs.  Slice 2 trains: Gluon's ResNet v1 (``gluon``,
+hybridized to a Symbol) under ``FusedTrainer``, with the 3x3 convolutions'
+backward on the kernels too.
 """
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from . import ndarray as nd
 from . import symbol as sym
+from . import name
+from . import random
+from . import initializer
+from . import gluon
+from .fused import FusedTrainer
 from .predictor import Predictor
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "nd", "sym", "Predictor"]
+           "num_gpus", "nd", "sym", "name", "random", "initializer",
+           "gluon", "FusedTrainer", "Predictor"]

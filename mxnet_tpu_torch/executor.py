@@ -1,10 +1,12 @@
 """Executor: a bound symbolic graph, run forward on tensors (counterpart of
-``mxnet_tpu/executor.py``, forward-only).
+``mxnet_tpu/executor.py``, forward-only), and the graph plan that the
+training step and ``CachedOp`` share.
 
 The reference package traces its plan into one XLA program; here the plan
-is a topological walk that calls each op's function eagerly under
-``torch.inference_mode()``, so every op launches its own kernels on the
-calling thread's current stream.
+is a topological walk that calls each op's function eagerly, so every op
+launches its own kernels on the calling thread's current stream.  The
+Executor runs it under ``torch.inference_mode()``; the training step runs
+the ``train=True`` plan with autograd on.
 """
 from __future__ import annotations
 
@@ -21,13 +23,24 @@ __all__ = ["Executor"]
 
 
 class _Plan:
-    """Precomputed forward plan: the op nodes in topological order with
-    their parsed attrs, and for each the entries it reads last, which are
-    dropped after it runs so that activations do not outlive their use."""
+    """Precomputed plan of a symbol graph (``mxnet_tpu/executor.py:64-160``):
+    the op nodes in topological order with their parsed attrs, and for each
+    the entries it reads last, which are dropped after it runs so that
+    activations do not outlive their use.
 
-    def __init__(self, symbol):
+    With ``train=True`` every ``train_aware`` op sees ``__train__`` in its
+    attrs, and each op output that an ``aux_writeback`` maps onto a bound
+    auxiliary state replaces that state in the ``new_aux`` that
+    :meth:`execute` returns (BatchNorm's moving statistics)."""
+
+    def __init__(self, symbol, train: bool = False):
+        self.train = train
         self.topo = symbol._topo()
+        self.arg_names = symbol.list_arguments()
+        self.aux_names = symbol.list_auxiliary_states()
         self.out_entries = [(id(n), i) for n, i in symbol._outputs]
+        aux_ids = {id(n): n.name for n in self.topo
+                   if n.is_var and n.name in set(self.aux_names)}
         ops = [node for node in self.topo if not node.is_var]
         last_use: Dict[Tuple[int, int], int] = {}
         for s, node in enumerate(ops):
@@ -38,25 +51,40 @@ class _Plan:
         for entry, s in last_use.items():
             if entry not in keep:
                 release[s].append(entry)
-        self.steps = [(node, node.parsed_attrs(), release[s])
-                      for s, node in enumerate(ops)]
+        self.steps = []
+        for s, node in enumerate(ops):
+            attrs = node.parsed_attrs()
+            if node.op.train_aware:
+                attrs = dict(attrs, __train__=train)
+            writeback = {}
+            if train:
+                for oi, ii in node.op.aux_writeback.items():
+                    if ii < len(node.inputs) and \
+                            id(node.inputs[ii][0]) in aux_ids:
+                        writeback[oi] = aux_ids[id(node.inputs[ii][0])]
+            self.steps.append((node, attrs, writeback, release[s]))
 
-    def execute(self, values: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
-        """Run the plan on {variable name: tensor}; returns the heads."""
+    def execute(self, values: Dict[str, torch.Tensor]
+                ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+        """Run the plan on {variable name: tensor}, arguments and auxiliary
+        states alike; returns (heads, new auxiliary states)."""
         env: Dict[Tuple[int, int], Any] = {}
         for node in self.topo:
             if node.is_var:
                 if node.name not in values:
                     raise MXNetError("unbound variable %r" % node.name)
                 env[(id(node), 0)] = values[node.name]
-        for node, attrs, release in self.steps:
+        new_aux = {n: values[n] for n in self.aux_names}
+        for node, attrs, writeback, release in self.steps:
             res = node.op.fn(attrs, *[env[(id(p), i)] for p, i in node.inputs])
             outs = res if isinstance(res, tuple) else (res,)
             for i, o in enumerate(outs):
                 env[(id(node), i)] = o
+            for oi, aux_name in writeback.items():
+                new_aux[aux_name] = outs[oi]
             for entry in release:
                 del env[entry]
-        return [env[e] for e in self.out_entries]
+        return [env[e] for e in self.out_entries], new_aux
 
 
 class Executor:
@@ -96,7 +124,7 @@ class Executor:
         values = {n: a._data for n, a in self.arg_dict.items()}
         values.update({n: a._data for n, a in self.aux_dict.items()})
         with torch.inference_mode():
-            outs = self._plan.execute(values)
+            outs, _ = self._plan.execute(values)
         self.outputs = [NDArray(o) for o in outs]
         return self.outputs
 

@@ -1,4 +1,5 @@
 """NDArray package (counterpart of ``mxnet_tpu/ndarray``)."""
-from .ndarray import NDArray, array, load, save, zeros
+from .ndarray import NDArray, array, load, ones, save, zeros
+from . import random
 
-__all__ = ["NDArray", "array", "zeros", "save", "load"]
+__all__ = ["NDArray", "array", "zeros", "ones", "save", "load", "random"]

@@ -1,7 +1,8 @@
 """NDArray: a thin handle over a ``torch.Tensor`` on a context
 (counterpart of ``mxnet_tpu/ndarray/ndarray.py``), with just what the
-serving path uses, plus ``save``/``load`` in the reference package's npz
-format so a ``.params`` file that ``mxnet_tpu.nd.save`` wrote loads here.
+serving and training paths use, plus ``save``/``load`` in the reference
+package's npz format so a ``.params`` file that ``mxnet_tpu.nd.save`` wrote
+loads here.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 from ..base import MXNetError
 from ..context import Context, context_of, current_context
 
-__all__ = ["NDArray", "array", "zeros", "save", "load"]
+__all__ = ["NDArray", "array", "zeros", "ones", "save", "load"]
 
 _TORCH_DTYPES = {
     np.dtype(np.float32): torch.float32,
@@ -60,6 +61,22 @@ class NDArray:
     @property
     def context(self) -> Context:
         return context_of(self._data.device)
+
+    def wait_to_read(self):
+        """Block until the work that produces this array is done."""
+        if self._data.device.type == "cuda":
+            torch.cuda.current_stream(self._data.device).synchronize()
+
+    def copyto(self, other):
+        """A copy on ``other`` (a Context), or into ``other`` (an NDArray,
+        whose buffer is replaced as by ``other[:] = self``)."""
+        if isinstance(other, Context):
+            return NDArray(self._data.to(other.torch_device, copy=True))
+        if isinstance(other, NDArray):
+            other[:] = self
+            return other
+        raise MXNetError("copyto expects a Context or an NDArray, got %r"
+                         % (other,))
 
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
@@ -109,7 +126,10 @@ def _as_tensor(source, dtype) -> torch.Tensor:
         arr = np.asarray(source)
         if arr.dtype == np.float64 and dtype is None:
             arr = arr.astype(np.float32)      # the reference's default dtype
-        source = torch.from_numpy(np.ascontiguousarray(arr))
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:
+            arr = arr.copy()          # torch.from_numpy shares the buffer
+        source = torch.from_numpy(arr)
     return source if dtype is None else source.to(torch_dtype(dtype))
 
 
@@ -121,11 +141,19 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
 
 
 def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+    return _full(shape, 0.0, ctx, dtype)
+
+
+def ones(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+    return _full(shape, 1.0, ctx, dtype)
+
+
+def _full(shape, value, ctx, dtype) -> NDArray:
     ctx = ctx or current_context()
     if isinstance(shape, int):
         shape = (shape,)
-    return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
-                               device=ctx.torch_device))
+    return NDArray(torch.full(tuple(shape), value, dtype=torch_dtype(dtype),
+                              device=ctx.torch_device))
 
 
 # --------------------------------------------------------------------------
@@ -147,8 +175,8 @@ def save(fname, data):
 
 def load(fname, ctx: Optional[Context] = None):
     """Read a file ``save`` wrote (path or file-like).  Arrays land on
-    ``ctx``, by default the CPU: the caller places them."""
-    ctx = ctx or Context("cpu")
+    ``ctx``, by default the current context, as the reference's do."""
+    ctx = ctx or current_context()
     with np.load(_norm(fname), allow_pickle=False) as z:
         keys = list(z.keys())
         sparse = [k for k in keys if "/" in k]

@@ -1,5 +1,5 @@
-"""Implicit-GEMM 3x3 convolution on a hand-written Hopper kernel
-(counterpart of ``mxnet_tpu/ops/pallas_conv.py``).
+"""Implicit-GEMM 3x3 convolution and its gradients on hand-written Hopper
+kernels (counterpart of ``mxnet_tpu/ops/pallas_conv.py``).
 
 ``conv3x3_same`` (3x3 / stride 1 / pad 1) and ``conv3x3_s2`` (3x3 /
 stride 2 / pad 1) take NCHW data and OIHW weights, as in the reference
@@ -14,18 +14,31 @@ NHWC activations, :func:`taps_conv`, the function the TPU kernel
   order and the weight into 2x2 taps on 4C channels, with pads
   ((1, 0), (1, 0)).
 
-:func:`taps_conv` launches the CUDA kernel in
-``mxnet_tpu_torch/csrc/implicit_gemm_conv.cu`` for a tensor on the card,
-and raises if it cannot; for a tensor on the CPU (or a ``meta`` tensor,
-during shape inference) it runs :func:`taps_conv_plain`, a per-tap loop of
-(rows, C) @ (C, O) products with fp32 accumulation.  There is no fallback
-from one to the other.  ``launches`` counts kernel launches.
+Both are ``torch.autograd.Function``s, as the reference's are
+``custom_vjp``s.  The stride-1 backward runs on kernels too
+(``pallas_conv.py:308-320``): dgrad is :func:`taps_conv` on the cotangent
+with spatially flipped, io-swapped taps, and wgrad is :func:`taps_wgrad`,
+the function of the TPU kernel ``_wgrad_kernel``.  The stride-2 backward is
+plain PyTorch (``torch.nn.grad``), because the reference's is XLA's
+transposed convolution, not a Pallas kernel.
 
-The layout work around the kernel (NHWC views, the tap and space-to-depth
+:func:`taps_conv` and :func:`taps_wgrad` launch the CUDA kernels in
+``mxnet_tpu_torch/csrc/implicit_gemm_conv.cu`` and ``taps_wgrad.cu`` for a
+tensor on the card, and raise if they cannot; for a tensor on the CPU (or a
+``meta`` tensor, during shape inference) they run :func:`taps_conv_plain`
+and :func:`taps_wgrad_plain`, per-tap loops of fp32 matmuls.  There is no
+fallback from one to the other.  ``launches`` counts launches of the
+convolution kernel (forward and dgrad); ``wgrad_launches`` and
+``wgrad_reduce_launches`` count launches of the wgrad kernel's two passes,
+the partial sums and, when the rows are split, their reduction, as the
+CUDA entry point reports them.
+
+The layout work around the kernels (NHWC views, the tap and space-to-depth
 rewrites) is plain PyTorch shared by both arms, so the CPU tests reach it.
 The NHWC view of a channels-last tensor is free, and the kernel's output is
 returned as an NCHW view of NHWC memory, so consecutive kernels hand each
-other channels-last tensors without a copy.
+other channels-last tensors without a copy.  A cotangent that reaches the
+backward in NCHW memory is copied to NHWC once per convolution.
 """
 from __future__ import annotations
 
@@ -39,10 +52,16 @@ import torch.nn.functional as F
 from ..base import MXNetError
 
 __all__ = ["conv3x3_same", "conv3x3_same_plain", "conv3x3_s2",
-           "conv3x3_s2_plain", "taps_conv", "taps_conv_plain", "launches"]
+           "conv3x3_s2_plain", "taps_conv", "taps_conv_plain", "taps_wgrad",
+           "taps_wgrad_plain", "dgrad_taps", "launches", "wgrad_launches",
+           "wgrad_reduce_launches"]
 
-#: kernel launches so far (CUDA arm of :func:`taps_conv` only)
+#: convolution kernel launches so far (CUDA arm of :func:`taps_conv` only)
 launches = 0
+#: wgrad partial-pass launches so far (CUDA arm of :func:`taps_wgrad` only)
+wgrad_launches = 0
+#: wgrad reduction-pass launches so far (CUDA arm, calls with splits > 1)
+wgrad_reduce_launches = 0
 _count_lock = threading.Lock()
 
 _Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -51,6 +70,11 @@ S2_PADS: _Pads = ((1, 0), (1, 0))
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_wgrad_fn = None
+#: rows per stage of the wgrad kernel (BK in taps_wgrad.cu)
+_WGRAD_BK = 16
+#: output channels per block tile of the wgrad kernel (BC = BO)
+_WGRAD_TILE = 64
 
 
 def _out_hw(H, W, KH, KW, pads: _Pads):
@@ -132,6 +156,90 @@ def taps_conv(x, taps, pads: _Pads, KH: int, KW: int):
     raise MXNetError("taps_conv: no arm for device %s" % x.device)
 
 
+def taps_wgrad_plain(x, dy, pads: _Pads, KH: int, KW: int):
+    """Reference weight gradient: x (N, H, W, C), dy (N, Ho, Wo, O) ->
+    (KH*KW, C, O) fp32, one fp32 ``x_tapᵀ @ dy`` product per tap (what
+    ``_wgrad_kernel`` computes)."""
+    N, H, W, C = x.shape
+    O = dy.shape[-1]
+    (pt, pb), (pl, pr) = pads
+    Ho, Wo = _out_hw(H, W, KH, KW, pads)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb)).float()
+    g = dy.reshape(N * Ho * Wo, O).float()
+    taps = []
+    for dh in range(KH):
+        for dw in range(KW):
+            xs = xp[:, dh:dh + Ho, dw:dw + Wo, :].reshape(N * Ho * Wo, C)
+            taps.append(xs.t() @ g)
+    return torch.stack(taps)
+
+
+def _wgrad_kernel():
+    global _wgrad_fn
+    if _wgrad_fn is None:
+        from .. import _build
+        fn = _build.load("taps_wgrad").mxtt_taps_wgrad
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        fn.restype = ctypes.c_int
+        _wgrad_fn = fn
+    return _wgrad_fn
+
+
+def wgrad_splits(M: int, C: int, O: int, taps: int, sms: int) -> int:
+    """Row splits of the wgrad kernel's grid: enough blocks for about four
+    per SM, at most one split per 16-row stage."""
+    tiles = (-(-C // _WGRAD_TILE)) * (-(-O // _WGRAD_TILE)) * taps
+    want = -(-4 * sms // tiles)
+    return max(1, min(want, -(-M // _WGRAD_BK)))
+
+
+def _taps_wgrad_cuda(x, dy, pads: _Pads, KH: int, KW: int):
+    global wgrad_launches, wgrad_reduce_launches
+    if x.dtype != torch.float32 or dy.dtype != torch.float32:
+        raise MXNetError("taps_wgrad: the CUDA kernel takes float32 x and dy, "
+                         "got %s and %s" % (x.dtype, dy.dtype))
+    if dy.device != x.device:
+        raise MXNetError("taps_wgrad: dy must be on x's device")
+    N, H, W, C = x.shape
+    Ho, Wo = _out_hw(H, W, KH, KW, pads)
+    if x.dim() != 4 or dy.dim() != 4 or tuple(dy.shape[:3]) != (N, Ho, Wo):
+        raise MXNetError("taps_wgrad: x %s and dy %s do not form a %dx%d "
+                         "conv" % (tuple(x.shape), tuple(dy.shape), KH, KW))
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise MXNetError("taps_wgrad: x and dy must be contiguous")
+    O = dy.shape[3]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = wgrad_splits(N * Ho * Wo, C, O, KH * KW, sms)
+    out = torch.empty((KH * KW, C, O), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((splits, KH * KW, C, O), dtype=torch.float32,
+                      device=x.device) if splits > 1 else None)
+    launched = (ctypes.c_int * 2)()
+    err = _wgrad_kernel()(
+        x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
+        N, H, W, C, O, KH, KW, pads[0][0], pads[1][0], Ho, Wo, splits, sms,
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        launched)
+    with _count_lock:
+        wgrad_launches += launched[0]
+        wgrad_reduce_launches += launched[1]
+    if err != 0:
+        raise MXNetError("taps_wgrad launch failed: CUDA error %d" % err)
+    return out
+
+
+def taps_wgrad(x, dy, pads: _Pads, KH: int, KW: int):
+    """Weight gradient of :func:`taps_conv`, x (N, H, W, C), dy
+    (N, Ho, Wo, O), both NHWC -> (KH*KW, C, O) fp32: the CUDA kernel for a
+    tensor on the card, the plain version for one on the CPU or ``meta``."""
+    if x.device.type == "cuda":
+        return _taps_wgrad_cuda(x, dy, pads, KH, KW)
+    if x.device.type in ("cpu", "meta"):
+        return taps_wgrad_plain(x, dy, pads, KH, KW)
+    raise MXNetError("taps_wgrad: no arm for device %s" % x.device)
+
+
 def _nhwc(x):
     """NHWC contiguous tensor; free for a channels-last NCHW tensor."""
     return x.permute(0, 2, 3, 1).contiguous()
@@ -141,11 +249,49 @@ def _nchw(y):
     return y.permute(0, 3, 1, 2)
 
 
-def _same(data, weight, conv):
+def _s1_taps(weight, dtype):
     O, C = weight.shape[:2]
-    taps = weight.permute(2, 3, 1, 0).reshape(9, C, O)
-    taps = taps.to(data.dtype).contiguous()
-    return _nchw(conv(_nhwc(data), taps, S1_PADS, 3, 3))
+    return weight.permute(2, 3, 1, 0).reshape(9, C, O).to(dtype).contiguous()
+
+
+def dgrad_taps(weight, dtype=None):
+    """(O, C, 3, 3) weight -> (9, O, C) taps whose stride-1 pad-1
+    convolution of the cotangent is the data gradient: the weight flipped
+    in space with input and output swapped (``pallas_conv.py:314-316``)."""
+    O, C = weight.shape[:2]
+    taps = weight.flip((2, 3)).permute(2, 3, 0, 1).reshape(9, O, C)
+    return taps.to(dtype or weight.dtype).contiguous()
+
+
+class _Conv3x3Same(torch.autograd.Function):
+    """3x3 / stride-1 / pad-1 conv whose forward, dgrad and wgrad all run
+    on the kernels (``pallas_conv.conv3x3_same`` and ``_c3s_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, data, weight):
+        x = _nhwc(data)
+        y = taps_conv(x, _s1_taps(weight, data.dtype), S1_PADS, 3, 3)
+        ctx.save_for_backward(x, weight)
+        return _nchw(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        O, C = weight.shape[:2]
+        gh = _nhwc(g.to(x.dtype))
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _nchw(taps_conv(gh, dgrad_taps(weight, gh.dtype),
+                                 S1_PADS, 3, 3))
+        if ctx.needs_input_grad[1]:
+            dwf = taps_wgrad(x, gh, S1_PADS, 3, 3)
+            dw = dwf.reshape(3, 3, C, O).permute(3, 2, 0, 1).to(weight.dtype)
+        return dx, dw
+
+
+def _same(data, weight, conv):
+    return _nchw(conv(_nhwc(data), _s1_taps(weight, data.dtype),
+                      S1_PADS, 3, 3))
 
 
 def s2d_nhwc(x):
@@ -177,9 +323,35 @@ def _s2(data, weight, conv):
     return _nchw(conv(x, taps, S2_PADS, 2, 2))
 
 
+class _Conv3x3S2(torch.autograd.Function):
+    """3x3 / stride-2 / pad-1 conv: forward on the kernel through the
+    space-to-depth rewrite, backward in plain PyTorch, as the reference's
+    ``_c3s2_bwd`` leaves it to XLA's transposed convolution."""
+
+    @staticmethod
+    def forward(ctx, data, weight):
+        ctx.save_for_backward(data, weight)
+        return _s2(data, weight, taps_conv)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, weight = ctx.saved_tensors
+        g = g.to(data.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(data.shape, weight.to(g.dtype), g,
+                                            stride=2, padding=1)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(data, weight.shape, g,
+                                             stride=2, padding=1)
+            dw = dw.to(weight.dtype)
+        return dx, dw
+
+
 def conv3x3_same(data, weight):
-    """3x3 / stride-1 / pad-1 / ungrouped conv, NCHW data, OIHW weight."""
-    return _same(data, weight, taps_conv)
+    """3x3 / stride-1 / pad-1 / ungrouped conv, NCHW data, OIHW weight;
+    differentiable, with both gradients on the kernels."""
+    return _Conv3x3Same.apply(data, weight)
 
 
 def conv3x3_same_plain(data, weight):
@@ -189,8 +361,8 @@ def conv3x3_same_plain(data, weight):
 
 def conv3x3_s2(data, weight):
     """3x3 / stride-2 / pad-1 / ungrouped conv on even H, W through the
-    exact space-to-depth rewrite, NCHW data, OIHW weight."""
-    return _s2(data, weight, taps_conv)
+    exact space-to-depth rewrite, NCHW data, OIHW weight; differentiable."""
+    return _Conv3x3S2.apply(data, weight)
 
 
 def conv3x3_s2_plain(data, weight):

@@ -77,6 +77,10 @@ class Operator:
     (BatchNorm's moving statistics); ``shape_hint(attrs, in_shapes)``
     fills unknown parameter shapes from the data shape; ``nout``/``visible``
     count outputs as the reference does (BatchNorm has three, one visible).
+    A ``train_aware`` op reads ``attrs["__train__"]``, which the training
+    plan sets; ``aux_writeback`` maps an output index to the input index of
+    the auxiliary state it replaces after a training step (BatchNorm's new
+    moving statistics, ``{1: 3, 2: 4}``).
     """
 
     def __init__(self, name: str, fn: Callable, *,
@@ -85,7 +89,8 @@ class Operator:
                  arg_names: Optional[Sequence[str]] = None,
                  aux_inputs: Sequence[int] = (),
                  shape_hint: Optional[Callable] = None,
-                 aliases: Sequence[str] = ()):
+                 aliases: Sequence[str] = (), train_aware: bool = False,
+                 aux_writeback: Optional[Dict[int, int]] = None):
         self.name = name
         self.fn = fn
         self.params = params or {}
@@ -95,6 +100,8 @@ class Operator:
         self.aux_inputs: Tuple[int, ...] = tuple(aux_inputs)
         self.shape_hint = shape_hint
         self.aliases = tuple(aliases)
+        self.train_aware = train_aware
+        self.aux_writeback = dict(aux_writeback or {})
         self.doc = fn.__doc__ or ""
 
     def parse_attrs(self, kwargs: Dict[str, Any]) -> Dict[str, Any]:
@@ -128,13 +135,15 @@ class Operator:
 
 
 def register(name: str, *, params=None, nout=1, visible=None, arg_names=None,
-             aux_inputs=(), shape_hint=None, aliases=()):
+             aux_inputs=(), shape_hint=None, aliases=(), train_aware=False,
+             aux_writeback=None):
     """Decorator: register a function on tensors as an operator."""
 
     def deco(fn):
         op = Operator(name, fn, params=params, nout=nout, visible=visible,
                       arg_names=arg_names, aux_inputs=aux_inputs,
-                      shape_hint=shape_hint, aliases=aliases)
+                      shape_hint=shape_hint, aliases=aliases,
+                      train_aware=train_aware, aux_writeback=aux_writeback)
         OPS[name] = op
         for a in aliases:
             OPS[a] = op

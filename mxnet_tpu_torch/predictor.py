@@ -14,9 +14,10 @@ from .ndarray.ndarray import NDArray
 __all__ = ["Predictor", "load_ndarray_file"]
 
 
-def load_ndarray_file(nd_bytes: bytes):
-    """Load a parameter blob (the ``nd.save`` format) into a dict."""
-    return nd.load(io.BytesIO(nd_bytes))
+def load_ndarray_file(nd_bytes: bytes, ctx=None):
+    """Load a parameter blob (the ``nd.save`` format) into a dict on
+    ``ctx`` (default: the current context)."""
+    return nd.load(io.BytesIO(nd_bytes), ctx)
 
 
 class Predictor:
@@ -46,9 +47,9 @@ class Predictor:
         self._symbol = sym_mod.load_json(symbol_json)
 
         if isinstance(params, (bytes, bytearray)):
-            loaded = load_ndarray_file(bytes(params))
+            loaded = load_ndarray_file(bytes(params), self._ctx)
         elif isinstance(params, str):
-            loaded = nd.load(params)
+            loaded = nd.load(params, self._ctx)
         else:
             loaded = dict(params)
         self._arg_params = {}

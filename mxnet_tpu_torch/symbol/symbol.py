@@ -12,27 +12,15 @@ from __future__ import annotations
 
 import ast
 import json
-import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..base import MXNetError
+from ..name import current_scope
 from ..ops.registry import Operator, get_op
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load_json"]
-
-_names = threading.local()
-
-
-def _auto_name(hint: str) -> str:
-    """``<hint><i>`` from a per-thread counter (reference NameManager)."""
-    counter = getattr(_names, "counter", None)
-    if counter is None:
-        counter = _names.counter = {}
-    i = counter.get(hint, 0)
-    counter[hint] = i + 1
-    return "%s%d" % (hint, i)
 
 
 class _Node:
@@ -112,6 +100,10 @@ class Symbol:
     def list_auxiliary_states(self) -> List[str]:
         aux = self._aux_var_ids()
         return [n.name for n in self._topo() if n.is_var and id(n) in aux]
+
+    def list_inputs(self) -> List[str]:
+        """Every variable, arguments and auxiliary states, in graph order."""
+        return [n.name for n in self._topo() if n.is_var]
 
     def list_outputs(self) -> List[str]:
         names = []
@@ -272,7 +264,9 @@ def _create(op_name: str, sym_inputs: Sequence[Optional[Symbol]],
     kwargs = {k: v for k, v in kwargs.items() if v is not None}
     name = name or kwargs.pop("name", None)
     kwargs.pop("name", None)
-    name = name or _auto_name(op.name.lower())
+    # explicit names go through the scope too, so that a Prefix scope (a
+    # Gluon block's name_scope) prepends its prefix, as the reference does
+    name = current_scope().get(name, op.name.lower())
 
     entries: List[Tuple[_Node, int]] = []
     for s in sym_inputs:

@@ -1,5 +1,5 @@
-"""Port conv (mxnet_tpu_torch.ops.hopper_conv) vs the Pallas conv kernel of
-mxnet_tpu.ops.pallas_conv, on the CPU.
+"""Port conv (mxnet_tpu_torch.ops.hopper_conv) vs the Pallas conv kernels of
+mxnet_tpu.ops.pallas_conv, on the CPU, forward and backward.
 
 Same inputs, made with numpy from a seed, go through both; fp32, rtol =
 atol = 1e-4.  On the CPU the port runs its plain version (a per-tap loop of
@@ -14,12 +14,20 @@ the same way).  The reference side therefore runs the kernel the way
 interpret mode would: the reference's own frame plan and row-frame
 flattening, then its kernel body ``_taps_kernel`` once per grid step on the
 element-indexed input slab, with the output blocks stitched as
-``_conv_s1`` does.
+``_conv_s1`` does.  The wgrad kernel ``_wgrad_kernel`` does run in
+interpret mode when its input slab is given as ``pl.Element`` (which this
+jax has) instead of ``pl.unblocked``, so the reference side of the wgrad
+test is a ``pallas_call`` built here around the reference's own kernel
+body, frame plan, row-frame flattening and cotangent framing.  Tolerance
+of the wgrad: 1e-4 of the largest |dw|.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
@@ -169,3 +177,130 @@ def test_kernel_matches_plain_on_card(kind, dtype, tol):
         torch.cuda.synchronize()
         assert hc.launches == before + 1
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def _pallas_wgrad_s1(x, g, pads, KH, KW):
+    """``pc._wgrad_s1`` in interpret mode with the slab as ``pl.Element``;
+    returns ((KH*KW, C, O), grid size)."""
+    N, H, W, C = x.shape
+    O = g.shape[-1]
+    p = pc._plan(N, H, W, C, O, KH, KW, pads, 4)
+    xf = pc._flatten_frames(x, pads, p, total=p.total)
+    gp = jnp.pad(g, ((0, 0), (0, 0), (0, p.WP - p.Wo), (0, 0)))
+    gf = jnp.pad(gp.reshape(N, p.F_out, O),
+                 ((0, 0), (0, p.L - p.F_out), (0, 0))).reshape(N * p.L, O)
+    kern = functools.partial(pc._wgrad_kernel, TILE=p.TILE, WP=p.WP,
+                             KH=KH, KW=KW)
+    out = pl.pallas_call(
+        kern, grid=(p.G,),
+        in_specs=[pl.BlockSpec((pl.Element(p.SLAB), C),
+                               lambda i, _p=p: (i * _p.TILE, 0)),
+                  pl.BlockSpec((p.TILE, O), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((KH * KW, C, O), lambda i: (0, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((KH * KW, C, O), jnp.float32),
+        interpret=True)(xf, gf)
+    return np.asarray(out), p.G
+
+
+@pytest.mark.parametrize("N,H,W,C,O,taps,pads,G", [
+    (3, 5, 7, 8, 16, 3, hc.S1_PADS, 3),     # several grid steps, C != O
+    (2, 4, 6, 12, 8, 2, hc.S2_PADS, 1),     # space-to-depth form: 2x2 taps
+])
+def test_wgrad_matches_pallas_kernel(N, H, W, C, O, taps, pads, G):
+    r = np.random.default_rng(4)
+    x = r.standard_normal((N, H, W, C)).astype(np.float32)
+    Ho, Wo = hc._out_hw(H, W, taps, taps, pads)
+    g = r.standard_normal((N, Ho, Wo, O)).astype(np.float32)
+    want, grid = _pallas_wgrad_s1(jnp.asarray(x), jnp.asarray(g), pads,
+                                  taps, taps)
+    assert grid == G
+    got = hc.taps_wgrad(torch.from_numpy(x), torch.from_numpy(g), pads,
+                        taps, taps).numpy()
+    assert got.shape == want.shape == (taps * taps, C, O)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, rtol=RTOL,
+                               atol=ATOL)
+
+
+def _lax_conv(stride):
+    def conv(x, w):
+        dn = jax.lax.conv_dimension_numbers(x.shape, w.shape,
+                                            ("NCHW", "OIHW", "NCHW"))
+        return jax.lax.conv_general_dilated(x, w, (stride, stride),
+                                            [(1, 1), (1, 1)],
+                                            dimension_numbers=dn)
+    return conv
+
+
+@pytest.mark.parametrize("kind,N,C,H,W,O", [
+    ("s1", 2, 8, 6, 7, 16),
+    ("s2", 2, 8, 8, 6, 12),
+])
+def test_conv_backward_matches_jax_vjp(kind, N, C, H, W, O):
+    """dx and dw of the autograd Functions against ``jax.vjp`` of XLA's
+    convolution (rtol = atol = 1e-4 of the largest element)."""
+    x, w = _case(N, C, H, W, O, seed=5)
+    fn = hc.conv3x3_same if kind == "s1" else hc.conv3x3_s2
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    y = fn(xt, wt)
+    gy = np.random.default_rng(6).standard_normal(tuple(y.shape)) \
+        .astype(np.float32)
+    dx, dw = torch.autograd.grad(y, [xt, wt], torch.from_numpy(gy))
+    want_y, vjp = jax.vjp(_lax_conv(1 if kind == "s1" else 2),
+                          jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = (np.asarray(a) for a in vjp(jnp.asarray(gy)))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                               rtol=RTOL, atol=ATOL)
+    for got, want in ((dx.numpy(), want_dx), (dw.numpy(), want_dw)):
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got / scale, want / scale, rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_dgrad_matches_pallas_taps_kernel_on_flipped_taps():
+    """The stride-1 data gradient is the forward kernel on the cotangent
+    with flipped, io-swapped taps (``_c3s_bwd``): the reference kernel body
+    on the reference's taps gives the port's dx."""
+    N, C, H, W, O = 2, 8, 5, 7, 16
+    x, w = _case(N, C, H, W, O, seed=7)
+    gy = np.random.default_rng(8).standard_normal((N, O, H, W)) \
+        .astype(np.float32)
+    taps_d = (jnp.flip(jnp.asarray(w), (2, 3)).transpose(2, 3, 0, 1)
+              .reshape(9, O, C))
+    want = np.asarray(pc._nchw(_pallas_conv_s1(pc._nhwc(jnp.asarray(gy)),
+                                               taps_d, pc._S1_PADS, 3, 3)))
+    np.testing.assert_array_equal(hc.dgrad_taps(torch.from_numpy(w)).numpy(),
+                                  np.asarray(taps_d))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = hc.conv3x3_same(xt, torch.from_numpy(w))
+    dx, = torch.autograd.grad(y, [xt], torch.from_numpy(gy))
+    np.testing.assert_allclose(dx.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_wgrad_kernel_matches_plain_on_card():
+    """The wgrad kernel vs its plain version on the same card tensors:
+    ragged channel counts, odd spatial dims, one split and many (fp32 FMA
+    vs fp32 matmul: 1e-4 of the largest |dw|); each call launches the
+    partial pass once and the reduction pass once if it splits the rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for N, C, H, W, O in [(3, 20, 7, 9, 70), (1, 3, 1, 1, 5),
+                          (5, 33, 11, 13, 129), (32, 64, 14, 14, 64),
+                          (32, 512, 7, 7, 512)]:
+        r = np.random.default_rng(9)
+        x = torch.from_numpy(r.standard_normal((N, H, W, C))
+                             .astype(np.float32)).cuda()
+        g = torch.from_numpy(r.standard_normal((N, H, W, O))
+                             .astype(np.float32)).cuda()
+        before = (hc.wgrad_launches, hc.wgrad_reduce_launches)
+        got = hc.taps_wgrad(x, g, hc.S1_PADS, 3, 3)
+        want = hc.taps_wgrad_plain(x, g, hc.S1_PADS, 3, 3)
+        torch.cuda.synchronize()
+        split = hc.wgrad_splits(N * H * W, C, O, 9, sms) > 1
+        assert (hc.wgrad_launches, hc.wgrad_reduce_launches) == \
+            (before[0] + 1, before[1] + split)
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        assert err <= 1e-4, (N, C, H, W, O, err)

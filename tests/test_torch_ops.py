@@ -147,3 +147,39 @@ def test_conv_dispatch_classes(attrs, shape, mode):
     conv to F.conv2d."""
     a = get_op("Convolution").parse_attrs(dict(attrs, num_filter="4"))
     assert tnn.hopper_conv_mode(a, torch.empty(shape, device="meta")) == mode
+
+
+@pytest.mark.parametrize("fix_gamma", ["True", "False"])
+def test_batchnorm_training_matches_reference(fix_gamma):
+    """Training BatchNorm: the output over the batch's statistics and the
+    new moving mean and variance (outputs 1 and 2) all match."""
+    inputs = [np.asarray(a, np.float32)
+              for a in _bn_inputs(np.random.default_rng(11), (3, 4, 5, 6))]
+    raw = {"fix_gamma": fix_gamma, "eps": "1e-5", "momentum": "0.9"}
+    jop, top = jax_get_op("BatchNorm"), get_op("BatchNorm")
+    want = jop.fn(jop.parse_attrs(dict(raw, __train__=True)),
+                  *[jnp.asarray(a) for a in inputs])
+    got = top.fn(dict(top.parse_attrs(dict(raw)), __train__=True),
+                 *[torch.from_numpy(a) for a in inputs])
+    assert top.train_aware and top.aux_writeback == {1: 3, 2: 4}
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_softmax_cross_entropy_matches_reference():
+    r = np.random.default_rng(12)
+    logits = r.standard_normal((6, 10)).astype(np.float32) * 3
+    labels = r.integers(0, 10, 6).astype(np.float32)
+    jop, top = (jax_get_op("softmax_cross_entropy"),
+                get_op("softmax_cross_entropy"))
+    want = jop.fn(jop.parse_attrs({}), jnp.asarray(logits),
+                  jnp.asarray(labels))
+    got = top.fn(top.parse_attrs({}), torch.from_numpy(logits),
+                 torch.from_numpy(labels))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
+    per = tnn.streaming_ce(torch.from_numpy(logits), torch.from_numpy(labels))
+    lse = np.log(np.exp(logits).sum(1))
+    np.testing.assert_allclose(
+        per.numpy(), lse - logits[np.arange(6), labels.astype(int)],
+        rtol=RTOL, atol=ATOL)

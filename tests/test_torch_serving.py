@@ -127,6 +127,8 @@ def test_port_save_loads_in_reference(tmp_path):
     tmx.nd.save(path, {k: tmx.nd.array(v, cpu()) for k, v in arrays.items()})
     loaded = mx.nd.load(path)
     assert sorted(loaded) == sorted(arrays)
+    back = tmx.nd.load(path, ctx=cpu())
+    assert all(v.context == cpu() for v in back.values())
     for k, v in arrays.items():
         np.testing.assert_array_equal(loaded[k].asnumpy(), v)
 
@@ -145,6 +147,21 @@ def test_default_context_raises_without_cuda(mini, monkeypatch):
     assert tmx.current_context() == tmx.gpu(0)
     with pytest.raises(MXNetError, match="ctx=cpu"):
         Predictor(js, params, input_shapes={"data": (1, 3, 32, 32)})
+
+
+def test_load_lands_on_the_current_context(tmp_path, monkeypatch):
+    """``nd.load`` with no context puts arrays on ``current_context()``, as
+    the reference does: the CPU inside ``with cpu():``, and without a card
+    and without a CPU scope it raises rather than falling back."""
+    path = str(tmp_path / "w.params")
+    tmx.nd.save(path, {"w": tmx.nd.array(np.arange(3.0), cpu())})
+    with cpu():
+        back = tmx.nd.load(path)
+    assert back["w"].context == cpu()
+    np.testing.assert_array_equal(back["w"].asnumpy(), np.arange(3.0))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(MXNetError, match="ctx=cpu"):
+        tmx.nd.load(path)
 
 
 def test_expired_request_is_dropped_before_execution(mini):
