@@ -20,6 +20,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    = 1e-4), after ragged shapes; kernel, plain and cuDNN times
    (``torch.nn.grad.conv2d_weight`` / ``conv2d_input``, the yardsticks
    only) and the fp32 bound.
+2c. LSTM kernels: kernel 8 (``lstm_fwd.cu``) and kernel 9 (``lstm_bwd.cu``)
+   against their plain versions (``hopper_rnn.lstm_fwd_plain`` /
+   ``lstm_bwd_plain``) at two ragged shapes, at the edges of their
+   envelope (B=1024; H=2048, where R does not stay in shared memory) and
+   at the LM's (T=35, B=128, H=650): every forward output within 1e-5,
+   every backward output within
+   1e-4 of its largest |value|; kernel, plain and cuDNN times
+   (``torch.nn.LSTM`` of one layer, the yardstick only, with its input
+   projection's matmul timed apart) and the fp32 bound.
 3. serving: serve the full-width ResNet-50 (224 px, 1000 classes, fp32,
    seeded random weights) through ``ModelServer`` on gpu(0) with buckets
    up to 32; answer 8 concurrent requests of 1-8 rows of mixed SLO classes
@@ -45,6 +54,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    passes, cuDNN, BatchNorm and elementwise, layout copies, optimizer),
    the same kernel launch counts read from the trace, and the device's
    idle share of an unprofiled step.
+
+7. LM training: bench.py's ``bench_lstm_lm`` net at full width (vocab
+   33278, embed = hidden = 650, 2 layers, dropout 0.2, bptt 35, batch 128,
+   fp32) built through the port's Gluon with deferred shapes, hybridized,
+   trained by ``FusedTrainer`` with ``SoftmaxCrossEntropyLoss`` (SGD lr
+   0.5) on one batch of token ids below 256: kernels 8 and 9 must launch 2
+   times each a step (one per layer), the loss must stay finite and fall
+   over 12 steps; train tokens/s from the median of 10 timed steps after 2
+   warm-up steps.  Dropout's keep rate at one layer's shape must be 0.8
+   within 0.005, and one seed must give the same first loss twice.
+7b. LM vs CPU: the first step of the same net without dropout, from the
+   same weights, on the card and on the CPU: loss within rtol 1e-4, every
+   parameter's update within 1% of its norm.
+8. LM profile: one step under torch.profiler, device time and launches by
+   group (kernel 8, kernel 9, cuBLAS, cross-entropy, embedding, dropout
+   and elementwise, optimizer, memcpy), the ten longest kernels, and the
+   idle share.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
@@ -333,6 +359,373 @@ def phase_backward_kernels():
               "abs err %g > tol %g" % (C, H, err, KERNEL_TOL))
         del x, dy, w, got, want, lib
     return wgrad, dgrad
+
+
+# --------------------------------------------------------------------------
+LSTM_FWD_TOL = 1e-5     # max |kernel 8 - plain|, every output
+LSTM_BWD_TOL = 1e-4     # max |kernel 9 - plain| / max |plain|, every output
+# the bench's LM (bench.py:205-224): vocab, embed = hidden, layers, bptt,
+# batch, dropout, SGD learning rate
+LM = dict(vocab=33278, hidden=650, layers=2, bptt=35, batch=128,
+          dropout=0.2, lr=0.5)
+LM_UPDATE_TOL = 0.01    # first step on the card vs the CPU, per parameter
+KEEP_TOL = 0.005        # dropout keep rate 0.8 within this
+
+
+def _lstm_inputs(T, B, H, gen, dev):
+    """Seeded fp32 inputs of kernels 8 and 9 at (T, B, H), LSTM-scaled:
+    projections of unit scale, R ~ N(0, 1/H)."""
+    r = lambda *s, scale=1.0: torch.randn(*s, device=dev, generator=gen) \
+        * scale  # noqa: E731
+    return dict(xp=r(T, B, 4 * H), h0=r(B, H, scale=0.3),
+                c0=r(B, H, scale=0.3), R=r(4 * H, H, scale=H ** -0.5),
+                bR=r(4 * H, scale=0.1), dys=r(T, B, H), dhT=r(B, H),
+                dcT=r(B, H))
+
+
+def _lstm_check(hr, c, T, B, H):
+    """Kernels 8 and 9 against their plain versions on the same inputs;
+    returns (max forward abs err, max backward err / max |value|)."""
+    got = hr.lstm_fwd(c["xp"], c["h0"], c["c0"], c["R"], c["bR"])
+    want = hr.lstm_fwd_plain(c["xp"], c["h0"], c["c0"], c["R"], c["bR"])
+    torch.cuda.synchronize()
+    ferr = {n: (g - w).abs().max().item() for n, g, w in
+            zip(("ys", "hT", "cT", "gates", "cs"), got, want)}
+    check(max(ferr.values()) <= LSTM_FWD_TOL, "kernel 8 disagrees with its "
+          "plain version at T=%d B=%d H=%d: %s > %g" % (T, B, H, ferr,
+                                                        LSTM_FWD_TOL))
+    args = (want[3], want[4], c["c0"], c["dys"], c["dhT"], c["dcT"], c["R"])
+    got = hr.lstm_bwd(*args)
+    want_b = hr.lstm_bwd_plain(*args)
+    torch.cuda.synchronize()
+    berr = {n: (g - w).abs().max().item() / w.abs().max().item() for n, g, w
+            in zip(("dxp", "dh0", "dc0"), got, want_b)}
+    check(max(berr.values()) <= LSTM_BWD_TOL, "kernel 9 disagrees with its "
+          "plain version at T=%d B=%d H=%d: %s > %g of max |value|"
+          % (T, B, H, berr, LSTM_BWD_TOL))
+    return max(ferr.values()), max(berr.values()), args
+
+
+def phase_lstm_kernels():
+    """Kernels 8 and 9 against their plain versions at two ragged shapes,
+    at the edges of their envelope, and at the LM's (T=35, B=128, H=650:
+    both layers' recurrences have this shape, since embed = hidden), with
+    times, bounds, and cuDNN's LSTM as the yardstick; returns the two
+    ``kernels`` entries (without ``launches``)."""
+    from mxnet_tpu_torch.ops import hopper_rnn as hr
+    fp32_exact()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    # ragged shapes, then the envelope's edges: B = 1024 (batch tiles) and
+    # H = 2048 (R streamed, not resident)
+    for T, B, H in [(7, 3, 100), (5, 33, 257), (2, 1024, 40), (3, 64, 2048)]:
+        ferr, berr, _ = _lstm_check(hr, _lstm_inputs(T, B, H, gen, dev),
+                                    T, B, H)
+        print("[lstm-kernels] T=%d B=%d H=%d: kernel 8 max abs err %.3g (tol "
+              "%g), kernel 9 %.3g of max |value| (tol %g)"
+              % (T, B, H, ferr, LSTM_FWD_TOL, berr, LSTM_BWD_TOL))
+    T, B, H = LM["bptt"], LM["batch"], LM["hidden"]
+    c = _lstm_inputs(T, B, H, gen, dev)
+    ferr, berr, bargs = _lstm_check(hr, c, T, B, H)
+    for name in ("lstm_fwd", "lstm_bwd"):
+        print("[lstm-kernels] %s geometry at B=%d H=%d: %s"
+              % (name, B, H, hr.geometry(name, B, H)))
+    fwd_args = (c["xp"], c["h0"], c["c0"], c["R"], c["bR"])
+    ms = time_ms(lambda: hr.lstm_fwd(*fwd_args))
+    plain_ms = time_ms(lambda: hr.lstm_fwd_plain(*fwd_args))
+    bms = time_ms(lambda: hr.lstm_bwd(*bargs))
+    bplain_ms = time_ms(lambda: hr.lstm_bwd_plain(*bargs))
+
+    # the yardstick: cuDNN's one-layer LSTM on the same function (its
+    # input weights make x @ W^T + bW the projection the kernels are given)
+    lstm = torch.nn.LSTM(H, H).to(dev)
+    x = torch.randn(T, B, H, device=dev, generator=gen)
+    W = torch.randn(4 * H, H, device=dev, generator=gen) * H ** -0.5
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(W)
+        lstm.bias_ih_l0.zero_()
+        lstm.weight_hh_l0.copy_(c["R"])
+        lstm.bias_hh_l0.copy_(c["bR"])
+    h0, c0 = c["h0"][None], c["c0"][None]
+    xp = torch.matmul(x, W.t()).contiguous()
+    ys = hr.lstm_fwd(xp, c["h0"], c["c0"], c["R"], c["bR"])[0]
+    with torch.no_grad():
+        y_lib = lstm(x, (h0, c0))[0]
+    err_lib = (ys - y_lib).abs().max().item()
+    with torch.no_grad():
+        lib_ms = time_ms(lambda: lstm(x, (h0, c0)))
+    proj_ms = time_ms(lambda: torch.matmul(x, W.t()))
+    # cuDNN's backward of the data and states only (its weights need no
+    # gradient): the recurrence backward plus dx = dxp @ W
+    xg = x.clone().requires_grad_()
+    h0g, c0g = h0.clone().requires_grad_(), c0.clone().requires_grad_()
+    for p in lstm.parameters():
+        p.requires_grad_(False)
+    y, (hT, cT) = lstm(xg, (h0g, c0g))
+    grads = (c["dys"], c["dhT"][None], c["dcT"][None])
+    lib_bms = time_ms(lambda: torch.autograd.grad(
+        (y, hT, cT), (xg, h0g, c0g), grads, retain_graph=True))
+    dx_ms = time_ms(lambda: torch.matmul(bargs[0], W))
+
+    flops = 2.0 * T * B * H * 4 * H
+    f4 = 4.0
+    fbytes = f4 * (T * B * 4 * H * 2 + T * B * H * 2 + 4 * H * H + 4 * H
+                   + 4 * B * H)
+    bbytes = f4 * (T * B * 4 * H * 2 + T * B * H * 2 + 4 * H * H + 5 * B * H)
+    fbound, fby = _bound(flops, fbytes)
+    bbound, bby = _bound(flops, bbytes)
+    print("[lstm-kernels] T=%d B=%d H=%d fp32: kernel 8 %.4f ms (%.2f TFLOP/s"
+          "), plain %.4f ms, bound %.4f ms (%s); kernel 9 %.4f ms (%.2f "
+          "TFLOP/s), plain %.4f ms, bound %.4f ms (%s); max err %.3g / %.3g "
+          "of max (tol %g / %g)" % (T, B, H, ms, flops / ms / 1e9, plain_ms,
+                                    fbound, fby, bms, flops / bms / 1e9,
+                                    bplain_ms, bbound, bby, ferr, berr,
+                                    LSTM_FWD_TOL, LSTM_BWD_TOL))
+    print("[lstm-kernels] cuDNN LSTM (one layer, TF32 off, same weights): "
+          "forward %.4f ms with its input projection (the projection's "
+          "matmul alone %.4f ms), output within %.3g of kernel 8's; data and "
+          "state backward %.4f ms with dx (dxp @ W alone %.4f ms)"
+          % (lib_ms, proj_ms, err_lib, lib_bms, dx_ms))
+    common = {"route": "cuda", "T": T, "B": B, "H": H,
+              "calls_per_step": LM["layers"]}
+    k8 = dict(common, name="lstm_fwd", source="mxnet_tpu_torch/csrc/"
+              "lstm_fwd.cu", replaces="mxnet_tpu/ops/pallas_rnn.py:82",
+              max_abs_err=ferr, call_ms=ms, call_plain_ms=plain_ms,
+              call_bound_ms=fbound, bound_by=fby, call_library_ms=lib_ms,
+              library="torch.nn.LSTM forward (cuDNN), input projection "
+                      "included", projection_ms=proj_ms,
+              max_abs_err_vs_cudnn=err_lib, tflops=flops / ms / 1e9)
+    k9 = dict(common, name="lstm_bwd", source="mxnet_tpu_torch/csrc/"
+              "lstm_bwd.cu", replaces="mxnet_tpu/ops/pallas_rnn.py:157",
+              max_abs_err=berr, max_err_is="of max |value|", call_ms=bms,
+              call_plain_ms=bplain_ms, call_bound_ms=bbound, bound_by=bby,
+              call_library_ms=lib_bms,
+              library="torch.autograd.grad of torch.nn.LSTM (cuDNN) for "
+                      "data and states, dx included",
+              dx_ms=dx_ms, tflops=flops / bms / 1e9)
+    for k in (k8, k9):
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            k[key] = k["call_" + key] * LM["layers"]    # a training step
+    return [k8, k9]
+
+
+# --------------------------------------------------------------------------
+def gluon_lm(ctx, dropout):
+    """bench.py's LM (bench.py:218-238) on ``ctx``: Embedding(33278, 650)
+    -> LSTM(650, 2 layers) -> Dense(33278, flatten=False), weights from
+    ``initialize()`` after ``random.seed(SEED)``, deferred shapes resolved
+    by one batch, then hybridized; token ids from numpy seed 0, all below
+    256, as the bench makes them."""
+    from mxnet_tpu_torch import gluon, name, nd, random
+    from mxnet_tpu_torch.gluon import nn, rnn
+    random.seed(SEED)
+    with name.NameManager():
+        net = gluon.nn.HybridSequential()
+        with net.name_scope():
+            net.add(nn.Embedding(LM["vocab"], LM["hidden"]))
+            net.add(rnn.LSTM(LM["hidden"], num_layers=LM["layers"],
+                             dropout=dropout))
+            net.add(nn.Dense(LM["vocab"], flatten=False))
+    net.initialize(ctx=ctx)
+    np.random.seed(SEED)
+    toks = np.random.randint(0, min(256, LM["vocab"]),
+                             (LM["bptt"], LM["batch"]))
+    x, y = nd.array(toks, ctx=ctx), nd.array(toks, ctx=ctx)
+    net(x).wait_to_read()
+    net.hybridize()
+    return net, x, y
+
+
+def _lm_trainer(net):
+    from mxnet_tpu_torch import FusedTrainer, gluon
+    return FusedTrainer(net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                        {"learning_rate": LM["lr"]})
+
+
+def phase_lm_training(card):
+    """Train the bench's LM at full width on gpu(0): launch counts, train
+    tokens/s, falling losses, and dropout on the card."""
+    from mxnet_tpu_torch import gpu, random
+    from mxnet_tpu_torch.ops import hopper_rnn as hr
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+    fp32_exact()
+    t0 = time.perf_counter()
+    net, x, y = gluon_lm(gpu(0), LM["dropout"])
+    params = net.collect_params()
+    n_params = sum(int(np.prod(p.shape)) for p in params.values())
+    ft = _lm_trainer(net)
+    print("[lm-training] %d parameters in %d arrays, made on gpu(0) in "
+          "%.2f s" % (n_params, len(params), time.perf_counter() - t0))
+    tokens = LM["bptt"] * LM["batch"]
+
+    # the main path: counts zeroed just before the first step, read after
+    # the last timed one
+    hr.lstm_fwd_launches = 0
+    hr.lstm_bwd_launches = 0
+    losses, times = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ft.step(x, y)
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            times.append(time.perf_counter() - t0)
+        losses.append(float(loss.asnumpy()))
+    steps = len(losses)
+    launches = {"lstm_fwd": hr.lstm_fwd_launches,
+                "lstm_bwd": hr.lstm_bwd_launches}
+    want = LM["layers"]
+    print("[lm-training] %d steps ran %s launches (expected %d each a step)"
+          % (steps, launches, want))
+    check(all(v == want * steps for v in launches.values()),
+          "launch counts %s over %d steps, expected %d each a step"
+          % (launches, steps, want))
+    check(all(math.isfinite(v) for v in losses), "non-finite loss: %s"
+          % losses)
+    check(losses[-1] < losses[0], "the loss did not fall over %d steps: %s"
+          % (steps, losses))
+    step_ms = float(np.median(times)) * 1e3
+    tps = tokens / (step_ms / 1e3)
+    print("[lm-training] vocab %d, hidden %d, %d layers, bptt %d, batch %d, "
+          "fp32: %d timed steps after %d warm-up, median %.2f ms (min %.2f, "
+          "max %.2f), %.1f train tokens/s on %s; losses %s"
+          % (LM["vocab"], LM["hidden"], LM["layers"], LM["bptt"],
+             LM["batch"], TIMED_STEPS, WARMUP_STEPS, step_ms,
+             min(times) * 1e3, max(times) * 1e3, tps, card,
+             ["%.4f" % v for v in losses]))
+
+    # dropout on the card: the keep rate of one layer's mask, and the same
+    # first loss from one seed
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ones = torch.ones((LM["bptt"], LM["batch"], LM["hidden"]), device="cuda")
+    keep = (rnn_ops.dropout(ones, LM["dropout"], gen) != 0).float().mean()
+    keep = keep.item()
+    firsts = []
+    for s in (SEED + 7, SEED + 7, SEED + 8):
+        random.seed(s)
+        firsts.append(float(_lm_trainer(net).step(x, y).asnumpy()))
+    print("[lm-training] dropout: keep rate %.5f (want %.1f within %g); "
+          "first losses %s for seeds 7, 7, 8"
+          % (keep, 1 - LM["dropout"], KEEP_TOL, firsts))
+    check(abs(keep - (1 - LM["dropout"])) <= KEEP_TOL,
+          "dropout keep rate %g" % keep)
+    check(firsts[0] == firsts[1] and firsts[0] != firsts[2],
+          "dropout does not follow the seed: %s" % firsts)
+    return launches, {
+        "tokens_per_s": tps, "step_ms": step_ms,
+        "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
+        "steps": steps, "losses": losses, "dropout_keep_rate": keep,
+        "config": dict(LM, dtype="float32")}, (ft, x, y)
+
+
+def phase_lm_vs_cpu(card):
+    """The first step of the full-width LM without dropout, on the card
+    and on the CPU (plain versions), from the same weights and batch."""
+    from mxnet_tpu_torch import cpu, gpu
+    from mxnet_tpu_torch.weights import from_jax_block
+    fp32_exact()
+    net, x, y = gluon_lm(gpu(0), 0.0)
+    w_init = {k: p.data().asnumpy() for k, p in
+              net.collect_params().items()}
+    ft = _lm_trainer(net)
+    loss = float(ft.step(x, y).asnumpy())
+    ft.sync_params()
+    w_gpu = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    del ft, net
+    cnet, cx, cy = gluon_lm(cpu(), 0.0)
+    from_jax_block(w_init, cnet, cpu())
+    cft = _lm_trainer(cnet)
+    t0 = time.perf_counter()
+    closs = float(cft.step(cx, cy).asnumpy())
+    cpu_s = time.perf_counter() - t0
+    cft.sync_params()
+    rel_loss = abs(loss - closs) / abs(closs)
+    worst, worst_name = 0.0, None
+    for k, p in cnet.collect_params().items():
+        want = p.data().asnumpy() - w_init[k]
+        got = w_gpu[k] - w_init[k]
+        err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        if err > worst:
+            worst, worst_name = err, k
+    print("[lm-vs-cpu] first step without dropout vs the CPU (plain "
+          "versions, %.1f s): loss %.6f vs %.6f (rel %.3g, tol %g); every "
+          "update within %.3g of its norm (tol %g; largest: %s)"
+          % (cpu_s, loss, closs, rel_loss, LOSS_RTOL, worst, LM_UPDATE_TOL,
+             worst_name))
+    check(rel_loss <= LOSS_RTOL, "first-step loss differs from the CPU by "
+          "%g > %g" % (rel_loss, LOSS_RTOL))
+    check(worst <= LM_UPDATE_TOL, "the update of %s differs from the CPU's "
+          "by %g > %g of its norm" % (worst_name, worst, LM_UPDATE_TOL))
+    return {"loss_rel_err": rel_loss, "update_rel_err_max": worst,
+            "update_rel_err_max_param": worst_name, "cpu_step_s": cpu_s}
+
+
+def _lm_group(name: str) -> str:
+    lname = name.lower()
+    if "lstm_fwd_kernel" in name:
+        return "kernel 8 (lstm_fwd)"
+    if "lstm_bwd_kernel" in name:
+        return "kernel 9 (lstm_bwd)"
+    if "Memcpy" in name or "Memset" in name:
+        return "memcpy/memset"
+    if "multi_tensor_apply" in lname or "foreach" in lname:
+        return "optimizer (SGD)"
+    if any(k in lname for k in ("gemm", "xmma", "cutlass", "sm80_", "sm90_",
+                                "nvjet", "splitk")):
+        return "cuBLAS (projections, decoder, dR)"
+    if "embedding" in lname or "indexing_backward" in lname \
+            or "radix" in lname or "sort" in lname:
+        return "embedding"
+    if any(k in lname for k in ("logsumexp", "softmax", "gather", "scatter",
+                                "log_", "exp")):
+        return "cross-entropy"
+    return "dropout and elementwise"
+
+
+def phase_lm_profile(card, trainer, step_ms):
+    """One profiled LM step: device time and launches by group, and the
+    device's idle share against the unprofiled median step."""
+    from torch.profiler import ProfilerActivity, profile
+    ft, x, y = trainer
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ft.step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups, counts, by_name = {}, {}, {}
+    for e in kernels:
+        g = _lm_group(e.name)
+        us = e.time_range.elapsed_us()
+        groups[g] = groups.get(g, 0.0) + us
+        counts[g] = counts.get(g, 0) + 1
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+    device_ms = sum(groups.values()) / 1e3
+    check(device_ms > 0, "the profiler recorded no device time")
+    traced = (counts.get("kernel 8 (lstm_fwd)", 0),
+              counts.get("kernel 9 (lstm_bwd)", 0))
+    check(traced == (LM["layers"], LM["layers"]), "profile saw %d kernel-8 "
+          "and %d kernel-9 launches in one step" % traced)
+    idle = max(0.0, 1 - device_ms / step_ms)
+    print("[lm-profile] one step: %.2f ms device busy, %.2f ms wall "
+          "unprofiled (%.1f%% idle), %.2f ms wall profiled; %d launches on "
+          "%s" % (device_ms, step_ms, 100 * idle, wall_ms, len(kernels),
+                  card))
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print("[lm-profile]   %-36s %8.3f ms/step (%.1f%%), %4d launches"
+              % (g, us / 1e3, 100.0 * us / 1e3 / device_ms, counts[g]))
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print("[lm-profile]   top: %7.3f ms/step, %3d launches  %s [%s]"
+              % (us / 1e3, n, name[:80], _lm_group(name)))
+    return {"step_device_ms": device_ms, "idle_share": idle,
+            "step_wall_ms_profiled": wall_ms, "launches_per_step":
+            len(kernels), "device_ms_by_group": {g: us / 1e3 for g, us in
+                                                 groups.items()},
+            "launches_by_group": counts}
 
 
 # --------------------------------------------------------------------------
@@ -827,6 +1220,7 @@ def main() -> int:
     phase_build()
     fwd = phase_kernels()
     wgrad, dgrad = phase_backward_kernels()
+    lstm = phase_lstm_kernels()
     serving_launches, served = phase_serving(card)
     served["profile"] = phase_profile(card)
     print("[serving] summary " + json.dumps(dict(served, card=card)))
@@ -835,9 +1229,16 @@ def main() -> int:
                                                 trained["step_ms"])
     del trainer
     print("[training] summary " + json.dumps(dict(trained, card=card)))
+    lm_launches, lm, trainer = phase_lm_training(card)
+    lm["profile"] = phase_lm_profile(card, trainer, lm["step_ms"])
+    del trainer
+    lm["cpu_check"] = phase_lm_vs_cpu(card)
+    print("[lm-training] summary " + json.dumps(dict(lm, card=card)))
+    for k in lstm:
+        k["launches"] = lm_launches[k["name"]]
     print("[done] all phases passed in %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": _kernel_entries(
-        fwd, wgrad, dgrad, launches, serving_launches)}))
+        fwd, wgrad, dgrad, launches, serving_launches) + lstm}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

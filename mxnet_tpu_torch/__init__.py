@@ -10,7 +10,9 @@ runs instead.
 Slice 1 serves: Symbol -> Executor -> Predictor -> ModelServer, with the
 ops a ResNet needs.  Slice 2 trains: Gluon's ResNet v1 (``gluon``,
 hybridized to a Symbol) under ``FusedTrainer``, with the 3x3 convolutions'
-backward on the kernels too.
+backward on the kernels too.  The same trainer trains Gluon's LSTM language
+model (``gluon.nn.Embedding``, ``gluon.rnn.LSTM``, ``gluon.loss``), whose
+recurrence runs forward and backward on two more hand-written kernels.
 """
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus

@@ -10,7 +10,7 @@ the ``train=True`` plan with autograd on.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +31,10 @@ class _Plan:
     With ``train=True`` every ``train_aware`` op sees ``__train__`` in its
     attrs, and each op output that an ``aux_writeback`` maps onto a bound
     auxiliary state replaces that state in the ``new_aux`` that
-    :meth:`execute` returns (BatchNorm's moving statistics)."""
+    :meth:`execute` returns (BatchNorm's moving statistics).  Each
+    ``needs_rng`` op gets a slot (``n_rng`` in all), as in the reference
+    (``executor.py:79-100``): :meth:`execute` hands it the generator of its
+    slot, or ``None`` when it is given none."""
 
     def __init__(self, symbol, train: bool = False):
         self.train = train
@@ -52,6 +55,7 @@ class _Plan:
             if entry not in keep:
                 release[s].append(entry)
         self.steps = []
+        self.n_rng = 0
         for s, node in enumerate(ops):
             attrs = node.parsed_attrs()
             if node.op.train_aware:
@@ -62,12 +66,18 @@ class _Plan:
                     if ii < len(node.inputs) and \
                             id(node.inputs[ii][0]) in aux_ids:
                         writeback[oi] = aux_ids[id(node.inputs[ii][0])]
-            self.steps.append((node, attrs, writeback, release[s]))
+            slot = None
+            if node.op.needs_rng:
+                slot = self.n_rng
+                self.n_rng += 1
+            self.steps.append((node, attrs, writeback, release[s], slot))
 
-    def execute(self, values: Dict[str, torch.Tensor]
+    def execute(self, values: Dict[str, torch.Tensor],
+                generators: Optional[Sequence[torch.Generator]] = None
                 ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
         """Run the plan on {variable name: tensor}, arguments and auxiliary
-        states alike; returns (heads, new auxiliary states)."""
+        states alike, with one generator per rng slot (or none); returns
+        (heads, new auxiliary states)."""
         env: Dict[Tuple[int, int], Any] = {}
         for node in self.topo:
             if node.is_var:
@@ -75,8 +85,11 @@ class _Plan:
                     raise MXNetError("unbound variable %r" % node.name)
                 env[(id(node), 0)] = values[node.name]
         new_aux = {n: values[n] for n in self.aux_names}
-        for node, attrs, writeback, release in self.steps:
-            res = node.op.fn(attrs, *[env[(id(p), i)] for p, i in node.inputs])
+        for node, attrs, writeback, release, slot in self.steps:
+            ins = [env[(id(p), i)] for p, i in node.inputs]
+            if slot is not None:
+                ins.insert(0, generators[slot] if generators else None)
+            res = node.op.fn(attrs, *ins)
             outs = res if isinstance(res, tuple) else (res,)
             for i, o in enumerate(outs):
                 env[(id(node), i)] = o

@@ -9,14 +9,22 @@
         loss = ft.step(x, y)
     ft.sync_params()                      # trained values back into the Block
 
+The loss is ``"softmax_cross_entropy"`` (the mean of
+:func:`~mxnet_tpu_torch.ops.nn.streaming_ce` over the examples), a Gluon
+``Loss`` block (the mean of its per-example output), or a callable
+``(logits, labels) -> scalar`` on tensors.
+
 The reference compiles forward, loss, backward and the SGD update into one
 XLA program with donated buffers.  Here one step is eager: the ``train=True``
-graph plan runs with autograd on (each op launching its own kernels, the
-3x3 convolutions forward and backward on the hand-written ones), the loss
-is the mean of :func:`~mxnet_tpu_torch.ops.nn.streaming_ce`, autograd takes
-the gradients, and the update runs in place under ``no_grad`` on the
-trainer's private copies of the parameters; then BatchNorm's new moving
-statistics replace the old.  No CUDA graph yet.
+graph plan runs with autograd on (each op launching its own kernels: the
+3x3 convolutions and the LSTM recurrence forward and backward on the
+hand-written ones), autograd takes the gradients of the loss, and the
+update runs in place under ``no_grad`` on the trainer's private copies of
+the parameters; then BatchNorm's new moving statistics replace the old.
+Each op that draws random numbers (the RNN op's dropout) gets a fresh
+generator every step, seeded from :func:`mxnet_tpu_torch.random.next_seed`,
+as the reference draws fresh keys (``fused.py:196-202``).  No CUDA graph
+yet.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import random as _random
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
@@ -37,11 +46,23 @@ def _softmax_ce(logits, labels):
                                    labels.reshape(-1)))
 
 
+def _block_loss(block):
+    """The mean of a Gluon loss block's per-example output, its graph run
+    by a training plan (``fused.py:81-91``)."""
+    from .executor import _Plan
+    plan = _Plan(block.graph()[2], train=True)
+
+    def loss(logits, labels):
+        outs, _ = plan.execute({"pred": logits, "label": labels})
+        return torch.mean(outs[0].float())
+    return loss
+
+
 class FusedTrainer:
     """SGD training step (learning rate, momentum, weight decay) over a
     Gluon block whose parameters are already made."""
 
-    def __init__(self, net, loss: str = "softmax_cross_entropy",
+    def __init__(self, net, loss="softmax_cross_entropy",
                  optimizer: str = "sgd",
                  optimizer_params: Optional[dict] = None,
                  dtype: str = "float32"):
@@ -59,9 +80,17 @@ class FusedTrainer:
             raise MXNetError(
                 "FusedTrainer supports optimizer='sgd' with learning_rate/"
                 "momentum/wd (got %r with extras %s)" % (optimizer, sorted(p)))
-        if loss != "softmax_cross_entropy":
-            raise MXNetError("the port's FusedTrainer has one loss, "
-                             "'softmax_cross_entropy' (got %r)" % (loss,))
+        from .gluon.loss import Loss
+        if isinstance(loss, Loss):
+            self._loss = _block_loss(loss)
+        elif loss == "softmax_cross_entropy":
+            self._loss = _softmax_ce
+        elif callable(loss) and not isinstance(loss, str):
+            self._loss = loss
+        else:
+            raise MXNetError("unknown loss %r: pass 'softmax_cross_entropy', "
+                             "a gluon.loss.Loss block or a callable(logits, "
+                             "labels) -> scalar" % (loss,))
 
         self._plan = _Plan(net(sym_mod.var("data")), train=True)
         self._params = net.collect_params()
@@ -95,10 +124,12 @@ class FusedTrainer:
         d = self._as_tensor(data, first).to(first.dtype)
         lab = self._as_tensor(labels, first)
         names = self._arg_names
+        gens = [torch.Generator(device=first.device).manual_seed(
+            _random.next_seed()) for _ in range(self._plan.n_rng)]
         with torch.enable_grad():
             outs, new_aux = self._plan.execute(
-                {**self._args, **self._auxs, "data": d})
-            loss = _softmax_ce(outs[0], lab)
+                {**self._args, **self._auxs, "data": d}, gens)
+            loss = self._loss(outs[0], lab)
             grads = torch.autograd.grad(loss, [self._args[n] for n in names])
         with torch.no_grad():
             params = [self._args[n] for n in names]

@@ -1,7 +1,9 @@
 """Gluon: Blocks that build Symbol graphs (counterpart of
-``mxnet_tpu/gluon``; so far what the ResNet v1 model zoo and the fused
-trainer need)."""
+``mxnet_tpu/gluon``; so far what the ResNet v1 model zoo, the LSTM
+language model and the fused trainer need)."""
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 from .block import Block, HybridBlock
 from . import nn
+from . import rnn
+from . import loss
 from . import model_zoo

@@ -20,7 +20,7 @@ from .. import name as _name
 from .. import symbol as _symbol
 from ..ndarray.ndarray import NDArray
 from ..symbol import Symbol
-from .parameter import DeferredInitializationError, ParameterDict
+from .parameter import ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -180,32 +180,40 @@ class HybridBlock(Block):
 
     def infer_shape(self, x):
         """Set every Parameter's shape from the input's."""
+        self._infer_out_shape(tuple(x.shape))
+
+    def _infer_out_shape(self, in_shape):
+        """Fill this block's Parameter shapes from its input shape, by shape
+        inference over its graph; returns its output shape.  A block whose
+        graph needs a size from its input before it can be built (the
+        recurrent layers) resolves it here first, and ``HybridSequential``
+        walks its children in order, so that each sees its input shape
+        before its graph is built."""
         data, out = self._get_graph()
-        arg_shapes, _, aux_shapes = out.infer_shape(**{data.name: x.shape})
+        arg_shapes, out_shapes, aux_shapes = out.infer_shape(
+            **{data.name: in_shape})
         shapes = dict(zip(out.list_arguments(), arg_shapes))
         shapes.update(zip(out.list_auxiliary_states(), aux_shapes))
         for p in self.collect_params().values():
             if p.name in shapes:
                 p.shape = shapes[p.name]
+        return out_shapes[0]
 
     def _call_cached_op(self, x):
         from ..cached_op import CachedOp
+        params = self.collect_params()
+        if any(p._deferred_init for p in params.values()):
+            self.infer_shape(x)
+            for p in params.values():
+                p._finish_deferred_init()
         data, out = self._get_graph()
         if self._cached_op is None:
             self._cached_op = CachedOp(out)
-        params = self.collect_params()
         names = out.list_inputs()
         unknown = [n for n in names if n != data.name and n not in params]
         if unknown:
             raise MXNetError("unknown inputs to HybridBlock: %s" % unknown)
-        try:
-            values = [x if n == data.name else params[n].data() for n in names]
-        except DeferredInitializationError:
-            self.infer_shape(x)
-            for n in names:
-                if n != data.name:
-                    params[n]._finish_deferred_init()
-            values = [x if n == data.name else params[n].data() for n in names]
+        values = [x if n == data.name else params[n].data() for n in names]
         return self._cached_op(*values)
 
     def forward(self, x, *args):

@@ -1,11 +1,12 @@
 """Gluon basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``;
-so far ``HybridSequential``, ``Dense``, ``BatchNorm`` and ``Flatten``)."""
+so far ``HybridSequential``, ``Dense``, ``Embedding``, ``BatchNorm`` and
+``Flatten``)."""
 from __future__ import annotations
 
 from ..block import HybridBlock
 from .activations import Activation
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten"]
+__all__ = ["HybridSequential", "Dense", "Embedding", "BatchNorm", "Flatten"]
 
 
 class HybridSequential(HybridBlock):
@@ -19,6 +20,12 @@ class HybridSequential(HybridBlock):
         for block in self._children.values():
             x = block(x)
         return x
+
+    def _infer_out_shape(self, in_shape):
+        """Child by child, each from the output shape of the one before."""
+        for block in self._children.values():
+            in_shape = block._infer_out_shape(in_shape)
+        return in_shape
 
 
 class Dense(HybridBlock):
@@ -51,6 +58,23 @@ class Dense(HybridBlock):
                                    num_hidden=self._units,
                                    flatten=self._flatten, name="fwd")
         return self.act(out) if self.act is not None else out
+
+
+class Embedding(HybridBlock):
+    """Turns integer ids (given as any dtype) into rows of a learned
+    (input_dim, output_dim) table."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype}
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim), init=weight_initializer,
+            dtype=dtype, allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, name="fwd", **self._kwargs)
 
 
 class BatchNorm(HybridBlock):

@@ -140,7 +140,10 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
     return NDArray(t.to(ctx.torch_device, copy=True))
 
 
-def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+def zeros(shape, ctx: Optional[Context] = None, dtype="float32",
+          **kwargs) -> NDArray:
+    """Zeros on ``ctx``; other keywords (``name``, a ``state_info``'s
+    ``__layout__``) are accepted and ignored, as the reference's are."""
     return _full(shape, 0.0, ctx, dtype)
 
 

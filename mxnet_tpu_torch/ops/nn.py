@@ -1,7 +1,8 @@
 """Neural-network ops of the serving and training paths (counterpart of
 ``mxnet_tpu/ops/nn.py``): Convolution, FullyConnected, Pooling, Activation,
 BatchNorm (inference and training statistics), softmax, the SoftmaxOutput
-forward, :func:`streaming_ce` and the ``softmax_cross_entropy`` op.
+forward, :func:`streaming_ce` and the ``streaming_softmax_ce`` and
+``softmax_cross_entropy`` ops.
 
 Convolution dispatch mirrors ``_pallas_conv_mode`` (``nn.py:239-268``)
 without its environment flag and lane gate, which were TPU verdicts: the
@@ -146,10 +147,8 @@ def _convolution(attrs, data, weight, *maybe_bias):
 def _fully_connected(attrs, data, weight, *maybe_bias):
     """y = x Wᵀ + b."""
     x = data.reshape(data.shape[0], -1) if attrs["flatten"] else data
-    out = torch.matmul(x, weight.t())
-    if not attrs["no_bias"] and maybe_bias:
-        out = out + maybe_bias[0]
-    return out
+    bias = maybe_bias[0] if maybe_bias and not attrs["no_bias"] else None
+    return F.linear(x, weight, bias)      # the bias added in the product
 
 
 # --------------------------------------------------------------------------
@@ -346,16 +345,47 @@ def _softmax_output(attrs, data, label):
 # --------------------------------------------------------------------------
 # losses
 # --------------------------------------------------------------------------
+class _StreamingCE(torch.autograd.Function):
+    """``logsumexp(logits) - logits[label]`` whose backward is the
+    reference's custom VJP (``nn.py:858-871``): ``g * (softmax - onehot)``
+    written once, in place, instead of the separate logsumexp and gather
+    gradients autograd would add together over the (N, V) logits."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        lg = logits.float()
+        lab = labels.long().unsqueeze(-1)
+        lse = torch.logsumexp(lg, dim=-1)
+        ctx.save_for_backward(logits, lab, lse)
+        return lse - lg.gather(-1, lab).squeeze(-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lab, lse = ctx.saved_tensors
+        grad = logits.float().sub(lse.unsqueeze(-1)).exp_()
+        grad.scatter_add_(-1, lab, torch.full(lab.shape, -1.0, dtype=grad.dtype,
+                                              device=grad.device))
+        grad.mul_(g.unsqueeze(-1))
+        return grad.to(logits.dtype), None
+
+
 def streaming_ce(logits, labels):
     """Per-example softmax cross-entropy over the last axis,
     ``logsumexp(logits) - logits[label]`` in fp32 (``nn.py:829-878``).
     Labels may arrive as floats (``nd.array`` of class ids) and are cast to
-    int64 for the gather.  Differentiated by autograd: the gradient is
-    ``softmax - onehot``, as the reference's custom VJP emits it."""
-    lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    picked = lg.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
-    return lse - picked
+    int64 for the gather; differentiable in the logits, with the gradient
+    ``softmax - onehot`` as the reference's custom VJP emits it."""
+    return _StreamingCE.apply(logits, labels)
+
+
+@register("streaming_softmax_ce", arg_names=("data", "label"),
+          params={"axis": param(int, -1), "keepdims": param(bool, False)})
+def _streaming_softmax_ce(attrs, data, label):
+    """Per-example :func:`streaming_ce` over ``axis`` (``nn.py:881-889``),
+    the sparse-label loss of ``gluon.loss.SoftmaxCrossEntropyLoss``."""
+    axis = attrs["axis"] % data.dim()
+    out = streaming_ce(data.movedim(axis, -1), label)
+    return out.unsqueeze(axis) if attrs["keepdims"] else out
 
 
 @register("softmax_cross_entropy", arg_names=("data", "label"))

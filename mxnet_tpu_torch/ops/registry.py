@@ -80,7 +80,10 @@ class Operator:
     A ``train_aware`` op reads ``attrs["__train__"]``, which the training
     plan sets; ``aux_writeback`` maps an output index to the input index of
     the auxiliary state it replaces after a training step (BatchNorm's new
-    moving statistics, ``{1: 3, 2: 4}``).
+    moving statistics, ``{1: 3, 2: 4}``).  A ``needs_rng`` op takes a
+    ``torch.Generator`` on its data's device as its first argument, before
+    its inputs (``None`` where no randomness is drawn: inference and shape
+    inference), as the reference's takes a key.
     """
 
     def __init__(self, name: str, fn: Callable, *,
@@ -90,7 +93,8 @@ class Operator:
                  aux_inputs: Sequence[int] = (),
                  shape_hint: Optional[Callable] = None,
                  aliases: Sequence[str] = (), train_aware: bool = False,
-                 aux_writeback: Optional[Dict[int, int]] = None):
+                 aux_writeback: Optional[Dict[int, int]] = None,
+                 needs_rng: bool = False):
         self.name = name
         self.fn = fn
         self.params = params or {}
@@ -102,6 +106,7 @@ class Operator:
         self.aliases = tuple(aliases)
         self.train_aware = train_aware
         self.aux_writeback = dict(aux_writeback or {})
+        self.needs_rng = needs_rng
         self.doc = fn.__doc__ or ""
 
     def parse_attrs(self, kwargs: Dict[str, Any]) -> Dict[str, Any]:
@@ -136,14 +141,15 @@ class Operator:
 
 def register(name: str, *, params=None, nout=1, visible=None, arg_names=None,
              aux_inputs=(), shape_hint=None, aliases=(), train_aware=False,
-             aux_writeback=None):
+             aux_writeback=None, needs_rng=False):
     """Decorator: register a function on tensors as an operator."""
 
     def deco(fn):
         op = Operator(name, fn, params=params, nout=nout, visible=visible,
                       arg_names=arg_names, aux_inputs=aux_inputs,
                       shape_hint=shape_hint, aliases=aliases,
-                      train_aware=train_aware, aux_writeback=aux_writeback)
+                      train_aware=train_aware, aux_writeback=aux_writeback,
+                      needs_rng=needs_rng)
         OPS[name] = op
         for a in aliases:
             OPS[a] = op

@@ -1,8 +1,9 @@
-"""Seeding and one ``torch.Generator`` per device (counterpart of
-``mxnet_tpu/random.py``, whose per-context threefry streams become
-PyTorch generators).  The same seed gives the same draws on a device in
-every run; draws differ from the reference package's, so tests that
-compare the two packages make their inputs with numpy."""
+"""Seeding, one ``torch.Generator`` per device, and a stream of seeds for
+per-step generators (counterpart of ``mxnet_tpu/random.py``, whose
+per-context threefry streams and fresh keys become PyTorch generators).
+The same seed gives the same draws on a device in every run; draws differ
+from the reference package's, so tests that compare the two packages make
+their inputs with numpy."""
 from __future__ import annotations
 
 import threading
@@ -12,22 +13,24 @@ import torch
 
 from .context import Context, current_context
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "next_seed"]
 
 _lock = threading.Lock()
 _seed: Optional[int] = None
 _gens: Dict[Tuple[int, int], torch.Generator] = {}
+_seeds: Optional[torch.Generator] = None     # host stream behind next_seed
 
 
 def seed(seed_state: int, ctx: Optional[Context] = None):
     """Seed the generators (parity: ``mxnet.random.seed``): with no ``ctx``
     every device's generator restarts from ``seed_state``, with one only
     that device's."""
-    global _seed
+    global _seed, _seeds
     with _lock:
         if ctx is None:
             _seed = int(seed_state)
             _gens.clear()
+            _seeds = None
         else:
             _gens[(ctx.device_typeid, ctx.device_id)] = \
                 torch.Generator(device=ctx.torch_device) \
@@ -48,3 +51,15 @@ def generator(ctx: Optional[Context] = None) -> torch.Generator:
                             else torch.initial_seed())
             _gens[key] = gen
         return gen
+
+
+def next_seed() -> int:
+    """A fresh seed for a per-step generator (the reference's
+    ``next_key``): the next draw of a host stream that :func:`seed`
+    restarts, so a run is repeated exactly from the same seed."""
+    global _seeds
+    with _lock:
+        if _seeds is None:
+            _seeds = torch.Generator().manual_seed(
+                _seed if _seed is not None else torch.initial_seed())
+        return int(torch.randint(0, 2 ** 62, (1,), generator=_seeds))

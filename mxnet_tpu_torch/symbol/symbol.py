@@ -147,6 +147,18 @@ class Symbol:
 
     __radd__ = __add__
 
+    def __mul__(self, other):
+        if isinstance(other, (int, float)):
+            return _create("_mul_scalar", [self], {"scalar": float(other)})
+        raise TypeError("unsupported operand type %s" % type(other))
+
+    __rmul__ = __mul__
+
+    def reshape(self, shape, **kw):
+        """``Reshape`` with MXNet's special codes (0 keep, -1 infer, -2 copy
+        the rest, -3 merge two, -4 split one)."""
+        return _create("Reshape", [self], {"shape": shape, **kw})
+
     # ---- inference ------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the given input shapes;
@@ -248,6 +260,8 @@ class Symbol:
 def _abstract_node(node: _Node, attrs, in_shapes):
     """Output shapes of one node: its op run on meta tensors."""
     ins = [torch.empty(s, device="meta") for s in in_shapes]
+    if node.op.needs_rng:
+        ins.insert(0, None)
     out = node.op.fn(attrs, *ins)
     if not isinstance(out, (tuple, list)):
         out = (out,)

@@ -212,4 +212,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = [(os.path.relpath(f, _REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")]
+    scanned = {os.path.relpath(f, _REPO) for f in files}
+    for module in ("ops/hopper_rnn.py", "ops/rnn.py", "ops/reduce.py",
+                   "gluon/rnn/rnn_layer.py", "gluon/loss.py"):
+        assert os.path.join("mxnet_tpu_torch", module) in scanned
     assert len(files) > 10 and not bad
