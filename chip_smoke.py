@@ -71,6 +71,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    group (kernel 8, kernel 9, cuBLAS, cross-entropy, embedding, dropout
    and elementwise, optimizer, memcpy), the ten longest kernels, and the
    idle share.
+2d. attention kernels (run after 2c): kernels 3 and 5
+   (``flash_attn_fwd.cu``) and 6 and 7 (``flash_attn_bwd.cu``) against
+   their plain versions (``hopper_attention.flash_fwd_plain`` /
+   ``flash_bwd_plain``) at the main path's shape (B=16, H=12, T=1024,
+   D=64, causal) and five ragged or odd ones (Tq > Tk, Tk > Tq, T off the
+   tile, D = 16, 32, 128): out and lse within 1e-5, dq, dk and dv within
+   1e-4 of their largest |value|; at the main shape each kernel's time,
+   TFLOP/s and bound beside the plain version's and the yardstick's
+   (``F.scaled_dot_product_attention``, forward and backward).
+9. transformer training: ``bench.py --transformer``'s model,
+   ``transformer_lm(gpt2-small)`` (vocab 50257, 12 layers, d_model 768,
+   12 heads, d_ff 3072, seq_len 1024, fp32), bound through the port's
+   ``Module`` at batch 16, ``Xavier(gaussian, 2)`` after ``random.seed(7)``,
+   SGD lr 0.05 momentum 0.9, fed by ``SyntheticLMIter(seed=0)``, trained by
+   the fused step: every step must launch kernels 5, 6 and 7 12 times each
+   and kernel 3 never, the losses must be finite; train tokens/s from the
+   median of 10 timed steps after 2 warm-up steps, and MFU
+   (``flops_per_token`` x tokens/s over 67 TFLOP/s).  Then one eval forward
+   of the same Module must launch kernel 3 12 times and kernel 5 never.
+9b. transformer vs CPU: the first step at full width, T=1024, batch 1, all
+   12 layers (4 if the CPU step took over 60 s), on the card and on the
+   CPU from the same weights: loss within rtol 1e-4, every parameter's
+   update within 1% of its norm.
+10. transformer profile: one step under torch.profiler, device time and
+   launches by group (cuBLAS, kernels 3, 5, 6 and 7, LayerNorm, gelu and
+   elementwise, cross-entropy, embedding, optimizer, memcpy), the attention
+   kernels' launches read from the trace, and the idle share.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
@@ -729,6 +756,455 @@ def phase_lm_profile(card, trainer, step_ms):
 
 
 # --------------------------------------------------------------------------
+ATTN_FWD_TOL = 1e-5     # max |kernel 3 or 5 - plain|, out and lse
+ATTN_BWD_TOL = 1e-4     # max |kernel 6 or 7 - plain| / max |plain|
+# (B, H, Tq, Tk, D, causal): the main path's first, then ragged ones
+ATTN_SHAPES = [(16, 12, 1024, 1024, 64, True), (2, 4, 128, 128, 16, True),
+               (1, 3, 1000, 1000, 64, True), (2, 2, 77, 77, 32, False),
+               (1, 2, 128, 384, 128, False), (1, 1, 256, 128, 64, True)]
+# bench.py --transformer (bench.py:646-722): config, batch, SGD, init seed
+TFM = dict(config="gpt2-small", batch=16, lr=0.05, momentum=0.9,
+           init_seed=7, data_seed=0, num_batches=8)
+TFM_UPDATE_TOL = 0.01   # first step on the card vs the CPU, per parameter
+TFM_CPU_STEP_LIMIT_S = 60.0
+
+
+def _visible_pairs(Tq, Tk, causal):
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    if not causal:
+        return Tq * Tk
+    return sum(min(i + 1, Tk) for i in range(Tq))
+
+
+def _attn_costs(B, H, Tq, Tk, D, causal):
+    """FLOPs and bytes of kernels 3/5, 6 and 7 at one shape: 2 FLOP per
+    multiply-add over the visible pairs (2, 3 and 4 products of D terms),
+    each fp32 input read once and each output written once."""
+    BH, pairs, f4 = B * H, _visible_pairs(Tq, Tk, causal), 4.0
+    q_bytes, kv_bytes, row_bytes = f4 * BH * Tq * D, f4 * BH * Tk * D, \
+        f4 * BH * Tq
+    return {
+        "flash_fwd": (4.0 * pairs * D * BH, 2 * q_bytes + 2 * kv_bytes),
+        "flash_fwd_lse": (4.0 * pairs * D * BH,
+                          2 * q_bytes + 2 * kv_bytes + row_bytes),
+        "flash_dq": (6.0 * pairs * D * BH,
+                     3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+        "flash_dkv": (8.0 * pairs * D * BH,
+                      2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)}
+
+
+def _attn_check(ha, shape, gen, dev):
+    """Kernels 3, 5, 6 and 7 against their plain versions at one shape;
+    returns (errors, inputs)."""
+    B, H, Tq, Tk, D, causal = shape
+    r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    q, k, v, do = r(B, H, Tq, D), r(B, H, Tk, D), r(B, H, Tk, D), \
+        r(B, H, Tq, D)
+    sc = 1.0 / math.sqrt(D)
+    out, lse = ha.flash_fwd_plain(q, k, v, causal, sc)
+    out3 = ha.flash_fwd(q, k, v, causal, sc)
+    out5, lse5 = ha.flash_fwd_lse(q, k, v, causal, sc)
+    delta = (do * out).sum(-1)
+    bargs = (q, k, v, do, lse, delta, causal, sc)
+    dq, dk, dv = ha.flash_bwd(*bargs)
+    want = ha.flash_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    rel = lambda g, w: ((g - w).abs().max() / w.abs().max()).item()  # noqa
+    err = {"flash_fwd": (out3 - out).abs().max().item(),
+           "flash_fwd_lse": max((out5 - out).abs().max().item(),
+                                (lse5 - lse).abs().max().item()),
+           "flash_dq": rel(dq, want[0]),
+           "flash_dkv": max(rel(dk, want[1]), rel(dv, want[2]))}
+    print("[attn-kernels] B=%d H=%d Tq=%d Tk=%d D=%d %s: kernel 3 %.3g, "
+          "kernel 5 %.3g (out and lse, abs, tol %g); kernel 6 %.3g, kernel 7 "
+          "%.3g (of max |value|, tol %g)"
+          % (B, H, Tq, Tk, D, "causal" if causal else "non-causal",
+             err["flash_fwd"], err["flash_fwd_lse"], ATTN_FWD_TOL,
+             err["flash_dq"], err["flash_dkv"], ATTN_BWD_TOL))
+    for name in ("flash_fwd", "flash_fwd_lse"):
+        check(err[name] <= ATTN_FWD_TOL, "%s disagrees with its plain version"
+              " at %s: %g > %g" % (name, shape, err[name], ATTN_FWD_TOL))
+    for name in ("flash_dq", "flash_dkv"):
+        check(err[name] <= ATTN_BWD_TOL, "%s disagrees with its plain version"
+              " at %s: %g > %g of max |value|" % (name, shape, err[name],
+                                                   ATTN_BWD_TOL))
+    return err, bargs
+
+
+def phase_attn_kernels(card):
+    """Kernels 3, 5, 6 and 7 against their plain versions at the six shapes
+    of ``ATTN_SHAPES``, then, at the main path's (B=16, H=12, T=1024, D=64,
+    causal, fp32), each kernel's time, TFLOP/s and bound beside its plain
+    version's and the yardstick's: ``F.scaled_dot_product_attention``
+    (is_causal, fp32, TF32 off) forward, and its backward (dq, dk and dv
+    together) for kernels 6 and 7.  Returns the four ``kernels`` entries
+    (without ``launches``)."""
+    from mxnet_tpu_torch.ops import hopper_attention as ha
+    fp32_exact()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    errs = {}
+    for shape in ATTN_SHAPES[1:] + ATTN_SHAPES[:1]:
+        err, bargs = _attn_check(ha, shape, gen, dev)
+        for k, e in err.items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    q, k, v, do, lse, delta, causal, sc = bargs
+    B, H, Tq, Tk, D, _ = ATTN_SHAPES[0]
+    costs = _attn_costs(*ATTN_SHAPES[0])
+    ms = {"flash_fwd": time_ms(lambda: ha.flash_fwd(q, k, v, causal, sc)),
+          "flash_fwd_lse": time_ms(lambda: ha.flash_fwd_lse(q, k, v, causal,
+                                                           sc))}
+    # kernels 6 and 7 apart: each of the backward's two launches alone
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for name, entry, n_ptrs, ptrs in (
+            ("flash_dq", "mxtt_flash_attn_bwd_dq", 7,
+             (q, k, v, do, lse, delta, dq)),
+            ("flash_dkv", "mxtt_flash_attn_bwd_dkv", 8,
+             (q, k, v, do, lse, delta, dk, dv))):
+        fn = ha._kernel("flash_attn_bwd", entry, n_ptrs)
+        launch = lambda: ha._call(fn, ptrs, B, H, Tq, Tk, D, sc,  # noqa
+                                  (int(causal),), dev)
+        check(launch() == (0, 1), "%s failed to launch" % name)
+        ms[name] = time_ms(launch)
+    plain_fwd = time_ms(lambda: ha.flash_fwd_plain(q, k, v, causal, sc))
+    plain_bwd = time_ms(lambda: ha.flash_bwd_plain(q, k, v, do, lse, delta,
+                                                   causal, sc))
+    plain = {"flash_fwd": plain_fwd, "flash_fwd_lse": plain_fwd,
+             "flash_dq": plain_bwd, "flash_dkv": plain_bwd}
+    # the yardstick: PyTorch's fused attention, never called by the port
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(  # noqa: E731
+        a, b, c, is_causal=True)
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: sdpa(q, k, v))
+        lib_err = (sdpa(q, k, v) - ha.flash_fwd(q, k, v, True, sc)) \
+            .abs().max().item()
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    lib_train_fwd = time_ms(lambda: sdpa(qg, kg, vg))
+    out = sdpa(qg, kg, vg)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                  retain_graph=True))
+    library = {"flash_fwd": lib_fwd, "flash_fwd_lse": lib_train_fwd,
+               "flash_dq": lib_bwd, "flash_dkv": lib_bwd}
+    meta = {
+        "flash_fwd": ("mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
+                      "mxnet_tpu/ops/pallas_attention.py:113", "kernel 3",
+                      "F.scaled_dot_product_attention forward, no grad"),
+        "flash_fwd_lse": ("mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
+                          "mxnet_tpu/ops/pallas_attention.py:238", "kernel 5",
+                          "F.scaled_dot_product_attention forward of "
+                          "inputs that need grad (saves its logsumexp)"),
+        "flash_dq": ("mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
+                     "mxnet_tpu/ops/pallas_attention.py:276", "kernel 6",
+                     "backward of F.scaled_dot_product_attention: dq, dk "
+                     "and dv together (kernels 6 + 7)"),
+        "flash_dkv": ("mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
+                      "mxnet_tpu/ops/pallas_attention.py:315", "kernel 7",
+                      "backward of F.scaled_dot_product_attention: dq, dk "
+                      "and dv together (kernels 6 + 7)")}
+    entries = []
+    for name, (source, replaces, label, lib_what) in meta.items():
+        flops, nbytes = costs[name]
+        bound, by = _bound(flops, nbytes)
+        call_ms = ms[name]
+        print("[attn-kernels] %s (%s) at B=%d H=%d T=%d D=%d causal fp32: "
+              "%.4f ms (%.2f TFLOP/s), bound %.4f ms (%s), plain %.4f ms, "
+              "library %.4f ms (%s)" % (label, name, B, H, Tq, D, call_ms,
+                                        flops / call_ms / 1e9, bound, by,
+                                        plain[name], library[name],
+                                        lib_what))
+        calls = TFM_LAYERS
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": errs[name],
+            "max_err_is": ("absolute, out and lse" if name.startswith(
+                "flash_fwd") else "of max |value|"),
+            "B": B, "H": H, "T": Tq, "D": D, "causal": True,
+            "calls_per_step": calls,
+            "per_step_is": ("an eval forward" if name == "flash_fwd"
+                            else "a training step"),
+            "call_ms": call_ms, "call_plain_ms": plain[name],
+            "call_bound_ms": bound, "call_library_ms": library[name],
+            "ms": call_ms * calls, "plain_ms": plain[name] * calls,
+            "bound_ms": bound * calls, "bound_by": by,
+            "library_ms": library[name] * calls, "library": lib_what,
+            "tflops": flops / call_ms / 1e9, "gflop_per_call": flops / 1e9})
+    print("[attn-kernels] SDPA (fp32, TF32 off) forward %.4f ms, with grad "
+          "%.4f ms, backward %.4f ms; its output within %.3g of kernel 3's "
+          "on %s" % (lib_fwd, lib_train_fwd, lib_bwd, lib_err, card))
+    del q, k, v, do, lse, delta, qg, kg, vg, out, dq, dk, dv
+    return entries
+
+
+TFM_LAYERS = 12         # gpt2-small's, all kept (nothing cut)
+
+
+def tfm_module(ctx, batch, n_layers=None, arg_params=None):
+    """``bench.py --transformer``'s Module (bench.py:710-722) on ``ctx``:
+    ``transformer_lm(gpt2-small)`` bound at (batch, 1024),
+    ``Xavier(gaussian, 2)`` after ``random.seed(7)`` (or ``arg_params``),
+    SGD lr 0.05 momentum 0.9 through ``kvstore='local'``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import get_config, transformer_lm
+    over = {} if n_layers is None else {"n_layers": n_layers}
+    cfg = get_config(TFM["config"], **over)
+    mod = mx.mod.Module(transformer_lm(cfg), data_names=("data",),
+                        label_names=("softmax_label",), context=[ctx])
+    mod.bind(data_shapes=[("data", (batch, cfg.seq_len))],
+             label_shapes=[("softmax_label", (batch, cfg.seq_len))])
+    if arg_params is None:
+        mx.random.seed(TFM["init_seed"])
+        mod.init_params(mx.init.Xavier(rnd_type="gaussian", magnitude=2.0))
+    else:
+        mod.init_params(initializer=None, arg_params=arg_params)
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params={"learning_rate": TFM["lr"],
+                                         "momentum": TFM["momentum"]})
+    it = mx.io.SyntheticLMIter(cfg.vocab_size, cfg.seq_len, batch_size=batch,
+                               num_batches=TFM["num_batches"],
+                               seed=TFM["data_seed"], ctx=ctx)
+    return cfg, mod, it
+
+
+def _next_batch(it):
+    try:
+        return next(it)
+    except StopIteration:
+        it.reset()
+        return next(it)
+
+
+def _attn_counts(ha):
+    return {"flash_fwd": ha.flash_fwd_launches,
+            "flash_fwd_lse": ha.flash_fwd_lse_launches,
+            "flash_dq": ha.flash_dq_launches,
+            "flash_dkv": ha.flash_dkv_launches}
+
+
+def _zero_attn_counts(ha):
+    ha.flash_fwd_launches = ha.flash_fwd_lse_launches = 0
+    ha.flash_dq_launches = ha.flash_dkv_launches = 0
+
+
+def phase_tfm_training(card):
+    """Train bench.py's transformer LM at full width and depth on gpu(0)
+    through the port's Module and its fused step: launch counts every step,
+    finite losses, train tokens/s and MFU; then one eval forward."""
+    from mxnet_tpu_torch import fused_step, gpu
+    from mxnet_tpu_torch.ops import hopper_attention as ha
+    fp32_exact()
+    torch.cuda.empty_cache()
+    check(fused_step.enabled(), "MXNET_TPU_FUSED_STEP turns the fused step "
+          "off; the main path is the fused step")
+    t0 = time.perf_counter()
+    cfg, mod, it = tfm_module(gpu(0), TFM["batch"])
+    n_params = sum(int(np.prod(a.shape)) for a in mod.get_params()[0]
+                   .values())
+    print("[tfm-training] %s: vocab %d, %d layers, d_model %d, %d heads, "
+          "d_ff %d, seq_len %d; %d parameters (%d by n_params()), bound and "
+          "initialized on gpu(0) in %.2f s"
+          % (cfg.name, cfg.vocab_size, cfg.n_layers, cfg.d_model, cfg.n_heads,
+             cfg.d_ff, cfg.seq_len, n_params, cfg.n_params(),
+             time.perf_counter() - t0))
+    tokens = TFM["batch"] * cfg.seq_len
+    want = {"flash_fwd": 0, "flash_fwd_lse": cfg.n_layers,
+            "flash_dq": cfg.n_layers, "flash_dkv": cfg.n_layers}
+
+    # the main path: counts zeroed just before the first step, read after
+    # each step and after the last
+    _zero_attn_counts(ha)
+    losses, times, prev = [], [], _attn_counts(ha)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        batch = _next_batch(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        loss = mod.get_outputs()[0]
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            times.append(time.perf_counter() - t0)
+        losses.append(float(loss.asnumpy().ravel()[0]))
+        now = _attn_counts(ha)
+        step = {k: now[k] - prev[k] for k in now}
+        check(step == want, "step %d launched %s, expected %s" % (i, step,
+                                                                  want))
+        prev = now
+    launches = _attn_counts(ha)
+    steps = len(losses)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print("[tfm-training] %d steps ran %s launches (expected per step %s)"
+          % (steps, launches, want))
+    check(all(math.isfinite(v) for v in losses), "non-finite loss: %s"
+          % losses)
+    step_ms = float(np.median(times)) * 1e3
+    tps = tokens / (step_ms / 1e3)
+    mfu = cfg.flops_per_token() * tps / PEAK_FP32
+    print("[tfm-training] batch %d x %d tokens, fp32: %d timed steps after "
+          "%d warm-up, median %.2f ms (min %.2f, max %.2f), %.1f train "
+          "tokens/s, MFU %.4f (flops_per_token %.4g x tokens/s over 67 "
+          "TFLOP/s fp32), peak memory %.2f GB on %s; losses %s"
+          % (TFM["batch"], cfg.seq_len, TIMED_STEPS, WARMUP_STEPS, step_ms,
+             min(times) * 1e3, max(times) * 1e3, tps, mfu,
+             cfg.flops_per_token(), peak_gb, card,
+             ["%.4f" % v for v in losses]))
+
+    # eval: one forward of the same Module, counts zeroed just before
+    batch = _next_batch(it)
+    _zero_attn_counts(ha)
+    mod.forward(batch, is_train=False)
+    eval_loss = float(mod.get_outputs()[0].asnumpy().ravel()[0])
+    eval_launches = _attn_counts(ha)
+    want_eval = {"flash_fwd": cfg.n_layers, "flash_fwd_lse": 0,
+                 "flash_dq": 0, "flash_dkv": 0}
+    print("[tfm-training] eval forward: loss %.4f, launches %s (expected %s)"
+          % (eval_loss, eval_launches, want_eval))
+    check(eval_launches == want_eval, "the eval forward launched %s, "
+          "expected %s" % (eval_launches, want_eval))
+    check(math.isfinite(eval_loss), "non-finite eval loss %g" % eval_loss)
+    launches["flash_fwd"] = eval_launches["flash_fwd"]
+    return launches, {
+        "tokens_per_s": tps, "mfu": mfu, "step_ms": step_ms,
+        "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
+        "steps": steps, "losses": losses, "eval_loss": eval_loss,
+        "peak_memory_gb": peak_gb, "n_params": n_params,
+        "flops_per_token": cfg.flops_per_token(),
+        "config": dict(TFM, dtype="float32", seq_len=cfg.seq_len,
+                       n_layers=cfg.n_layers)}, (mod, it)
+
+
+def phase_tfm_vs_cpu(card):
+    """The first step of the full-width transformer at batch 1 on the card
+    and on the CPU (plain versions), from the same weights and batch: the
+    loss within rtol 1e-4 and every parameter's update within 1% of its
+    norm.  Depth is cut to 4 layers only if the CPU step takes over 60 s
+    at full depth."""
+    from mxnet_tpu_torch import cpu, gpu
+    fp32_exact()
+    torch.cuda.empty_cache()
+    n_layers = TFM_LAYERS
+    while True:
+        _, gmod, git = tfm_module(gpu(0), 1, n_layers)
+        w_init = {k: v.asnumpy() for k, v in gmod.get_params()[0].items()}
+        batch = next(git)
+        gmod.forward_backward(batch)
+        gmod.update()
+        loss = float(gmod.get_outputs()[0].asnumpy().ravel()[0])
+        w_gpu = {k: v.asnumpy() for k, v in gmod.get_params()[0].items()}
+        del gmod
+        torch.cuda.empty_cache()
+        _, cmod, cit = tfm_module(cpu(), 1, n_layers, arg_params=w_init)
+        t0 = time.perf_counter()
+        cmod.forward_backward(next(cit))
+        cmod.update()
+        closs = float(cmod.get_outputs()[0].asnumpy().ravel()[0])
+        cpu_s = time.perf_counter() - t0
+        if cpu_s <= TFM_CPU_STEP_LIMIT_S or n_layers == 4:
+            break
+        print("[tfm-vs-cpu] the CPU step took %.1f s at %d layers; cutting "
+              "depth to 4" % (cpu_s, n_layers))
+        n_layers = 4
+    w_cpu = {k: v.asnumpy() for k, v in cmod.get_params()[0].items()}
+    rel_loss = abs(loss - closs) / abs(closs)
+    worst, worst_name = 0.0, None
+    for k in w_init:
+        want = w_cpu[k] - w_init[k]
+        got = w_gpu[k] - w_init[k]
+        err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        if err > worst:
+            worst, worst_name = err, k
+    print("[tfm-vs-cpu] first step at batch 1, T=1024, %d layers, vs the CPU "
+          "(plain versions, %.1f s): loss %.6f vs %.6f (rel %.3g, tol %g); "
+          "every update within %.3g of its norm (tol %g; largest: %s)"
+          % (n_layers, cpu_s, loss, closs, rel_loss, LOSS_RTOL, worst,
+             TFM_UPDATE_TOL, worst_name))
+    check(rel_loss <= LOSS_RTOL, "first-step loss differs from the CPU by "
+          "%g > %g" % (rel_loss, LOSS_RTOL))
+    check(worst <= TFM_UPDATE_TOL, "the update of %s differs from the CPU's "
+          "by %g > %g of its norm" % (worst_name, worst, TFM_UPDATE_TOL))
+    return {"n_layers": n_layers, "loss": loss, "cpu_loss": closs,
+            "loss_rel_err": rel_loss, "update_rel_err_max": worst,
+            "update_rel_err_max_param": worst_name, "cpu_step_s": cpu_s}
+
+
+def _tfm_group(name: str) -> str:
+    lname = name.lower()
+    if "flash_fwd_kernel" in name:
+        # flash_fwd_kernel<D, WRITE_LSE>, demangled or not
+        lse = ", true>" in name or "ELb1E" in name
+        return "kernel 5 (flash_fwd_lse)" if lse else "kernel 3 (flash_fwd)"
+    if "flash_dq_kernel" in name:
+        return "kernel 6 (flash_dq)"
+    if "flash_dkv_kernel" in name:
+        return "kernel 7 (flash_dkv)"
+    if "Memcpy" in name or "Memset" in name:
+        return "memcpy/memset"
+    if "multi_tensor_apply" in lname or "foreach" in lname:
+        return "optimizer (foreach SGD)"
+    if any(k in lname for k in ("gemm", "xmma", "cutlass", "sm80_", "sm90_",
+                                "nvjet", "splitk")):
+        return "cuBLAS (QKV/O, FFN, LM head)"
+    if any(k in lname for k in ("logsumexp", "softmax", "gather", "scatter",
+                                "log_", "exp")):
+        return "cross-entropy"
+    if "embedding" in lname or "indexing_backward" in lname \
+            or "radix" in lname or "sort" in lname:
+        return "embedding"
+    return "LayerNorm, gelu and elementwise"
+
+
+def phase_tfm_profile(card, trained, step_ms):
+    """One profiled training step: device time and launches by group, the
+    launches of the four attention kernels read from the trace, and the
+    device's idle share against the unprofiled median step."""
+    from torch.profiler import ProfilerActivity, profile
+    mod, it = trained
+    batch = _next_batch(it)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        mod.get_outputs()[0].wait_to_read()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups, counts, by_name = {}, {}, {}
+    for e in kernels:
+        g = _tfm_group(e.name)
+        us = e.time_range.elapsed_us()
+        groups[g] = groups.get(g, 0.0) + us
+        counts[g] = counts.get(g, 0) + 1
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+    device_ms = sum(groups.values()) / 1e3
+    check(device_ms > 0, "the profiler recorded no device time")
+    traced = tuple(counts.get(g, 0) for g in (
+        "kernel 3 (flash_fwd)", "kernel 5 (flash_fwd_lse)",
+        "kernel 6 (flash_dq)", "kernel 7 (flash_dkv)"))
+    check(traced == (0, TFM_LAYERS, TFM_LAYERS, TFM_LAYERS), "profile saw "
+          "kernels 3, 5, 6 and 7 launched %s times in one step" % (traced,))
+    idle = max(0.0, 1 - device_ms / step_ms)
+    print("[tfm-profile] one step: %.2f ms device busy, %.2f ms wall "
+          "unprofiled (%.1f%% idle), %.2f ms wall profiled; %d launches on "
+          "%s" % (device_ms, step_ms, 100 * idle, wall_ms, len(kernels),
+                  card))
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print("[tfm-profile]   %-36s %8.3f ms/step (%.1f%%), %4d launches"
+              % (g, us / 1e3, 100.0 * us / 1e3 / device_ms, counts[g]))
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print("[tfm-profile]   top: %7.3f ms/step, %3d launches  %s [%s]"
+              % (us / 1e3, n, name[:80], _tfm_group(name)))
+    return {"step_device_ms": device_ms, "idle_share": idle,
+            "step_wall_ms_profiled": wall_ms, "launches_per_step":
+            len(kernels), "device_ms_by_group": {g: us / 1e3 for g, us in
+                                                 groups.items()},
+            "launches_by_group": counts}
+
+
+# --------------------------------------------------------------------------
 def resnet_params(arg_names, arg_shapes, aux_names, aux_shapes, seed):
     """Seeded weights that keep a random pre-activation ResNet-50's
     activations near unit scale (He-normal convs, the last conv of each
@@ -1221,6 +1697,7 @@ def main() -> int:
     fwd = phase_kernels()
     wgrad, dgrad = phase_backward_kernels()
     lstm = phase_lstm_kernels()
+    attn = phase_attn_kernels(card)
     serving_launches, served = phase_serving(card)
     served["profile"] = phase_profile(card)
     print("[serving] summary " + json.dumps(dict(served, card=card)))
@@ -1236,9 +1713,16 @@ def main() -> int:
     print("[lm-training] summary " + json.dumps(dict(lm, card=card)))
     for k in lstm:
         k["launches"] = lm_launches[k["name"]]
+    tfm_launches, tfm, trained = phase_tfm_training(card)
+    tfm["profile"] = phase_tfm_profile(card, trained, tfm["step_ms"])
+    del trained
+    tfm["cpu_check"] = phase_tfm_vs_cpu(card)
+    print("[tfm-training] summary " + json.dumps(dict(tfm, card=card)))
+    for k in attn:
+        k["launches"] = tfm_launches[k["name"]]
     print("[done] all phases passed in %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": _kernel_entries(
-        fwd, wgrad, dgrad, launches, serving_launches) + lstm}))
+        fwd, wgrad, dgrad, launches, serving_launches) + lstm + attn}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,10 @@ hybridized to a Symbol) under ``FusedTrainer``, with the 3x3 convolutions'
 backward on the kernels too.  The same trainer trains Gluon's LSTM language
 model (``gluon.nn.Embedding``, ``gluon.rnn.LSTM``, ``gluon.loss``), whose
 recurrence runs forward and backward on two more hand-written kernels.
+Slice 4 trains the decoder-only transformer LM (``models.transformer_lm``)
+through ``mod.Module`` and its fused step (``fused_step``), fed by
+``io.SyntheticLMIter``, with flash attention forward and backward on four
+more hand-written kernels.
 """
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -21,10 +25,16 @@ from . import symbol as sym
 from . import name
 from . import random
 from . import initializer
+from . import initializer as init
 from . import gluon
+from . import io
+from . import optimizer
+from . import module as mod
+from . import models
 from .fused import FusedTrainer
 from .predictor import Predictor
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "nd", "sym", "name", "random", "initializer",
-           "gluon", "FusedTrainer", "Predictor"]
+           "num_gpus", "nd", "sym", "name", "random", "initializer", "init",
+           "gluon", "io", "optimizer", "mod", "models", "FusedTrainer",
+           "Predictor"]

@@ -1,0 +1,280 @@
+"""Flash attention, forward and backward, on hand-written Hopper kernels
+(counterpart of ``mxnet_tpu/ops/pallas_attention.py``).
+
+:func:`flash_attention` is ``softmax(q kᵀ · scale [causal]) · v`` over
+``[B, H, T, D]`` tensors, differentiable, as the reference's ``custom_vjp``
+of the same name (``pallas_attention.py:419-443``):
+
+- with grad mode on and an input that requires grad, it applies
+  :class:`_FlashAttention`, whose forward is :func:`flash_fwd_lse` (kernel 5,
+  the function of ``_flash_fwd_lse``), saving ``(q, k, v, out, lse)``; its
+  backward takes ``delta = rowsum(dO · out)`` in one PyTorch expression, as
+  the reference takes it in XLA outside its kernels, then calls
+  :func:`flash_bwd`: kernel 6 (``_dq_kernel``) for dq and kernel 7
+  (``_dkv_kernel``) for dk and dv, in fp32, cast to the inputs' dtype;
+- otherwise it calls :func:`flash_fwd` (kernel 3, ``_flash_fwd``), which
+  writes no ``lse``.
+
+The choice is made before ``apply``: inside ``Function.forward`` grad mode
+is off.  The kernels live in ``csrc/flash_attn_fwd.cu`` (3 and 5, one
+template) and ``csrc/flash_attn_bwd.cu`` (6 and 7).  For CUDA tensors the
+wrappers launch them and raise if they cannot (fp32 only, ``D`` in
+:data:`SUPPORTED_D`); for tensors on the CPU, or ``meta`` tensors during
+shape inference, they run :func:`flash_fwd_plain` and
+:func:`flash_bwd_plain`, dense fp32 PyTorch with the same mask and the same
+``lse`` rule.  There is no fallback from one to the other, and none of the
+reference's TPU gates (``Tk >= 2048``, the 5 MB K/V envelope, ``Tk % 128``,
+``MXNET_TPU_FLASH_ATTENTION``/``MXNET_TPU_PALLAS_ATTN``) applies: any
+``Tq, Tk >= 1`` is taken.  ``lse`` is a plain ``(B, H, Tq)`` fp32 array; the
+reference's ``(..., 128)`` lane packing was a Mosaic layout detail.
+
+``flash_fwd_launches``, ``flash_fwd_lse_launches``, ``flash_dq_launches``
+and ``flash_dkv_launches`` count kernel launches (kernels 3, 5, 6 and 7), as
+the CUDA entry points report them.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["flash_attention", "flash_fwd", "flash_fwd_lse", "flash_bwd",
+           "flash_fwd_plain", "flash_bwd_plain", "flash_fwd_launches",
+           "flash_fwd_lse_launches", "flash_dq_launches", "flash_dkv_launches",
+           "SUPPORTED_D"]
+
+#: kernel 3 launches so far (CUDA arm of :func:`flash_fwd` only)
+flash_fwd_launches = 0
+#: kernel 5 launches so far (CUDA arm of :func:`flash_fwd_lse` only)
+flash_fwd_lse_launches = 0
+#: kernel 6 launches so far (dq, CUDA arm of :func:`flash_bwd` only)
+flash_dq_launches = 0
+#: kernel 7 launches so far (dk and dv, CUDA arm of :func:`flash_bwd` only)
+flash_dkv_launches = 0
+_count_lock = threading.Lock()
+
+#: head dims the kernels are built for
+SUPPORTED_D = (16, 32, 64, 128)
+
+_fns = {}
+
+
+def _mask(Tq, Tk, device):
+    """True where query i may see key j: j <= i, aligned at the top left."""
+    return (torch.arange(Tq, device=device)[:, None]
+            >= torch.arange(Tk, device=device)[None, :])
+
+
+def flash_fwd_plain(q, k, v, causal, scale):
+    """Dense reference of kernels 3 and 5: q (B, H, Tq, D), k/v (B, H, Tk, D)
+    -> (out in q's dtype, lse (B, H, Tq) fp32), the softmax in fp32, ``lse``
+    +inf for a row that sees no key (``lse_of``, ``pallas_attention.py:223``)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~_mask(s.shape[-2], s.shape[-1], s.device),
+                          -math.inf)
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m_safe.unsqueeze(-1))
+    l = p.sum(dim=-1)
+    den = l.clamp_min(1e-37)
+    out = torch.matmul(p, v.float()) / den.unsqueeze(-1)
+    lse = torch.where(l > 0, m_safe + torch.log(den),
+                      torch.full_like(l, math.inf))
+    return out.to(q.dtype), lse
+
+
+def flash_bwd_plain(q, k, v, do, lse, delta, causal, scale):
+    """Dense reference of kernels 6 and 7: ``p = exp(s - lse)`` (0 where
+    masked), ``ds = p (dO vᵀ - delta) scale`` -> (dq, dk, dv), all fp32."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.unsqueeze(-1))
+    if causal:
+        p = p.masked_fill(~_mask(s.shape[-2], s.shape[-1], s.device), 0.0)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta.unsqueeze(-1)) * scale
+    return (torch.matmul(ds, kf), torch.matmul(ds.transpose(-1, -2), qf),
+            torch.matmul(p.transpose(-1, -2), dof))
+
+
+# --------------------------------------------------------------------------
+# the CUDA arms
+# --------------------------------------------------------------------------
+def _kernel(lib, name, n_ptrs):
+    fn = _fns.get(name)
+    if fn is None:
+        from .. import _build
+        fn = getattr(_build.load(lib), name)
+        # pointers, BH, Tq, Tk, D, scale, causal, [write_lse,] device, stream,
+        # launched
+        ints = 7 if name == "mxtt_flash_attn_fwd" else 6
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_int] * (ints - 4)
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _check_cuda(name, q, k, tensors):
+    """Shapes, dtype, device, contiguity and alignment the kernels take;
+    returns (B, H, Tq, Tk, D)."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise MXNetError("%s: q, k and v must be [B, H, T, D], got %s and %s"
+                         % (name, tuple(q.shape), tuple(k.shape)))
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if D not in SUPPORTED_D:
+        raise MXNetError("%s: the CUDA kernels take head dims %s, got D=%d"
+                         % (name, SUPPORTED_D, D))
+    if Tq < 1 or Tk < 1 or B * H < 1:
+        raise MXNetError("%s: empty attention (B=%d H=%d Tq=%d Tk=%d)"
+                         % (name, B, H, Tq, Tk))
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise MXNetError("%s: the CUDA kernels take float32, got %s"
+                             % (name, t.dtype))
+        if t.device != q.device:
+            raise MXNetError("%s: all tensors must be on %s" % (name, q.device))
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise MXNetError("%s: tensors must be contiguous and 16-byte "
+                             "aligned" % name)
+    return B, H, Tq, Tk, D
+
+
+def _call(fn, ptrs, B, H, Tq, Tk, D, scale, flags, dev):
+    launched = ctypes.c_int(0)
+    err = fn(*[t.data_ptr() if t is not None else None for t in ptrs],
+             B * H, Tq, Tk, D, float(scale), *flags, dev.index,
+             torch.cuda.current_stream(dev).cuda_stream,
+             ctypes.byref(launched))
+    return err, launched.value
+
+
+def _fwd_cuda(q, k, v, causal, scale, write_lse):
+    global flash_fwd_launches, flash_fwd_lse_launches
+    name = "flash_fwd_lse" if write_lse else "flash_fwd"
+    B, H, Tq, Tk, D = _check_cuda(name, q, k, (q, k, v))
+    if tuple(v.shape) != tuple(k.shape) or tuple(k.shape[:2]) != (B, H) \
+            or k.shape[3] != D:
+        raise MXNetError("%s: shapes q %s k %s v %s do not form an attention"
+                         % (name, tuple(q.shape), tuple(k.shape),
+                            tuple(v.shape)))
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) \
+        if write_lse else None
+    err, n = _call(_kernel("flash_attn_fwd", "mxtt_flash_attn_fwd", 5),
+                   (q, k, v, out, lse), B, H, Tq, Tk, D, scale,
+                   (int(bool(causal)), int(write_lse)), q.device)
+    with _count_lock:
+        if write_lse:
+            flash_fwd_lse_launches += n
+        else:
+            flash_fwd_launches += n
+    if err != 0:
+        raise MXNetError("%s launch failed: CUDA error %d" % (name, err))
+    return out, lse
+
+
+def _bwd_cuda(q, k, v, do, lse, delta, causal, scale):
+    global flash_dq_launches, flash_dkv_launches
+    B, H, Tq, Tk, D = _check_cuda("flash_bwd", q, k, (q, k, v, do, lse, delta))
+    if tuple(do.shape) != tuple(q.shape) or tuple(lse.shape) != (B, H, Tq) \
+            or tuple(delta.shape) != (B, H, Tq) \
+            or tuple(v.shape) != tuple(k.shape):
+        raise MXNetError("flash_bwd: shapes q %s k %s v %s dO %s lse %s delta "
+                         "%s do not match" % tuple(tuple(t.shape) for t in
+                                                   (q, k, v, do, lse, delta)))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, H, Tq, D), **f32)
+    dk = torch.empty((B, H, Tk, D), **f32)
+    dv = torch.empty((B, H, Tk, D), **f32)
+    flags = (int(bool(causal)),)
+    err, n = _call(_kernel("flash_attn_bwd", "mxtt_flash_attn_bwd_dq", 7),
+                   (q, k, v, do, lse, delta, dq), B, H, Tq, Tk, D, scale,
+                   flags, q.device)
+    with _count_lock:
+        flash_dq_launches += n
+    if err != 0:
+        raise MXNetError("flash_bwd dq launch failed: CUDA error %d" % err)
+    err, n = _call(_kernel("flash_attn_bwd", "mxtt_flash_attn_bwd_dkv", 8),
+                   (q, k, v, do, lse, delta, dk, dv), B, H, Tq, Tk, D, scale,
+                   flags, q.device)
+    with _count_lock:
+        flash_dkv_launches += n
+    if err != 0:
+        raise MXNetError("flash_bwd dk/dv launch failed: CUDA error %d" % err)
+    return dq, dk, dv
+
+
+# --------------------------------------------------------------------------
+# dispatch: the kernel for a CUDA tensor, the plain version on the CPU
+# --------------------------------------------------------------------------
+def _plain_device(t, name):
+    if t.device.type in ("cpu", "meta"):
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise MXNetError("%s: no arm for device %s" % (name, t.device))
+
+
+def flash_fwd(q, k, v, causal, scale):
+    """The attention output alone (kernel 3 for tensors on the card, the
+    plain version on the CPU or ``meta``)."""
+    if _plain_device(q, "flash_fwd"):
+        return flash_fwd_plain(q, k, v, causal, scale)[0]
+    return _fwd_cuda(q, k, v, causal, scale, write_lse=False)[0]
+
+
+def flash_fwd_lse(q, k, v, causal, scale):
+    """(out, lse) for the backward (kernel 5 for tensors on the card, the
+    plain version on the CPU or ``meta``)."""
+    if _plain_device(q, "flash_fwd_lse"):
+        return flash_fwd_plain(q, k, v, causal, scale)
+    return _fwd_cuda(q, k, v, causal, scale, write_lse=True)
+
+
+def flash_bwd(q, k, v, do, lse, delta, causal, scale):
+    """(dq, dk, dv) in fp32 (kernels 6 and 7 for tensors on the card, the
+    plain version on the CPU or ``meta``)."""
+    if _plain_device(q, "flash_bwd"):
+        return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale)
+    return _bwd_cuda(q, k, v, do, lse, delta, causal, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(q, k, v) -> out with the saved ``lse``; backward on kernels 6, 7."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_fwd_lse(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = (g.float() * out.float()).sum(dim=-1)
+        dq, dk, dv = flash_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                               g.contiguous(), lse, delta, ctx.causal,
+                               ctx.scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def flash_attention(q, k, v, causal=False, scale=None):
+    """[B, H, T, D] attention, ``scale`` 1/sqrt(D) by default;
+    differentiable, both directions on the kernels for tensors on the
+    card."""
+    sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, bool(causal), float(sc))
+    return flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                     bool(causal), float(sc))

@@ -1,0 +1,36 @@
+"""Initialization ops (counterpart of ``mxnet_tpu/ops/init_random.py``):
+``_arange``, which the transformer LM's position ids start from.
+
+An op with no inputs has no tensor to take its device from, so the graph
+plan hands it the executor's device as ``attrs["__device__"]`` (``meta``
+during shape inference); its dtype is its own ``dtype`` attribute."""
+from __future__ import annotations
+
+import torch
+
+from ..ndarray.ndarray import torch_dtype
+from .registry import param, register
+
+__all__ = []
+
+
+@register("_arange", aliases=("arange",),
+          params={"shape": param("shape", ()),
+                  "dtype": param("dtype", "float32"),
+                  "ctx": param(str, None),
+                  "start": param(float, 0.0), "stop": param(float, None),
+                  "step": param(float, 1.0), "repeat": param(int, 1),
+                  "infer_range": param(bool, False)})
+def _arange(attrs):
+    """``start, start + step, ...`` below ``stop`` (``[0, start)`` when
+    ``stop`` is unset), each repeated ``repeat`` times
+    (``init_random.py:39-49``)."""
+    start, stop = attrs["start"], attrs["stop"]
+    if stop is None:
+        start, stop = 0.0, start
+    out = torch.arange(start, stop, attrs["step"],
+                       dtype=torch_dtype(attrs["dtype"] or "float32"),
+                       device=attrs.get("__device__", "cpu"))
+    if attrs["repeat"] > 1:
+        out = out.repeat_interleave(attrs["repeat"])
+    return out

@@ -1,5 +1,5 @@
 """Shape and indexing ops (counterpart of ``mxnet_tpu/ops/matrix.py``): what
-the ResNet graphs and the LSTM layer's graph use."""
+the ResNet graphs, the LSTM layer's graph and the transformer LM use."""
 from __future__ import annotations
 
 import numpy as np
@@ -93,7 +93,20 @@ def _swapaxes(attrs, x):
     return x.transpose(attrs["dim1"], attrs["dim2"])
 
 
+@register("expand_dims", params={"axis": param(int, 0, required=True)})
+def _expand_dims(attrs, x):
+    return x.unsqueeze(attrs["axis"])
+
+
+def _embedding_hint(attrs, shapes):
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (attrs["input_dim"], attrs["output_dim"])
+    return out
+
+
 @register("Embedding", aliases=("embedding",), arg_names=("data", "weight"),
+          shape_hint=_embedding_hint,
           params={"input_dim": param(int, 0, required=True),
                   "output_dim": param(int, 0, required=True),
                   "dtype": param("dtype", "float32"),

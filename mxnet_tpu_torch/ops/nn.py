@@ -2,7 +2,8 @@
 ``mxnet_tpu/ops/nn.py``): Convolution, FullyConnected, Pooling, Activation,
 BatchNorm (inference and training statistics), softmax, the SoftmaxOutput
 forward, :func:`streaming_ce` and the ``streaming_softmax_ce`` and
-``softmax_cross_entropy`` ops.
+``softmax_cross_entropy`` ops, and the transformer's LayerNorm and
+MultiHeadAttention.
 
 Convolution dispatch mirrors ``_pallas_conv_mode`` (``nn.py:239-268``)
 without its environment flag and lane gate, which were TPU verdicts: the
@@ -10,8 +11,11 @@ without its environment flag and lane gate, which were TPU verdicts: the
 H and W go to the hand-written kernels (``hopper_conv``, whose autograd
 Functions carry the backward); every other convolution (ResNet's 7x7 stem,
 the 1x1 projections) goes to ``torch.nn.functional.conv{1,2,3}d``, the
-counterpart of the ``lax`` arm the reference package leaves to XLA.  Every
-op is differentiable by PyTorch's autograd, which the training step uses.
+counterpart of the ``lax`` arm the reference package leaves to XLA.
+MultiHeadAttention's attention always runs on the flash kernels
+(``hopper_attention``), whatever ``T``: the reference's TPU gates, which
+send ``T < 2048`` to its XLA arm, do not carry over.  Every op is
+differentiable by PyTorch's autograd, which the training step uses.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from . import hopper_conv
+from . import hopper_attention, hopper_conv
 from .registry import param, register
 
 __all__ = []
@@ -65,6 +69,28 @@ def _bn_hint(attrs, shapes):
         return shapes
     c = data[attrs["axis"] % len(data)]
     return [shapes[0]] + [s if s is not None else (c,) for s in shapes[1:]]
+
+
+def _channel_hint(axis_default):
+    """Every unknown parameter shape is (C,), C the data's size along
+    ``attrs["axis"]`` (LayerNorm's gamma and beta)."""
+    def hint(attrs, shapes):
+        data = shapes[0]
+        if data is None:
+            return shapes
+        c = data[attrs.get("axis", axis_default) % len(data)]
+        return [shapes[0]] + [s if s is not None else (c,) for s in shapes[1:]]
+    return hint
+
+
+def _mha_hint(attrs, shapes):
+    """MultiHeadAttention: all four projection weights are (model_dim,
+    model_dim), in FullyConnected's (out, in) orientation."""
+    data = shapes[0]
+    if data is None:
+        return shapes
+    return [shapes[0]] + [s if s is not None else (data[-1], data[-1])
+                          for s in shapes[1:]]
 
 
 def _softmax_label_hint(attrs, shapes):
@@ -297,6 +323,59 @@ def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
         out = ((data - mean.reshape(shape)) * inv.reshape(shape)
                + beta.reshape(shape)).to(data.dtype)
     return out, new_mm, new_mv
+
+
+@register("LayerNorm", aliases=("layernorm",),
+          params={"axis": param(int, -1), "eps": param(float, 1e-5),
+                  "output_mean_var": param(bool, False)}, nout=3,
+          visible=lambda a: 3 if a["output_mean_var"] else 1,
+          arg_names=("data", "gamma", "beta"), shape_hint=_channel_hint(-1))
+def _layer_norm(attrs, data, gamma, beta):
+    """``(x - mean) / sqrt(var + eps) * gamma + beta`` over ``axis`` with
+    fp32 statistics, outputs (out in the data's dtype, mean, var) as the
+    reference's (``nn.py:564-577``): one ``native_layer_norm`` call
+    (PyTorch's fused kernel, which also returns the mean and 1/std) over
+    ``axis`` moved last, as the reference leaves LayerNorm to XLA."""
+    ax = attrs["axis"] % data.dim()
+    eps = attrs["eps"]
+    x32 = data.float().movedim(ax, -1)
+    out, mean, rstd = torch.native_layer_norm(
+        x32, (x32.shape[-1],), gamma.float(), beta.float(), eps)
+    return (out.movedim(-1, ax).to(data.dtype), mean.squeeze(-1),
+            rstd.squeeze(-1).pow(-2) - eps)
+
+
+@register("MultiHeadAttention", aliases=("multiheadattention",),
+          params={"num_heads": param(int, 0, required=True),
+                  "causal": param(bool, True)},
+          arg_names=("data", "query_weight", "key_weight", "value_weight",
+                     "out_proj_weight"), shape_hint=_mha_hint)
+def _multi_head_attention(attrs, data, query_weight, key_weight,
+                          value_weight, out_proj_weight):
+    """Decoder attention (``nn.py:603-672``): Q/K/V projections ``x Wᵀ``
+    with (out, in) weights, ``[B, H, T, d]`` heads, ``scale = 1/sqrt(d)``,
+    :func:`hopper_attention.flash_attention` (kernels 3, or 5 with 6 and 7
+    in training, on the card), and the output projection.  The products
+    around the attention are ``F.linear`` (cuBLAS), as the reference
+    leaves them to XLA."""
+    if data.dim() != 3:
+        raise MXNetError("MultiHeadAttention: data must be (batch, time, "
+                         "model_dim), got %s" % (tuple(data.shape),))
+    B, T, D = data.shape
+    H = attrs["num_heads"]
+    if H <= 0 or D % H:
+        raise MXNetError("MultiHeadAttention: num_heads=%d must divide "
+                         "model_dim=%d" % (H, D))
+    d = D // H
+
+    def proj(w):
+        return F.linear(data, w).reshape(B, T, H, d).transpose(1, 2) \
+            .contiguous()
+
+    out = hopper_attention.flash_attention(
+        proj(query_weight), proj(key_weight), proj(value_weight),
+        attrs["causal"], 1.0 / math.sqrt(d))
+    return F.linear(out.transpose(1, 2).reshape(B, T, D), out_proj_weight)
 
 
 @register("softmax", params={"axis": param(int, -1),

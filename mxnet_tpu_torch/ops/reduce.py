@@ -1,5 +1,6 @@
 """Reductions and broadcasts (counterpart of ``mxnet_tpu/ops/reduce.py``):
-what the LSTM layer's zero states and the Gluon losses use."""
+what the LSTM layer's zero states, the Gluon losses and the transformer LM's
+position ids use."""
 from __future__ import annotations
 
 import torch
@@ -36,3 +37,9 @@ def _broadcast_axis(attrs, x):
     for a, s in zip(attrs["axis"], attrs["size"]):
         tgt[a % x.dim()] = s
     return x.expand(tuple(tgt))
+
+
+@register("broadcast_like")
+def _broadcast_like(attrs, x, like):
+    """``x`` broadcast to ``like``'s shape (``reduce.py:103``)."""
+    return x.expand(tuple(like.shape))

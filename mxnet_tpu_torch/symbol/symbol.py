@@ -5,8 +5,10 @@ The graph is a small Python DAG over the op registry.  ``tojson`` writes the
 reference's ``nodes``/``arg_nodes``/``heads`` format, byte for byte the
 layout the reference package writes, and ``load_json`` reads it, so a graph
 moves between the two packages as a string.  Shape inference runs each op on
-``meta`` tensors.  ``bind`` hands the graph to a forward-only
-:class:`~mxnet_tpu_torch.executor.Executor`.
+``meta`` tensors.  ``bind`` and ``simple_bind`` hand the graph to an
+:class:`~mxnet_tpu_torch.executor.Executor`; ``simple_bind`` first infers
+every argument's shape from the inputs' and allocates zeros for arguments,
+gradients and auxiliary states on the context.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from ..base import MXNetError
 from ..name import current_scope
 from ..ops.registry import Operator, get_op
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load_json", "arange"]
 
 
 class _Node:
@@ -115,6 +117,15 @@ class Symbol:
             else:
                 names.append("%s_output" % node.name)
         return names
+
+    def attr_dict(self) -> Dict[str, Dict[str, str]]:
+        """{node name: {attr: string}} of every node with attributes
+        (``symbol.py:165``)."""
+        out = {}
+        for node in self._topo():
+            if node.attrs:
+                out[node.name] = {k: str(v) for k, v in node.attrs.items()}
+        return out
 
     def get_internals(self) -> "Symbol":
         outs = []
@@ -244,22 +255,64 @@ class Symbol:
                           indent=2)
 
     # ---- binding --------------------------------------------------------
-    def bind(self, ctx=None, args=None, aux_states=None):
-        """Forward-only Executor over the given arrays (lists follow
-        ``list_arguments``/``list_auxiliary_states`` order)."""
+    def bind(self, ctx=None, args=None, aux_states=None, args_grad=None,
+             grad_req="write"):
+        """An Executor over the given arrays (lists follow
+        ``list_arguments``/``list_auxiliary_states`` order); gradients go
+        to ``args_grad`` for the arguments ``grad_req`` asks them for."""
         from ..context import current_context
         from ..executor import Executor
         ctx = ctx or current_context()
+        arg_names = self.list_arguments()
         if isinstance(args, (list, tuple)):
-            args = dict(zip(self.list_arguments(), args))
+            args = dict(zip(arg_names, args))
+        if isinstance(args_grad, (list, tuple)):
+            args_grad = dict(zip(arg_names, args_grad))
         if isinstance(aux_states, (list, tuple)):
             aux_states = dict(zip(self.list_auxiliary_states(), aux_states))
-        return Executor(self, ctx, dict(args or {}), dict(aux_states or {}))
+        return Executor(self, ctx, dict(args or {}), dict(aux_states or {}),
+                        dict(args_grad or {}), _norm_grad_req(grad_req,
+                                                              arg_names))
+
+    def simple_bind(self, ctx=None, grad_req="write", **shapes):
+        """Infer every shape from the given input shapes, allocate zeros
+        for arguments, gradients (where ``grad_req`` is not ``"null"``)
+        and auxiliary states on ``ctx``, and bind (``symbol.py:389``).
+        Everything is float32, as the reference's type inference gives
+        this graph."""
+        from ..context import current_context
+        from ..executor import Executor
+        from ..ndarray import ndarray as nd
+        ctx = ctx or current_context()
+        arg_shapes, _, aux_shapes = self.infer_shape(**shapes)
+        arg_names = self.list_arguments()
+        req = _norm_grad_req(grad_req, arg_names)
+        args = {n: nd.zeros(s, ctx=ctx) for n, s in zip(arg_names, arg_shapes)}
+        auxs = {n: nd.zeros(s, ctx=ctx) for n, s in
+                zip(self.list_auxiliary_states(), aux_shapes)}
+        grads = {n: nd.zeros(s, ctx=ctx) for n, s in zip(arg_names, arg_shapes)
+                 if req.get(n, "null") != "null"}
+        return Executor(self, ctx, args, auxs, grads, req)
+
+
+def _norm_grad_req(grad_req, arg_names):
+    """{argument: request} from one request, a list, or a partial dict
+    (missing names get "null")."""
+    if isinstance(grad_req, str):
+        return {n: grad_req for n in arg_names}
+    if isinstance(grad_req, (list, tuple)):
+        return dict(zip(arg_names, grad_req))
+    out = {n: "null" for n in arg_names}
+    out.update(grad_req or {})
+    return out
 
 
 def _abstract_node(node: _Node, attrs, in_shapes):
-    """Output shapes of one node: its op run on meta tensors."""
+    """Output shapes of one node: its op run on meta tensors (an op with no
+    inputs is told the device, as the plan tells it)."""
     ins = [torch.empty(s, device="meta") for s in in_shapes]
+    if not ins:
+        attrs = dict(attrs, __device__=torch.device("meta"))
     if node.op.needs_rng:
         ins.insert(0, None)
     out = node.op.fn(attrs, *ins)
@@ -345,3 +398,9 @@ def load_json(json_str: str) -> Symbol:
             built.append(_Node(get_op(nj["op"]), nj["name"], attrs, inputs))
     heads = g.get("heads") or [[len(built) - 1, 0, 0]]
     return Symbol([(built[int(h[0])], int(h[1])) for h in heads])
+
+
+def arange(start, stop=None, step=1.0, name=None, dtype="float32") -> Symbol:
+    """``_arange`` as a graph node with no inputs (``symbol.py:596``)."""
+    return _create("_arange", [], {"start": start, "stop": stop,
+                                   "step": step, "dtype": dtype}, name)

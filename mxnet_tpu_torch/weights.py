@@ -6,7 +6,8 @@ the checkpoint's ``arg:``/``aux:`` prefixes, and writes them with
 takes either form and places every array on a context, so both packages
 can be fed the same weights.  ``from_jax_block`` carries a reference Gluon
 block's parameters and auxiliary states into a port block of the same
-structure, by name.
+structure, by name, and ``from_jax_module`` a reference Module's into a port
+Module's.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from .base import MXNetError
 from .context import Context, current_context
 from .ndarray import ndarray as nd
 
-__all__ = ["from_jax_params", "from_jax_block"]
+__all__ = ["from_jax_params", "from_jax_block", "from_jax_module"]
 
 
 def from_jax_params(params, ctx: Optional[Context] = None
@@ -60,3 +61,46 @@ def from_jax_block(jax_net_or_params, net, ctx: Optional[Context] = None):
                              "wants %s" % (name, v.shape, p.shape))
         p._load_init(v, [ctx])
     return net
+
+
+def from_jax_module(jax_mod, ctx: Optional[Context] = None, mod=None):
+    """``(arg_params, aux_params)``, dicts of NDArrays on ``ctx`` (default
+    ``gpu(0)``), from a reference Module's ``get_params()``.
+
+    The names are checked against the parameters and auxiliary states of
+    ``mod``, a bound port Module, when it is given (and its parameters are
+    then set from them), else against the reference Module's own symbol;
+    a missing or extra name, or a shape that differs, raises."""
+    ctx = ctx or current_context()
+    arg, aux = jax_mod.get_params()
+    out = []
+    for kind, src in (("parameter", arg), ("auxiliary state", aux)):
+        out.append({k: np.asarray(v.asnumpy() if hasattr(v, "asnumpy")
+                                  else v) for k, v in src.items()})
+    if mod is not None:
+        ex = mod._exec_group.execs[0]
+        want = ({n: ex.arg_dict[n].shape for n in mod._param_names},
+                {n: ex.aux_dict[n].shape for n in mod._aux_names})
+    else:
+        sym = jax_mod.symbol
+        inputs = set(jax_mod.data_names) | set(jax_mod.label_names)
+        want = ({n: None for n in sym.list_arguments() if n not in inputs},
+                {n: None for n in sym.list_auxiliary_states()})
+    for (kind, values), names in zip((("parameter", out[0]),
+                                      ("auxiliary state", out[1])), want):
+        missing = sorted(set(names) - set(values))
+        extra = sorted(set(values) - set(names))
+        if missing or extra:
+            raise MXNetError("from_jax_module: %s names differ; missing in "
+                             "the source: %s, not in the module: %s"
+                             % (kind, missing[:5], extra[:5]))
+        for n, shape in names.items():
+            if shape is not None and tuple(values[n].shape) != tuple(shape):
+                raise MXNetError("from_jax_module: %s has shape %s, the "
+                                 "module wants %s"
+                                 % (n, values[n].shape, shape))
+    arg_params = {k: nd.array(v, ctx) for k, v in out[0].items()}
+    aux_params = {k: nd.array(v, ctx) for k, v in out[1].items()}
+    if mod is not None:
+        mod.set_params(arg_params, aux_params)
+    return arg_params, aux_params

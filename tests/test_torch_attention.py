@@ -1,0 +1,235 @@
+"""Flash attention and the transformer's ops: the port (mxnet_tpu_torch)
+against the reference (mxnet_tpu), on the CPU.
+
+- The plain versions of kernels 3 and 5 (``flash_fwd_plain``) and of kernels
+  6 and 7 (``flash_bwd_plain``) against the reference's Pallas kernels
+  ``_flash_fwd``, ``_flash_fwd_lse`` and ``flash_attention_bwd``, run by the
+  interpreter (``pallas_attention.INTERPRET``) with blocks of 32 rows at
+  T = 64, so that the reference loops over several K and Q blocks: causal
+  and not, D = 16 and 32.  Forward within 2e-5, backward within 1e-4 of
+  the largest |value|.
+- The ``MultiHeadAttention`` op (whose reference takes its Pallas path at
+  T = 128 under the interpreter) and ``LayerNorm``, outputs and gradients,
+  against the reference ops.
+- ``expand_dims``, ``broadcast_like``, ``_arange`` and ``make_loss`` against
+  the reference, within 1e-6.
+- ``flash_attention`` takes kernel 5's Function only when an input needs a
+  gradient, and kernel 3's path otherwise.
+- One ``cuda`` test: kernels 3, 5, 6 and 7 against their plain versions at
+  ragged shapes; it skips without a card and runs on one.
+
+fp32 throughout; the sums run in another order on each side.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from mxnet_tpu.ops import pallas_attention as pa
+from mxnet_tpu.ops import registry as jreg
+from mxnet_tpu_torch.ops import hopper_attention as ha
+from mxnet_tpu_torch.ops import registry as treg
+
+FWD_TOL = 2e-5
+BWD_TOL = 1e-4      # of the largest |value|
+OP_TOL = 1e-6
+BLOCK = 32
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    pa.INTERPRET = True
+    yield
+    pa.INTERPRET = False
+
+
+def _qkv(B, H, Tq, Tk, D, seed):
+    r = np.random.default_rng(seed)
+    f = lambda *s: (r.standard_normal(s) * 0.5).astype(np.float32)  # noqa: E731
+    return f(B, H, Tq, D), f(B, H, Tk, D), f(B, H, Tk, D), f(B, H, Tq, D)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [16, 32])
+def test_plain_forward_matches_pallas_kernels(causal, D):
+    q, k, v, _ = _qkv(2, 2, 64, 64, D, seed=D + causal)
+    scale = 1.0 / math.sqrt(D)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want3 = pa._flash_fwd(jq, jk, jv, causal, scale, BLOCK, BLOCK)
+    want5, want_lse = pa._flash_fwd_lse(jq, jk, jv, causal, scale, BLOCK,
+                                        BLOCK)
+    out, lse = ha.flash_fwd_plain(*_t(q, k, v), causal, scale)
+    for g, w, name in ((out, want3, "kernel 3 out"), (out, want5,
+                       "kernel 5 out"), (lse, want_lse, "lse")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=FWD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [16, 32])
+def test_plain_backward_matches_pallas_kernels(causal, D):
+    q, k, v, do = _qkv(2, 2, 64, 64, D, seed=10 + D + causal)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = ha.flash_fwd_plain(*_t(q, k, v), causal, scale)
+    delta = (torch.from_numpy(do) * out).sum(-1)
+    want = pa.flash_attention_bwd(*map(jnp.asarray, (q, k, v, do)),
+                                  jnp.asarray(lse.numpy()),
+                                  jnp.asarray(delta.numpy()), causal, scale,
+                                  BLOCK, BLOCK)
+    got = ha.flash_bwd_plain(*_t(q, k, v, do), lse, delta, causal, scale)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=BWD_TOL * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_flash_attention_takes_kernel_5_only_for_gradients():
+    q, k, v, do = _t(*_qkv(1, 2, 16, 16, 16, seed=3))
+    assert ha.flash_attention(q, k, v, True).grad_fn is None
+    qg = q.clone().requires_grad_()
+    out = ha.flash_attention(qg, k, v, True)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    with torch.no_grad():
+        assert ha.flash_attention(qg, k, v, True).grad_fn is None
+    # the Function's gradient is the dense softmax's
+    (dq,) = torch.autograd.grad(out, qg, do)
+    ref = qg.detach().clone().requires_grad_()
+    s = (ref @ k.transpose(-1, -2)) / 4.0
+    s = s.masked_fill(torch.ones(16, 16).triu(1).bool(), -math.inf)
+    (want,) = torch.autograd.grad(torch.softmax(s, -1) @ v, ref, do)
+    np.testing.assert_allclose(dq.numpy(), want.numpy(), rtol=0,
+                               atol=BWD_TOL * want.abs().max().item())
+
+
+def _reference_vjp(name, kw, inputs, cotangent):
+    jop = jreg.get_op(name)
+    attrs = jop.parse_attrs(dict(kw))
+
+    @jax.jit
+    def run(args, ct):
+        out, vjp = jax.vjp(lambda *a: jop.fn(attrs, *a), *args)
+        return out, vjp(ct)
+
+    return run(tuple(map(jnp.asarray, inputs)), cotangent)
+
+
+def _port_vjp(name, kw, inputs, cotangent):
+    top = treg.get_op(name)
+    ins = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    out = top.fn(top.parse_attrs(dict(kw)), *ins)
+    grads = torch.autograd.grad(out, ins, cotangent)
+    return out, grads
+
+
+def test_multi_head_attention_matches_reference():
+    B, T, Dm, H = 2, 128, 32, 2
+    assert pa.flash_attention_available(B, H, T, T, Dm // H, jnp.float32)
+    r = np.random.default_rng(5)
+    data = r.standard_normal((B, T, Dm)).astype(np.float32)
+    ws = [(r.standard_normal((Dm, Dm)) * Dm ** -0.5).astype(np.float32)
+          for _ in range(4)]
+    ct = r.standard_normal((B, T, Dm)).astype(np.float32)
+    kw = {"num_heads": H, "causal": True}
+    jout, jgrads = _reference_vjp("MultiHeadAttention", kw, [data] + ws,
+                                  jnp.asarray(ct))
+    tout, tgrads = _port_vjp("MultiHeadAttention", kw, [data] + ws,
+                             torch.from_numpy(ct))
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout),
+                               rtol=0, atol=FWD_TOL)
+    for g, w, name in zip(tgrads, jgrads, ("data", "query", "key", "value",
+                                           "out_proj")):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=BWD_TOL * np.abs(w).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("axis", [-1, 1])
+def test_layer_norm_matches_reference(axis):
+    r = np.random.default_rng(6)
+    x = (r.standard_normal((2, 5, 8)) * 3 + 1).astype(np.float32)
+    c = x.shape[axis]
+    gamma = r.standard_normal(c).astype(np.float32)
+    beta = r.standard_normal(c).astype(np.float32)
+    kw = {"axis": axis, "output_mean_var": True}
+    cts = tuple(r.standard_normal(s).astype(np.float32) for s in
+                (x.shape, x.shape[:axis % 3] + x.shape[axis % 3 + 1:]))
+    jop, top = jreg.get_op("LayerNorm"), treg.get_op("LayerNorm")
+    jouts = jop.fn(jop.parse_attrs(dict(kw)), *map(jnp.asarray,
+                                                   (x, gamma, beta)))
+    touts = top.fn(top.parse_attrs(dict(kw)), *_t(x, gamma, beta))
+    for g, w, name in zip(touts, jouts, ("out", "mean", "var")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-5, err_msg=name)
+    # gradients of the visible output
+    _, jgrads = _reference_vjp("LayerNorm", {"axis": axis}, [x, gamma, beta],
+                               (jnp.asarray(cts[0]), jnp.zeros(cts[1].shape),
+                                jnp.zeros(cts[1].shape)))
+    ins = [torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta)]
+    out = top.fn(top.parse_attrs({"axis": axis}), *ins)[0]
+    tgrads = torch.autograd.grad(out, ins, torch.from_numpy(cts[0]))
+    for g, w, name in zip(tgrads, jgrads, ("data", "gamma", "beta")):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=BWD_TOL * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def _small_ops_cases():
+    r = np.random.default_rng(12)
+    x = r.standard_normal((3, 4)).astype(np.float32)
+    like = np.zeros((2, 3, 4), np.float32)
+    return [
+        ("expand_dims", {"axis": 0}, [x]),
+        ("expand_dims", {"axis": -1}, [x]),
+        ("broadcast_like", {}, [x[None, :1], like]),
+        ("make_loss", {}, [x]),
+        ("_arange", {"start": 0, "stop": 16}, []),
+        ("_arange", {"start": 5}, []),
+        ("_arange", {"start": 1.5, "stop": 4.0, "step": 0.5, "repeat": 2}, []),
+    ]
+
+
+@pytest.mark.parametrize("name,kw,inputs", _small_ops_cases(),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_small_ops_match_reference(name, kw, inputs):
+    jop, top = jreg.get_op(name), treg.get_op(name)
+    want = jop.fn(jop.parse_attrs(dict(kw)), *map(jnp.asarray, inputs))
+    got = top.fn(top.parse_attrs(dict(kw)), *_t(*inputs))
+    assert tuple(got.shape) == tuple(want.shape)
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=OP_TOL)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_match_plain_on_the_card():
+    """Kernels 3, 5, 6 and 7 against their plain versions at ragged shapes
+    (T off the 64-row tile, Tq > Tk), 1e-5 forward, 1e-4 of the largest
+    |value| backward, as chip_smoke.py holds them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs the same check "
+                    "on the H100")
+    for B, H, Tq, Tk, D, causal in [(2, 2, 77, 77, 32, False),
+                                    (1, 1, 100, 60, 64, True)]:
+        q, k, v, _ = (torch.from_numpy(a).cuda() for a in
+                      _qkv(B, H, Tq, Tk, D, seed=Tq))
+        do = torch.from_numpy(_qkv(B, H, Tq, Tq, D, seed=1)[3]).cuda()
+        sc = 1.0 / math.sqrt(D)
+        want, lse = ha.flash_fwd_plain(q, k, v, causal, sc)
+        got5, got_lse = ha.flash_fwd_lse(q, k, v, causal, sc)
+        for g in (ha.flash_fwd(q, k, v, causal, sc), got5):
+            assert (g - want).abs().max().item() <= 1e-5
+        assert (got_lse - lse).abs().max().item() <= 1e-5
+        delta = (do * want).sum(-1)
+        args = (q, k, v, do, lse, delta, causal, sc)
+        for g, w in zip(ha.flash_bwd(*args), ha.flash_bwd_plain(*args)):
+            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()

@@ -214,6 +214,13 @@ def test_port_imports_neither_jax_nor_the_reference_package():
            if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")]
     scanned = {os.path.relpath(f, _REPO) for f in files}
     for module in ("ops/hopper_rnn.py", "ops/rnn.py", "ops/reduce.py",
-                   "gluon/rnn/rnn_layer.py", "gluon/loss.py"):
+                   "gluon/rnn/rnn_layer.py", "gluon/loss.py",
+                   "ops/hopper_attention.py", "ops/nn.py", "ops/matrix.py",
+                   "ops/elemwise.py", "ops/init_random.py",
+                   "ops/optimizer_ops.py", "models/configs.py",
+                   "models/transformer.py", "symbol/symbol.py", "executor.py",
+                   "io.py", "optimizer.py", "module/base_module.py",
+                   "module/executor_group.py", "module/module.py",
+                   "fused_step.py", "initializer.py", "weights.py"):
         assert os.path.join("mxnet_tpu_torch", module) in scanned
     assert len(files) > 10 and not bad
