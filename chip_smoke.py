@@ -98,6 +98,37 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launches by group (cuBLAS, kernels 3, 5, 6 and 7, LayerNorm, gelu and
    elementwise, cross-entropy, embedding, optimizer, memcpy), the attention
    kernels' launches read from the trace, and the idle share.
+2e. ring kernels (run after 2d): kernel 4, the stats mode of
+   ``flash_attn_fwd.cu``, against ``hopper_attention.flash_stats_plain`` at
+   the ring's per-shard shape (B=1, H=12, T_loc=4096, D=64, unmasked and
+   causal) and five ragged or odd ones: m within 1e-5, acc and l within
+   1e-5 of their largest |value|; kernel 10 (``zero_fill.cu``) against
+   zeros over a NaN buffer of (8, 128).  Times beside the plain versions',
+   the fp32 bound and the yardsticks (PyTorch's memory-efficient attention
+   with log-sum-exp, the nearest call and not the same outputs;
+   ``Tensor.zero_``).
+11. long context: ``models.long_context_attention`` at gpt2-small's
+   attention geometry (H=12, D=64, fp32), B=1, T=32,768, causal, on
+   ``make_mesh({"sp": 8}, [cuda:0] * 8)``, forward and backward of
+   ``sum(out * g)``: the counters, zeroed just before, must read 36
+   launches of kernel 4 (28 full steps, 8 diagonal ones), 36 each of
+   kernels 6 and 7, none of 3 or 5, and the one probe of kernel 10.  out,
+   dq, dk and dv against one un-sharded ``flash_attention`` (kernels 5, 6,
+   7; out within 2e-5, gradients within 1e-4 of their largest |value|), the
+   forward against the scan arm on the card; a non-causal ring at sp=4 (16
+   launches) and ``ulysses_attention`` at sp=4 against the same reference.
+   Forward and forward+backward times, tokens/s and TFLOP/s of the ring,
+   the un-sharded kernels and SDPA's memory-efficient backend (yardstick),
+   and one profiled ring forward+backward by kernel group (the merge's
+   share).
+12. compositions at gpt2-small's width on meshes of 4 entries of cuda:0,
+   each against its un-sharded form within 1e-4 of the largest |value|:
+   ``tensor_parallel.mlp_block`` (768 -> 3072 -> 768, tp=4, 8,192 tokens),
+   ``moe_transformer_ffn`` (8 experts of 768 -> 3072, k=2, capacity factor
+   1.25, ep=4, 8,192 tokens; against the no-mesh layer on each shard's
+   2,048 tokens, whose capacity is the shard's), ``pipeline_transformer``
+   (4 gpt2-small blocks, pp=4, batch 8 x 1024, 4 microbatches; against the
+   blocks in sequence), with times.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
@@ -108,6 +139,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1127,12 +1159,18 @@ def phase_tfm_vs_cpu(card):
             "update_rel_err_max_param": worst_name, "cpu_step_s": cpu_s}
 
 
+_FWD_MODE = re.compile(r"flash_fwd_kernel(?:<\d+, (\d)>|ILi\d+ELi(\d)E)")
+_FWD_GROUPS = {"0": "kernel 3 (flash_fwd)", "1": "kernel 5 (flash_fwd_lse)",
+               "2": "kernel 4 (flash_attention_stats)"}
+
+
 def _tfm_group(name: str) -> str:
     lname = name.lower()
     if "flash_fwd_kernel" in name:
-        # flash_fwd_kernel<D, WRITE_LSE>, demangled or not
-        lse = ", true>" in name or "ELb1E" in name
-        return "kernel 5 (flash_fwd_lse)" if lse else "kernel 3 (flash_fwd)"
+        # flash_fwd_kernel<D, MODE>, demangled or not
+        mode = _FWD_MODE.search(name)
+        check(mode is not None, "unknown flash forward kernel %s" % name)
+        return _FWD_GROUPS[mode.group(1) or mode.group(2)]
     if "flash_dq_kernel" in name:
         return "kernel 6 (flash_dq)"
     if "flash_dkv_kernel" in name:
@@ -1639,6 +1677,556 @@ def phase_training_profile(card, trainer, step_ms):
             "launches_by_group": {g: c // n for g, c in counts.items()}}
 
 
+# --------------------------------------------------------------------------
+STATS_TOL = 1e-5        # kernel 4 vs plain: m absolute; acc, l of max |value|
+# (B, H, Tq, Tk, D, causal): the ring's per-shard shapes at T 32,768 over
+# sp 8 (a full step, a diagonal step), then ragged and odd ones
+RING_STATS_SHAPES = [(1, 12, 4096, 4096, 64, False),
+                     (1, 12, 4096, 4096, 64, True),
+                     (2, 2, 77, 77, 32, False), (1, 3, 1000, 1000, 64, True),
+                     (1, 2, 128, 384, 128, False), (1, 1, 256, 128, 64, True),
+                     (2, 4, 128, 128, 16, True)]
+# the long-context configuration: gpt2-small's attention (12 heads of 64),
+# 32x its 1,024-token context, fp32, the sequence over sp = 8 entries of one
+# card
+LONG = dict(B=1, H=12, T=32768, D=64, sp=8, sp_full=4, sp_ulysses=4)
+RING_FWD_TOL = 2e-5     # ring vs one un-sharded flash attention, absolute
+RING_GRAD_TOL = 1e-4    # of the largest |gradient|
+COMPOSE_TOL = 1e-4      # a sharded composition vs its un-sharded form, of max
+
+
+def _stats_err(got, want):
+    """Kernel 4 vs plain: (acc of max |acc|, m absolute, l of max |l|);
+    equal infinities (a row that sees no key) count as no error."""
+    errs = []
+    for g, w, rel in zip(got, want, (True, False, True)):
+        d = torch.where(g == w, torch.zeros_like(g), (g - w).abs())
+        errs.append(d.max().item() / (w.abs().max().item() if rel else 1.0))
+    return errs
+
+
+def _stats_costs(B, H, Tq, Tk, D, causal):
+    """FLOPs and bytes of kernel 4: 4 D FLOP a visible pair; q, k, v read,
+    acc, m and l written, fp32."""
+    pairs = _visible_pairs(Tq, Tk, causal)
+    return (4.0 * pairs * D * B * H,
+            4.0 * B * H * (2 * Tq * D + 2 * Tk * D + 2 * Tq))
+
+
+def _sdpa_lse(q, k, v, causal, scale):
+    """The yardstick of kernel 4: PyTorch's memory-efficient attention
+    computing its output and log-sum-exp (the nearest call; not the same
+    outputs)."""
+    return torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, None, True, 0.0, causal, scale=scale)
+
+
+def phase_ring_kernels(card):
+    """Kernel 4 (the stats mode of ``flash_attn_fwd.cu``) against
+    ``flash_stats_plain`` at ``RING_STATS_SHAPES``, and kernel 10
+    (``zero_fill.cu``) against zeros over a NaN buffer; their times beside
+    the plain versions', the bound and the yardsticks.  Returns the two
+    ``kernels`` entries (``launches`` and the per-path sums come from phase
+    11)."""
+    from mxnet_tpu_torch.ops import hopper_attention as ha
+    from mxnet_tpu_torch.parallel import _compat
+    fp32_exact()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    worst = [0.0, 0.0, 0.0]
+    timed = {}
+    for shape in RING_STATS_SHAPES[2:] + RING_STATS_SHAPES[:2]:
+        B, H, Tq, Tk, D, causal = shape
+        r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa
+        q, k, v = r(B, H, Tq, D), r(B, H, Tk, D), r(B, H, Tk, D)
+        sc = 1.0 / math.sqrt(D)
+        got = ha.flash_attention_stats(q, k, v, causal, sc)
+        want = ha.flash_stats_plain(q, k, v, causal, sc)
+        torch.cuda.synchronize()
+        err = _stats_err(got, want)
+        print("[ring-kernels] kernel 4 B=%d H=%d Tq=%d Tk=%d D=%d %s: acc "
+              "%.3g (of max |acc|), m %.3g (abs), l %.3g (of max l); tol %g"
+              % (B, H, Tq, Tk, D, "causal" if causal else "non-causal",
+                 *err, STATS_TOL))
+        check(max(err) <= STATS_TOL, "kernel 4 disagrees with its plain "
+              "version at %s: %s > %g" % (shape, err, STATS_TOL))
+        worst = [max(a, b) for a, b in zip(worst, err)]
+        if shape in RING_STATS_SHAPES[:2]:
+            flops, nbytes = _stats_costs(*shape)
+            bound, by = _bound(flops, nbytes)
+            timed["diag" if causal else "full"] = {
+                "ms": time_ms(lambda: ha.flash_attention_stats(
+                    q, k, v, causal, sc)),
+                "plain_ms": time_ms(lambda: ha.flash_stats_plain(
+                    q, k, v, causal, sc)),
+                "library_ms": time_ms(lambda: _sdpa_lse(q, k, v, causal,
+                                                        sc)),
+                "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9}
+        del q, k, v, got, want
+    for mode, t in timed.items():
+        print("[ring-kernels] kernel 4 at B=1 H=12 T_loc=4096 D=64 %s: %.4f"
+              " ms (%.2f TFLOP/s), bound %.4f ms (%s), plain %.4f ms, "
+              "library %.4f ms (SDPA efficient attention with log-sum-exp:"
+              " nearest call, not the same outputs)"
+              % (mode, t["ms"], t["gflop"] / t["ms"], t["bound_ms"],
+                 t["bound_by"], t["plain_ms"], t["library_ms"]))
+    # kernel 10 over a NaN buffer of the probe's shape
+    buf = torch.full((8, 128), math.nan, device=dev)
+    _compat.zero_fill(buf)
+    torch.cuda.synchronize()
+    zf_err = buf.abs().max().item()
+    check(zf_err == 0.0, "kernel 10 left %r where zeros belong" % zf_err)
+    zf = {"ms": time_ms(lambda: _compat.zero_fill(buf)),
+          "plain_ms": time_ms(lambda: _compat.zero_fill_plain(buf)),
+          "library_ms": time_ms(lambda: buf.zero_())}
+    zf["bound_ms"], zf["bound_by"] = _bound(0.0, buf.numel() * 4.0)
+    print("[ring-kernels] kernel 10 (8, 128) fp32 over NaN: max |value| "
+          "after %g; %.4f ms, bound %.6f ms (bytes), plain fill_ %.4f ms, "
+          "library zero_ %.4f ms, on %s"
+          % (zf_err, zf["ms"], zf["bound_ms"], zf["plain_ms"],
+             zf["library_ms"], card))
+    k4 = {"name": "flash_attention_stats", "route": "cuda",
+          "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
+          "replaces": "mxnet_tpu/ops/pallas_attention.py:167",
+          "max_abs_err": max(worst),
+          "max_err_is": "acc and l of max |value|, m absolute",
+          "per_call": timed,
+          "library": "torch.ops.aten._scaled_dot_product_efficient_attention"
+                     " with log-sum-exp (nearest call, not the same outputs)"}
+    k10 = {"name": "zero_fill", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/zero_fill.cu",
+           "replaces": "mxnet_tpu/parallel/_compat.py:45",
+           "max_abs_err": zf_err, "library": "Tensor.zero_", **zf}
+    return k4, k10
+
+
+def _ring_counts(ha, compat):
+    return {"flash_attention_stats": ha.flash_stats_launches,
+            "flash_fwd": ha.flash_fwd_launches,
+            "flash_fwd_lse": ha.flash_fwd_lse_launches,
+            "flash_dq": ha.flash_dq_launches,
+            "flash_dkv": ha.flash_dkv_launches,
+            "zero_fill": compat.zero_fill_launches}
+
+
+def _zero_ring_counts(ha, compat):
+    _zero_attn_counts(ha)
+    ha.flash_stats_launches = 0
+    compat.zero_fill_launches = 0
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _ring_group(name: str) -> str:
+    if "flash_fwd_kernel" in name:
+        return _tfm_group(name)
+    if "flash_dq_kernel" in name:
+        return "kernel 6 (flash_dq)"
+    if "flash_dkv_kernel" in name:
+        return "kernel 7 (flash_dkv)"
+    if "zero_fill" in name:
+        return "kernel 10 (zero_fill)"
+    if "Memcpy" in name or "Memset" in name:
+        return "memcpy/memset"
+    return "merge, delta, accumulators (PyTorch elementwise)"
+
+
+def _max_err(pairs):
+    """Over (got, want) pairs: (max |got - want|, max |want|)."""
+    return (max((a - b).abs().max().item() for a, b in pairs),
+            max(b.abs().max().item() for _, b in pairs))
+
+
+def _long_context_kernel_checks(ha, q, k, v, g, sp, sp_ulysses):
+    """Kernels 5, 6 and 7 against their plain versions at the shapes and
+    with the inputs the long-context path gives them.  The ring's backward:
+    kernels 6 and 7 at the per-shard shape for the last Q shard (which sees
+    every K/V shard), fed the combined full-sequence ``lse`` and ``delta``
+    of that shard (taken here in dense fp32 over the keys it sees), for a
+    full step (K/V of shard 0) and the diagonal one.  Ulysses: kernels 5, 6
+    and 7 at one device's shape (``H / sp_ulysses`` heads over the whole
+    sequence), the plain versions taken head by head.  Returns each
+    kernel's worst error: out and lse absolute, gradients of max |value|."""
+    B, H, T, D = q.shape
+    L, idx, sc = T // sp, sp - 1, 1.0 / math.sqrt(D)
+    part = lambda t, i: t[:, :, i * L:(i + 1) * L].contiguous()  # noqa
+    qi, gi = part(q, idx), part(g, idx)
+    seen = (idx + 1) * L
+    vis = ((idx * L + torch.arange(L, device=q.device))[:, None]
+           >= torch.arange(seen, device=q.device)[None, :])
+    lse = torch.empty(B, H, L, device=q.device)
+    delta = torch.empty(B, H, L, device=q.device)
+    for h in range(H):
+        s = torch.matmul(qi[:, h], k[:, h, :seen].transpose(-1, -2)) * sc
+        s.masked_fill_(~vis, -math.inf)
+        lse[:, h] = torch.logsumexp(s, -1)
+        out_h = torch.matmul(torch.exp(s - lse[:, h, :, None]),
+                             v[:, h, :seen])
+        delta[:, h] = (gi[:, h] * out_h).sum(-1)
+        del s, out_h
+    errs = {"flash_dq": 0.0, "flash_dkv": 0.0}
+    for mode, src in (("full", 0), ("diag", idx)):
+        ks, vs, diag = part(k, src), part(v, src), mode == "diag"
+        own = ha.flash_fwd_plain(qi, ks, vs, diag, sc)[1]
+        gap = lse - own
+        args = (qi, ks, vs, gi, lse, delta, diag, sc)
+        got, want = ha.flash_bwd(*args), ha.flash_bwd_plain(*args)
+        torch.cuda.synchronize()
+        err = [_rel(a, b) for a, b in zip(got, want)]
+        print("[long-context] ring backward, Q shard %d, K/V shard %d (%s): "
+              "kernels 6 and 7 at B=%d H=%d T_loc=%d D=%d with the combined "
+              "lse (%.3g to %.3g above the step's own) vs plain: dq %.3g, dk "
+              "%.3g, dv %.3g (of max |value|, tol %g)"
+              % (idx, src, mode, B, H, L, D, gap.min().item(),
+                 gap.max().item(), *err, RING_GRAD_TOL))
+        check(gap.min().item() > 0, "the combined lse is not above the "
+              "step's own: the check would not test an outside lse")
+        check(max(err) <= RING_GRAD_TOL, "kernels 6/7 disagree with plain "
+              "on the ring's %s step: %s" % (mode, err))
+        errs["flash_dq"] = max(errs["flash_dq"], err[0])
+        errs["flash_dkv"] = max(errs["flash_dkv"], *err[1:])
+        del got, want, own, gap
+    del qi, gi, lse, delta, vis
+    # Ulysses: one device's heads over the whole sequence, causal
+    Hu = H // sp_ulysses
+    qu, ku, vu, gu = (t[:, :Hu].contiguous() for t in (q, k, v, g))
+    out5, lse5 = ha.flash_fwd_lse(qu, ku, vu, True, sc)
+    delta5 = (gu * out5).sum(-1)
+    grads = ha.flash_bwd(qu, ku, vu, gu, lse5, delta5, True, sc)
+    torch.cuda.synchronize()
+    fwd_pairs, bwd_pairs = [], [[], [], []]
+    for h in range(Hu):
+        one = lambda t: t[:, h:h + 1]  # noqa: E731
+        want_out, want_lse = ha.flash_fwd_plain(one(qu), one(ku), one(vu),
+                                                True, sc)
+        fwd_pairs.append(_max_err([(one(out5), want_out),
+                                   (one(lse5), want_lse)]))
+        del want_out, want_lse
+        want = ha.flash_bwd_plain(one(qu), one(ku), one(vu), one(gu),
+                                  one(lse5), one(delta5), True, sc)
+        for acc, got_g, want_g in zip(bwd_pairs, grads, want):
+            acc.append(_max_err([(one(got_g), want_g)]))
+        del want
+    fwd_err = max(d for d, _ in fwd_pairs)
+    bwd_err = [max(d for d, _ in acc) / max(w for _, w in acc)
+               for acc in bwd_pairs]
+    print("[long-context] Ulysses device: kernel 5 at B=%d H=%d T=%d D=%d "
+          "causal vs plain %.3g (out and lse, abs, tol %g); kernels 6 and 7 "
+          "dq %.3g, dk %.3g, dv %.3g (of max |value|, tol %g)"
+          % (B, Hu, T, D, fwd_err, RING_FWD_TOL, *bwd_err, RING_GRAD_TOL))
+    check(fwd_err <= RING_FWD_TOL, "kernel 5 disagrees with plain at "
+          "Ulysses' shape: %g" % fwd_err)
+    check(max(bwd_err) <= RING_GRAD_TOL, "kernels 6/7 disagree with plain at"
+          " Ulysses' shape: %s" % bwd_err)
+    errs["flash_fwd_lse"] = fwd_err
+    errs["flash_dq"] = max(errs["flash_dq"], bwd_err[0])
+    errs["flash_dkv"] = max(errs["flash_dkv"], *bwd_err[1:])
+    del qu, ku, vu, gu, out5, lse5, delta5, grads
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_long_context(card):
+    """Phase 11: ``models.long_context_attention`` at gpt2-small's attention
+    geometry and T 32,768 on ``make_mesh({"sp": 8}, [cuda:0] * 8)``, forward
+    and backward of ``sum(out * g)``: launch counts, agreement with one
+    un-sharded flash attention and with the scan arm, a non-causal ring and
+    Ulysses, kernels 5, 6 and 7 against plain at this path's shapes, times beside the un-sharded kernels and SDPA, and a profile.
+    Returns (launches of the main path, summary)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.models import long_context_attention
+    from mxnet_tpu_torch.ops import hopper_attention as ha
+    from mxnet_tpu_torch.parallel import _compat, make_mesh
+    from mxnet_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                         ulysses_attention)
+    fp32_exact()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    B, H, T, D, sp = (LONG[k] for k in ("B", "H", "T", "D", "sp"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    q, k, v, g = (torch.randn(B, H, T, D, device=dev, generator=gen)
+                  for _ in range(4))
+    mesh = make_mesh({"sp": sp}, devices=[dev] * sp)
+    n_pairs = sp * (sp + 1) // 2
+
+    # the main path, counted: the causal ring forward and backward
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    _zero_ring_counts(ha, _compat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = long_context_attention(qg, kg, vg, mesh, axis="sp")
+    grads = torch.autograd.grad(out, (qg, kg, vg), g)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _ring_counts(ha, _compat)
+    want = {"flash_attention_stats": n_pairs, "flash_fwd": 0,
+            "flash_fwd_lse": 0, "flash_dq": n_pairs, "flash_dkv": n_pairs,
+            "zero_fill": 1}
+    print("[long-context] B=%d H=%d T=%d D=%d causal fp32 over sp=%d (one "
+          "card): forward and backward ran %s launches (expected %s), "
+          "first call %.2f s" % (B, H, T, D, sp, launches, want, first_s))
+    check(launches == want, "the ring's launches %s, expected %s"
+          % (launches, want))
+
+    # one un-sharded flash attention over the whole sequence (kernels 5-7)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = ha.flash_attention(qr, kr, vr, causal=True)
+    ref_grads = torch.autograd.grad(ref, (qr, kr, vr), g)
+    fwd_err = (out - ref).abs().max().item()
+    grad_err = [_rel(a, b) for a, b in zip(grads, ref_grads)]
+    with torch.no_grad():
+        scan = ring_attention(q, k, v, mesh, axis="sp", causal=True,
+                              use_pallas=False)
+    scan_err = (out - scan).abs().max().item()
+    del scan
+    print("[long-context] ring vs un-sharded flash attention: out %.3g "
+          "(abs, tol %g), dq %.3g, dk %.3g, dv %.3g (of max |grad|, tol %g);"
+          " vs the scan arm on the card: out %.3g (abs, tol %g)"
+          % (fwd_err, RING_FWD_TOL, *grad_err, RING_GRAD_TOL, scan_err,
+             RING_FWD_TOL))
+    check(fwd_err <= RING_FWD_TOL and scan_err <= RING_FWD_TOL,
+          "the ring's output disagrees: %g, %g" % (fwd_err, scan_err))
+    check(max(grad_err) <= RING_GRAD_TOL, "the ring's gradients disagree: "
+          "%s" % grad_err)
+    check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
+          "non-finite ring output or gradient")
+    del grads, ref_grads, qr, kr, vr
+
+    # a non-causal ring at sp 4 against the un-sharded kernel 3
+    mesh4 = make_mesh({"sp": LONG["sp_full"]}, devices=[dev] * LONG["sp_full"])
+    with torch.no_grad():
+        before = ha.flash_stats_launches
+        full = long_context_attention(q, k, v, mesh4, causal=False)
+        full_launches = ha.flash_stats_launches - before
+        full_err = (full - ha.flash_attention(q, k, v)).abs().max().item()
+    print("[long-context] non-causal ring at sp=%d: %d launches of kernel 4 "
+          "(expected %d), vs un-sharded flash %.3g (tol %g)"
+          % (LONG["sp_full"], full_launches, LONG["sp_full"] ** 2, full_err,
+             RING_FWD_TOL))
+    check(full_launches == LONG["sp_full"] ** 2 and full_err <= RING_FWD_TOL,
+          "the non-causal ring failed: %d launches, error %g"
+          % (full_launches, full_err))
+    del full
+
+    # Ulysses at sp 4: 3 heads a device, forward and gradients
+    qu, ku, vu = (t.clone().requires_grad_() for t in (q, k, v))
+    uly = ulysses_attention(qu, ku, vu, mesh4, axis="sp", causal=True)
+    uly_grads = torch.autograd.grad(uly, (qu, ku, vu), g)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    ref_grads = torch.autograd.grad(ha.flash_attention(qr, kr, vr, True),
+                                    (qr, kr, vr), g)
+    uly_err = (uly - ref).abs().max().item()
+    uly_grad_err = max(_rel(a, b) for a, b in zip(uly_grads, ref_grads))
+    print("[long-context] Ulysses at sp=%d (%d heads a device): out %.3g, "
+          "grads %.3g of max" % (LONG["sp_ulysses"], H // LONG["sp_ulysses"],
+                                 uly_err, uly_grad_err))
+    check(uly_err <= RING_FWD_TOL and uly_grad_err <= RING_GRAD_TOL,
+          "Ulysses disagrees: %g, %g" % (uly_err, uly_grad_err))
+    del uly, uly_grads, ref_grads, qu, ku, vu, qr, kr, vr, out, ref
+    torch.cuda.empty_cache()
+
+    # kernels 5, 6 and 7 against plain at this path's shapes and inputs
+    kernel_errs = _long_context_kernel_checks(ha, q, k, v, g, sp,
+                                              LONG["sp_ulysses"])
+
+    # times: the ring, one un-sharded flash attention, SDPA (yardstick)
+    pairs = _visible_pairs(T, T, True)
+    fwd_flop, train_flop = 4.0 * pairs * D * B * H, 18.0 * pairs * D * B * H
+
+    def fwd_bwd(fn):
+        qt, kt, vt = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def run():
+            torch.autograd.grad(fn(qt, kt, vt), (qt, kt, vt), g)
+        return run
+
+    def ring(a, b, c):
+        return long_context_attention(a, b, c, mesh, axis="sp")
+
+    def sdpa(a, b, c):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(a, b, c, is_causal=True)
+
+    times = {}
+    for name, fn in (("ring", ring),
+                     ("flash", lambda a, b, c: ha.flash_attention(a, b, c,
+                                                                  True)),
+                     ("sdpa", sdpa)):
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: fn(q, k, v), iters=5, warmup=1)
+        train_ms = time_ms(fwd_bwd(fn), iters=3, warmup=1)
+        times[name] = {"fwd_ms": fwd_ms, "fwd_bwd_ms": train_ms,
+                       "fwd_tokens_per_s": B * T / fwd_ms * 1e3,
+                       "fwd_bwd_tokens_per_s": B * T / train_ms * 1e3,
+                       "fwd_tflops": fwd_flop / fwd_ms / 1e9,
+                       "fwd_bwd_tflops": train_flop / train_ms / 1e9}
+        print("[long-context] %-5s forward %.2f ms (%.0f tokens/s, %.2f "
+              "TFLOP/s), forward+backward %.2f ms (%.0f tokens/s, %.2f "
+              "TFLOP/s by the kernels' 18 D FLOP a visible pair)"
+              % (name, fwd_ms, times[name]["fwd_tokens_per_s"],
+                 times[name]["fwd_tflops"], train_ms,
+                 times[name]["fwd_bwd_tokens_per_s"],
+                 times[name]["fwd_bwd_tflops"]))
+    print("[long-context] sdpa is PyTorch's memory-efficient attention, the "
+          "yardstick only; bound at this shape: forward %.2f ms, forward and "
+          "backward %.2f ms (fp32 FLOPs / 67 TFLOP/s) on %s"
+          % (fwd_flop / PEAK_FP32 * 1e3, train_flop / PEAK_FP32 * 1e3, card))
+
+    # where a ring step's time goes
+    run = fwd_bwd(ring)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    groups, counts = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        grp = _ring_group(e.name)
+        groups[grp] = groups.get(grp, 0.0) + e.time_range.elapsed_us() / 1e3
+        counts[grp] = counts.get(grp, 0) + 1
+    device_ms = sum(groups.values())
+    check(device_ms > 0, "the profiler recorded no device time")
+    print("[long-context] one ring forward+backward under the profiler: "
+          "%.2f ms device busy" % device_ms)
+    for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print("[long-context]   %-48s %9.3f ms (%.1f%%), %5d launches"
+              % (grp, ms, 100.0 * ms / device_ms, counts[grp]))
+    merge = groups.get("merge, delta, accumulators (PyTorch elementwise)",
+                       0.0)
+    summary = {"shape": LONG, "launches": launches, "first_call_s": first_s,
+               "fwd_err": fwd_err, "grad_err": grad_err, "scan_err": scan_err,
+               "full_ring_launches": full_launches, "full_err": full_err,
+               "ulysses_err": [uly_err, uly_grad_err],
+               "kernel_checks": kernel_errs, "times": times,
+               "profile_ms": groups, "profile_launches": counts,
+               "merge_share": merge / device_ms}
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_compositions(card):
+    """Phase 12: the tensor-, expert- and pipeline-parallel compositions at
+    gpt2-small's width on meshes whose entries repeat cuda:0, each against
+    its un-sharded form on the card, with times."""
+    from mxnet_tpu_torch.models import (block_apply, get_config,
+                                        init_block_params,
+                                        moe_transformer_ffn,
+                                        pipeline_transformer)
+    from mxnet_tpu_torch.parallel import make_mesh, moe, tensor_parallel
+    fp32_exact()
+    dev = torch.device("cuda", 0)
+    cfg = get_config("gpt2-small")
+    d, f = cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    mesh4 = lambda axis: make_mesh({axis: 4}, devices=[dev] * 4)  # noqa
+    summary = {}
+
+    # tensor parallel: 768 -> 3072 -> 768 over tp 4, 8,192 tokens
+    x = r(8192, d)
+    w1, w2 = r(d, f) / math.sqrt(d), r(f, d) / math.sqrt(f)
+    with torch.no_grad():
+        got = tensor_parallel.mlp_block(x, w1, w2, mesh4("tp"))
+        want = torch.relu(x @ w1) @ w2
+        err = _rel(got, want)
+        t_tp = time_ms(lambda: tensor_parallel.mlp_block(x, w1, w2,
+                                                         mesh4("tp")), 5, 1)
+        t_one = time_ms(lambda: torch.relu(x @ w1) @ w2, 5, 1)
+    print("[compositions] mlp_block 768->3072->768, %d tokens, tp=4: %.3g "
+          "of max vs un-sharded (tol %g); %.3f ms vs %.3f ms un-sharded"
+          % (x.shape[0], err, COMPOSE_TOL, t_tp, t_one))
+    check(err <= COMPOSE_TOL, "mlp_block disagrees: %g" % err)
+    summary["mlp_block"] = {"err": err, "ms": t_tp, "unsharded_ms": t_one}
+
+    # expert parallel: 8 experts of 768 -> 3072, k 2, capacity 1.25, ep 4;
+    # each shard's capacity comes from its own 2,048 tokens, so the
+    # un-sharded form is the no-mesh layer on each shard's tokens
+    params = moe.init_moe_params(np.random.RandomState(SEED + 12), d, f,
+                                 8).to(dev)
+    x = r(4, 2048, d)
+    with torch.no_grad():
+        got = moe_transformer_ffn(x, params, mesh=mesh4("ep"), axis="ep")
+        want = torch.stack([moe_transformer_ffn(c, params) for c in x])
+        whole = moe_transformer_ffn(x, params)
+        err = _rel(got, want)
+        t_ep = time_ms(lambda: moe_transformer_ffn(x, params,
+                                                   mesh=mesh4("ep")), 5, 1)
+        t_one = time_ms(lambda: moe_transformer_ffn(x, params), 5, 1)
+        tokens = x.numel() // d
+        kept, routes = [], []
+        for xs in (x.reshape(-1, d), x[0]):
+            cap = int(np.ceil(1.25 * 2 * xs.shape[0] / 8))
+            w_, ids = moe.top_k_gating(xs @ params.wg, 2)
+            kept.append(int(moe._dispatch_mask(ids, w_, 8, cap)[0].sum()))
+            routes.append((2 * xs.shape[0], cap))
+    print("[compositions] moe_transformer_ffn 8 experts 768->3072, k=2, "
+          "capacity 1.25, %d tokens, ep=4: %.3g of max vs the no-mesh "
+          "layer on each shard's tokens (tol %g); the no-mesh layer over all "
+          "tokens differs by %.3g of max: it keeps %d of %d routes "
+          "(capacity %d), shard 0 keeps %d of %d (capacity %d); %.3f ms vs "
+          "%.3f ms no-mesh" % (tokens, err, COMPOSE_TOL, _rel(got, whole),
+                               kept[0], *routes[0], kept[1], *routes[1],
+                               t_ep, t_one))
+    check(err <= COMPOSE_TOL, "moe_transformer_ffn disagrees: %g" % err)
+    summary["moe"] = {"err": err, "vs_whole": _rel(got, whole),
+                      "routes_kept": kept, "ms": t_ep, "unsharded_ms": t_one}
+    del params, x, got, want, whole
+
+    # pipeline: 4 gpt2-small blocks over pp 4, batch 8 x 1024, 4 micro
+    rng = np.random.RandomState(SEED + 12)
+    blocks = [init_block_params(cfg, rng) for _ in range(4)]
+    stacked = {kk: torch.stack([b[kk] for b in blocks]).to(dev)
+               for kk in blocks[0]}
+    x = r(8, cfg.seq_len, d)
+
+    def sequential():
+        y = x
+        for s in range(4):
+            y = block_apply(cfg, {kk: vv[s] for kk, vv in stacked.items()}, y)
+        return y
+
+    with torch.no_grad():
+        got = pipeline_transformer(mesh4("pp"), "pp", cfg, stacked, x, 4)
+        want = sequential()
+        err = _rel(got, want)
+        t_pp = time_ms(lambda: pipeline_transformer(mesh4("pp"), "pp", cfg,
+                                                    stacked, x, 4), 3, 1)
+        t_one = time_ms(sequential, 3, 1)
+    print("[compositions] pipeline_transformer 4 gpt2-small blocks, pp=4, "
+          "batch 8 x %d, 4 microbatches: %.3g of max vs the blocks in "
+          "sequence (tol %g); %.3f ms vs %.3f ms in sequence, on %s"
+          % (cfg.seq_len, err, COMPOSE_TOL, t_pp, t_one, card))
+    check(err <= COMPOSE_TOL and bool(torch.isfinite(got).all()),
+          "pipeline_transformer disagrees: %g" % err)
+    summary["pipeline"] = {"err": err, "ms": t_pp, "sequential_ms": t_one}
+    del stacked, x, got, want
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _ring_entries(k4, k10, launches):
+    """Kernel 4's and 10's ``kernels`` entries: kernel 4's times summed over
+    the main path's launches (a causal ring forward at sp 8: 28 full steps
+    and 8 diagonal ones), kernel 10's for its one probe."""
+    n = LONG["sp"]
+    steps = {"full": n * (n - 1) // 2, "diag": n}
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        k4[key] = sum(k4["per_call"][m][key] * c for m, c in steps.items())
+    k4["bound_by"] = "operations" if all(
+        t["bound_by"] == "operations" for t in k4["per_call"].values()) \
+        else "bytes"
+    k4["launches"] = launches["flash_attention_stats"]
+    k4["calls_per_forward"] = steps
+    k10["launches"] = launches["zero_fill"]
+    return [k4, k10]
+
+
 def _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches):
     """The ``kernels`` line: times summed over one training step's calls
     at batch 32 (kernel 1: the 16 forwards and 16 dgrads; kernel 2: the 16
@@ -1698,6 +2286,7 @@ def main() -> int:
     wgrad, dgrad = phase_backward_kernels()
     lstm = phase_lstm_kernels()
     attn = phase_attn_kernels(card)
+    k4, k10 = phase_ring_kernels(card)
     serving_launches, served = phase_serving(card)
     served["profile"] = phase_profile(card)
     print("[serving] summary " + json.dumps(dict(served, card=card)))
@@ -1720,9 +2309,18 @@ def main() -> int:
     print("[tfm-training] summary " + json.dumps(dict(tfm, card=card)))
     for k in attn:
         k["launches"] = tfm_launches[k["name"]]
+    ring_launches, ring = phase_long_context(card)
+    for k in attn:
+        if k["name"] in ring["kernel_checks"]:
+            k["long_context_err"] = ring["kernel_checks"][k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], k["long_context_err"])
+    print("[long-context] summary " + json.dumps(dict(ring, card=card)))
+    composed = phase_compositions(card)
+    print("[compositions] summary " + json.dumps(dict(composed, card=card)))
     print("[done] all phases passed in %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": _kernel_entries(
-        fwd, wgrad, dgrad, launches, serving_launches) + lstm + attn}))
+        fwd, wgrad, dgrad, launches, serving_launches) + lstm + attn
+        + _ring_entries(k4, k10, ring_launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,10 @@ recurrence runs forward and backward on two more hand-written kernels.
 Slice 4 trains the decoder-only transformer LM (``models.transformer_lm``)
 through ``mod.Module`` and its fused step (``fused_step``), fed by
 ``io.SyntheticLMIter``, with flash attention forward and backward on four
-more hand-written kernels.
+more hand-written kernels.  Slice 5 adds ``parallel``: a single-controller
+device mesh with its collectives, and on it ring and Ulysses attention
+(``models.long_context_attention``; the ring's per-shard pass is kernel 4,
+its branch probe kernel 10), tensor-, expert- and pipeline-parallel blocks.
 """
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -31,10 +34,12 @@ from . import io
 from . import optimizer
 from . import module as mod
 from . import models
+from . import parallel
 from .fused import FusedTrainer
 from .predictor import Predictor
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "nd", "sym", "name", "random", "initializer", "init",
-           "gluon", "io", "optimizer", "mod", "models", "FusedTrainer",
+           "gluon", "io", "optimizer", "mod", "models", "parallel",
+           "FusedTrainer",
            "Predictor"]

@@ -1,23 +1,34 @@
-// Flash attention forward, for Hopper (sm_90a): kernels 3 and 5 of the port.
+// Flash attention forward, for Hopper (sm_90a): kernels 3, 4 and 5 of the port.
 //
-// Replaces two TPU kernels of mxnet_tpu/ops/pallas_attention.py, both over the online-softmax
+// Replaces three TPU kernels of mxnet_tpu/ops/pallas_attention.py, all over the online-softmax
 // loop _online_softmax_loop (pallas_attention.py:72-110):
-//   - _flash_fwd / _flash_kernel (:113, launched at :152), the forward that writes only out;
+//   - _flash_fwd / _flash_kernel (:113, launched at :152), the forward that writes only out
+//     (kernel 3, MODE_OUT);
+//   - flash_attention_stats / _flash_stats_kernel (:167, launched at :199), ring attention's
+//     per-shard pass, which writes the unnormalised accumulator acc and the running max m and
+//     sum l of every row, for an exact merge across shards outside the kernel (kernel 4,
+//     MODE_STATS);
 //   - _flash_fwd_lse (:238, launched at :254), the forward of the training step, which also
-//     writes lse = m + log(l) per row (+inf where l == 0, lse_of at :223) for the backward.
-// One template with a WRITE_LSE flag covers both.  For each (batch * head) and each query row:
+//     writes lse = m + log(l) per row (+inf where l == 0, lse_of at :223) for the backward
+//     (kernel 5, MODE_OUT_LSE).
+// One template with a MODE parameter covers all three; they differ only in the epilogue.  For
+// each (batch * head) and each query row:
 //
 //   s[j]  = scale * sum_d q[i, d] * k[j, d]          (-inf where masked: causal k > q, or j >= Tk)
-//   out_i = sum_j softmax(s)[j] * v[j, :]
+//   m_i   = max_j s[j],  l_i = sum_j exp(s[j] - m_i),  acc_i = sum_j exp(s[j] - m_i) * v[j, :]
+//   out_i = acc_i / max(l_i, 1e-37)
 //
-// with q (BH, Tq, D), k and v (BH, Tk, D), out (BH, Tq, D) and lse (BH, Tq), all fp32 and
-// contiguous.  The causal mask is q_pos >= k_pos, aligned at the top left as the reference's.
+// with q (BH, Tq, D), k and v (BH, Tk, D), out or acc (BH, Tq, D), lse, m and l (BH, Tq), all
+// fp32 and contiguous.  The causal mask is q_pos >= k_pos, aligned at the top left as the
+// reference's.  A row that sees no key gives m = -inf, l = 0 and acc = 0 (the reference's
+// kernel_skip values, so that merging it changes nothing).
 //
 // Numerics: fp32 FMA on the CUDA cores (no TF32), expf/logf; the running max and sum follow
 // the reference's guards (m_safe, alpha: pallas_attention.py:99-103), so that a row masked in
-// a whole tile never makes exp(-inf - (-inf)).  The output is acc / max(l, 1e-37).  Against
-// the plain PyTorch version (flash_fwd_plain in ops/hopper_attention.py, a dense softmax) only
-// the order of the sums differs; chip_smoke.py holds both outputs within 1e-5 absolute.
+// a whole tile never makes exp(-inf - (-inf)).  Against the plain PyTorch versions
+// (flash_fwd_plain and flash_stats_plain in ops/hopper_attention.py, dense softmaxes) only the
+// order of the sums differs; chip_smoke.py holds out, lse, m and l within 1e-5 absolute and
+// acc within 1e-5 of its largest |value|.
 //
 // Design.  The TPU kernel keeps all of K and V resident in VMEM for one (b*h) program and
 // walks the K blocks on the core.  Here K and V stream through shared memory:
@@ -37,11 +48,13 @@
 // D is a template parameter: 16, 32, 64 or 128.  Shared memory: (BQ + 2 BK)(D + 4) + BQ(BK + 4)
 // floats, 68 KB at D = 64 (three blocks a SM) and 116 KB at D = 128.
 //
-// Bound at the slice's shape (B = 16, H = 12, T = 1024, D = 64, causal): 2 T^2 D FLOP per
-// (b, h) with the masked half skipped, 25.8 GFLOP a call, 0.385 ms at 67 TFLOP/s fp32; 201 MB
-// of q, k, v and out, 0.06 ms at 3.35 TB/s.  So it is bound by operations.  This design
-// loads K and V synchronously (other resident blocks hide the wait) and spends a shared
-// load for each 8 FMAs; a later design would use tensor cores (TF32 or bf16 wgmma).
+// Bound at gpt2-small's training shape (B = 16, H = 12, T = 1024, D = 64, causal): 2 T^2 D
+// FLOP per (b, h) with the masked half skipped, 25.8 GFLOP a call, 0.385 ms at 67 TFLOP/s
+// fp32; 201 MB of q, k, v and out, 0.06 ms at 3.35 TB/s.  Kernel 4 at a ring step of the long
+// context (B = 1, H = 12, T_loc = 4096, D = 64, unmasked): 51.5 GFLOP, 0.77 ms; 50 MB,
+// 0.015 ms.  So all three are bound by operations.  This design loads K and V synchronously
+// (other resident blocks hide the wait) and spends a shared load for each 8 FMAs; a later
+// design would use tensor cores (TF32 or bf16 wgmma).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,6 +64,11 @@ namespace {
 constexpr int BQ = 64;    // query rows per block
 constexpr int BK = 64;    // key rows per tile
 constexpr int NT = 256;   // threads per block: 16 x 16
+
+// What the epilogue writes: out (kernel 3), out and lse (kernel 5), or acc, m and l (kernel 4).
+constexpr int MODE_OUT = 0;
+constexpr int MODE_OUT_LSE = 1;
+constexpr int MODE_STATS = 2;
 
 // The D / 16 output columns of thread tx: groups of CW contiguous columns, tx * CW + 16 CW g + c.
 template <int D>
@@ -115,12 +133,15 @@ constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + 4) + (size_t)BQ * (BK + 4));
 }
 
-template <int D, bool WRITE_LSE>
+// out: the output (MODE_OUT, MODE_OUT_LSE) or acc (MODE_STATS); lse: lse (MODE_OUT_LSE) or m
+// (MODE_STATS); lsum: l (MODE_STATS).  Pointers a mode does not write may be null.
+template <int D, int MODE>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const float* __restrict__ q,
                                                        const float* __restrict__ k,
                                                        const float* __restrict__ v,
                                                        float* __restrict__ out,
-                                                       float* __restrict__ lse, int Tq, int Tk,
+                                                       float* __restrict__ lse,
+                                                       float* __restrict__ lsum, int Tq, int Tk,
                                                        float scale, int causal) {
   using C = OutCols<D>;
   constexpr int SD = D + 4, SP = BK + 4;
@@ -241,42 +262,62 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const float* __restrict__
     const float den = fmaxf(l[i], 1e-37f);
     float o[C::NC];
 #pragma unroll
-    for (int c = 0; c < C::NC; ++c) o[c] = acc[i][c] / den;
+    for (int c = 0; c < C::NC; ++c) o[c] = MODE == MODE_STATS ? acc[i][c] : acc[i][c] / den;
     float* og = out + ((size_t)bh * Tq + r) * D;
 #pragma unroll
     for (int g = 0; g < C::NG; ++g) stv<C::CW>(og + C::col(tx, g), o + g * C::CW);
-    if (WRITE_LSE && tx == 0)
-      lse[(size_t)bh * Tq + r] = l[i] > 0.f ? m[i] + logf(den) : INFINITY;
+    if (tx != 0) continue;
+    if (MODE == MODE_OUT_LSE) lse[(size_t)bh * Tq + r] = l[i] > 0.f ? m[i] + logf(den) : INFINITY;
+    if (MODE == MODE_STATS) {
+      lse[(size_t)bh * Tq + r] = m[i];
+      lsum[(size_t)bh * Tq + r] = l[i];
+    }
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* out, float* lse, int BH,
-           int Tq, int Tk, float scale, int causal, int write_lse, cudaStream_t stream) {
+template <int D, int MODE>
+int launch_mode(const float* q, const float* k, const float* v, float* out, float* lse,
+                float* lsum, int BH, int Tq, int Tk, float scale, int causal,
+                cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes<D>();
-  const void* kern = write_lse ? (const void*)flash_fwd_kernel<D, true>
-                               : (const void*)flash_fwd_kernel<D, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute((const void*)flash_fwd_kernel<D, MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(BH, (Tq + BQ - 1) / BQ);
-  if (write_lse)
-    flash_fwd_kernel<D, true><<<grid, NT, smem, stream>>>(q, k, v, out, lse, Tq, Tk, scale, causal);
-  else
-    flash_fwd_kernel<D, false><<<grid, NT, smem, stream>>>(q, k, v, out, lse, Tq, Tk, scale, causal);
+  flash_fwd_kernel<D, MODE><<<grid, NT, smem, stream>>>(q, k, v, out, lse, lsum, Tq, Tk, scale,
+                                                        causal);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* out, float* lse, float* lsum,
+           int BH, int Tq, int Tk, float scale, int causal, int mode, cudaStream_t stream) {
+  switch (mode) {
+    case MODE_OUT:
+      return launch_mode<D, MODE_OUT>(q, k, v, out, lse, lsum, BH, Tq, Tk, scale, causal, stream);
+    case MODE_OUT_LSE:
+      return launch_mode<D, MODE_OUT_LSE>(q, k, v, out, lse, lsum, BH, Tq, Tk, scale, causal,
+                                          stream);
+    case MODE_STATS:
+      return launch_mode<D, MODE_STATS>(q, k, v, out, lse, lsum, BH, Tq, Tk, scale, causal,
+                                        stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  q (BH, Tq, D), k and v (BH, Tk, D), out (BH, Tq, D),
-// lse (BH, Tq) (written only when write_lse, kernel 5; else kernel 3 and lse may be null), all
-// fp32, contiguous, 16-byte aligned, on `device`.  Launches one kernel on `stream` and sets
-// *launched to 1 when it did.  Returns 0, or the CUDA error: cudaErrorInvalidValue for an
-// empty shape, a grid too tall, or a D other than 16, 32, 64 and 128.
+// lse and lsum (BH, Tq), all fp32, contiguous, 16-byte aligned, on `device`.  mode 0 (kernel 3)
+// writes out; mode 1 (kernel 5) out and lse; mode 2 (kernel 4) the unnormalised acc into out,
+// m into lse and l into lsum.  A pointer the mode does not write may be null.  Launches one
+// kernel on `stream` and sets *launched to 1 when it did.  Returns 0, or the CUDA error:
+// cudaErrorInvalidValue for an empty shape, a grid too tall, an unknown mode, or a D other
+// than 16, 32, 64 and 128.
 extern "C" int mxtt_flash_attn_fwd(const float* q, const float* k, const float* v, float* out,
-                                   float* lse, int BH, int Tq, int Tk, int D, float scale,
-                                   int causal, int write_lse, int device, void* stream,
+                                   float* lse, float* lsum, int BH, int Tq, int Tk, int D,
+                                   float scale, int causal, int mode, int device, void* stream,
                                    int* launched) {
   *launched = 0;
   cudaError_t err = cudaSetDevice(device);
@@ -286,10 +327,10 @@ extern "C" int mxtt_flash_attn_fwd(const float* q, const float* k, const float* 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   switch (D) {
-    case 16: rc = launch<16>(q, k, v, out, lse, BH, Tq, Tk, scale, causal, write_lse, s); break;
-    case 32: rc = launch<32>(q, k, v, out, lse, BH, Tq, Tk, scale, causal, write_lse, s); break;
-    case 64: rc = launch<64>(q, k, v, out, lse, BH, Tq, Tk, scale, causal, write_lse, s); break;
-    case 128: rc = launch<128>(q, k, v, out, lse, BH, Tq, Tk, scale, causal, write_lse, s); break;
+    case 16: rc = launch<16>(q, k, v, out, lse, lsum, BH, Tq, Tk, scale, causal, mode, s); break;
+    case 32: rc = launch<32>(q, k, v, out, lse, lsum, BH, Tq, Tk, scale, causal, mode, s); break;
+    case 64: rc = launch<64>(q, k, v, out, lse, lsum, BH, Tq, Tk, scale, causal, mode, s); break;
+    case 128: rc = launch<128>(q, k, v, out, lse, lsum, BH, Tq, Tk, scale, causal, mode, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (rc == 0) *launched = 1;

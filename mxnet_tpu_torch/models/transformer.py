@@ -9,13 +9,16 @@ implementations:
   LayerNorm, an untied LM head and ``make_loss(mean(streaming CE))``.  The
   parameter names and the graph's JSON are the reference's;
 * the functional block, :func:`init_block_params` / :func:`block_apply`:
-  the same block on tensors, through the same registered op functions.
-
-The reference's parallel compositions (``long_context_attention``,
-``moe_transformer_ffn``, ``pipeline_transformer``) need the port's
-multi-device layer and are not here yet.
+  the same block on tensors, through the same registered op functions,
+  and what the parallel layer (``mxnet_tpu_torch.parallel``) composes:
+  :func:`long_context_attention` shards the sequence over a mesh ``sp``
+  axis with ring attention, :func:`moe_transformer_ffn` swaps the dense FFN
+  for the expert-parallel MoE layer, and :func:`pipeline_transformer` runs
+  blocks as GPipe stages.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,7 +28,8 @@ from ..ops.registry import OPS
 from .configs import TransformerConfig
 
 __all__ = ["transformer_lm", "transformer_block", "init_block_params",
-           "block_apply"]
+           "block_apply", "long_context_attention", "moe_transformer_ffn",
+           "pipeline_transformer"]
 
 
 # ---------------------------------------------------------------------------
@@ -133,3 +137,41 @@ def block_apply(cfg: TransformerConfig, params, x):
     h = F.gelu(h, approximate="none")
     h = F.linear(h, params["down_weight"], params["down_bias"])
     return x + h
+
+
+# ---------------------------------------------------------------------------
+# Parallel composition
+# ---------------------------------------------------------------------------
+def long_context_attention(q, k, v, mesh, axis: str = "sp",
+                           causal: bool = True, block_size: int = 512,
+                           scale: Optional[float] = None):
+    """Sequence-parallel exact attention for contexts too long for one
+    device: ``parallel.ring_attention`` over the mesh ``axis``, K/V blocks
+    going round the ring while each device keeps its Q block.  ``[B, H, T,
+    D]`` in and out."""
+    from ..parallel.ring_attention import ring_attention
+    return ring_attention(q, k, v, mesh, axis=axis, causal=causal,
+                          block_size=block_size, scale=scale)
+
+
+def moe_transformer_ffn(x, moe_params, mesh=None, axis: str = "ep",
+                        k: int = 2, capacity_factor: float = 1.25):
+    """The MoE FFN in place of the dense FFN half of :func:`block_apply`
+    (the caller keeps the pre-norm and the residual): tokens of any leading
+    shape, experts over the mesh ``axis``, exact gelu as the dense path."""
+    from ..parallel.moe import moe_ffn
+    out = moe_ffn(x.reshape(-1, x.shape[-1]), moe_params, mesh=mesh,
+                  axis=axis, k=k, capacity_factor=capacity_factor,
+                  act=lambda a: F.gelu(a, approximate="none"))
+    return out.reshape(x.shape)
+
+
+def pipeline_transformer(mesh, axis: str, cfg: TransformerConfig,
+                         stage_params, x, n_micro: int):
+    """Transformer blocks as GPipe stages over ``mesh[axis]``, one block a
+    stage: ``stage_params`` is a dict of ``(S, ...)`` tensors with
+    :func:`init_block_params`'s names; ``x`` is ``(B, T, d_model)``."""
+    from ..parallel.pipeline import pipeline_apply
+    return pipeline_apply(mesh, axis,
+                          lambda params, xb: block_apply(cfg, params, xb),
+                          stage_params, x, n_micro)

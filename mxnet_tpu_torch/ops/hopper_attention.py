@@ -15,22 +15,31 @@ of the same name (``pallas_attention.py:419-443``):
 - otherwise it calls :func:`flash_fwd` (kernel 3, ``_flash_fwd``), which
   writes no ``lse``.
 
+:func:`flash_attention_stats` (kernel 4, ``flash_attention_stats``,
+``pallas_attention.py:184-220``) is ring attention's per-shard pass: the
+same loop, returning the unnormalised accumulator ``acc`` and the running
+max ``m`` and sum ``l`` of every row, which ``parallel/ring_attention.py``
+merges across shards; :func:`lse_of` turns ``(m, l)`` into the ``lse`` of
+the backward.
+
 The choice is made before ``apply``: inside ``Function.forward`` grad mode
-is off.  The kernels live in ``csrc/flash_attn_fwd.cu`` (3 and 5, one
-template) and ``csrc/flash_attn_bwd.cu`` (6 and 7).  For CUDA tensors the
+is off.  The kernels live in ``csrc/flash_attn_fwd.cu`` (3, 4 and 5, one
+template with three epilogues) and ``csrc/flash_attn_bwd.cu`` (6 and 7).  For CUDA tensors the
 wrappers launch them and raise if they cannot (fp32 only, ``D`` in
 :data:`SUPPORTED_D`); for tensors on the CPU, or ``meta`` tensors during
-shape inference, they run :func:`flash_fwd_plain` and
-:func:`flash_bwd_plain`, dense fp32 PyTorch with the same mask and the same
-``lse`` rule.  There is no fallback from one to the other, and none of the
+shape inference, they run :func:`flash_fwd_plain`, :func:`flash_stats_plain`
+and :func:`flash_bwd_plain`, dense fp32 PyTorch with the same mask and the
+same ``lse`` rule.  There is no fallback from one to the other, and none of the
 reference's TPU gates (``Tk >= 2048``, the 5 MB K/V envelope, ``Tk % 128``,
 ``MXNET_TPU_FLASH_ATTENTION``/``MXNET_TPU_PALLAS_ATTN``) applies: any
 ``Tq, Tk >= 1`` is taken.  ``lse`` is a plain ``(B, H, Tq)`` fp32 array; the
-reference's ``(..., 128)`` lane packing was a Mosaic layout detail.
+reference's ``(..., 128)`` lane packing was a Mosaic layout detail, and so
+are ``m`` and ``l``, ``(B, H, Tq)`` here where the reference replicates them
+over 128 lanes.
 
-``flash_fwd_launches``, ``flash_fwd_lse_launches``, ``flash_dq_launches``
-and ``flash_dkv_launches`` count kernel launches (kernels 3, 5, 6 and 7), as
-the CUDA entry points report them.
+``flash_fwd_launches``, ``flash_stats_launches``, ``flash_fwd_lse_launches``,
+``flash_dq_launches`` and ``flash_dkv_launches`` count kernel launches
+(kernels 3, 4, 5, 6 and 7), as the CUDA entry points report them.
 """
 from __future__ import annotations
 
@@ -43,12 +52,15 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_fwd", "flash_fwd_lse", "flash_bwd",
-           "flash_fwd_plain", "flash_bwd_plain", "flash_fwd_launches",
-           "flash_fwd_lse_launches", "flash_dq_launches", "flash_dkv_launches",
-           "SUPPORTED_D"]
+           "flash_attention_stats", "lse_of", "flash_fwd_plain",
+           "flash_stats_plain", "flash_bwd_plain", "flash_fwd_launches",
+           "flash_stats_launches", "flash_fwd_lse_launches",
+           "flash_dq_launches", "flash_dkv_launches", "SUPPORTED_D"]
 
 #: kernel 3 launches so far (CUDA arm of :func:`flash_fwd` only)
 flash_fwd_launches = 0
+#: kernel 4 launches so far (CUDA arm of :func:`flash_attention_stats` only)
+flash_stats_launches = 0
 #: kernel 5 launches so far (CUDA arm of :func:`flash_fwd_lse` only)
 flash_fwd_lse_launches = 0
 #: kernel 6 launches so far (dq, CUDA arm of :func:`flash_bwd` only)
@@ -60,6 +72,9 @@ _count_lock = threading.Lock()
 #: head dims the kernels are built for
 SUPPORTED_D = (16, 32, 64, 128)
 
+# the forward kernel's epilogues (MODE_* in csrc/flash_attn_fwd.cu)
+_OUT, _OUT_LSE, _STATS = 0, 1, 2
+
 _fns = {}
 
 
@@ -69,10 +84,20 @@ def _mask(Tq, Tk, device):
             >= torch.arange(Tk, device=device)[None, :])
 
 
-def flash_fwd_plain(q, k, v, causal, scale):
-    """Dense reference of kernels 3 and 5: q (B, H, Tq, D), k/v (B, H, Tk, D)
-    -> (out in q's dtype, lse (B, H, Tq) fp32), the softmax in fp32, ``lse``
-    +inf for a row that sees no key (``lse_of``, ``pallas_attention.py:223``)."""
+def lse_of(m, l):
+    """logsumexp from the online-softmax stats, ``+inf`` for a row that sees
+    no key, so that the backward's ``p = exp(s - lse)`` is 0 there
+    (``pallas_attention.py:223``)."""
+    return torch.where(l > 0, m + torch.log(l.clamp_min(1e-37)),
+                       torch.full_like(l, math.inf))
+
+
+def flash_stats_plain(q, k, v, causal, scale):
+    """Dense reference of kernel 4: q (B, H, Tq, D), k/v (B, H, Tk, D) ->
+    (acc (B, H, Tq, D), m, l (B, H, Tq)), all fp32: ``m`` the row max of the
+    masked scaled scores, ``p = exp(s - m)`` (``m`` taken as 0 where it is
+    -inf, the reference's ``m_safe``), ``l`` the row sum of ``p`` and ``acc
+    = p v``, not normalised.  A row that sees no key gives -inf, 0, 0."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
         s = s.masked_fill(~_mask(s.shape[-2], s.shape[-1], s.device),
@@ -80,12 +105,16 @@ def flash_fwd_plain(q, k, v, causal, scale):
     m = s.amax(dim=-1)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m_safe.unsqueeze(-1))
-    l = p.sum(dim=-1)
-    den = l.clamp_min(1e-37)
-    out = torch.matmul(p, v.float()) / den.unsqueeze(-1)
-    lse = torch.where(l > 0, m_safe + torch.log(den),
-                      torch.full_like(l, math.inf))
-    return out.to(q.dtype), lse
+    return torch.matmul(p, v.float()), m, p.sum(dim=-1)
+
+
+def flash_fwd_plain(q, k, v, causal, scale):
+    """Dense reference of kernels 3 and 5: q (B, H, Tq, D), k/v (B, H, Tk, D)
+    -> (out in q's dtype, lse (B, H, Tq) fp32), the softmax in fp32, ``lse``
+    +inf for a row that sees no key (:func:`lse_of`)."""
+    acc, m, l = flash_stats_plain(q, k, v, causal, scale)
+    out = acc / l.clamp_min(1e-37).unsqueeze(-1)
+    return out.to(q.dtype), lse_of(m, l)
 
 
 def flash_bwd_plain(q, k, v, do, lse, delta, causal, scale):
@@ -110,7 +139,7 @@ def _kernel(lib, name, n_ptrs):
     if fn is None:
         from .. import _build
         fn = getattr(_build.load(lib), name)
-        # pointers, BH, Tq, Tk, D, scale, causal, [write_lse,] device, stream,
+        # pointers, BH, Tq, Tk, D, scale, causal, [mode,] device, stream,
         # launched
         ints = 7 if name == "mxtt_flash_attn_fwd" else 6
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
@@ -156,29 +185,37 @@ def _call(fn, ptrs, B, H, Tq, Tk, D, scale, flags, dev):
     return err, launched.value
 
 
-def _fwd_cuda(q, k, v, causal, scale, write_lse):
-    global flash_fwd_launches, flash_fwd_lse_launches
-    name = "flash_fwd_lse" if write_lse else "flash_fwd"
+def _fwd_cuda(q, k, v, causal, scale, mode):
+    """Kernel 3, 5 or 4 by ``mode``: (out,), (out, lse) or (acc, m, l)."""
+    global flash_fwd_launches, flash_stats_launches, flash_fwd_lse_launches
+    name = ("flash_fwd", "flash_fwd_lse", "flash_attention_stats")[mode]
     B, H, Tq, Tk, D = _check_cuda(name, q, k, (q, k, v))
     if tuple(v.shape) != tuple(k.shape) or tuple(k.shape[:2]) != (B, H) \
             or k.shape[3] != D:
         raise MXNetError("%s: shapes q %s k %s v %s do not form an attention"
                          % (name, tuple(q.shape), tuple(k.shape),
                             tuple(v.shape)))
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) \
-        if write_lse else None
-    err, n = _call(_kernel("flash_attn_fwd", "mxtt_flash_attn_fwd", 5),
-                   (q, k, v, out, lse), B, H, Tq, Tk, D, scale,
-                   (int(bool(causal)), int(write_lse)), q.device)
+    rows = dict(dtype=torch.float32, device=q.device)
+    outs = (torch.empty_like(q),)
+    if mode == _OUT_LSE:
+        outs += (torch.empty((B, H, Tq), **rows),)
+    elif mode == _STATS:
+        outs += (torch.empty((B, H, Tq), **rows),
+                 torch.empty((B, H, Tq), **rows))
+    ptrs = outs + (None,) * (3 - len(outs))
+    err, n = _call(_kernel("flash_attn_fwd", "mxtt_flash_attn_fwd", 6),
+                   (q, k, v) + ptrs, B, H, Tq, Tk, D, scale,
+                   (int(bool(causal)), mode), q.device)
     with _count_lock:
-        if write_lse:
+        if mode == _OUT:
+            flash_fwd_launches += n
+        elif mode == _OUT_LSE:
             flash_fwd_lse_launches += n
         else:
-            flash_fwd_launches += n
+            flash_stats_launches += n
     if err != 0:
         raise MXNetError("%s launch failed: CUDA error %d" % (name, err))
-    return out, lse
+    return outs
 
 
 def _bwd_cuda(q, k, v, do, lse, delta, causal, scale):
@@ -228,7 +265,7 @@ def flash_fwd(q, k, v, causal, scale):
     plain version on the CPU or ``meta``)."""
     if _plain_device(q, "flash_fwd"):
         return flash_fwd_plain(q, k, v, causal, scale)[0]
-    return _fwd_cuda(q, k, v, causal, scale, write_lse=False)[0]
+    return _fwd_cuda(q, k, v, causal, scale, _OUT)[0]
 
 
 def flash_fwd_lse(q, k, v, causal, scale):
@@ -236,7 +273,19 @@ def flash_fwd_lse(q, k, v, causal, scale):
     plain version on the CPU or ``meta``)."""
     if _plain_device(q, "flash_fwd_lse"):
         return flash_fwd_plain(q, k, v, causal, scale)
-    return _fwd_cuda(q, k, v, causal, scale, write_lse=True)
+    return _fwd_cuda(q, k, v, causal, scale, _OUT_LSE)
+
+
+def flash_attention_stats(q, k, v, causal, scale, block_q=512, block_k=512):
+    """(acc, m, l), all fp32, for ring attention's exact merge: ``acc``
+    ``[B, H, Tq, D]`` not normalised, ``m`` and ``l`` ``[B, H, Tq]`` (kernel
+    4 for tensors on the card, the plain version on the CPU or ``meta``).
+    ``block_q`` and ``block_k`` are the reference's Pallas tiles, taken and
+    ignored: the kernel's tile is its own."""
+    del block_q, block_k
+    if _plain_device(q, "flash_attention_stats"):
+        return flash_stats_plain(q, k, v, causal, scale)
+    return _fwd_cuda(q, k, v, causal, scale, _STATS)
 
 
 def flash_bwd(q, k, v, do, lse, delta, causal, scale):

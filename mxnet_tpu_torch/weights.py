@@ -7,19 +7,24 @@ takes either form and places every array on a context, so both packages
 can be fed the same weights.  ``from_jax_block`` carries a reference Gluon
 block's parameters and auxiliary states into a port block of the same
 structure, by name, and ``from_jax_module`` a reference Module's into a port
-Module's.
+Module's.  ``from_jax_moe_params`` carries a reference ``MoEParams`` into the
+port's, and ``from_jax_stage_params`` a dict of stage-stacked ``(S, ...)``
+block parameters (``pipeline_transformer``'s), so that both packages' parallel
+compositions compute with the same weights.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from .base import MXNetError
 from .context import Context, current_context
 from .ndarray import ndarray as nd
 
-__all__ = ["from_jax_params", "from_jax_block", "from_jax_module"]
+__all__ = ["from_jax_params", "from_jax_block", "from_jax_module",
+           "from_jax_moe_params", "from_jax_stage_params"]
 
 
 def from_jax_params(params, ctx: Optional[Context] = None
@@ -104,3 +109,31 @@ def from_jax_module(jax_mod, ctx: Optional[Context] = None, mod=None):
     if mod is not None:
         mod.set_params(arg_params, aux_params)
     return arg_params, aux_params
+
+
+def _tensor(value, ctx: Context):
+    arr = np.asarray(value.asnumpy() if hasattr(value, "asnumpy") else value)
+    return torch.as_tensor(np.array(arr), device=ctx.torch_device)
+
+
+def from_jax_moe_params(params, ctx: Optional[Context] = None):
+    """The port's ``parallel.moe.MoEParams`` on ``ctx`` (default ``gpu(0)``)
+    from a reference ``MoEParams`` (``wg``, ``w1``, ``w2``)."""
+    from .parallel.moe import MoEParams
+    ctx = ctx or current_context()
+    return MoEParams(*(_tensor(getattr(params, n), ctx)
+                       for n in ("wg", "w1", "w2")))
+
+
+def from_jax_stage_params(params, ctx: Optional[Context] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """``{name: tensor}`` on ``ctx`` (default ``gpu(0)``) from a dict of
+    stage-stacked arrays, every one with the same leading stage count."""
+    ctx = ctx or current_context()
+    out = {k: _tensor(v, ctx) for k, v in dict(params).items()}
+    stages = {t.shape[0] for t in out.values() if t.dim() > 0}
+    if len(stages) != 1 or any(t.dim() == 0 for t in out.values()):
+        raise MXNetError("from_jax_stage_params: every array needs the same "
+                         "leading stage dim, got shapes %s"
+                         % {k: tuple(t.shape) for k, t in out.items()})
+    return out

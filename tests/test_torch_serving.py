@@ -221,6 +221,10 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                    "models/transformer.py", "symbol/symbol.py", "executor.py",
                    "io.py", "optimizer.py", "module/base_module.py",
                    "module/executor_group.py", "module/module.py",
-                   "fused_step.py", "initializer.py", "weights.py"):
+                   "fused_step.py", "initializer.py", "weights.py",
+                   "parallel/__init__.py", "parallel/mesh.py",
+                   "parallel/_compat.py", "parallel/ring_attention.py",
+                   "parallel/tensor_parallel.py", "parallel/moe.py",
+                   "parallel/pipeline.py"):
         assert os.path.join("mxnet_tpu_torch", module) in scanned
     assert len(files) > 10 and not bad
