@@ -130,6 +130,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (4 gpt2-small blocks, pp=4, batch 8 x 1024, 4 microbatches; against the
    blocks in sequence), with times.
 
+2f. rtc kernels (run after 2e): kernel 11, ``rtc.CudaModule``, compiles
+   user CUDA C with NVRTC (the reference's three test bodies — add-one,
+   a row scale over a grid of 4, a missing export that must raise — an
+   axpy and a bf16 template scale); each user kernel is launched once with
+   the counters zeroed just before and read just after, and held against
+   its PyTorch expression, fp32 to the bit, bf16 within one ulp; the
+   compile's seconds, and axpy's time at n = 2^26 beside its bound, the
+   plain expression and ``y.add_(x, alpha=a)`` (the yardstick).
+13. the Module path: bench.py's ``_multichip_run`` on one context,
+   ``resnet50_v1()`` on ``sym.var("data")`` then ``SoftmaxOutput``, batch
+   32, 224 px, 1,000 classes, fp32, ``Module(context=gpu(0))``,
+   ``Xavier(gaussian, 2)`` after ``random.seed(7)``, SGD lr 0.1 momentum
+   0.9 through ``kvstore='local'``, the batch from ``RandomState(3)``.  The
+   first fused step, with the counters zeroed just before it and read
+   after the last timed step (32 kernel-1 launches, 16 and 13 of kernel
+   2's passes a step, as phase 5), against the eager path
+   (``MXNET_TPU_FUSED_STEP=0``) and against the CPU: probabilities within
+   1e-4, each update within 1% of its norm and 5% for the 3x3 weights,
+   ``fc1``'s update non-zero; 2 warm-up and 10 timed steps give train
+   images/s, and two profiled steps the device time by group (as phase 6)
+   and the idle share.  Then ``fit`` for one epoch of 4 batches of an
+   ``NDArrayIter`` of 128 seeded images in a ``PrefetchingIter`` (acc and
+   ce, ``Speedometer``, ``do_checkpoint``), ``Module.load`` with the
+   optimizer states, ``score`` equal to the trained module's, and
+   ``predict`` of (128, 1000) rows summing to 1.
+
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
 cuDNN and for matmuls throughout, so every comparison is fp32 against fp32.
@@ -1622,20 +1648,20 @@ def _train_group(name: str) -> str:
     return "BN and elementwise"
 
 
-def phase_training_profile(card, trainer, step_ms):
-    """Where one training step's device time goes (torch.profiler): kernel
-    1 forward and dgrad told apart by order (a step's first 16 launches are
-    the forward).  The idle share is taken against ``step_ms``, the median
-    unprofiled step, since the profiler slows the host's dispatch."""
+def phase_training_profile(card, step, step_ms, tag="train-profile"):
+    """Where one training step's device time goes (torch.profiler), over
+    two calls of ``step``: kernel 1 forward and dgrad told apart by order
+    (a step's first 16 launches are the forward).  The idle share is taken
+    against ``step_ms``, the median unprofiled step, since the profiler
+    slows the host's dispatch."""
     from torch.profiler import ProfilerActivity, profile
-    ft, x, y = trainer
     n = 2
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            ft.step(x, y)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
     kernels = sorted((e for e in prof.events()
@@ -1661,13 +1687,13 @@ def phase_training_profile(card, trainer, step_ms):
     device_ms = sum(groups.values()) / n / 1e3
     check(device_ms > 0, "the profiler recorded no device time")
     idle = max(0.0, 1 - device_ms / step_ms)
-    print("[train-profile] one batch-%d step: %.2f ms device busy, %.2f ms "
-          "wall unprofiled (%.1f%% idle), %.2f ms wall profiled; %d "
-          "launches a step on %s" % (BATCH, device_ms, step_ms, 100 * idle,
-                                     wall_ms, len(kernels) // n, card))
+    print("[%s] one batch-%d step: %.2f ms device busy, %.2f ms wall "
+          "unprofiled (%.1f%% idle), %.2f ms wall profiled; %d launches a "
+          "step on %s" % (tag, BATCH, device_ms, step_ms, 100 * idle,
+                          wall_ms, len(kernels) // n, card))
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print("[train-profile]   %-36s %8.3f ms/step (%.1f%%), %4d launches"
-              % (g, us / n / 1e3, 100.0 * us / n / 1e3 / device_ms,
+        print("[%s]   %-36s %8.3f ms/step (%.1f%%), %4d launches"
+              % (tag, g, us / n / 1e3, 100.0 * us / n / 1e3 / device_ms,
                  counts[g] // n))
     return {"step_device_ms": device_ms, "idle_share": idle,
             "step_wall_ms_profiled": wall_ms,
@@ -2210,6 +2236,443 @@ def phase_compositions(card):
     return summary
 
 
+# --------------------------------------------------------------------------
+# kernel 11: user CUDA C compiled at run time (mx.rtc.CudaModule, NVRTC)
+RTC_AXPY_N = 1 << 26
+# the reference's three test bodies (tests/test_profiler_aux.py:121-146) in
+# CUDA, an axpy, and a template scale exported for bf16; fp32 without FMA
+# contraction, so each kernel is the same arithmetic as its plain expression
+RTC_SOURCE = r"""
+#include <cuda_bf16.h>
+extern "C" __global__ void add_one(const float *x, float *o, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = x[i] + 1.0f;
+}
+extern "C" __global__ void row_scale(const float *x, float *o, int cols) {
+  int row = blockIdx.x, c = threadIdx.x;
+  if (c < cols) o[row * cols + c] = x[row * cols + c] * 3.0f;
+}
+extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] += a * x[i];
+}
+template <typename T>
+__global__ void scale(const T *x, T *y, float s, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = T(float(x[i]) * s);
+}
+"""
+RTC_SIGS = {
+    "add_one": "const float *x, float *o, int n",
+    "row_scale": "const float *x, float *o, int cols",
+    "axpy": "const float *x, float *y, float a, int n",
+    "scale<__nv_bfloat16>": "const __nv_bfloat16 *x, __nv_bfloat16 *y, "
+                            "float s, int n",
+}
+
+
+def phase_rtc(card):
+    """Kernel 11: ``rtc.CudaModule`` compiles ``RTC_SOURCE`` with NVRTC
+    (``--fmad=false``), then the user path launches each kernel once with
+    the counters zeroed just before and read just after: add-one over
+    (8, 16), the row scale over a grid of 4 rows, axpy (a = 2.5) at n =
+    2^26, and the bf16 scale (s = 0.3) at 2^20; a kernel the module does
+    not export must raise.  Each result against its PyTorch expression:
+    fp32 to the bit, bf16 within one ulp.  axpy's time beside its bound,
+    the plain expression ``y + a * x`` and the yardstick
+    ``y.add_(x, alpha=a)`` (not called by the port).  Returns the
+    ``kernels`` entry."""
+    from mxnet_tpu_torch import MXNetError, gpu, rtc
+    fp32_exact()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(RTC_SOURCE, options=("--fmad=false",),
+                         exports=("scale<__nv_bfloat16>",))
+    compile_s = mod.compile_seconds
+    print("[rtc] NVRTC compiled %d kernels for %s in %.3f s (CudaModule "
+          "made in %.3f s); symbols %s"
+          % (len(RTC_SIGS), rtc.ARCH, compile_s, time.perf_counter() - t0,
+             sorted(mod.program.functions)))
+    ks = {name: mod.get_kernel(name, sig) for name, sig in RTC_SIGS.items()}
+    try:
+        mod.get_kernel("nope", "const float *x")
+        missing = None
+    except MXNetError as e:
+        missing = str(e)
+    check(missing is not None, "get_kernel of a missing export did not "
+          "raise")
+    print("[rtc] missing export raises: %s" % missing.splitlines()[0])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    ctx, n, nb, a, sc = gpu(0), RTC_AXPY_N, 1 << 20, 2.5, 0.3
+    x1, x4, xa, y0 = r(8, 16), r(4, 8), r(n), r(n)
+    xb = r(nb).to(torch.bfloat16)
+    o1, o4, ya, yb = (torch.empty_like(x1), torch.empty_like(x4),
+                      y0.clone(), torch.empty_like(xb))
+    # the user path, counted
+    for k in ks.values():
+        k.launches = 0
+    ks["add_one"].launch([x1, o1, x1.numel()], ctx, (1,), (128,))
+    ks["row_scale"].launch([x4, o4, 8], ctx, (4,), (8,))
+    ks["axpy"].launch([xa, ya, a, n], ctx, ((n + 255) // 256,), (256,))
+    ks["scale<__nv_bfloat16>"].launch([xb, yb, sc, nb], ctx,
+                                      ((nb + 255) // 256,), (256,))
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in ks.items()}
+    print("[rtc] launches on the user path: %s" % launches)
+    check(all(v == 1 for v in launches.values()),
+          "rtc launch counts %s, expected 1 each" % launches)
+    want_b = (xb.float() * sc).to(torch.bfloat16)
+    ulp = (torch.finfo(torch.bfloat16).eps * want_b.float().abs()) \
+        .clamp_min(torch.finfo(torch.bfloat16).tiny)
+    errs = {"add_one": (o1 - (x1 + 1.0)).abs().max().item(),
+            "row_scale": (o4 - x4 * 3.0).abs().max().item(),
+            "axpy": (ya - (y0 + a * xa)).abs().max().item(),
+            "scale<__nv_bfloat16>": (yb.float() - want_b.float()).abs()
+            .max().item()}
+    bf16_ulps = ((yb.float() - want_b.float()).abs() / ulp).max().item()
+    print("[rtc] max |kernel - plain|: %s; bf16 scale within %.3g ulp"
+          % (errs, bf16_ulps))
+    check(all(errs[k] == 0.0 for k in ("add_one", "row_scale", "axpy")),
+          "an fp32 user kernel differs from its plain expression: %s" % errs)
+    check(bf16_ulps <= 1.0, "the bf16 scale is %g ulp off" % bf16_ulps)
+    yk, yp, yl = y0.clone(), y0.clone(), y0.clone()
+    axpy = ks["axpy"]
+    t = {"ms": time_ms(lambda: axpy.launch([xa, yk, a, n], ctx,
+                                           ((n + 255) // 256,), (256,))),
+         "plain_ms": time_ms(lambda: torch.add(yp, a * xa, out=yp)),
+         "library_ms": time_ms(lambda: yl.add_(xa, alpha=a))}
+    t["bound_ms"], t["bound_by"] = _bound(2.0 * n, 3 * 4.0 * n)
+    print("[rtc] axpy n=2^26 fp32: %.4f ms (%.0f GB/s), bound %.4f ms (%s),"
+          " plain y + a*x %.4f ms, library y.add_(x, alpha=a) %.4f ms, on %s"
+          % (t["ms"], 12.0 * n / t["ms"] / 1e6, t["bound_ms"], t["bound_by"],
+             t["plain_ms"], t["library_ms"], card))
+    return {"name": "rtc_cuda_module", "route": "cuda",
+            "source": "mxnet_tpu_torch/rtc.py (NVRTC; the user's source, "
+                      "chip_smoke.py RTC_SOURCE)",
+            "replaces": "mxnet_tpu/rtc.py:117",
+            "launches": sum(launches.values()), "per_kernel": launches,
+            "max_abs_err": max(errs.values()), "bf16_ulps": bf16_ulps,
+            "nvrtc_compile_s": compile_s,
+            "timed": "axpy at n = 2^26 fp32", "library": "Tensor.add_",
+            **t}
+
+
+# --------------------------------------------------------------------------
+# the classic Module path: bench.py's _multichip_run (bench.py:307-340) on
+# one context
+R50MOD = dict(batch=32, classes=1000, lr=0.1, momentum=0.9, init_seed=7,
+              data_seed=3, fit_rows=128, fit_seed=5)
+R50MOD_UPDATE_TOL = 0.01      # first step vs the CPU: every update's norm
+R50MOD_3X3_TOL = 0.05         # ... and a 3x3 weight's (as phase 5), or one
+R50MOD_SPREAD = 0.005         # that moves by this share of its norm on the
+                              # card when the input is scaled by 1 + 1e-7
+R50MOD_ZERO_GRAD_TOL = 1e-5   # max |update| of a bias whose gradient is 0
+
+
+def r50_module(ctx, arg_params=None, aux_params=None):
+    """bench.py's ``_multichip_symbol("resnet50")`` through the port:
+    ``resnet50_v1()`` on ``sym.var("data")``, then ``SoftmaxOutput``, bound
+    at batch 32 x 3 x 224 x 224 on ``ctx``; ``Xavier(gaussian, 2)`` after
+    ``random.seed(7)`` (or the given weights); SGD lr 0.1 momentum 0.9
+    through ``kvstore='local'``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    with mx.name.NameManager():
+        out = vision.resnet50_v1(classes=R50MOD["classes"])(
+            mx.sym.var("data"))
+    net = mx.sym.SoftmaxOutput(out, mx.sym.var("softmax_label"),
+                               name="softmax")
+    mod = mx.mod.Module(net, data_names=("data",),
+                        label_names=("softmax_label",), context=[ctx])
+    B = R50MOD["batch"]
+    mod.bind(data_shapes=[("data", (B, 3, 224, 224))],
+             label_shapes=[("softmax_label", (B,))])
+    if arg_params is None:
+        mx.random.seed(R50MOD["init_seed"])
+        mod.init_params(mx.init.Xavier(rnd_type="gaussian", magnitude=2.0))
+    else:
+        mod.init_params(initializer=None, arg_params=arg_params,
+                        aux_params=aux_params)
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params={"learning_rate": R50MOD["lr"],
+                                         "momentum": R50MOD["momentum"]})
+    return mod
+
+
+def r50_batch(ctx):
+    """bench.py's batch (bench.py:319-322): ``RandomState(3)`` images in
+    U[0, 1) and class labels."""
+    import mxnet_tpu_torch as mx
+    B = R50MOD["batch"]
+    rs = np.random.RandomState(R50MOD["data_seed"])
+    x = rs.uniform(size=(B, 3, 224, 224)).astype(np.float32)
+    y = rs.randint(0, R50MOD["classes"], (B,)).astype(np.float32)
+    return mx.io.DataBatch([mx.nd.array(x, ctx)], [mx.nd.array(y, ctx)])
+
+
+def _host_params(mod):
+    arg, aux = mod.get_params()
+    return ({k: v.asnumpy() for k, v in arg.items()},
+            {k: v.asnumpy() for k, v in aux.items()})
+
+
+def _one_step(mod, batch):
+    mod.forward_backward(batch)
+    mod.update()
+    probs = mod.get_outputs()[0].asnumpy()
+    return probs, _host_params(mod)[0]
+
+
+def _biases_into_batchnorm(net):
+    """The biases of convolutions whose output goes only to a BatchNorm:
+    BatchNorm subtracts the batch mean, so their gradient is exactly zero
+    and a computed update is rounding residue."""
+    nodes = net._topo()
+    users = {}
+    for n in nodes:
+        for p, _ in n.inputs:
+            users.setdefault(id(p), []).append(n)
+    out = set()
+    for n in nodes:
+        if n.is_var or n.op.name != "Convolution" or len(n.inputs) < 3:
+            continue
+        if all(not u.is_var and u.op.name == "BatchNorm"
+               for u in users.get(id(n), [])):
+            out.add(n.inputs[2][0].name)
+    return out
+
+
+def _update_errs(got, want, w0):
+    """Each parameter's update against the reference update, in norm."""
+    out = {}
+    for k, w in w0.items():
+        ref = want[k] - w
+        out[k] = float(np.linalg.norm((got[k] - w) - ref)
+                       / max(np.linalg.norm(ref), 1e-30))
+    return out
+
+
+def phase_module(card):
+    """bench.py's ``_multichip_run`` on one context (``r50_module``): the
+    first fused step, counted, against the eager path
+    (``MXNET_TPU_FUSED_STEP=0``) on the card and against the CPU's (plain
+    versions), each update within 1% of its norm (5% for the 3x3
+    weights), ``fc1``'s (``dense0``) update non-zero; 2 warm-up and 10
+    timed steps give train images/s; then ``fit`` (1 epoch of 4 batches
+    of an ``NDArrayIter`` of 128 seeded images in a ``PrefetchingIter``,
+    acc and ce, ``Speedometer``, ``do_checkpoint``), ``Module.load`` with
+    the optimizer states, ``score`` equal to the trained module's and
+    ``predict`` of (128, 1000) rows summing to 1."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cpu, gpu
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    fp32_exact()
+    t_phase = time.perf_counter()
+    os.environ.pop("MXNET_CKPT_DIR", None)
+    mod = r50_module(gpu(0))
+    w0, a0 = _host_params(mod)
+    fc1 = "resnetv10_dense0_weight"
+    convs = {k for k, v in w0.items() if v.ndim == 4 and v.shape[2:] == (3, 3)}
+    zero_grad = _biases_into_batchnorm(mod.symbol)
+    check(len(w0) == 193 and len(convs) == 16 and fc1 in w0,
+          "resnet50_v1 symbol: %d parameters, %d 3x3 weights"
+          % (len(w0), len(convs)))
+    batch = r50_batch(gpu(0))
+
+    # the main path, counted: counts zeroed just before the first step,
+    # read after the last timed one
+    hc.launches = hc.wgrad_launches = hc.wgrad_reduce_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_gpu, w_gpu = _one_step(mod, batch)
+    first_s = time.perf_counter() - t0
+    times, losses = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            times.append(time.perf_counter() - t0)
+    out = mod.get_outputs()[0].asnumpy()
+    steps = 1 + WARMUP_STEPS + TIMED_STEPS
+    launches = {"implicit_gemm_conv": hc.launches,
+                "taps_wgrad": hc.wgrad_launches,
+                "taps_wgrad reduction": hc.wgrad_reduce_launches}
+    want = {"implicit_gemm_conv": 32, "taps_wgrad": 16,
+            "taps_wgrad reduction": wgrad_reductions_per_step()}
+    print("[module] %d fused steps ran %s launches (per step %s; expected "
+          "%s)" % (steps, launches, {k: v / steps for k, v in
+                                      launches.items()}, want))
+    check(all(launches[k] == want[k] * steps for k in want),
+          "Module launch counts %s over %d steps, expected %s per step"
+          % (launches, steps, want))
+    check(bool(np.isfinite(out).all()) and bool(np.isfinite(p_gpu).all()),
+          "non-finite Module outputs")
+    step_ms = float(np.median(times)) * 1e3
+    ips = R50MOD["batch"] / (step_ms / 1e3)
+    print("[module] resnet50_v1 -> SoftmaxOutput through Module, batch %d, "
+          "first step %.1f ms, then %d timed steps: median %.2f ms (min "
+          "%.2f, max %.2f), %.1f train images/s on %s"
+          % (R50MOD["batch"], first_s * 1e3, TIMED_STEPS, step_ms,
+             min(times) * 1e3, max(times) * 1e3, ips, card))
+
+    def _step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    profile = phase_training_profile(card, _step, step_ms, "module-profile")
+    del mod
+
+    # the conditioning floor: the same first step on the card from the
+    # input scaled by 1 + 1e-7
+    smod = r50_module(gpu(0), w0, a0)
+    xs = batch.data[0].asnumpy() * np.float32(1 + 1e-7)
+    _, w_spread = _one_step(smod, mx.io.DataBatch(
+        [mx.nd.array(xs, gpu(0))], batch.label))
+    del smod
+    spread = _update_errs(w_spread, w_gpu, w0)
+    loose = {k for k, v in spread.items()
+             if v >= R50MOD_SPREAD and k not in zero_grad} | convs
+    print("[module] the input scaled by 1 + 1e-7 moves %d updates by >= %g "
+          "of their norm (the 16 3x3 weights by %.3g-%.3g); those and the "
+          "3x3 weights are held at %g, the rest at %g"
+          % (len(loose - convs), R50MOD_SPREAD,
+             min(spread[k] for k in convs), max(spread[k] for k in convs),
+             R50MOD_3X3_TOL, R50MOD_UPDATE_TOL))
+
+    # the first step on the eager path (MXNET_TPU_FUSED_STEP=0) and on the
+    # CPU, from the same weights and batch
+    os.environ["MXNET_TPU_FUSED_STEP"] = "0"
+    try:
+        emod = r50_module(gpu(0), w0, a0)
+        p_eager, w_eager = _one_step(emod, batch)
+        check(not emod._fused_step.eligible(), "the eager Module took the "
+              "fused step")
+        del emod
+    finally:
+        os.environ.pop("MXNET_TPU_FUSED_STEP")
+    t0 = time.perf_counter()
+    cmod = r50_module(cpu(), w0, a0)
+    p_cpu, w_cpu = _one_step(cmod, r50_batch(cpu()))
+    cpu_s = time.perf_counter() - t0
+    del cmod
+    results = {}
+    for label, probs, w in (("eager", p_eager, w_eager),
+                            ("cpu", p_cpu, w_cpu)):
+        errs = _update_errs(w_gpu, w, w0)
+        name3 = max(loose, key=errs.get)
+        worst3 = errs[name3]
+        rest = [k for k in errs if k not in loose and k not in zero_grad]
+        name = max(rest, key=errs.get)
+        worst = errs[name]
+        residue = max(float(np.abs(ws[k] - w0[k]).max())
+                      for ws in (w_gpu, w) for k in zero_grad)
+        perr = float(np.abs(p_gpu - probs).max())
+        results[label] = {"prob_err": perr, "update_err_loose": worst3,
+                          "worst_loose": name3, "loose": len(loose),
+                          "loose_spread": spread[name3],
+                          "update_err_other": worst, "worst_other": name,
+                          "fc1_update_err": errs[fc1],
+                          "zero_grad_biases": len(zero_grad),
+                          "zero_grad_update_max": residue}
+        print("[module] first fused step vs %s: probabilities within %.3g "
+              "(tol %g); %d updates within %.3g of their norm, worst %s "
+              "(tol %g); %d within %.3g, worst %s (its own spread %.3g; tol "
+              "%g); fc1 %.3g; %d conv biases into BatchNorm (zero "
+              "gradient) moved by at most %.3g (tol %g)"
+              % (label, perr, PROB_TOL, len(rest), worst, name,
+                 R50MOD_UPDATE_TOL, len(loose), worst3, name3,
+                 spread[name3], R50MOD_3X3_TOL, errs[fc1], len(zero_grad),
+                 residue, R50MOD_ZERO_GRAD_TOL))
+        top = sorted(errs, key=errs.get, reverse=True)[:6]
+        print("[module]   largest vs %s: %s" % (label, ", ".join(
+            "%s %.3g (spread %.3g)" % (k, errs[k], spread[k]) for k in top)))
+        check(perr <= PROB_TOL, "first-step probabilities differ from the "
+              "%s's by %g" % (label, perr))
+        check(worst <= R50MOD_UPDATE_TOL and worst3 <= R50MOD_3X3_TOL
+              and residue <= R50MOD_ZERO_GRAD_TOL,
+              "first-step updates differ from the %s's: %s" % (label,
+                                                              results[label]))
+    fc1_move = float(np.abs(w_gpu[fc1] - w0[fc1]).max())
+    print("[module] fc1 (%s) moved by up to %.4g on the card, %.4g on the "
+          "CPU (CPU step %.1f s)" % (fc1, fc1_move,
+                                     float(np.abs(w_cpu[fc1] - w0[fc1]).max()),
+                                     cpu_s))
+    check(fc1_move > 1e-4, "fc1's update is %g: SoftmaxOutput's gradient "
+          "did not reach it" % fc1_move)
+
+    # fit -> Module.load -> score / predict
+    rs = np.random.RandomState(R50MOD["fit_seed"])
+    X = rs.uniform(size=(R50MOD["fit_rows"], 3, 224, 224)).astype(np.float32)
+    Y = rs.randint(0, R50MOD["classes"], R50MOD["fit_rows"]) \
+        .astype(np.float32)
+    it = mx.io.PrefetchingIter(
+        mx.io.NDArrayIter(X, Y, batch_size=R50MOD["batch"], ctx=cpu()),
+        device=gpu(0))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    prefix = os.path.join(tmp, "r50")
+    fmod = r50_module(gpu(0), w0, a0)
+    seen = []
+    t0 = time.perf_counter()
+    fmod.fit(it, num_epoch=1, eval_metric=["acc", "ce"],
+             optimizer_params={"learning_rate": R50MOD["lr"],
+                               "momentum": R50MOD["momentum"]},
+             batch_end_callback=[mx.callback.Speedometer(R50MOD["batch"], 2),
+                                 lambda p: seen.append(p.nbatch)],
+             epoch_end_callback=mx.callback.do_checkpoint(prefix))
+    fit_s = time.perf_counter() - t0
+    check(seen == [0, 1, 2, 3], "fit ran batches %s, expected 4" % seen)
+    fmod.save_checkpoint(prefix, 1, save_optimizer_states=True)
+    trained = fmod.score(it, ["acc", "ce"])
+    lmod = mx.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                              context=[gpu(0)])
+    B = R50MOD["batch"]
+    lmod.bind(data_shapes=[("data", (B, 3, 224, 224))],
+              label_shapes=[("softmax_label", (B,))])
+    lmod.init_optimizer(kvstore="local", optimizer="sgd",
+                        optimizer_params={"learning_rate": R50MOD["lr"],
+                                          "momentum": R50MOD["momentum"]})
+    slots = sorted(fmod._updater.states)
+    state_err = max(float(np.abs(fmod._updater.states[k].asnumpy()
+                                 - lmod._updater.state(
+                                     k, lmod._exec_group.param_arrays[k][0])
+                                 .asnumpy()).max()) for k in slots)
+    loaded = lmod.score(it, ["acc", "ce"])
+    preds = lmod.predict(it).asnumpy()
+    rows = float(np.abs(preds.sum(axis=1) - 1.0).max())
+    print("[module] fit: 1 epoch of %d batches in %.2f s; trained %s; "
+          "loaded %s (%d optimizer states within %.3g); predict %s, rows "
+          "sum to 1 within %.3g" % (len(seen), fit_s, trained, loaded,
+                                    len(slots), state_err, preds.shape,
+                                    rows))
+    check(len(slots) == 193 and state_err == 0.0,
+          "loaded optimizer states differ by %g" % state_err)
+    check(trained[0][0] == loaded[0][0] == "accuracy"
+          and trained[0][1] == loaded[0][1]
+          and abs(trained[1][1] - loaded[1][1]) <= 1e-5 * abs(trained[1][1]),
+          "the loaded Module scores %s, the trained one %s"
+          % (loaded, trained))
+    check(preds.shape == (R50MOD["fit_rows"], R50MOD["classes"])
+          and rows <= 1e-5, "predict gave %s with rows off 1 by %g"
+          % (preds.shape, rows))
+    it.close()
+    del fmod, lmod
+    torch.cuda.empty_cache()
+    return launches, {
+        "images_per_s": ips, "step_ms": step_ms,
+        "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
+        "first_step_ms": first_s * 1e3, "profile": profile, "vs": results,
+        "cpu_step_s": cpu_s,
+        "fc1_update_max": fc1_move, "fit_s": fit_s,
+        "score": [(n, float(v)) for n, v in trained],
+        "loaded_score": [(n, float(v)) for n, v in loaded],
+        "phase_s": time.perf_counter() - t_phase}
+
+
 def _ring_entries(k4, k10, launches):
     """Kernel 4's and 10's ``kernels`` entries: kernel 4's times summed over
     the main path's launches (a causal ring forward at sp 8: 28 full steps
@@ -2287,13 +2750,14 @@ def main() -> int:
     lstm = phase_lstm_kernels()
     attn = phase_attn_kernels(card)
     k4, k10 = phase_ring_kernels(card)
+    k11 = phase_rtc(card)
     serving_launches, served = phase_serving(card)
     served["profile"] = phase_profile(card)
     print("[serving] summary " + json.dumps(dict(served, card=card)))
-    launches, trained, trainer = phase_training(card)
-    trained["profile"] = phase_training_profile(card, trainer,
-                                                trained["step_ms"])
-    del trainer
+    launches, trained, (ft, x, y) = phase_training(card)
+    trained["profile"] = phase_training_profile(
+        card, lambda: ft.step(x, y), trained["step_ms"])
+    del ft, x, y
     print("[training] summary " + json.dumps(dict(trained, card=card)))
     lm_launches, lm, trainer = phase_lm_training(card)
     lm["profile"] = phase_lm_profile(card, trainer, lm["step_ms"])
@@ -2317,10 +2781,15 @@ def main() -> int:
     print("[long-context] summary " + json.dumps(dict(ring, card=card)))
     composed = phase_compositions(card)
     print("[compositions] summary " + json.dumps(dict(composed, card=card)))
+    mod_launches, moduled = phase_module(card)
+    print("[module] summary " + json.dumps(dict(moduled, card=card)))
     print("[done] all phases passed in %.1f s" % (time.perf_counter() - t0))
-    print(json.dumps({"kernels": _kernel_entries(
-        fwd, wgrad, dgrad, launches, serving_launches) + lstm + attn
-        + _ring_entries(k4, k10, ring_launches)}))
+    k1, k2 = _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches)
+    k1["module_launches"] = mod_launches["implicit_gemm_conv"]
+    k2["module_launches"] = (mod_launches["taps_wgrad"]
+                             + mod_launches["taps_wgrad reduction"])
+    print(json.dumps({"kernels": [k1, k2] + lstm + attn
+                      + _ring_entries(k4, k10, ring_launches) + [k11]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,12 @@ more hand-written kernels.  Slice 5 adds ``parallel``: a single-controller
 device mesh with its collectives, and on it ring and Ulysses attention
 (``models.long_context_attention``; the ring's per-shard pass is kernel 4,
 its branch probe kernel 10), tensor-, expert- and pipeline-parallel blocks.
+Slice 6 completes the classic Module API on one card: ``Module.fit``,
+``score`` and ``predict`` over several contexts, with every optimizer
+(``optimizer``, ``lr_scheduler``), ``metric``, ``callback``, the local
+``kvstore``, ``io.NDArrayIter``/``PrefetchingIter`` and ``model``
+checkpoints, and ``rtc.CudaModule``: user CUDA C compiled by NVRTC at run
+time, the counterpart of the reference's runtime Pallas kernels.
 """
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -32,6 +38,14 @@ from . import initializer as init
 from . import gluon
 from . import io
 from . import optimizer
+from . import lr_scheduler
+from . import metric
+from . import callback
+from . import kvstore
+from . import kvstore as kv
+from . import model
+from . import rtc
+from . import train_loop
 from . import module as mod
 from . import models
 from . import parallel
@@ -40,6 +54,9 @@ from .predictor import Predictor
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "nd", "sym", "name", "random", "initializer", "init",
-           "gluon", "io", "optimizer", "mod", "models", "parallel",
+           "gluon", "io", "optimizer", "lr_scheduler", "metric",
+           "callback", "kvstore", "kv", "model", "rtc", "train_loop", "mod",
+           "models",
+           "parallel",
            "FusedTrainer",
            "Predictor"]

@@ -15,8 +15,8 @@ before ``update`` replays it on the eager path (``flush_eager``).
 ``MXNET_TPU_FUSED_STEP`` (default on, read as the reference reads it)
 selects this path; with ``0`` the eager path (executor backward, then the
 updater one parameter at a time) trains instead, and is the oracle the
-tests hold this one to.  The mesh and multi-device arms wait for the
-port's multi-device layer.
+tests hold this one to.  A Module on several contexts trains on the eager
+path (the reference's mesh arm waits for the port's multi-device layer).
 """
 from __future__ import annotations
 
@@ -35,6 +35,14 @@ def enabled() -> bool:
     """The ``MXNET_TPU_FUSED_STEP`` gate; default on."""
     return os.environ.get(ENV_FLAG, "1").lower() not in \
         ("0", "false", "off", "")
+
+
+def _tensors(state):
+    """An updater state as the fused update takes it: None, a tensor, or a
+    tuple of tensors."""
+    if isinstance(state, (tuple, list)):
+        return tuple(_tensors(x) for x in state)
+    return None if state is None else state._data
 
 
 class ModuleFusedStep:
@@ -75,7 +83,8 @@ class ModuleFusedStep:
             ex = self._eg.execs[0]
             opt_ = self._mod._optimizer
             self._structural_ok = bool(
-                self._pnames and not self._eg.inputs_need_grad
+                self._pnames and len(self._eg.execs) == 1
+                and not self._eg.inputs_need_grad
                 and not self._has_add and all(opt_.supports_fused(ex.arg_dict[n])
                         for n in self._pnames))
         return self._structural_ok
@@ -86,7 +95,7 @@ class ModuleFusedStep:
         m = self._mod
         ex = self._eg.execs[0]
         batch, self._pending = self._pending, None
-        ex._feed(self._eg.feeds(batch))
+        ex._feed(self._eg.feeds(batch)[0])
         # the eligible structure makes the executor's gradient arguments
         # exactly the "write" parameters
         outs, new_aux, grads = ex._run_with_grads(
@@ -97,9 +106,9 @@ class ModuleFusedStep:
         ndev = len(m._context)
         indices = [m._optimizer.slot_index(m._param_names.index(n), ndev, 0)
                    for n in self._pnames]
-        states = [m._updater.state(i, w) for i, w in zip(indices, weights)]
-        m._optimizer.fused_update(
-            indices, [w._data for w in weights], grads,
-            [s._data if s is not None else None for s in states])
+        states = [_tensors(m._updater.state(i, w))
+                  for i, w in zip(indices, weights)]
+        m._optimizer.fused_update(indices, [w._data for w in weights],
+                                  grads, states)
         ex._writeback_aux(new_aux)
         ex.outputs = [NDArray(o) for o in outs]

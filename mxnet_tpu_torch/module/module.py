@@ -1,5 +1,5 @@
-"""Module: a Symbol bound on one context and trained with an optimizer
-(counterpart of ``mxnet_tpu/module/module.py``).
+"""Module: a Symbol bound on a list of contexts and trained with an
+optimizer (counterpart of ``mxnet_tpu/module/module.py``).
 
     mod = Module(transformer_lm(cfg), context=[gpu(0)])
     mod.bind(data_shapes=[("data", (B, T))],
@@ -13,22 +13,32 @@
         mod.update()
         loss = mod.get_outputs()[0]
 
-``forward_backward`` stages the batch and ``update`` runs the fused step
-(:class:`~mxnet_tpu_torch.fused_step.ModuleFusedStep`: forward, gradients
-and one foreach SGD update), unless ``MXNET_TPU_FUSED_STEP=0``, which takes
-the eager path: the executor's ``forward_backward`` fills ``grad_dict`` and
-the updater updates one parameter at a time.  ``kvstore`` is ``"local"`` or
-``None``: on one context the updater applies the update, as in the
-reference; other stores, ``fit``/``score``/``predict`` and checkpoints are
-not ported yet.
+or ``mod.fit(train_iter, num_epoch=..., ...)`` with ``score`` and
+``predict`` (:class:`~mxnet_tpu_torch.module.base_module.BaseModule`).
+
+On one context ``forward_backward`` stages the batch and ``update`` runs
+the fused step (:class:`~mxnet_tpu_torch.fused_step.ModuleFusedStep`:
+forward, gradients and one foreach update, for SGD, NAG, Adam and RMSProp),
+unless ``MXNET_TPU_FUSED_STEP=0`` or the optimizer has no fused update;
+then the executors' ``forward_backward`` fills ``grad_dict`` and ``update``
+pushes each parameter's gradients from every context to the kvstore,
+pulls their sum back (``module.py:189-240``: the local store reduces
+across contexts before the updater), and updates each (parameter, context)
+slot.  ``kvstore`` is ``"local"``, ``"device"``, a store, or None (no
+reduction); the distributed stores and the monitor are not ported yet.
+``save_checkpoint`` writes the reference's files, and ``Module.load``
+reads them, optimizer states included.
 """
 from __future__ import annotations
 
+import logging
+
 from .. import fused_step as _fused
+from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import Context, cpu, current_context
-from ..ndarray.ndarray import NDArray
+from ..io import DataDesc
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
@@ -37,16 +47,19 @@ __all__ = ["Module"]
 
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
-                 label_names=("softmax_label",), context=None):
-        super().__init__()
+                 label_names=("softmax_label",), logger=logging,
+                 context=None, work_load_list=None, fixed_param_names=None):
+        super().__init__(logger)
         if context is None:
             context = [current_context()]
         if isinstance(context, Context):
             context = [context]
         self._context = list(context)
+        self._work_load_list = work_load_list
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
+        self._fixed_param_names = list(fixed_param_names or [])
         self._param_names = [n for n in symbol.list_arguments()
                              if n not in self._data_names
                              and n not in self._label_names]
@@ -55,22 +68,55 @@ class Module(BaseModule):
         self._aux_params = None
         self._exec_group = None
         self._optimizer = None
+        self._kvstore = None
         self._updater = None
         self._fused_step = None
+        self._preload_opt_states = None
+
+    # ---- info -----------------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self._symbol.list_outputs()
+
+    @property
+    def data_shapes(self):
+        return self._exec_group.data_shapes
+
+    @property
+    def label_shapes(self):
+        return self._exec_group.label_shapes
+
+    @property
+    def output_shapes(self):
+        shapes = {d.name: d.shape for d in
+                  self.data_shapes + self.label_shapes}
+        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+        return list(zip(self.output_names, out_shapes))
 
     # ---- bind / init ----------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, grad_req="write"):
-        """Bind the symbol on the context for these input shapes
-        (``module.py:110``)."""
+        """Bind one executor per context for these input shapes
+        (``module.py:110``); ``grad_req`` is one request or a dict by
+        name."""
         if self.binded and not force_rebind:
             return
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self._exec_group = DataParallelExecutorGroup(
-            self._symbol, self._context, data_shapes, label_shapes,
-            self._param_names, for_training, inputs_need_grad,
-            grad_req=grad_req)
+            self._symbol, self._context, self._work_load_list,
+            [d if isinstance(d, DataDesc) else DataDesc(*d)
+             for d in data_shapes], label_shapes, self._param_names,
+            for_training, inputs_need_grad,
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
         self.binded = True
         if self._arg_params is not None:
             self._exec_group.set_params(self._arg_params, self._aux_params,
@@ -83,7 +129,7 @@ class Module(BaseModule):
         initializer (``module.py:150``).  As in the reference, the values
         are made in host copies on the CPU (drawn from the CPU generator,
         so a seed gives the same weights whatever the context) and then
-        copied to the executor."""
+        copied to every executor."""
         if self.params_initialized and not force_init:
             return
         if not self.binded:
@@ -113,29 +159,20 @@ class Module(BaseModule):
                                     allow_extra=allow_extra)
         self.params_initialized = True
 
-    def set_params(self, arg_params, aux_params, allow_missing=False,
-                   force_init=True, allow_extra=False):
-        """Set the parameters from dicts of arrays."""
-        self.init_params(initializer=None, arg_params=arg_params,
-                         aux_params=aux_params, allow_missing=allow_missing,
-                         force_init=force_init, allow_extra=allow_extra)
-
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Make the optimizer and its updater (``module.py:190-240``): an
-        optimizer named by a string gets ``rescale_grad = 1/batch`` unless
-        the parameters set it, and one state slot per parameter."""
+        """Make the kvstore, the optimizer and its updater
+        (``module.py:190-240``): an optimizer named by a string gets
+        ``rescale_grad = 1/batch`` unless the parameters set it, and one
+        state slot per (parameter, context); the store is initialised
+        with every parameter.  States that ``Module.load`` preloaded are
+        set on the updater."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("call bind and init_params before "
                              "init_optimizer")
         if self.optimizer_initialized and not force_init:
             return
-        if kvstore not in ("local", None, ""):
-            raise MXNetError("kvstore %r: the port's Module runs on one "
-                             "context with kvstore='local' or None; "
-                             "distributed stores are not ported yet"
-                             % (kvstore,))
         if isinstance(optimizer, str):
             params = dict(optimizer_params)
             params.setdefault("rescale_grad",
@@ -145,31 +182,45 @@ class Module(BaseModule):
             optimizer = opt.create(optimizer, sym=self._symbol,
                                    param_idx2name=idx2name, **params)
         self._optimizer = optimizer
+        kv = kvs.create(kvstore) if isinstance(kvstore, str) and kvstore \
+            else (kvstore or None)
+        self._kvstore = kv
         self._updater = opt.get_updater(optimizer)
+        if kv is not None:
+            for name in self._param_names:
+                kv.init(name, self._arg_params[name])
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            with open(self._preload_opt_states, "rb") as f:
+                self._updater.set_states(f.read())
+            self._preload_opt_states = None
         self._fused_step = _fused.ModuleFusedStep(self)
 
     # ---- step -----------------------------------------------------------
     def _fused(self):
+        """The fused step, made again after a ``force_rebind``."""
         fs = self._fused_step
         if fs is not None and fs.stale():
             fs = self._fused_step = _fused.ModuleFusedStep(self)
         return fs
 
-    def forward(self, data_batch, is_train=None):
-        if not (self.binded and self.params_initialized):
-            raise MXNetError("call bind and init_params before forward")
+    def _flush(self):
+        """Replay a staged batch on the eager path, so that its outputs
+        and gradients become observable."""
         fs = self._fused()
         if fs is not None:
             fs.flush_eager()
+
+    def forward(self, data_batch, is_train=None):
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("call bind and init_params before forward")
+        self._flush()
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
         if not (self.binded and self.params_initialized):
             raise MXNetError("call bind and init_params before backward")
-        fs = self._fused()
-        if fs is not None:
-            fs.flush_eager()
+        self._flush()
         self._exec_group.backward(out_grads)
 
     def forward_backward(self, data_batch):
@@ -180,43 +231,97 @@ class Module(BaseModule):
             fs.flush_eager()
             fs.stage(data_batch)
             return
-        if fs is not None:
-            fs.flush_eager()
+        self._flush()
         self._exec_group.forward_backward(data_batch)
 
     def update(self):
         """Apply the optimizer (``module.py:291``): the fused step when a
-        batch is staged and the fused path is eligible, else the eager
-        per-parameter loop over ``grad_dict``."""
+        batch is staged and the fused path is eligible, else the kvstore
+        reduction and the per-slot loop over ``grad_dict``."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer before update")
         fs = self._fused()
         if fs is not None and fs.pending and fs.eligible():
             fs.step()
             return
-        if fs is not None:
-            fs.flush_eager()
+        self._flush()
         eg = self._exec_group
-        for i, (grads, weights) in enumerate(zip(eg.grad_arrays,
-                                                 eg.param_arrays)):
-            for k, (w, g) in enumerate(zip(weights, grads)):
-                self._updater(opt.Optimizer.slot_index(
-                    i, len(self._context), k), g, w)
+        ndev = len(self._context)
+        live = [i for i, g in enumerate(eg.grad_arrays) if g]
+        if self._kvstore is not None and live:
+            names = [self._param_names[i] for i in live]
+            grads = [eg.grad_arrays[i] for i in live]
+            self._kvstore.push(names, grads)
+            self._kvstore.pull(names, out=grads)
+        for i in live:
+            for k, (w, g) in enumerate(zip(eg.param_arrays[i],
+                                           eg.grad_arrays[i])):
+                self._updater(opt.Optimizer.slot_index(i, ndev, k), g, w)
 
     def get_outputs(self, merge_multi_context=True):
-        fs = self._fused()
-        if fs is not None:
-            fs.flush_eager()
+        self._flush()
         return self._exec_group.get_outputs(merge_multi_context)
 
+    def get_input_grads(self, merge_multi_context=True):
+        if not self.inputs_need_grad:
+            raise MXNetError("bind with inputs_need_grad=True to get the "
+                             "inputs' gradients")
+        self._flush()
+        return self._exec_group.get_input_grads(merge_multi_context)
+
+    def update_metric(self, eval_metric, labels):
+        self._flush()
+        self._exec_group.update_metric(eval_metric, labels)
+
+    def defer_metric_update(self, eval_metric, labels):
+        """This step's outputs and labels, captured now, and a closure that
+        updates the metric with them later (``module.py:360``), for
+        ``fit``'s overlapped tail; None on several contexts, as the
+        reference's."""
+        self._flush()
+        eg = self._exec_group
+        if len(eg.execs) != 1:
+            return None
+        lab = [l[eg.slices[0]] for l in labels]
+        outs = list(eg.execs[0].outputs)
+        return lambda: eval_metric.update(lab, outs)
+
     def get_params(self):
-        """Copies of the current parameters and auxiliary states, on the
-        context."""
+        """Copies of the parameters and auxiliary states, averaged over the
+        contexts, on the first context."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("call bind and init_params before get_params")
-        ex = self._exec_group.execs[0]
-        arg = {n: NDArray(ex.arg_dict[n]._data.detach().clone())
-               for n in self._param_names}
-        aux = {n: NDArray(ex.aux_dict[n]._data.detach().clone())
-               for n in self._aux_names}
+        arg, aux = {}, {}
+        self._exec_group.get_params(arg, aux)
         return arg, aux
+
+    def install_monitor(self, mon):
+        raise MXNetError("Module.install_monitor: monitor.py is not ported "
+                         "yet")
+
+    # ---- checkpoints ----------------------------------------------------
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """``prefix-symbol.json``, ``prefix-%04d.params`` and, with
+        ``save_optimizer_states``, ``prefix-%04d.states`` (the updater's
+        pickled states)."""
+        from ..model import save_checkpoint
+        arg, aux = self.get_params()
+        save_checkpoint(prefix, epoch, self._symbol, arg, aux)
+        if save_optimizer_states and self._updater is not None:
+            with open("%s-%04d.states" % (prefix, epoch), "wb") as f:
+                f.write(self._updater.get_states())
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module of a checkpoint (``module.py:413-433``): its parameters
+        count as initialised, and with ``load_optimizer_states`` its
+        ``.states`` file is set on the updater by ``init_optimizer``."""
+        from ..model import load_checkpoint
+        sym, args, auxs = load_checkpoint(prefix, epoch, cpu())
+        mod = Module(sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod

@@ -14,7 +14,8 @@ import torch
 from ..base import MXNetError
 from ..context import Context, context_of, current_context
 
-__all__ = ["NDArray", "array", "zeros", "ones", "save", "load"]
+__all__ = ["NDArray", "array", "zeros", "ones", "concatenate", "save",
+           "load"]
 
 _TORCH_DTYPES = {
     np.dtype(np.float32): torch.float32,
@@ -78,6 +79,18 @@ class NDArray:
         raise MXNetError("copyto expects a Context or an NDArray, got %r"
                          % (other,))
 
+    def copy(self) -> "NDArray":
+        """A copy on the same context."""
+        return NDArray(self._data.detach().clone())
+
+    def __getitem__(self, key):
+        """Rows ``a[start:stop]`` along the first axis (a view, as every
+        write to an NDArray binds a new buffer)."""
+        if not isinstance(key, slice):
+            raise MXNetError("only a[start:stop] is supported, got index %r"
+                             % (key,))
+        return NDArray(self._data[key])
+
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
                                      self.context)
@@ -138,6 +151,12 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
     ctx = ctx or current_context()
     t = _as_tensor(source, dtype)
     return NDArray(t.to(ctx.torch_device, copy=True))
+
+
+def concatenate(arrays, axis=0) -> NDArray:
+    """The arrays joined along ``axis``, on the first one's context."""
+    dev = arrays[0]._data.device
+    return NDArray(torch.cat([a._data.to(dev) for a in arrays], dim=axis))
 
 
 def zeros(shape, ctx: Optional[Context] = None, dtype="float32",

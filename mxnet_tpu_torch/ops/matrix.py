@@ -112,9 +112,21 @@ def _embedding_hint(attrs, shapes):
                   "dtype": param("dtype", "float32"),
                   "sparse_grad": param(bool, False)})
 def _embedding(attrs, data, weight):
-    """Rows of ``weight`` for the ids in ``data`` (float ids are cast to
-    int64), a gather; its gradient is autograd's."""
-    return F.embedding(data.long(), weight)
+    """Rows of ``weight`` for the ids in ``data`` (float ids truncated to
+    integers), as the reference's ``jnp.take`` in its default mode
+    (``matrix.py:308``): an id in ``[-input_dim, 0)`` wraps, any other id
+    outside ``[0, input_dim)`` gives a row of NaN and sends no gradient to
+    the table.  The gather index is clamped and the NaN put in with
+    ``torch.where``, so a bad id costs no host sync and no device-side
+    assert."""
+    n = weight.shape[0]
+    ids = data.long()
+    valid = (ids >= -n) & (ids < n)
+    idx = torch.where(ids < 0, ids + n, ids).clamp(0, max(n - 1, 0))
+    rows = F.embedding(idx, weight)
+    return torch.where(valid.unsqueeze(-1), rows,
+                       torch.full((), float("nan"), dtype=rows.dtype,
+                                  device=rows.device))
 
 
 @register("zeros_like")

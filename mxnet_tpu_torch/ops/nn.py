@@ -1,9 +1,9 @@
 """Neural-network ops of the serving and training paths (counterpart of
 ``mxnet_tpu/ops/nn.py``): Convolution, FullyConnected, Pooling, Activation,
-BatchNorm (inference and training statistics), softmax, the SoftmaxOutput
-forward, :func:`streaming_ce` and the ``streaming_softmax_ce`` and
-``softmax_cross_entropy`` ops, and the transformer's LayerNorm and
-MultiHeadAttention.
+BatchNorm (inference and training statistics), softmax, SoftmaxOutput
+with the reference's backward, :func:`streaming_ce` and the
+``streaming_softmax_ce`` and ``softmax_cross_entropy`` ops, and the
+transformer's LayerNorm and MultiHeadAttention.
 
 Convolution dispatch mirrors ``_pallas_conv_mode`` (``nn.py:239-268``)
 without its environment flag and lane gate, which were TPU verdicts: the
@@ -333,12 +333,23 @@ def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
 def _layer_norm(attrs, data, gamma, beta):
     """``(x - mean) / sqrt(var + eps) * gamma + beta`` over ``axis`` with
     fp32 statistics, outputs (out in the data's dtype, mean, var) as the
-    reference's (``nn.py:564-577``): one ``native_layer_norm`` call
-    (PyTorch's fused kernel, which also returns the mean and 1/std) over
-    ``axis`` moved last, as the reference leaves LayerNorm to XLA."""
+    reference's (``nn.py:564-577``).  With ``output_mean_var`` the mean and
+    var come from ``torch.var_mean`` over the axis, as the reference's
+    ``jnp.mean``/``jnp.var``, and carry their gradients; otherwise only
+    ``out`` is visible and it is one ``native_layer_norm`` call (PyTorch's
+    fused kernel) over ``axis`` moved last, as the reference leaves
+    LayerNorm to XLA."""
     ax = attrs["axis"] % data.dim()
     eps = attrs["eps"]
-    x32 = data.float().movedim(ax, -1)
+    x32 = data.float()
+    if attrs["output_mean_var"]:
+        var, mean = torch.var_mean(x32, dim=ax, keepdim=True, correction=0)
+        shape = [1] * data.dim()
+        shape[ax] = data.shape[ax]
+        out = (x32 - mean) * torch.rsqrt(var + eps) \
+            * gamma.float().reshape(shape) + beta.float().reshape(shape)
+        return out.to(data.dtype), mean.squeeze(ax), var.squeeze(ax)
+    x32 = x32.movedim(ax, -1)
     out, mean, rstd = torch.native_layer_norm(
         x32, (x32.shape[-1],), gamma.float(), beta.float(), eps)
     return (out.movedim(-1, ax).to(data.dtype), mean.squeeze(-1),
@@ -404,21 +415,81 @@ _SOFTMAX_OUT_PARAMS = {
 }
 
 
-@register("SoftmaxOutput", aliases=("softmaxoutput", "Softmax"),
-          params=dict(_SOFTMAX_OUT_PARAMS), arg_names=("data", "label"),
-          shape_hint=_softmax_label_hint)
-def _softmax_output(attrs, data, label):
-    """Forward of SoftmaxOutput: softmax of the logits (the label only
-    shapes the gradient, which serving never takes).  Low-precision
-    logits are reduced in fp32 and the probabilities stay fp32."""
-    if data.dtype in (torch.bfloat16, torch.float16):
-        data = data.float()
+def _softmax_output_prob(attrs, data):
     if attrs["multi_output"]:
         return torch.softmax(data, dim=1)
     if attrs["preserve_shape"]:
         return torch.softmax(data, dim=-1)
     prob = torch.softmax(data.reshape(data.shape[0], -1), dim=-1)
     return prob.reshape(data.shape)
+
+
+def _one_hot(lab, n, axis, dtype):
+    """``jax.nn.one_hot(lab, n, axis=axis)``: a label outside ``[0, n)``
+    (an ignored ``-1``) gives a row of zeros."""
+    classes = torch.arange(n, device=lab.device)
+    if axis == 1:
+        lab = lab.unsqueeze(1)
+        classes = classes.reshape((1, n) + (1,) * (lab.dim() - 2))
+    else:
+        lab = lab.unsqueeze(-1)
+    return (lab == classes).to(dtype)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """Softmax whose backward is the reference's custom VJP
+    (``nn.py:777-816``): the head gradient is ignored and the logits get
+    ``(p - onehot(label)) * grad_scale``, masked where the label is
+    ``ignore_label`` (``use_ignore``) and divided by the batch or by the
+    count of valid labels (``normalization``); the label gets zeros."""
+
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        p = _softmax_output_prob(attrs, data)
+        ctx.attrs = attrs
+        ctx.save_for_backward(p, label)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, l = ctx.saved_tensors
+        a = ctx.attrs
+        if a["multi_output"]:
+            oh = _one_hot(l.long(), p.shape[1], 1, p.dtype)
+        else:
+            flat = l.reshape(l.shape[0], -1) if l.dim() > 1 else l
+            oh = _one_hot(flat.long().reshape(p.shape[:-1]), p.shape[-1],
+                          -1, p.dtype)
+        grad = p - oh
+        valid = l != a["ignore_label"]
+        if a["use_ignore"]:
+            grad = grad * valid.to(p.dtype).unsqueeze(
+                1 if a["multi_output"] else -1)
+        scale = a["grad_scale"]
+        if a["normalization"] == "batch":
+            scale = scale / p.shape[0]
+        elif a["normalization"] == "valid" and a["use_ignore"]:
+            scale = scale / valid.sum().clamp_min(1).to(p.dtype)
+        dl = torch.zeros_like(l) if ctx.needs_input_grad[1] else None
+        return grad * scale, dl, None
+
+
+@register("SoftmaxOutput", aliases=("softmaxoutput", "Softmax"),
+          params=dict(_SOFTMAX_OUT_PARAMS), arg_names=("data", "label"),
+          shape_hint=_softmax_label_hint)
+def _softmax_output(attrs, data, label):
+    """SoftmaxOutput (``nn.py:777-826``): the softmax of the logits, whose
+    gradient is ``(p - onehot(label)) * grad_scale`` whatever the head
+    gradient (:class:`_SoftmaxOutputFn`), so ``Executor.backward`` and the
+    Module steps, which seed the head with ones, train through it.
+    ``smooth_alpha`` is accepted and unused, as in the reference.
+    Low-precision logits are cast to fp32 outside the Function, as the
+    reference casts them outside its custom VJP, so the probabilities stay
+    fp32 and the cast's backward returns the gradient in the logits'
+    dtype."""
+    if data.dtype in (torch.bfloat16, torch.float16):
+        data = data.float()
+    return _SoftmaxOutputFn.apply(data, label, attrs)
 
 
 # --------------------------------------------------------------------------

@@ -22,7 +22,7 @@ from ..base import MXNetError
 from ..name import current_scope
 from ..ops.registry import Operator, get_op
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json", "arange"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json", "arange"]
 
 
 class _Node:
@@ -254,6 +254,11 @@ class Symbol:
                            "attrs": {"mxnet_version": ["int", 10200]}},
                           indent=2)
 
+    def save(self, fname: str):
+        """Write :meth:`tojson` to ``fname`` (``symbol.py:384``)."""
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     # ---- binding --------------------------------------------------------
     def bind(self, ctx=None, args=None, aux_states=None, args_grad=None,
              grad_req="write"):
@@ -381,6 +386,13 @@ def Group(symbols: Sequence[Symbol]) -> Symbol:
     for s in symbols:
         outs.extend(s._outputs)
     return Symbol(outs)
+
+
+def load(fname: str) -> Symbol:
+    """The Symbol in a JSON file that :meth:`Symbol.save` (or the reference
+    package's) wrote."""
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def load_json(json_str: str) -> Symbol:

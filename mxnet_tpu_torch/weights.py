@@ -7,7 +7,7 @@ takes either form and places every array on a context, so both packages
 can be fed the same weights.  ``from_jax_block`` carries a reference Gluon
 block's parameters and auxiliary states into a port block of the same
 structure, by name, and ``from_jax_module`` a reference Module's into a port
-Module's.  ``from_jax_moe_params`` carries a reference ``MoEParams`` into the
+Module's, with its optimizer's states (``from_jax_updater``).  ``from_jax_moe_params`` carries a reference ``MoEParams`` into the
 port's, and ``from_jax_stage_params`` a dict of stage-stacked ``(S, ...)``
 block parameters (``pipeline_transformer``'s), so that both packages' parallel
 compositions compute with the same weights.
@@ -24,7 +24,7 @@ from .context import Context, current_context
 from .ndarray import ndarray as nd
 
 __all__ = ["from_jax_params", "from_jax_block", "from_jax_module",
-           "from_jax_moe_params", "from_jax_stage_params"]
+           "from_jax_updater", "from_jax_moe_params", "from_jax_stage_params"]
 
 
 def from_jax_params(params, ctx: Optional[Context] = None
@@ -68,14 +68,18 @@ def from_jax_block(jax_net_or_params, net, ctx: Optional[Context] = None):
     return net
 
 
-def from_jax_module(jax_mod, ctx: Optional[Context] = None, mod=None):
+def from_jax_module(jax_mod, ctx: Optional[Context] = None, mod=None,
+                    optimizer_states=False):
     """``(arg_params, aux_params)``, dicts of NDArrays on ``ctx`` (default
     ``gpu(0)``), from a reference Module's ``get_params()``.
 
     The names are checked against the parameters and auxiliary states of
     ``mod``, a bound port Module, when it is given (and its parameters are
     then set from them), else against the reference Module's own symbol;
-    a missing or extra name, or a shape that differs, raises."""
+    a missing or extra name, or a shape that differs, raises.  With
+    ``optimizer_states`` (and ``mod``'s optimizer initialised) the
+    reference Module's updater states and update counts carry over too
+    (:func:`from_jax_updater`)."""
     ctx = ctx or current_context()
     arg, aux = jax_mod.get_params()
     out = []
@@ -108,7 +112,25 @@ def from_jax_module(jax_mod, ctx: Optional[Context] = None, mod=None):
     aux_params = {k: nd.array(v, ctx) for k, v in out[1].items()}
     if mod is not None:
         mod.set_params(arg_params, aux_params)
+        if optimizer_states:
+            from_jax_updater(jax_mod._updater, mod._updater)
     return arg_params, aux_params
+
+
+def from_jax_updater(jax_updater, updater):
+    """Set a port ``Updater``'s states from a reference ``Updater``'s,
+    through the reference's pickle of numpy states (the ``.states`` file's
+    format), with the optimizer's per-slot update counts and
+    ``num_update``, which the pickle leaves out, so that Adam's bias
+    correction and a scheduler's rate go on from the same step.  Returns
+    ``updater``."""
+    updater.set_states(jax_updater.get_states(dump_optimizer=True))
+    src, dst = jax_updater.optimizer, updater.optimizer
+    dst._index_update_count = dict(src._index_update_count)
+    dst.num_update = src.num_update
+    if hasattr(src, "m_schedule"):          # Nadam's running product
+        dst.m_schedule = src.m_schedule
+    return updater
 
 
 def _tensor(value, ctx: Context):

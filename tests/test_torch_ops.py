@@ -183,3 +183,138 @@ def test_softmax_cross_entropy_matches_reference():
     np.testing.assert_allclose(
         per.numpy(), lse - logits[np.arange(6), labels.astype(int)],
         rtol=RTOL, atol=ATOL)
+
+
+# --------------------------------------------------------------------------
+# SoftmaxOutput's backward, Embedding out of range, LayerNorm's mean and var:
+# each against jax.vjp of the reference op on the same inputs
+# --------------------------------------------------------------------------
+def _vjp_both(name, attrs, inputs, cots):
+    """(reference outputs, reference input cotangents, port outputs, port
+    input gradients) of op ``name`` on the same inputs and cotangents."""
+    import jax
+    jop, top = jax_get_op(name), get_op(name)
+    ja = jop.parse_attrs(dict(attrs))
+    want, vjp = jax.vjp(lambda *xs: jop.fn(ja, *xs),
+                        *[jnp.asarray(a) for a in inputs])
+    jgrads = vjp(tuple(jnp.asarray(c) for c in cots)
+                 if isinstance(want, tuple) else jnp.asarray(cots[0]))
+    ts = [torch.from_numpy(a).requires_grad_(a.dtype.kind == "f")
+          for a in inputs]
+    got = top.fn(top.parse_attrs(dict(attrs)), *ts)
+    outs = got if isinstance(got, tuple) else (got,)
+    torch.autograd.backward(list(outs), [torch.from_numpy(c) for c in cots])
+    return (want if isinstance(want, tuple) else (want,), jgrads, outs,
+            [t.grad for t in ts])
+
+
+SOFTMAX_OUTPUT_CASES = [
+    ({}, (4, 10), (4,)),
+    ({"grad_scale": "0.5", "normalization": "batch"}, (4, 10), (4,)),
+    ({"use_ignore": "True", "ignore_label": "2"}, (6, 5), (6,)),
+    ({"use_ignore": "True", "ignore_label": "2", "normalization": "valid"},
+     (6, 5), (6,)),
+    ({"normalization": "valid"}, (6, 5), (6,)),
+    ({"multi_output": "True"}, (3, 5, 4), (3, 4)),
+    ({"multi_output": "True", "use_ignore": "True", "ignore_label": "-1",
+      "normalization": "valid"}, (3, 5, 4), (3, 4)),
+    ({"preserve_shape": "True"}, (2, 3, 6), (2, 3)),
+    ({"preserve_shape": "True", "use_ignore": "True", "ignore_label": "1"},
+     (2, 3, 6), (2, 3)),
+    ({"smooth_alpha": "0.1"}, (4, 10), (4,)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(SOFTMAX_OUTPUT_CASES)),
+                         ids=["-".join(sorted(c[0])) or "plain"
+                              for c in SOFTMAX_OUTPUT_CASES])
+def test_softmax_output_backward_matches_reference(case):
+    """The logits' gradient is ``(p - onehot(label)) * scale`` whatever the
+    head gradient, masked and normalised as the reference's custom VJP
+    (``nn.py:777-826``), at rtol = atol = 1e-5; the label's is zero."""
+    attrs, dshape, lshape = SOFTMAX_OUTPUT_CASES[case]
+    r = np.random.default_rng(40 + case)
+    data = r.standard_normal(dshape).astype(np.float32)
+    ncls = dshape[1] if attrs.get("multi_output") else dshape[-1]
+    label = r.integers(-1 if "ignore_label" in attrs else 0, ncls,
+                       lshape).astype(np.float32)
+    head = r.standard_normal(dshape).astype(np.float32)
+    want, jg, got, tg = _vjp_both("SoftmaxOutput", attrs, [data, label],
+                                  [head])
+    np.testing.assert_allclose(got[0].detach().numpy(), np.asarray(want[0]),
+                               rtol=RTOL, atol=ATOL)
+    assert np.abs(np.asarray(jg[0])).max() > 0
+    np.testing.assert_allclose(tg[0].numpy(), np.asarray(jg[0]), rtol=RTOL,
+                               atol=ATOL)
+    assert not np.asarray(jg[1]).any() and not tg[1].numpy().any()
+
+
+def test_softmax_output_low_precision_logits():
+    """bf16 logits: fp32 probabilities and a bf16 gradient, the cast taken
+    outside the Function as the reference does (``nn.py:818-826``)."""
+    r = np.random.default_rng(3)
+    data = torch.from_numpy(r.standard_normal((4, 6)).astype(np.float32)) \
+        .to(torch.bfloat16).requires_grad_()
+    label = torch.tensor([0.0, 5.0, 2.0, 1.0])
+    top = get_op("SoftmaxOutput")
+    p = top.fn(top.parse_attrs({}), data, label)
+    assert p.dtype == torch.float32
+    p.sum().backward()
+    assert data.grad.dtype == torch.bfloat16
+    want = torch.softmax(data.detach().float(), -1) \
+        - torch.nn.functional.one_hot(label.long(), 6)
+    np.testing.assert_allclose(data.grad.float().numpy(), want.numpy(),
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("ids", [[[0, 7], [-1, 1]], [[-5, -6], [4, 5]]],
+                         ids=["roadmap", "edges"])
+def test_embedding_out_of_range_matches_reference(ids):
+    """``jnp.take``'s default mode: ids in [-5, 0) wrap, ids >= 5 and < -5
+    give NaN rows; the gradient reaches only rows of valid ids (exact)."""
+    w = np.arange(15, dtype=np.float32).reshape(5, 3)
+    data = np.asarray(ids, np.float32)
+    cot = np.random.default_rng(5).standard_normal((2, 2, 3)) \
+        .astype(np.float32)
+    attrs = {"input_dim": "5", "output_dim": "3"}
+    want, jg, got, tg = _vjp_both("Embedding", attrs, [data, w], [cot])
+    np.testing.assert_array_equal(got[0].detach().numpy(),
+                                  np.asarray(want[0]))
+    np.testing.assert_allclose(tg[1].numpy(), np.asarray(jg[1]), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_layer_norm_mean_var_gradients_match_reference():
+    """Cotangents on out, mean and var at (2, 5, 3), ``default_rng(0)``:
+    outputs and dx, dgamma, dbeta within rtol = atol = 1e-5."""
+    r = np.random.default_rng(0)
+    x = r.standard_normal((2, 5, 3)).astype(np.float32)
+    gamma = r.standard_normal(3).astype(np.float32)
+    beta = r.standard_normal(3).astype(np.float32)
+    cots = [r.standard_normal((2, 5, 3)).astype(np.float32),
+            r.standard_normal((2, 5)).astype(np.float32),
+            r.standard_normal((2, 5)).astype(np.float32)]
+    want, jg, got, tg = _vjp_both("LayerNorm", {"output_mean_var": "True"},
+                                  [x, gamma, beta], cots)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=RTOL, atol=ATOL)
+    for g, w in zip(tg, jg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_layer_norm_var_precision():
+    """x = 1e-4 N(0, 1) at (4, 64): var within a relative 1e-6 of float64
+    (the reference's is 6.8e-8 off; rebuilding var from 1/std was 8.5e-5
+    off)."""
+    x = (1e-4 * np.random.default_rng(0).standard_normal((4, 64))) \
+        .astype(np.float32)
+    top = get_op("LayerNorm")
+    _, mean, var = top.fn(top.parse_attrs({"output_mean_var": "True"}),
+                          torch.from_numpy(x), torch.ones(64),
+                          torch.zeros(64))
+    want = x.astype(np.float64).var(axis=-1)
+    np.testing.assert_allclose(var.numpy(), want, rtol=1e-6)
+    np.testing.assert_allclose(mean.numpy(), x.astype(np.float64).mean(-1),
+                               rtol=1e-5, atol=1e-12)
