@@ -156,9 +156,49 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    optimizer states, ``score`` equal to the trained module's, and
    ``predict`` of (128, 1000) rows summing to 1.
 
+2g. bf16 conv kernels (run after 2f): kernel 12 (``conv1x1_wgrad.cu``, the
+   1x1 weight gradient of ``tools/probe_conv_fixes.py:173``) against
+   ``conv1x1_wgrad_plain`` on the same bf16 card tensors at the 15 1x1
+   shapes of a batch-128 ResNet-50 v1 step, at the probe's (401,408 x 64)
+   x (401,408 x 256) and at four ragged shapes (rows off the tile, C = 8,
+   odd spatial dims at stride 2), within 1e-4 of the largest |dw| (fp32
+   sums in another order; bf16 products are exact in fp32); kernel 2's
+   bf16 arm against ``taps_wgrad_plain`` (1e-4 of the largest |dw|) and
+   kernel 1 in bf16, forward and dgrad, against ``taps_conv_plain`` (both
+   round one fp32 sum to bf16: rtol 2^-7, atol 1e-4 of the largest
+   |value|) at the 4 Gluon 3x3 shapes at batch 128.  Each with its time,
+   TFLOP/s and bound (bf16 tensor-core peak, or bytes over 3.35 TB/s where
+   larger) beside the plain version's and cuDNN's bf16 yardstick
+   (``conv2d_weight`` / ``conv2d_input`` / ``F.conv2d``, never called by
+   the port on these shapes).
+14. bf16 training: bench.py ``main()`` on its accelerator, Gluon
+   ``resnet50_v1`` (224 px, 1,000 classes) trained by
+   ``FusedTrainer(..., dtype="bfloat16")`` (SGD lr 0.1, momentum 0.9) at
+   batch 128 on gpu(0).  The counters, zeroed before the first step and
+   read after the last timed one, must read 32 launches of kernel 1, 16 +
+   13 of kernel 2 and 36 of kernel 12's partial pass with its reductions a
+   step; the masters stay fp32, the loss finite and falling; 2 warm-up and
+   10 timed steps give bf16 train images/s, printed beside phase 5's fp32;
+   two profiled steps the device time by group and the idle share, and
+   one step the NHWC copies that the 1x1s' and the 3x3s' backwards make.
+   The first step at batch 8 (4 if the CPU step takes over 60 s) against
+   the CPU from the same fp32 weights: the loss, every trained parameter's
+   update and the whole update (by norm) each within max(2 x its own bf16
+   band, 2^-7), the band being its distance between the card's bf16 and
+   fp32 steps, measured in the phase.
+15. bf16 Module: bench.py ``--bf16`` (``bench_bf16``): ``resnet50_v1`` ->
+   ``SoftmaxOutput`` through ``Module(context=[gpu(0)])`` at batch 128,
+   fp32 and then under ``MXNET_TPU_BF16=1`` with multi-precision SGD (lr
+   0.01, momentum 0.9), 30 steps each on ``RandomState(3)``'s batch:
+   bench.py's convergence band, parameter bytes plus the step's peak
+   activation bytes at bf16 <= 0.65x fp32's, bf16 weights and fp32
+   masters under the flag, fp32 without; images/s of both; one bf16 step
+   fused and one eager with bit-equal masters and weights.
+
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
-cuDNN and for matmuls throughout, so every comparison is fp32 against fp32.
+cuDNN and for matmuls throughout, so every fp32 comparison is fp32 against
+fp32.
 """
 from __future__ import annotations
 
@@ -178,6 +218,24 @@ import torch.nn.functional as F
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 KERNEL_TOL = 1e-4      # rtol = atol, kernel vs plain (fp32 FMA vs fp32 GEMM)
+PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s
+BF16_BATCH = 128       # bench.py main()'s accelerator batch (bench.py:840)
+# ResNet-50 v1's 1x1 convolutions (the Gluon v1 block strides its first
+# 1x1): (C, O, output H = W, stride, instances a training step); 36 in all
+RESNET50_1X1 = [(64, 64, 56, 1, 1), (64, 256, 56, 1, 4), (256, 64, 56, 1, 2),
+                (256, 128, 28, 2, 1), (256, 512, 28, 2, 1),
+                (128, 512, 28, 1, 4), (512, 128, 28, 1, 3),
+                (512, 256, 14, 2, 1), (512, 1024, 14, 2, 1),
+                (256, 1024, 14, 1, 6), (1024, 256, 14, 1, 5),
+                (1024, 512, 7, 2, 1), (1024, 2048, 7, 2, 1),
+                (512, 2048, 7, 1, 3), (2048, 512, 7, 1, 2)]
+W1X1_TOL = 1e-4        # max |dw_kernel - dw_plain| / max |dw_plain| (fp32
+                       # sums in another order; the bf16 products are exact)
+# kernel 1 in bf16 against its plain version: both round an fp32 sum to
+# bf16 once, so they differ by at most one bf16 step of the value (2^-7
+# relative) plus the fp32 order difference (1e-4 of the largest |value|)
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL_REL = 1e-4
 PROB_TOL = 1e-4        # max |p_gpu - p_cpu| of served probabilities
 PEAK_FP32 = 67e12      # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES = 3.35e12    # H100 SXM device memory bytes/s
@@ -225,8 +283,8 @@ def fp32_exact():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _bound(flops, nbytes):
-    ops_s, bytes_s = flops / PEAK_FP32, nbytes / HBM_BYTES
+def _bound(flops, nbytes, peak=PEAK_FP32):
+    ops_s, bytes_s = flops / peak, nbytes / HBM_BYTES
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
 
@@ -444,6 +502,171 @@ def phase_backward_kernels():
               "abs err %g > tol %g" % (C, H, err, KERNEL_TOL))
         del x, dy, w, got, want, lib
     return wgrad, dgrad
+
+
+# --------------------------------------------------------------------------
+def _w1x1_check(hc, x, g, stride, label):
+    """Kernel 12 against ``conv1x1_wgrad_plain`` on the same card tensors;
+    returns (max abs error, max |dw|)."""
+    got = hc.conv1x1_wgrad(x, g, stride)
+    want = hc.conv1x1_wgrad_plain(x, g, stride)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    check(err <= W1X1_TOL * scale, "kernel 12 disagrees with its plain "
+          "version at %s: %g > %g of max |dw|" % (label, err / scale,
+                                                  W1X1_TOL))
+    return err, scale
+
+
+def _bf16_close(got, want):
+    """Kernel 1's bf16 output against its plain version's (BF16_RTOL,
+    BF16_ATOL_REL); returns (ok, max abs error)."""
+    got, want = got.float(), want.float()
+    atol = BF16_ATOL_REL * want.abs().max().item()
+    return (bool(torch.allclose(got, want, rtol=BF16_RTOL, atol=atol)),
+            (got - want).abs().max().item())
+
+
+def phase_bf16_kernels():
+    """Phase 2g: kernel 12 (``conv1x1_wgrad.cu``) against its plain version
+    at the 15 1x1 shapes of a batch-128 ResNet-50 v1 step, the probe's own
+    (401,408 x 64) x (401,408 x 256) and three ragged shapes; kernel 2's
+    bf16 arm and kernel 1 in bf16 (forward and dgrad) at the 4 Gluon 3x3
+    shapes at batch 128.  Times beside the plain versions', the bf16
+    tensor-core bound and cuDNN's (the yardstick only).  Returns per-shape
+    records (kernel 12, kernel 2, kernel 1 forward, kernel 1 dgrad)."""
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    fp32_exact()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf)
+
+    # ragged: rows off the 32-row stage and the 64-channel tile, C = 8,
+    # odd spatial dims at stride 2
+    for N, H, W, C, O, s in [(3, 7, 9, 24, 40, 1), (5, 10, 10, 8, 16, 1),
+                             (3, 7, 9, 24, 40, 2), (2, 5, 5, 8, 8, 2)]:
+        Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
+        _w1x1_check(hc, randn(N, H, W, C), randn(N, Ho, Wo, O), s,
+                    "N=%d %dx%d C=%d O=%d stride %d" % (N, H, W, C, O, s))
+    print("[bf16-kernels] ragged shapes: kernel 12 matches its plain version")
+    # the probe's own shape and data scale (tools/probe_conv_fixes.py:151)
+    R, Cs, Cl = BF16_BATCH * 56 * 56, 64, 256
+    x = randn(R, Cs, scale=0.1).reshape(BF16_BATCH, 56, 56, Cs)
+    g = randn(R, Cl, scale=0.1).reshape(BF16_BATCH, 56, 56, Cl)
+    err, scale = _w1x1_check(hc, x, g, 1, "the probe's shape")
+    print("[bf16-kernels] kernel 12 at the probe's (%d x %d) x (%d x %d): "
+          "max_abs_err %.3g (%.3g of max |dw|, tol %g)"
+          % (R, Cs, R, Cl, err, err / scale, W1X1_TOL))
+    del x, g
+
+    w1x1 = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for C, O, Ho, s, count in RESNET50_1X1:
+        N, H = BF16_BATCH, Ho * s
+        x, g = randn(N, H, H, C), randn(N, Ho, Ho, O)
+        err, scale = _w1x1_check(hc, x, g, s, "C=%d O=%d %d px stride %d"
+                                 % (C, O, H, s))
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        ms = time_ms(lambda: hc.conv1x1_wgrad(x, g, s))
+        plain_ms = time_ms(lambda: hc.conv1x1_wgrad_plain(x, g, s))
+        lib_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+            xn, (O, C, 1, 1), gn, stride=s))
+        M = N * Ho * Ho
+        flops = 2.0 * M * C * O
+        # the strided pixels of x it reads, g, and the fp32 output
+        bound_ms, bound_by = _bound(flops, 2.0 * M * (C + O) + 4.0 * C * O,
+                                    PEAK_BF16)
+        rec = {"N": N, "C": C, "O": O, "H": H, "Ho": Ho, "stride": s,
+               "instances_per_step": count, "gflop": flops / 1e9,
+               "splits": hc.conv1x1_wgrad_splits(M, C, O, sms),
+               "max_abs_err": err, "max_rel_err": err / scale,
+               "tol_rel": W1X1_TOL, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "tflops": flops / ms / 1e9}
+        w1x1.append(rec)
+        print("[bf16-kernels] kernel 12 C=%d O=%d %d->%d px s%d N=%d (%d "
+              "splits): max_abs_err %.3g (%.3g of max |dw|) | kernel %.4f ms "
+              "(%.1f TFLOP/s), plain %.4f ms, cuDNN bf16 %.4f ms, bound %.4f "
+              "ms (%s)" % (C, O, H, Ho, s, N, rec["splits"], err,
+                           err / scale, ms, rec["tflops"], plain_ms, lib_ms,
+                           bound_ms, bound_by))
+        del x, g, xn, gn
+
+    wgrad, fwd, dgrad = [], [], []
+    for C, H, count in GLUON_3X3:
+        N, O = BF16_BATCH, C
+        x, dy = randn(N, H, H, C), randn(N, H, H, O)
+        w = randn(O, C, 3, 3, scale=1.0 / math.sqrt(9 * C))
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        flops = 2.0 * N * H * H * C * O * 9
+        common = {"N": N, "C": C, "O": O, "H": H,
+                  "instances_per_step": count, "gflop": flops / 1e9}
+
+        got = hc.taps_wgrad(x, dy, hc.S1_PADS, 3, 3)
+        want = hc.taps_wgrad_plain(x, dy, hc.S1_PADS, 3, 3)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        check(err <= WGRAD_TOL * scale, "kernel 2's bf16 arm disagrees with "
+              "its plain version at C=%d H=%d: %g > %g of max |dw|"
+              % (C, H, err / scale, WGRAD_TOL))
+        bound_ms, bound_by = _bound(
+            flops, 2.0 * (x.numel() + dy.numel()) + 4.0 * 9 * C * O,
+            PEAK_BF16)
+        rec = dict(common, max_abs_err=err, max_rel_err=err / scale,
+                   tol_rel=WGRAD_TOL,
+                   ms=time_ms(lambda: hc.taps_wgrad(x, dy, hc.S1_PADS, 3, 3)),
+                   plain_ms=time_ms(lambda: hc.taps_wgrad_plain(
+                       x, dy, hc.S1_PADS, 3, 3)),
+                   library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(
+                       xn, w.shape, dyn, padding=1)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        wgrad.append(rec)
+
+        records = []
+        for label, inp, taps, lib in (
+                ("forward", x, hc._s1_taps(w, bf),
+                 lambda: F.conv2d(xn, w, padding=1)),
+                ("dgrad", dy, hc.dgrad_taps(w, bf),
+                 lambda: torch.nn.grad.conv2d_input(xn.shape, w, dyn,
+                                                    padding=1))):
+            got = hc.taps_conv(inp, taps, hc.S1_PADS, 3, 3)
+            want = hc.taps_conv_plain(inp, taps, hc.S1_PADS, 3, 3)
+            torch.cuda.synchronize()
+            ok, err = _bf16_close(got, want)
+            check(ok, "kernel 1 (bf16 %s) disagrees with its plain version "
+                  "at C=%d H=%d: max abs err %g" % (label, C, H, err))
+            bound_ms, bound_by = _bound(
+                flops, 2.0 * (x.numel() + w.numel() + dy.numel()), PEAK_BF16)
+            r = dict(common, max_abs_err=err, rtol=BF16_RTOL,
+                     atol_rel=BF16_ATOL_REL,
+                     ms=time_ms(lambda: hc.taps_conv(inp, taps, hc.S1_PADS,
+                                                     3, 3)),
+                     plain_ms=time_ms(lambda: hc.taps_conv_plain(
+                         inp, taps, hc.S1_PADS, 3, 3)),
+                     library_ms=time_ms(lib), bound_ms=bound_ms,
+                     bound_by=bound_by)
+            r["tflops"] = flops / r["ms"] / 1e9
+            records.append(r)
+        fwd.append(records[0])
+        dgrad.append(records[1])
+        for label, r in (("kernel 2 bf16 wgrad", rec),
+                         ("kernel 1 bf16 forward", records[0]),
+                         ("kernel 1 bf16 dgrad", records[1])):
+            print("[bf16-kernels] %s C=O=%d %dx%d N=%d: max_abs_err %.3g | "
+                  "kernel %.4f ms (%.1f TFLOP/s), plain %.4f ms, cuDNN bf16 "
+                  "%.4f ms, bound %.4f ms (%s)"
+                  % (label, C, H, H, N, r["max_abs_err"], r["ms"],
+                     r["tflops"], r["plain_ms"], r["library_ms"],
+                     r["bound_ms"], r["bound_by"]))
+        del x, dy, w, xn, dyn, got, want
+    torch.cuda.empty_cache()
+    return w1x1, wgrad, fwd, dgrad
 
 
 # --------------------------------------------------------------------------
@@ -1516,13 +1739,22 @@ def gluon_resnet50(ctx, batch):
     return net, nd.array(x, ctx=ctx), nd.array(y, ctx=ctx)
 
 
-def wgrad_reductions_per_step():
-    """Launches of kernel 2's reduction pass in one batch-32 training step:
-    one for each 3x3 convolution whose wgrad rows are split."""
+def wgrad_reductions_per_step(batch=BATCH):
+    """Launches of kernel 2's reduction pass in one training step at
+    ``batch``: one for each 3x3 convolution whose wgrad rows are split."""
     from mxnet_tpu_torch.ops import hopper_conv as hc
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sum(count for C, H, count in GLUON_3X3
-               if hc.wgrad_splits(BATCH * H * H, C, C, 9, sms) > 1)
+               if hc.wgrad_splits(batch * H * H, C, C, 9, sms) > 1)
+
+
+def w1x1_reductions_per_step(batch=BF16_BATCH):
+    """Launches of kernel 12's reduction pass in one bf16 training step at
+    ``batch``: one for each 1x1 convolution whose wgrad rows are split."""
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sum(count for C, O, H, _, count in RESNET50_1X1
+               if hc.conv1x1_wgrad_splits(batch * H * H, C, O, sms) > 1)
 
 
 def _conv3x3_weights(net):
@@ -1632,6 +1864,10 @@ def phase_training(card):
 
 def _train_group(name: str) -> str:
     lname = name.lower()
+    if "conv1x1_wgrad_kernel" in name:
+        return "kernel 12 1x1 wgrad partial pass"
+    if "sum_partials_1x1_kernel" in name:
+        return "kernel 12 1x1 wgrad reduction pass"
     if "taps_wgrad_kernel" in name:
         return "kernel 2 wgrad partial pass"
     if "sum_splits_kernel" in name:
@@ -1648,12 +1884,14 @@ def _train_group(name: str) -> str:
     return "BN and elementwise"
 
 
-def phase_training_profile(card, step, step_ms, tag="train-profile"):
+def phase_training_profile(card, step, step_ms, tag="train-profile",
+                           batch=BATCH, w1x1=None):
     """Where one training step's device time goes (torch.profiler), over
     two calls of ``step``: kernel 1 forward and dgrad told apart by order
     (a step's first 16 launches are the forward).  The idle share is taken
     against ``step_ms``, the median unprofiled step, since the profiler
-    slows the host's dispatch."""
+    slows the host's dispatch.  ``w1x1`` is kernel 12's (partial,
+    reduction) launches a step, checked in the trace when given."""
     from torch.profiler import ProfilerActivity, profile
     n = 2
     torch.cuda.synchronize()
@@ -1681,15 +1919,21 @@ def phase_training_profile(card, step, step_ms, tag="train-profile"):
           "steps" % (taps_seen, n))
     traced = (counts.get("kernel 2 wgrad partial pass", 0),
               counts.get("kernel 2 wgrad reduction pass", 0))
-    check(traced == (16 * n, wgrad_reductions_per_step() * n),
+    check(traced == (16 * n, wgrad_reductions_per_step(batch) * n),
           "profile saw %d wgrad partial and %d reduction launches in %d "
           "steps" % (traced + (n,)))
+    if w1x1 is not None:
+        seen = (counts.get("kernel 12 1x1 wgrad partial pass", 0),
+                counts.get("kernel 12 1x1 wgrad reduction pass", 0))
+        check(seen == (w1x1[0] * n, w1x1[1] * n),
+              "profile saw %d kernel-12 partial and %d reduction launches "
+              "in %d steps, expected %s a step" % (seen + (n, w1x1)))
     device_ms = sum(groups.values()) / n / 1e3
     check(device_ms > 0, "the profiler recorded no device time")
     idle = max(0.0, 1 - device_ms / step_ms)
     print("[%s] one batch-%d step: %.2f ms device busy, %.2f ms wall "
           "unprofiled (%.1f%% idle), %.2f ms wall profiled; %d launches a "
-          "step on %s" % (tag, BATCH, device_ms, step_ms, 100 * idle,
+          "step on %s" % (tag, batch, device_ms, step_ms, 100 * idle,
                           wall_ms, len(kernels) // n, card))
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print("[%s]   %-36s %8.3f ms/step (%.1f%%), %4d launches"
@@ -2673,6 +2917,450 @@ def phase_module(card):
         "phase_s": time.perf_counter() - t_phase}
 
 
+# --------------------------------------------------------------------------
+# bf16 mixed precision: bench.py main() on its accelerator (phase 14) and
+# bench.py --bf16 (phase 15)
+# first bf16 step, card vs CPU: each value (the loss, every trained
+# parameter's update in norm) within max(BF16_BAND_FACTOR x its own bf16
+# band, BF16_FLOOR), the band being its distance between the card's bf16
+# and fp32 steps, measured in the phase: the two bf16 runs round at the
+# same places but sum in other orders, so they differ by less than bf16
+# does from fp32; the floor is bf16's relative step, 2^-7
+BF16_BAND_FACTOR = 2.0
+BF16_FLOOR = 2.0 ** -7
+BF16_CPU_STEP_LIMIT_S = 60.0
+BF16_CPU_BATCH = 8
+
+
+def _update_norm_errs(got, want, w0):
+    """Each parameter's update against another update, in norm: {name:
+    ||(got - w0) - (want - w0)|| / ||want - w0||}."""
+    return {k: float(np.linalg.norm((got[k] - w0[k]) - (want[k] - w0[k]))
+                     / max(np.linalg.norm(want[k] - w0[k]), 1e-30))
+            for k in w0}
+
+
+def _count_nhwc_copies(step):
+    """One call of ``step`` with ``hopper_conv``'s NHWC conversions counted:
+    {"1x1" or "3x3": [conversions, copies made, bytes copied]} (a channels-
+    last tensor converts without a copy)."""
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    counts = {"1x1": [0, 0, 0], "3x3": [0, 0, 0]}
+    where = ["3x3"]
+    nhwc, bwd = hc._nhwc, hc._Conv1x1.backward
+
+    def counted(x):
+        out = nhwc(x)
+        c = counts[where[0]]
+        c[0] += 1
+        if out.data_ptr() != x.data_ptr():
+            c[1] += 1
+            c[2] += out.numel() * out.element_size()
+        return out
+
+    def backward_1x1(ctx, g):
+        where[0] = "1x1"
+        try:
+            return bwd(ctx, g)
+        finally:
+            where[0] = "3x3"
+
+    hc._nhwc, hc._Conv1x1.backward = counted, staticmethod(backward_1x1)
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        hc._nhwc, hc._Conv1x1.backward = nhwc, staticmethod(bwd)
+    return counts
+
+
+def _zero_grad_biases_gluon():
+    """The conv biases of the Gluon resnet50_v1 that feed only a BatchNorm
+    (zero gradient: BatchNorm subtracts the batch mean)."""
+    from mxnet_tpu_torch import name, symbol
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    with name.NameManager():
+        out = vision.resnet50_v1()(symbol.var("data"))
+    return _biases_into_batchnorm(out)
+
+
+def _ft_first_step(ctx, batch, dtype):
+    """The first FusedTrainer step of the seeded full-width net at
+    ``batch``: (loss, trained fp32 masters, initial weights, seconds)."""
+    from mxnet_tpu_torch.fused import FusedTrainer
+    net, x, y = gluon_resnet50(ctx, batch)
+    net(x).wait_to_read()
+    w0 = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    ft = FusedTrainer(net, "softmax_cross_entropy", "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9}, dtype=dtype)
+    t0 = time.perf_counter()
+    loss = float(ft.step(x, y).asnumpy())
+    seconds = time.perf_counter() - t0
+    ft.sync_params()
+    w1 = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    return loss, w1, w0, seconds
+
+
+def phase_bf16_training(card, fp32_ips):
+    """Phase 14: bench.py main()'s accelerator run, Gluon ``resnet50_v1``
+    (224 px, 1,000 classes) trained by ``FusedTrainer(dtype="bfloat16")``
+    at batch 128 (SGD lr 0.1, momentum 0.9) on gpu(0): the launch counters,
+    zeroed just before the first step and read after the last timed one,
+    must read 32 kernel-1 launches, 16 + 13 of kernel 2 and 36 of kernel
+    12's partial pass with its reductions a step; the masters stay fp32 and
+    the loss finite and falling.  The first step at batch 8 (4 if the CPU
+    step takes over 60 s) against the CPU from the same fp32 weights: the
+    loss, every trained parameter's update and the whole update (by norm)
+    each within max(2 x its own bf16 band, 2^-7), the band being its
+    distance between the card's bf16 and fp32 steps, measured here; the
+    conv biases that feed only a BatchNorm (zero gradient) and the running
+    statistics are left out."""
+    from mxnet_tpu_torch import cpu, gpu
+    from mxnet_tpu_torch.fused import FusedTrainer
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    fp32_exact()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    net, x, y = gluon_resnet50(gpu(0), BF16_BATCH)
+    net(x).wait_to_read()
+    ft = FusedTrainer(net, "softmax_cross_entropy", "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9},
+                      dtype="bfloat16")
+    print("[bf16-training] resnet50_v1 at batch %d, FusedTrainer bf16, made "
+          "in %.2f s" % (BF16_BATCH, time.perf_counter() - t0))
+    hc.launches = hc.wgrad_launches = hc.wgrad_reduce_launches = 0
+    hc.conv1x1_wgrad_launches = hc.conv1x1_wgrad_reduce_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(ft.step(x, y).asnumpy())]
+    first_s = time.perf_counter() - t0
+    times = []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ft.step(x, y)
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            times.append(time.perf_counter() - t0)
+        losses.append(float(loss.asnumpy()))
+    steps = 1 + WARMUP_STEPS + TIMED_STEPS
+    launches = {"implicit_gemm_conv": hc.launches,
+                "taps_wgrad": hc.wgrad_launches,
+                "taps_wgrad reduction": hc.wgrad_reduce_launches,
+                "conv1x1_wgrad": hc.conv1x1_wgrad_launches,
+                "conv1x1_wgrad reduction": hc.conv1x1_wgrad_reduce_launches}
+    want = {"implicit_gemm_conv": 32, "taps_wgrad": 16,
+            "taps_wgrad reduction": wgrad_reductions_per_step(BF16_BATCH),
+            "conv1x1_wgrad": 36,
+            "conv1x1_wgrad reduction": w1x1_reductions_per_step(BF16_BATCH)}
+    print("[bf16-training] %d steps ran %s launches (per step %s; expected "
+          "%s)" % (steps, launches, {k: v / steps for k, v in
+                                      launches.items()}, want))
+    check(all(launches[k] == want[k] * steps for k in want),
+          "bf16 launch counts %s over %d steps, expected %s per step"
+          % (launches, steps, want))
+    masters = {str(v.dtype) for v in ft._args.values()}
+    check(masters == {"torch.float32"}, "FusedTrainer's masters are %s"
+          % masters)
+    check(all(math.isfinite(v) for v in losses) and min(losses[1:])
+          < losses[0], "bf16 losses do not fall or are not finite: %s"
+          % losses)
+    step_ms = float(np.median(times)) * 1e3
+    ips = BF16_BATCH / (step_ms / 1e3)
+    print("[bf16-training] batch %d bf16, first step %.1f ms, then %d timed "
+          "steps: median %.2f ms (min %.2f, max %.2f), %.1f train images/s "
+          "(phase 5's fp32 at batch %d: %.1f) on %s; losses %s"
+          % (BF16_BATCH, first_s * 1e3, TIMED_STEPS, step_ms,
+             min(times) * 1e3, max(times) * 1e3, ips, BATCH, fp32_ips, card,
+             ["%.4f" % v for v in losses]))
+    profile = phase_training_profile(
+        card, lambda: ft.step(x, y), step_ms, "bf16-profile", BF16_BATCH,
+        (36, w1x1_reductions_per_step(BF16_BATCH)))
+    copies = _count_nhwc_copies(lambda: ft.step(x, y))
+    profile["nhwc_copies"] = copies
+    print("[bf16-profile] NHWC conversions in one step (calls, copies, MB): "
+          "1x1 backward %d, %d, %.1f; 3x3 %d, %d, %.1f"
+          % (copies["1x1"][0], copies["1x1"][1], copies["1x1"][2] / 1e6,
+             copies["3x3"][0], copies["3x3"][1], copies["3x3"][2] / 1e6))
+    del ft, net, x, y
+    torch.cuda.empty_cache()
+
+    # the first step against the CPU, and the width of bf16 on the card
+    batch = BF16_CPU_BATCH
+    while True:
+        loss, w_gpu, w0, _ = _ft_first_step(gpu(0), batch, "bfloat16")
+        loss32, w_gpu32, _, _ = _ft_first_step(gpu(0), batch, "float32")
+        closs, w_cpu, cw0, cpu_s = _ft_first_step(cpu(), batch, "bfloat16")
+        if cpu_s <= BF16_CPU_STEP_LIMIT_S or batch == 4:
+            break
+        print("[bf16-training] the CPU step took %.1f s at batch %d; cutting "
+              "the batch to 4" % (cpu_s, batch))
+        batch = 4
+    check(all(np.array_equal(w0[k], cw0[k]) for k in w0),
+          "the card's and the CPU's nets start from different weights")
+    zero_grad = _zero_grad_biases_gluon()
+    trained = {k: v for k, v in w0.items()
+               if "running_" not in k and k not in zero_grad}
+    band = _update_norm_errs(w_gpu, w_gpu32, trained)
+    errs = _update_norm_errs(w_gpu, w_cpu, trained)
+    tols = {k: max(BF16_BAND_FACTOR * band[k], BF16_FLOOR) for k in trained}
+    worst = max(errs, key=lambda k: errs[k] / tols[k])
+    rel_loss = abs(loss - closs) / abs(closs)
+    loss_band = abs(loss - loss32) / abs(loss32)
+    loss_tol = max(BF16_BAND_FACTOR * loss_band, BF16_FLOOR)
+    residue = max(float(np.abs(w[k] - w0[k]).max())
+                  for w in (w_gpu, w_cpu) for k in zero_grad)
+    # the whole model's update, all trained parameters as one vector
+    flat = {name: np.concatenate([(w[k] - w0[k]).ravel() for k in trained])
+            for name, w in (("gpu", w_gpu), ("gpu32", w_gpu32),
+                            ("cpu", w_cpu))}
+    agg_band = float(np.linalg.norm(flat["gpu"] - flat["gpu32"])
+                     / np.linalg.norm(flat["gpu32"]))
+    agg_err = float(np.linalg.norm(flat["gpu"] - flat["cpu"])
+                    / np.linalg.norm(flat["cpu"]))
+    agg_tol = max(BF16_BAND_FACTOR * agg_band, BF16_FLOOR)
+    print("[bf16-training] first bf16 step at batch %d vs the CPU (plain "
+          "versions, %.1f s): loss %.6f vs %.6f (rel %.3g; bf16 vs fp32 on "
+          "the card %.3g, tol %.3g); %d trained updates, each within its "
+          "tol max(%g x its bf16 band, %g): worst %s at %.3g of its norm "
+          "(band %.3g, tol %.3g); median update error %.3g, median band "
+          "%.3g; the whole update within %.3g of its norm (band %.3g, tol "
+          "%.3g); %d conv biases into BatchNorm (zero gradient) moved by at "
+          "most %.3g" % (batch, cpu_s, loss, closs, rel_loss, loss_band,
+                         loss_tol, len(trained), BF16_BAND_FACTOR,
+                         BF16_FLOOR, worst, errs[worst], band[worst],
+                         tols[worst], float(np.median(list(errs.values()))),
+                         float(np.median(list(band.values()))), agg_err,
+                         agg_band, agg_tol, len(zero_grad), residue))
+    check(rel_loss <= loss_tol, "bf16 first-step loss differs from the "
+          "CPU's by %g > %g" % (rel_loss, loss_tol))
+    check(errs[worst] <= tols[worst], "the bf16 update of %s differs from "
+          "the CPU's by %g of its norm > %g" % (worst, errs[worst],
+                                               tols[worst]))
+    check(agg_err <= agg_tol, "the bf16 step's whole update differs from "
+          "the CPU's by %g of its norm > %g" % (agg_err, agg_tol))
+    torch.cuda.empty_cache()
+    return launches, {
+        "batch": BF16_BATCH, "images_per_s": ips, "step_ms": step_ms,
+        "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
+        "first_step_ms": first_s * 1e3, "losses": losses,
+        "fp32_batch32_images_per_s": fp32_ips, "profile": profile,
+        "cpu_check": {"batch": batch, "loss_rel_err": rel_loss,
+                      "loss_band": loss_band, "loss_tol": loss_tol,
+                      "worst_param": worst, "worst_err": errs[worst],
+                      "worst_band": band[worst], "worst_tol": tols[worst],
+                      "update_err_median": float(np.median(list(
+                          errs.values()))),
+                      "band_median": float(np.median(list(band.values()))),
+                      "update_err_max": max(errs.values()),
+                      "whole_update_err": agg_err,
+                      "whole_update_band": agg_band,
+                      "zero_grad_update_max": residue,
+                      "cpu_step_s": cpu_s}}
+
+
+BF16MOD = dict(batch=128, classes=1000, lr=0.01, momentum=0.9, steps=30,
+               init_seed=7, data_seed=3)
+BF16_MEM_RATIO = 0.65          # bench.py:600: params + activations
+
+
+def _bf16_module(ctx, bf16):
+    """``bench_bf16``'s Module (bench.py:456-540): ``_multichip_symbol
+    ("resnet50")`` at batch 128, bound with ``MXNET_TPU_BF16`` set or
+    unset, ``Xavier(gaussian, 2)`` after ``random.seed(7)``, SGD lr 0.01
+    momentum 0.9 with ``multi_precision`` in the bf16 run."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    with mx.name.NameManager():
+        out = vision.resnet50_v1(classes=BF16MOD["classes"])(
+            mx.sym.var("data"))
+    net = mx.sym.SoftmaxOutput(out, mx.sym.var("softmax_label"),
+                               name="softmax")
+    mod = mx.mod.Module(net, data_names=("data",),
+                        label_names=("softmax_label",), context=[ctx])
+    B = BF16MOD["batch"]
+    old = os.environ.pop("MXNET_TPU_BF16", None)
+    if bf16:
+        os.environ["MXNET_TPU_BF16"] = "1"
+    try:
+        mod.bind(data_shapes=[("data", (B, 3, 224, 224))],
+                 label_shapes=[("softmax_label", (B,))])
+    finally:
+        os.environ.pop("MXNET_TPU_BF16", None)
+        if old is not None:
+            os.environ["MXNET_TPU_BF16"] = old
+    mx.random.seed(BF16MOD["init_seed"])
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", magnitude=2.0))
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": BF16MOD["lr"], "momentum": BF16MOD["momentum"],
+        "multi_precision": bf16})
+    return mod
+
+
+def _bf16_batch(ctx):
+    import mxnet_tpu_torch as mx
+    B = BF16MOD["batch"]
+    rs = np.random.RandomState(BF16MOD["data_seed"])
+    x = rs.uniform(size=(B, 3, 224, 224)).astype(np.float32)
+    y = rs.randint(0, BF16MOD["classes"], (B,)).astype(np.float32)
+    return mx.io.DataBatch([mx.nd.array(x, ctx)], [mx.nd.array(y, ctx)]), y
+
+
+def _mean_ce(mod, y):
+    p = mod.get_outputs()[0].asnumpy().astype(np.float64)
+    rows = p.reshape(len(y), -1)[np.arange(len(y)), y.astype(int)]
+    return float(np.mean(-np.log(np.maximum(rows, 1e-30))))
+
+
+def _bf16_run(bf16, card):
+    """One run of bench_bf16: 30 steps on the repeated batch (the mean
+    cross-entropy of each step's own softmax output), the third step's
+    memory, and 2 warm-up and 10 timed steps."""
+    import gc
+    from mxnet_tpu_torch import gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    mod = _bf16_module(gpu(0), bf16)
+    batch, y = _bf16_batch(gpu(0))
+    ex = mod._exec_group.execs[0]
+    losses, mem = [], None
+    for i in range(BF16MOD["steps"]):
+        if i == 2:      # the optimizer states exist from the first update
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        mod.forward_backward(batch)
+        mod.update()
+        if i == 2:
+            torch.cuda.synchronize()
+            mem = torch.cuda.max_memory_allocated() - before
+        losses.append(_mean_ce(mod, y))
+    times = []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            times.append(time.perf_counter() - t0)
+    params = [ex.arg_dict[n]._data for n in mod._param_names]
+    dtypes = {str(t.dtype) for t in params if t.dim() == 4}
+    masters = {str(st[1]._data.dtype) for st in mod._updater.states.values()
+               if isinstance(st, tuple)}
+    step_ms = float(np.median(times)) * 1e3
+    third = max(1, len(losses) // 3)
+    out = {"weight_dtype": sorted(dtypes), "master_dtypes": sorted(masters),
+           "params_bytes": sum(t.numel() * t.element_size() for t in params),
+           "activations_bytes": mem, "step_ms": step_ms,
+           "images_per_s": BF16MOD["batch"] / (step_ms / 1e3),
+           "losses": losses,
+           "loss_final_mean": float(np.mean(losses[-third:]))}
+    print("[bf16-module] %s: conv weights %s, masters %s, params %.1f MB, "
+          "step activations peak %.2f GB, median step %.2f ms (%.1f train "
+          "images/s) on %s; losses %s"
+          % ("bf16" if bf16 else "fp32", out["weight_dtype"],
+             out["master_dtypes"], out["params_bytes"] / 1e6, mem / 1e9,
+             step_ms, out["images_per_s"], card,
+             ["%.4f" % v for v in losses]))
+    del mod, ex, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _one_bf16_step(fused):
+    """One bf16 step of bench_bf16's Module on the fused or the eager path:
+    host copies of the weights and masters by parameter name."""
+    from mxnet_tpu_torch import gpu
+    if not fused:
+        os.environ["MXNET_TPU_FUSED_STEP"] = "0"
+    try:
+        mod = _bf16_module(gpu(0), True)
+        batch, _ = _bf16_batch(gpu(0))
+        mod.forward_backward(batch)
+        mod.update()
+        check(mod._fused_step.eligible() == fused, "the %s Module took the "
+              "other path" % ("fused" if fused else "eager"))
+    finally:
+        os.environ.pop("MXNET_TPU_FUSED_STEP", None)
+    ex = mod._exec_group.execs[0]
+    weights = {n: ex.arg_dict[n]._data.cpu() for n in mod._param_names}
+    masters = {n: mod._updater.states[i][1]._data.cpu()
+               for i, n in enumerate(mod._param_names)
+               if isinstance(mod._updater.states[i], tuple)}
+    del mod, ex, batch
+    torch.cuda.empty_cache()
+    return weights, masters
+
+
+def phase_bf16_module(card):
+    """Phase 15: bench.py --bf16 (``bench_bf16``) on one H100: fp32, then
+    bf16 (``MXNET_TPU_BF16=1``, multi-precision SGD), from one seed, 30
+    steps each on the repeated batch at lr 0.01, with bench.py's three
+    checks: both curves descend by max(0.05, 2%) of their first loss and
+    bf16's final-third mean stays within the fp32 tail's maximum + max(0.15,
+    10% of the fp32 final mean) (bench.py:583-598); parameter bytes plus
+    the step's peak activation bytes at bf16 <= 0.65x fp32's; bf16 weights
+    under the flag, fp32 without, fp32 masters.  Then one bf16 step fused
+    and one eager (``MXNET_TPU_FUSED_STEP=0``), with cuDNN's deterministic
+    algorithms so that both see the same gradients: the masters and the
+    bf16 weights must be bit-equal."""
+    t_phase = time.perf_counter()
+    r32 = _bf16_run(False, card)
+    r16 = _bf16_run(True, card)
+    check(r32["weight_dtype"] == ["torch.float32"]
+          and r16["weight_dtype"] == ["torch.bfloat16"]
+          and r16["master_dtypes"] == ["torch.float32"]
+          and r32["master_dtypes"] == [],
+          "weight dtypes fp32 %s, bf16 %s, masters %s"
+          % (r32["weight_dtype"], r16["weight_dtype"], r16["master_dtypes"]))
+    tail32 = r32["losses"][len(r32["losses"]) // 2:]
+    band_hi = max(tail32) + max(0.15, 0.1 * max(abs(r32["loss_final_mean"]),
+                                                1e-6))
+    descended = {name: min(r["losses"]) <= r["losses"][0]
+                 - max(0.05, 0.02 * abs(r["losses"][0]))
+                 for name, r in (("fp32", r32), ("bf16", r16))}
+    pa32 = r32["params_bytes"] + r32["activations_bytes"]
+    pa16 = r16["params_bytes"] + r16["activations_bytes"]
+    ratio = pa16 / pa32
+    print("[bf16-module] convergence: descended %s; bf16 final-third mean "
+          "%.4f <= %.4f (fp32 tail max + band; fp32 final-third mean %.4f); "
+          "params + activations %.2f GB (bf16) / %.2f GB (fp32) = %.3f (<= "
+          "%g); %.1f vs %.1f train images/s"
+          % (descended, r16["loss_final_mean"], band_hi,
+             r32["loss_final_mean"], pa16 / 1e9, pa32 / 1e9, ratio,
+             BF16_MEM_RATIO, r16["images_per_s"], r32["images_per_s"]))
+    check(all(descended.values()), "a loss curve did not descend: %s"
+          % descended)
+    check(r16["loss_final_mean"] <= band_hi, "bf16 ends at %.4f, above the "
+          "fp32 band %.4f" % (r16["loss_final_mean"], band_hi))
+    check(ratio <= BF16_MEM_RATIO, "bf16 params + activations are %.3f of "
+          "fp32's > %g" % (ratio, BF16_MEM_RATIO))
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        wf, mf = _one_bf16_step(True)
+        we, me = _one_bf16_step(False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    differ = [n for n in wf if not torch.equal(wf[n], we[n])]
+    differ_m = [n for n in mf if not torch.equal(mf[n], me[n])]
+    print("[bf16-module] one bf16 step fused vs eager: %d weights (%s) and "
+          "%d masters bit-equal; %d weights, %d masters differ"
+          % (len(wf) - len(differ), sorted({str(t.dtype) for t in
+                                           wf.values()}),
+             len(mf) - len(differ_m), len(differ), len(differ_m)))
+    low = {n for n, t in wf.items() if t.dtype == torch.bfloat16}
+    check(set(mf) == low and not differ and not differ_m,
+          "fused and eager bf16 steps differ: weights %s, masters %s"
+          % (differ[:5], differ_m[:5]))
+    return {"fp32": r32, "bf16": r16, "mem_ratio": ratio,
+            "band_hi": band_hi, "descended": descended,
+            "fused_vs_eager_bit_equal": len(wf),
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def _ring_entries(k4, k10, launches):
     """Kernel 4's and 10's ``kernels`` entries: kernel 4's times summed over
     the main path's launches (a causal ring forward at sp 8: 28 full steps
@@ -2732,6 +3420,47 @@ def _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches):
     return [k1, k2]
 
 
+def _bf16_entries(k1, k2, bf16_kernels, launches):
+    """Kernel 12's ``kernels`` entry, and kernels 1 and 2's bf16 keys: times
+    summed over the calls of one batch-128 bf16 training step (kernel 12:
+    its 36 1x1 wgrads; kernel 2: the 16 3x3 wgrads; kernel 1: the 16
+    forwards and 16 dgrads), launches from phase 14's run."""
+    w1x1, wgrad, fwd, dgrad = bf16_kernels
+
+    def step_sum(records, key):
+        return sum(r[key] * r["instances_per_step"] for r in records)
+
+    def bound_by(records):
+        return "operations" if all(r["bound_by"] == "operations"
+                                   for r in records) else "bytes"
+
+    k12 = {"name": "conv1x1_wgrad", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/conv1x1_wgrad.cu",
+           "replaces": "tools/probe_conv_fixes.py:173",
+           "launches": (launches["conv1x1_wgrad"]
+                        + launches["conv1x1_wgrad reduction"]),
+           "partial_launches": launches["conv1x1_wgrad"],
+           "reduce_launches": launches["conv1x1_wgrad reduction"],
+           "max_abs_err": max(r["max_abs_err"] for r in w1x1),
+           "max_rel_err": max(r["max_rel_err"] for r in w1x1)}
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        k12[key] = step_sum(w1x1, key)
+    k12["bound_by"] = bound_by(w1x1)
+    k12["shapes"] = w1x1
+    k1["bf16"] = {"launches": launches["implicit_gemm_conv"],
+                  "max_abs_err": max(r["max_abs_err"] for r in fwd + dgrad),
+                  "bound_by": bound_by(fwd + dgrad),
+                  "forward_shapes": fwd, "dgrad_shapes": dgrad}
+    k2["bf16"] = {"launches": (launches["taps_wgrad"]
+                               + launches["taps_wgrad reduction"]),
+                  "max_abs_err": max(r["max_abs_err"] for r in wgrad),
+                  "bound_by": bound_by(wgrad), "shapes": wgrad}
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        k1["bf16"][key] = step_sum(fwd, key) + step_sum(dgrad, key)
+        k2["bf16"][key] = step_sum(wgrad, key)
+    return k12
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -2751,6 +3480,7 @@ def main() -> int:
     attn = phase_attn_kernels(card)
     k4, k10 = phase_ring_kernels(card)
     k11 = phase_rtc(card)
+    bf16_kernels = phase_bf16_kernels()
     serving_launches, served = phase_serving(card)
     served["profile"] = phase_profile(card)
     print("[serving] summary " + json.dumps(dict(served, card=card)))
@@ -2759,6 +3489,7 @@ def main() -> int:
         card, lambda: ft.step(x, y), trained["step_ms"])
     del ft, x, y
     print("[training] summary " + json.dumps(dict(trained, card=card)))
+    fp32_ips = trained["images_per_s"]
     lm_launches, lm, trainer = phase_lm_training(card)
     lm["profile"] = phase_lm_profile(card, trainer, lm["step_ms"])
     del trainer
@@ -2783,13 +3514,20 @@ def main() -> int:
     print("[compositions] summary " + json.dumps(dict(composed, card=card)))
     mod_launches, moduled = phase_module(card)
     print("[module] summary " + json.dumps(dict(moduled, card=card)))
+    bf16_launches, bf16_trained = phase_bf16_training(card, fp32_ips)
+    print("[bf16-training] summary "
+          + json.dumps(dict(bf16_trained, card=card)))
+    bf16_moduled = phase_bf16_module(card)
+    print("[bf16-module] summary " + json.dumps(dict(bf16_moduled,
+                                                     card=card)))
     print("[done] all phases passed in %.1f s" % (time.perf_counter() - t0))
     k1, k2 = _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches)
     k1["module_launches"] = mod_launches["implicit_gemm_conv"]
     k2["module_launches"] = (mod_launches["taps_wgrad"]
                              + mod_launches["taps_wgrad reduction"])
+    k12 = _bf16_entries(k1, k2, bf16_kernels, bf16_launches)
     print(json.dumps({"kernels": [k1, k2] + lstm + attn
-                      + _ring_entries(k4, k10, ring_launches) + [k11]}))
+                      + _ring_entries(k4, k10, ring_launches) + [k11, k12]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,14 @@ Each op that draws random numbers (the RNN op's dropout) gets a fresh
 generator every step, seeded from :func:`mxnet_tpu_torch.random.next_seed`,
 as the reference draws fresh keys (``fused.py:196-202``).  No CUDA graph
 yet.
+
+``dtype="bfloat16"`` is the reference's mixed precision (``fused.py:58-63,
+133-170``): the private parameters and momenta stay fp32 masters; inside the
+differentiated step every argument (gammas and betas too) and the data are
+cast to bf16, so the gradients arrive in fp32 through the casts; BatchNorm's
+moving statistics keep their fp32 dtype, and the loss is the fp32 mean of
+the streaming cross-entropy.  ``dtype="float16"`` raises: the port's
+kernels have no fp16 arm yet.
 """
 from __future__ import annotations
 
@@ -69,9 +77,16 @@ class FusedTrainer:
         from . import symbol as sym_mod
         from .executor import _Plan
 
-        if dtype != "float32":
-            raise MXNetError("the port's FusedTrainer trains in float32 only "
-                             "(got %r); bf16 comes in a later slice" % (dtype,))
+        if dtype == "float16":
+            raise MXNetError("FusedTrainer(dtype='float16') is not ported: "
+                             "fp16 comes with a later bf16/fp16 slice (the "
+                             "port's kernels have no fp16 arm); use "
+                             "'bfloat16' or 'float32'")
+        if dtype not in ("float32", "bfloat16"):
+            raise MXNetError("FusedTrainer dtype must be float32 or bfloat16, "
+                             "got %r" % (dtype,))
+        # the compute dtype of the differentiated step (None: fp32 as is)
+        self._compute_dtype = torch.bfloat16 if dtype == "bfloat16" else None
         p = dict(optimizer_params or {})
         self._lr = float(p.pop("learning_rate", 0.01))
         self._momentum = float(p.pop("momentum", 0.0))
@@ -121,14 +136,17 @@ class FusedTrainer:
         """One training step on a batch; returns the loss (before the
         update) as a 0-d NDArray on the parameters' device."""
         first = next(iter(self._args.values()))
-        d = self._as_tensor(data, first).to(first.dtype)
+        cdt = self._compute_dtype
+        d = self._as_tensor(data, first).to(cdt or first.dtype)
         lab = self._as_tensor(labels, first)
         names = self._arg_names
         gens = [torch.Generator(device=first.device).manual_seed(
             _random.next_seed()) for _ in range(self._plan.n_rng)]
         with torch.enable_grad():
+            args = self._args if cdt is None else \
+                {k: v.to(cdt) for k, v in self._args.items()}
             outs, new_aux = self._plan.execute(
-                {**self._args, **self._auxs, "data": d}, gens)
+                {**args, **self._auxs, "data": d}, gens)
             loss = self._loss(outs[0], lab)
             grads = torch.autograd.grad(loss, [self._args[n] for n in names])
         with torch.no_grad():
@@ -146,7 +164,7 @@ class FusedTrainer:
             else:
                 torch._foreach_add_(params, grads, alpha=-self._lr)
             for n in self._plan.aux_names:
-                self._auxs[n] = new_aux[n].detach()
+                self._auxs[n] = new_aux[n].detach().to(self._auxs[n].dtype)
         return NDArray(loss.detach())
 
     def sync_params(self):

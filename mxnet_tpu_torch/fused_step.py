@@ -12,6 +12,12 @@ to ``grad_dict``.  ``forward_backward`` only stages the batch; ``update``
 runs the step; anything that needs the staged batch's outputs or gradients
 before ``update`` replays it on the eager path (``flush_eager``).
 
+A multi-precision slot (a bf16 weight under ``multi_precision``) hands the
+update its flat state with the master fp32 leaf first, ``(master,
+*inner_leaves)`` (``fused_step.py:315-366``); a slot whose state has
+another structure (a ``.states`` file of an fp32 run, say) sends the step
+to the eager path, as the reference's does.
+
 ``MXNET_TPU_FUSED_STEP`` (default on, read as the reference reads it)
 selects this path; with ``0`` the eager path (executor backward, then the
 updater one parameter at a time) trains instead, and is the oracle the
@@ -25,6 +31,7 @@ import os
 import torch
 
 from .ndarray.ndarray import NDArray
+from .optimizer import fused_state_leaves
 
 __all__ = ["ENV_FLAG", "enabled", "ModuleFusedStep"]
 
@@ -89,26 +96,47 @@ class ModuleFusedStep:
                         for n in self._pnames))
         return self._structural_ok
 
-    def step(self):
+    def _states(self, indices, weights):
+        """Each slot's state as the fused update takes it (made now if the
+        slot has none), or None when one is not fusable."""
+        m = self._mod
+        out = []
+        for i, w in zip(indices, weights):
+            st = m._updater.state(i, w)
+            if m._optimizer.fused_mp(w):
+                leaves = fused_state_leaves(st, mp=True)
+                if leaves is None:
+                    return None
+                out.append(tuple(leaf._data for leaf in leaves))
+            else:
+                out.append(_tensors(st))
+        return out
+
+    def step(self) -> bool:
         """Consume the staged batch: forward and gradients under autograd,
-        then one fused optimizer update over every parameter."""
+        then one fused optimizer update over every parameter.  Returns
+        False, after replaying the batch on the eager path, when a slot's
+        state is not fusable."""
         m = self._mod
         ex = self._eg.execs[0]
+        weights = [ex.arg_dict[n] for n in self._pnames]
+        ndev = len(m._context)
+        indices = [m._optimizer.slot_index(m._param_names.index(n), ndev, 0)
+                   for n in self._pnames]
+        states = self._states(indices, weights)
+        if states is None:
+            self.flush_eager()
+            return False
         batch, self._pending = self._pending, None
         ex._feed(self._eg.feeds(batch)[0])
         # the eligible structure makes the executor's gradient arguments
         # exactly the "write" parameters
         outs, new_aux, grads = ex._run_with_grads(
             None, ex._generators(ex._plan(True)))
-        weights = [ex.arg_dict[n] for n in self._pnames]
         grads = [torch.zeros_like(w._data) if grads[n] is None else grads[n]
                  for n, w in zip(self._pnames, weights)]
-        ndev = len(m._context)
-        indices = [m._optimizer.slot_index(m._param_names.index(n), ndev, 0)
-                   for n in self._pnames]
-        states = [_tensors(m._updater.state(i, w))
-                  for i, w in zip(indices, weights)]
         m._optimizer.fused_update(indices, [w._data for w in weights],
                                   grads, states)
         ex._writeback_aux(new_aux)
         ex.outputs = [NDArray(o) for o in outs]
+        return True

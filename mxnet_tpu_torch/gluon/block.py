@@ -136,6 +136,14 @@ class Block:
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
+    def cast(self, dtype):
+        """Cast the parameters of this Block and its children to ``dtype``
+        (``block.py:281``)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for param in self.params.values():
+            param.cast(dtype)
+
     def __call__(self, *args):
         return self.forward(*args)
 
@@ -165,6 +173,10 @@ class HybridBlock(Block):
     def hybridize(self, active=True, **kwargs):
         self._clear_cached_op()
         super().hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        self._clear_cached_op()
+        super().cast(dtype)
 
     def _get_graph(self):
         """(input variable, output Symbol) of this block on ``data``."""

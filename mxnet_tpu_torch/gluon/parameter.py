@@ -122,6 +122,15 @@ class Parameter:
                              "%s)" % (self.name, ctx, list(self._data)))
         return self._data[ctx]
 
+    def cast(self, dtype):
+        """Cast this Parameter's arrays to ``dtype`` (``parameter.py:331``);
+        a deferred one is made in ``dtype`` when its shape is known."""
+        self.dtype = dtype
+        if self._data is None:
+            return
+        self._data = OrderedDict((c, a.astype(dtype))
+                                 for c, a in self._data.items())
+
     def var(self):
         """The Symbol variable of this parameter."""
         if self._var is None:

@@ -2,7 +2,10 @@
 ``mxnet_tpu/model.py``): ``prefix-symbol.json`` holds the graph and
 ``prefix-%04d.params`` the parameters, named ``arg:<name>`` and
 ``aux:<name>``, in the npz container of ``ndarray.save``, so each package
-reads the checkpoints the other writes."""
+reads the checkpoints the other writes.  bf16 parameters (a Module bound
+under ``MXNET_TPU_BF16``) are written as the reference writes them, two-byte
+``|V2`` entries, and load back as bf16; a multi-precision updater's
+``.states`` hold each slot's ``(momentum, master)`` in fp32."""
 from __future__ import annotations
 
 import logging

@@ -6,6 +6,8 @@ inputs, the labels and ``fixed_param_names``; ``grad_req`` may be one
 request or a dict by name).  A context list may repeat one device, as the
 port's meshes do, and every executor is then a replica on that device.
 ``get_params`` averages the replicas' parameters, as the reference does.
+``type_dict`` gives arguments (and their gradients) their dtypes, as the
+bf16 policy's ``amp.type_dict_for`` makes it.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ def _mean(arrays: List[NDArray]) -> NDArray:
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write"):
+                 fixed_param_names=None, grad_req="write", type_dict=None):
         self.symbol = symbol
         self.contexts = list(contexts)
         self.workload = list(workload or [1.0] * len(self.contexts))
@@ -78,6 +80,7 @@ class DataParallelExecutorGroup:
             shapes = {d.name: (rows,) + tuple(d.shape[1:])
                       for d in self.data_shapes + self.label_shapes}
             self.execs.append(symbol.simple_bind(ctx=ctx, grad_req=req,
+                                                 type_dict=type_dict,
                                                  **shapes))
 
     def set_params(self, arg_params, aux_params, allow_extra=False):

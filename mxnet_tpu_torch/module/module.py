@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import logging
 
+from .. import amp
 from .. import fused_step as _fused
 from .. import kvstore as kvs
 from .. import optimizer as opt
@@ -106,17 +107,27 @@ class Module(BaseModule):
              inputs_need_grad=False, force_rebind=False, grad_req="write"):
         """Bind one executor per context for these input shapes
         (``module.py:110``); ``grad_req`` is one request or a dict by
-        name."""
+        name.  Under ``MXNET_TPU_BF16`` (read now, as the reference reads
+        it at bind) the arrays take ``amp.type_dict_for``'s dtypes: bf16
+        data and weights, fp32 labels, gammas, betas and moving
+        statistics."""
         if self.binded and not force_rebind:
             return
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
+        label_shapes = [l if isinstance(l, DataDesc) else DataDesc(*l)
+                        for l in (label_shapes or [])]
+        type_dict = None
+        if amp.enabled():
+            type_dict = amp.type_dict_for(self._symbol, self._data_names,
+                                          [l.name for l in label_shapes])
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             [d if isinstance(d, DataDesc) else DataDesc(*d)
              for d in data_shapes], label_shapes, self._param_names,
             for_training, inputs_need_grad,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            type_dict=type_dict)
         self.binded = True
         if self._arg_params is not None:
             self._exec_group.set_params(self._arg_params, self._aux_params,
@@ -241,8 +252,7 @@ class Module(BaseModule):
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer before update")
         fs = self._fused()
-        if fs is not None and fs.pending and fs.eligible():
-            fs.step()
+        if fs is not None and fs.pending and fs.eligible() and fs.step():
             return
         self._flush()
         eg = self._exec_group

@@ -3,6 +3,15 @@
 serving and training paths use, plus ``save``/``load`` in the reference
 package's npz format so a ``.params`` file that ``mxnet_tpu.nd.save`` wrote
 loads here.
+
+bfloat16 is a dtype of the port (``astype("bfloat16")``, ``array(...,
+dtype="bfloat16")``) though numpy has none without ``ml_dtypes``, which the
+port does not import.  So ``asnumpy()`` of a bf16 array returns float32 (a
+documented difference: the reference returns an ``ml_dtypes.bfloat16``
+array), and a numpy bf16 array, whether ``ml_dtypes.bfloat16`` or the raw
+two-byte ``|V2`` that ``np.savez`` writes for one, becomes a bf16 tensor
+bit for bit through an ``int16`` view.  ``save`` writes bf16 as that same
+``|V2`` payload, byte for byte what the reference's ``save`` writes.
 """
 from __future__ import annotations
 
@@ -15,7 +24,7 @@ from ..base import MXNetError
 from ..context import Context, context_of, current_context
 
 __all__ = ["NDArray", "array", "zeros", "ones", "concatenate", "save",
-           "load"]
+           "load", "is_numpy_bf16", "bf16_from_numpy", "bf16_to_numpy"]
 
 _TORCH_DTYPES = {
     np.dtype(np.float32): torch.float32,
@@ -28,6 +37,29 @@ _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
 }
 _NP_DTYPES = {v: k for k, v in _TORCH_DTYPES.items()}
+
+
+def is_numpy_bf16(arr) -> bool:
+    """Whether a numpy array holds bfloat16: ``ml_dtypes.bfloat16`` (told
+    by its name, without importing ``ml_dtypes``) or the raw ``|V2`` that
+    ``np.save`` writes for it."""
+    dt = arr.dtype
+    return dt.name == "bfloat16" or (dt.kind == "V" and dt.itemsize == 2
+                                     and dt.fields is None)
+
+
+def bf16_from_numpy(arr) -> torch.Tensor:
+    """A numpy bf16 array (:func:`is_numpy_bf16`) as a bf16 CPU tensor, bit
+    for bit: the two-byte payload viewed as ``int16``, then as bf16."""
+    raw = np.ascontiguousarray(arr).view(np.int16).copy()
+    return torch.from_numpy(raw).view(torch.bfloat16)
+
+
+def bf16_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor as the raw ``|V2`` numpy array that ``np.savez`` writes
+    for an ``ml_dtypes.bfloat16`` one (the reference's ``.params`` entry)."""
+    raw = t.detach().contiguous().view(torch.int16).cpu().numpy()
+    return raw.view(np.dtype("V2"))
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -135,6 +167,9 @@ class NDArray:
 def _as_tensor(source, dtype) -> torch.Tensor:
     if isinstance(source, NDArray):
         source = source._data
+    if not isinstance(source, torch.Tensor) and is_numpy_bf16(
+            np.asarray(source)):
+        source = bf16_from_numpy(np.asarray(source))
     if not isinstance(source, torch.Tensor):
         arr = np.asarray(source)
         if arr.dtype == np.float64 and dtype is None:
@@ -182,14 +217,21 @@ def _full(shape, value, ctx, dtype) -> NDArray:
 # save / load: the reference package's npz container, entries "arr:<i>" for a
 # list and "name:<key>" for a dict (mxnet_tpu/ndarray/ndarray.py:741-816).
 # --------------------------------------------------------------------------
+def _entry(a: NDArray) -> np.ndarray:
+    if a._data.dtype == torch.bfloat16:
+        return bf16_to_numpy(a._data)
+    return a.asnumpy()
+
+
 def save(fname, data):
-    """Write an NDArray, a list of them or a ``{name: NDArray}`` dict."""
+    """Write an NDArray, a list of them or a ``{name: NDArray}`` dict; bf16
+    arrays as the reference writes them (``|V2``)."""
     if isinstance(data, NDArray):
-        entries = {"arr:0": data.asnumpy()}
+        entries = {"arr:0": _entry(data)}
     elif isinstance(data, (list, tuple)):
-        entries = {"arr:%d" % i: a.asnumpy() for i, a in enumerate(data)}
+        entries = {"arr:%d" % i: _entry(a) for i, a in enumerate(data)}
     elif isinstance(data, dict):
-        entries = {"name:" + k: v.asnumpy() for k, v in data.items()}
+        entries = {"name:" + k: _entry(v) for k, v in data.items()}
     else:
         raise MXNetError("save expects NDArray, list, or dict")
     np.savez(_norm(fname), **entries)
@@ -197,7 +239,8 @@ def save(fname, data):
 
 def load(fname, ctx: Optional[Context] = None):
     """Read a file ``save`` wrote (path or file-like).  Arrays land on
-    ``ctx``, by default the current context, as the reference's do."""
+    ``ctx``, by default the current context, as the reference's do; a bf16
+    entry (``|V2``) loads as bf16."""
     ctx = ctx or current_context()
     with np.load(_norm(fname), allow_pickle=False) as z:
         keys = list(z.keys())

@@ -39,6 +39,22 @@ The NHWC view of a channels-last tensor is free, and the kernel's output is
 returned as an NCHW view of NHWC memory, so consecutive kernels hand each
 other channels-last tensors without a copy.  A cotangent that reaches the
 backward in NCHW memory is copied to NHWC once per convolution.
+
+Kernels 1 and 2 take float32 or bfloat16 (both operands the same); kernel 2
+widens bf16 to fp32 as it loads and returns fp32, as the reference's
+``dot_general(..., preferred_element_type=f32)`` does.
+
+``conv1x1`` is the bf16 training step's 1x1 convolution (stride 1, or
+stride 2 on even H and W, which is the 1x1 on ``x[:, :, ::2, ::2]`` as
+``tools/probe_conv_fixes.py:139-142`` rewrites it), a
+``torch.autograd.Function`` whose forward and data gradient are
+``F.conv2d`` and ``torch.nn.grad.conv2d_input`` (cuDNN; the reference
+leaves both to XLA) and whose weight gradient is :func:`conv1x1_wgrad`, the
+function of the TPU kernel ``wgrad_kernel`` of
+``tools/probe_conv_fixes.py:164-181``: ``x(R, C)^T @ g(R, O)`` over NHWC
+rows, bf16 in, fp32 out.  On the card it launches ``csrc/conv1x1_wgrad.cu``
+(``conv1x1_wgrad_launches`` and ``conv1x1_wgrad_reduce_launches`` count its
+two passes); on the CPU it runs :func:`conv1x1_wgrad_plain`.
 """
 from __future__ import annotations
 
@@ -53,8 +69,10 @@ from ..base import MXNetError
 
 __all__ = ["conv3x3_same", "conv3x3_same_plain", "conv3x3_s2",
            "conv3x3_s2_plain", "taps_conv", "taps_conv_plain", "taps_wgrad",
-           "taps_wgrad_plain", "dgrad_taps", "launches", "wgrad_launches",
-           "wgrad_reduce_launches"]
+           "taps_wgrad_plain", "dgrad_taps", "conv1x1", "conv1x1_wgrad",
+           "conv1x1_wgrad_plain", "launches", "wgrad_launches",
+           "wgrad_reduce_launches", "conv1x1_wgrad_launches",
+           "conv1x1_wgrad_reduce_launches"]
 
 #: convolution kernel launches so far (CUDA arm of :func:`taps_conv` only)
 launches = 0
@@ -62,6 +80,10 @@ launches = 0
 wgrad_launches = 0
 #: wgrad reduction-pass launches so far (CUDA arm, calls with splits > 1)
 wgrad_reduce_launches = 0
+#: 1x1 wgrad partial-pass launches so far (CUDA arm of :func:`conv1x1_wgrad`)
+conv1x1_wgrad_launches = 0
+#: 1x1 wgrad reduction-pass launches so far (CUDA arm, calls with splits > 1)
+conv1x1_wgrad_reduce_launches = 0
 _count_lock = threading.Lock()
 
 _Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -71,6 +93,7 @@ S2_PADS: _Pads = ((1, 0), (1, 0))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _wgrad_fn = None
+_w1x1_fn = None
 #: rows per stage of the wgrad kernel (BK in taps_wgrad.cu)
 _WGRAD_BK = 16
 #: output channels per block tile of the wgrad kernel (BC = BO)
@@ -179,7 +202,7 @@ def _wgrad_kernel():
     if _wgrad_fn is None:
         from .. import _build
         fn = _build.load("taps_wgrad").mxtt_taps_wgrad
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _wgrad_fn = fn
@@ -196,9 +219,10 @@ def wgrad_splits(M: int, C: int, O: int, taps: int, sms: int) -> int:
 
 def _taps_wgrad_cuda(x, dy, pads: _Pads, KH: int, KW: int):
     global wgrad_launches, wgrad_reduce_launches
-    if x.dtype != torch.float32 or dy.dtype != torch.float32:
-        raise MXNetError("taps_wgrad: the CUDA kernel takes float32 x and dy, "
-                         "got %s and %s" % (x.dtype, dy.dtype))
+    if x.dtype not in _DTYPE_CODE or dy.dtype != x.dtype:
+        raise MXNetError("taps_wgrad: the CUDA kernel takes float32 or "
+                         "bfloat16 x and dy of one dtype, got %s and %s"
+                         % (x.dtype, dy.dtype))
     if dy.device != x.device:
         raise MXNetError("taps_wgrad: dy must be on x's device")
     N, H, W, C = x.shape
@@ -217,7 +241,7 @@ def _taps_wgrad_cuda(x, dy, pads: _Pads, KH: int, KW: int):
     launched = (ctypes.c_int * 2)()
     err = _wgrad_kernel()(
         x.data_ptr(), dy.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
+        ws.data_ptr() if ws is not None else None, _DTYPE_CODE[x.dtype],
         N, H, W, C, O, KH, KW, pads[0][0], pads[1][0], Ho, Wo, splits, sms,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
         launched)
@@ -231,8 +255,9 @@ def _taps_wgrad_cuda(x, dy, pads: _Pads, KH: int, KW: int):
 
 def taps_wgrad(x, dy, pads: _Pads, KH: int, KW: int):
     """Weight gradient of :func:`taps_conv`, x (N, H, W, C), dy
-    (N, Ho, Wo, O), both NHWC -> (KH*KW, C, O) fp32: the CUDA kernel for a
-    tensor on the card, the plain version for one on the CPU or ``meta``."""
+    (N, Ho, Wo, O), both NHWC, fp32 or bf16 -> (KH*KW, C, O) fp32: the CUDA
+    kernel for a tensor on the card, the plain version for one on the CPU or
+    ``meta``."""
     if x.device.type == "cuda":
         return _taps_wgrad_cuda(x, dy, pads, KH, KW)
     if x.device.type in ("cpu", "meta"):
@@ -368,3 +393,138 @@ def conv3x3_s2(data, weight):
 def conv3x3_s2_plain(data, weight):
     """:func:`conv3x3_s2` through the plain version on any device."""
     return _s2(data, weight, taps_conv_plain)
+
+
+# --------------------------------------------------------------------------
+# 1x1 convolution with the weight gradient on kernel 12
+# --------------------------------------------------------------------------
+#: rows per stage of the 1x1 wgrad kernel (BK in conv1x1_wgrad.cu)
+_W1X1_BK = 32
+#: channels per block tile of the 1x1 wgrad kernel (BC = BO)
+_W1X1_TILE = 64
+#: channel counts the 1x1 wgrad kernel takes: multiples of 8 in [8, 2048]
+W1X1_MAX_CHANNELS = 2048
+
+
+def _out_1x1(H: int, W: int, stride: int):
+    return (H - 1) // stride + 1, (W - 1) // stride + 1
+
+
+def conv1x1_wgrad_plain(x, g, stride: int = 1):
+    """Reference 1x1 weight gradient: x (N, H, W, C), g (N, Ho, Wo, O), both
+    NHWC -> (C, O) fp32, one fp32 ``x_rows^T @ g_rows`` product over the
+    pixels ``x[:, ::stride, ::stride]`` (what ``wgrad_kernel`` computes)."""
+    C, O = x.shape[3], g.shape[3]
+    xs = x[:, ::stride, ::stride, :].reshape(-1, C).float()
+    return xs.t() @ g.reshape(-1, O).float()
+
+
+def _w1x1_kernel():
+    global _w1x1_fn
+    if _w1x1_fn is None:
+        from .. import _build
+        fn = _build.load("conv1x1_wgrad").mxtt_conv1x1_wgrad
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        fn.restype = ctypes.c_int
+        _w1x1_fn = fn
+    return _w1x1_fn
+
+
+def conv1x1_wgrad_splits(M: int, C: int, O: int, sms: int) -> int:
+    """Row splits of the 1x1 wgrad kernel's grid: enough blocks for about
+    four per SM, at most one split per 32-row stage."""
+    tiles = (-(-C // _W1X1_TILE)) * (-(-O // _W1X1_TILE))
+    want = -(-4 * sms // tiles)
+    return max(1, min(want, -(-M // _W1X1_BK)))
+
+
+def _conv1x1_wgrad_cuda(x, g, stride: int):
+    global conv1x1_wgrad_launches, conv1x1_wgrad_reduce_launches
+    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise MXNetError("conv1x1_wgrad: the CUDA kernel takes bfloat16 x "
+                         "and g, got %s and %s" % (x.dtype, g.dtype))
+    if g.device != x.device:
+        raise MXNetError("conv1x1_wgrad: g must be on x's device")
+    if x.dim() != 4 or g.dim() != 4:
+        raise MXNetError("conv1x1_wgrad: x and g must be NHWC, got %s and %s"
+                         % (tuple(x.shape), tuple(g.shape)))
+    N, H, W, C = x.shape
+    O = g.shape[3]
+    Ho, Wo = _out_1x1(H, W, stride)
+    if stride not in (1, 2) or tuple(g.shape[:3]) != (N, Ho, Wo):
+        raise MXNetError("conv1x1_wgrad: x %s and g %s do not form a 1x1 "
+                         "conv at stride %d"
+                         % (tuple(x.shape), tuple(g.shape), stride))
+    for name, n in (("C", C), ("O", O)):
+        if n % 8 or not 8 <= n <= W1X1_MAX_CHANNELS:
+            raise MXNetError("conv1x1_wgrad: %s = %d; the CUDA kernel takes "
+                             "multiples of 8 from 8 to %d"
+                             % (name, n, W1X1_MAX_CHANNELS))
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise MXNetError("conv1x1_wgrad: x and g must be contiguous")
+    if x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise MXNetError("conv1x1_wgrad: x and g must start on a 16-byte "
+                         "boundary (the kernel's vector loads)")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = conv1x1_wgrad_splits(N * Ho * Wo, C, O, sms)
+    out = torch.empty((C, O), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((splits, C, O), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    launched = (ctypes.c_int * 2)()
+    err = _w1x1_kernel()(
+        x.data_ptr(), g.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
+        N, H, W, C, O, Ho, Wo, stride, splits, sms, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream, launched)
+    with _count_lock:
+        conv1x1_wgrad_launches += launched[0]
+        conv1x1_wgrad_reduce_launches += launched[1]
+    if err != 0:
+        raise MXNetError("conv1x1_wgrad launch failed: CUDA error %d" % err)
+    return out
+
+
+def conv1x1_wgrad(x, g, stride: int = 1):
+    """Weight gradient of a 1x1 convolution at ``stride``, x (N, H, W, C)
+    and g (N, Ho, Wo, O), both NHWC -> (C, O) fp32: the CUDA kernel (bf16
+    only) for a tensor on the card, the plain version for one on the CPU or
+    ``meta``."""
+    if x.device.type == "cuda":
+        return _conv1x1_wgrad_cuda(x, g, stride)
+    if x.device.type in ("cpu", "meta"):
+        return conv1x1_wgrad_plain(x, g, stride)
+    raise MXNetError("conv1x1_wgrad: no arm for device %s" % x.device)
+
+
+class _Conv1x1(torch.autograd.Function):
+    """1x1 / pad-0 / ungrouped conv at stride 1 or 2: forward and data
+    gradient on cuDNN, weight gradient on kernel 12 (:func:`conv1x1_wgrad`)."""
+
+    @staticmethod
+    def forward(ctx, data, weight, stride):
+        ctx.save_for_backward(data, weight)
+        ctx.stride = stride
+        return F.conv2d(data, weight.to(data.dtype), stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, weight = ctx.saved_tensors
+        s = ctx.stride
+        g = g.to(data.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(data.shape, weight.to(g.dtype), g,
+                                            stride=s)
+        if ctx.needs_input_grad[1]:
+            O, C = weight.shape[:2]
+            dwf = conv1x1_wgrad(_nhwc(data), _nhwc(g), s)
+            dw = dwf.t().to(weight.dtype).reshape(O, C, 1, 1)
+        return dx, dw, None
+
+
+def conv1x1(data, weight, stride: int = 1):
+    """1x1 / pad-0 / ungrouped conv at stride 1 or 2, NCHW data, OIHW
+    weight; differentiable, the weight gradient on kernel 12 (which takes
+    bf16) for a tensor on the card."""
+    return _Conv1x1.apply(data, weight, stride)

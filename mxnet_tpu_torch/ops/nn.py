@@ -9,9 +9,16 @@ Convolution dispatch mirrors ``_pallas_conv_mode`` (``nn.py:239-268``)
 without its environment flag and lane gate, which were TPU verdicts: the
 3x3 / stride-1 / pad-1 class and the 3x3 / stride-2 / pad-1 class with even
 H and W go to the hand-written kernels (``hopper_conv``, whose autograd
-Functions carry the backward); every other convolution (ResNet's 7x7 stem,
-the 1x1 projections) goes to ``torch.nn.functional.conv{1,2,3}d``, the
-counterpart of the ``lax`` arm the reference package leaves to XLA.
+Functions carry the backward), in fp32 and in bf16.  A bf16 1x1 / pad-0
+convolution at stride 1, or at stride 2 on even H and W, takes
+``hopper_conv.conv1x1``: cuDNN forward and data gradient, the weight
+gradient on kernel 12 (the bf16 kernel of ``tools/probe_conv_fixes.py``),
+with no fallback on the card.  Every other convolution (ResNet's 7x7 stem,
+the fp32 1x1 projections) goes to ``torch.nn.functional.conv{1,2,3}d``,
+the counterpart of the ``lax`` arm the reference package leaves to XLA.
+BatchNorm's training statistics of a bf16 input are the reference's
+one-pass ``E[x^2] - E[x]^2`` in fp32 (:class:`_LowPrecisionStats`), which
+keeps no fp32 copy of the input for the backward.
 MultiHeadAttention's attention always runs on the flash kernels
 (``hopper_attention``), whatever ``T``: the reference's TPU gates, which
 send ``T < 2048`` to its XLA arm, do not carry over.  Every op is
@@ -123,18 +130,29 @@ _CONV_PARAMS = {
 
 
 def hopper_conv_mode(attrs, data):
-    """"s1" / "s2" when the hand-written kernel covers this conv, else None:
-    "s1" is the reference's ``_is_3x3_same_unit`` class, "s2" the 3x3 /
-    stride-2 / pad-1 class on even spatial dims."""
+    """"s1" / "s2" / "1x1" when a hand-written kernel covers this conv, else
+    None: "s1" is the reference's ``_is_3x3_same_unit`` class, "s2" the 3x3
+    / stride-2 / pad-1 class on even spatial dims, "1x1" a bf16 1x1 / pad-0
+    conv at stride 1, or 2 on even spatial dims (its weight gradient on
+    kernel 12; fp32 1x1s stay on cuDNN)."""
     if len(attrs["kernel"]) != 2 or data.dim() != 4 \
-            or attrs["num_group"] != 1 or tuple(attrs["kernel"]) != (3, 3) \
-            or tuple(attrs["dilate"] or (1, 1)) != (1, 1) \
-            or tuple(attrs["pad"] or (0, 0)) != (1, 1):
+            or attrs["num_group"] != 1 \
+            or tuple(attrs["dilate"] or (1, 1)) != (1, 1):
         return None
+    kernel = tuple(attrs["kernel"])
+    pad = tuple(attrs["pad"] or (0, 0))
     stride = tuple(attrs["stride"] or (1, 1))
+    even = data.shape[2] % 2 == 0 and data.shape[3] % 2 == 0
+    if kernel == (1, 1):
+        if data.dtype == torch.bfloat16 and pad == (0, 0) and (
+                stride == (1, 1) or (stride == (2, 2) and even)):
+            return "1x1"
+        return None
+    if kernel != (3, 3) or pad != (1, 1):
+        return None
     if stride == (1, 1):
         return "s1"
-    if stride == (2, 2) and data.shape[2] % 2 == 0 and data.shape[3] % 2 == 0:
+    if stride == (2, 2) and even:
         return "s2"
     return None
 
@@ -150,6 +168,8 @@ def _convolution(attrs, data, weight, *maybe_bias):
         out = hopper_conv.conv3x3_same(data, weight)
     elif mode == "s2":
         out = hopper_conv.conv3x3_s2(data, weight)
+    elif mode == "1x1":
+        out = hopper_conv.conv1x1(data, weight, (attrs["stride"] or (1,))[0])
     else:
         if nd not in (1, 2, 3):
             raise MXNetError("Convolution: %d-D kernels are not supported"
@@ -280,6 +300,38 @@ _BN_PARAMS = {
 }
 
 
+class _LowPrecisionStats(torch.autograd.Function):
+    """Per-channel mean and biased variance of a bf16/fp16 tensor as the
+    reference computes them (``nn.py:530-540``): one pass, fp32 sums,
+    ``var = max(E[x^2] - E[x]^2, 0)``.  The fp32 widening of the input is a
+    temporary of the forward; the Function saves the low-precision input
+    itself (which the normalization saves anyway) and differentiates
+    analytically: ``dx = (g_mean - 2 mean g_var + 2 x g_var) / n``, with
+    ``g_var`` zero where the clamp bit."""
+
+    @staticmethod
+    def forward(ctx, data, red):
+        mean = torch.mean(data, dim=red, dtype=torch.float32)
+        m2 = torch.mean(data.float().square_(), dim=red)
+        raw = m2 - mean.square()
+        keep = raw >= 0
+        ctx.red = red
+        ctx.save_for_backward(data, mean, keep)
+        return mean, raw.clamp_min(0.0)
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        data, mean, keep = ctx.saved_tensors
+        n = data.numel() // mean.numel()
+        shape = [1] * data.dim()
+        ax = next(i for i in range(data.dim()) if i not in ctx.red)
+        shape[ax] = mean.numel()
+        gv = g_var * keep
+        a = ((g_mean - 2.0 * mean * gv) / n).reshape(shape)
+        b = (2.0 * gv / n).reshape(shape)
+        return (data.float() * b + a).to(data.dtype), None
+
+
 @register("BatchNorm", aliases=("batchnorm", "BatchNorm_v1"),
           params=dict(_BN_PARAMS), nout=3,
           visible=lambda a: 3 if a["output_mean_var"] else 1,
@@ -292,18 +344,22 @@ def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
     as the reference does (``nn.py:516-561``).
 
     In training (``attrs["__train__"]`` and not ``use_global_stats``) it
-    normalizes by the batch's fp32 mean and biased variance, and outputs 1
-    and 2 are ``moving * momentum + batch_stat * (1 - momentum)``, detached
-    from the graph; the training plan writes them back into the auxiliary
-    states.  Otherwise it normalizes by the moving statistics, which pass
-    through unchanged."""
+    normalizes by the batch's fp32 mean and biased variance (two-pass for
+    fp32 input; for bf16/fp16 the reference's one-pass fp32 statistics,
+    :class:`_LowPrecisionStats`), and outputs 1 and 2 are ``moving *
+    momentum + batch_stat * (1 - momentum)``, detached from the graph; the
+    training plan writes them back into the auxiliary states.  Otherwise it
+    normalizes by the moving statistics, which pass through unchanged."""
     ax = attrs["axis"] % data.dim()
     shape = [1] * data.dim()
     shape[ax] = data.shape[ax]
     low_precision = data.dtype in (torch.bfloat16, torch.float16)
     if attrs.get("__train__") and not attrs["use_global_stats"]:
         red = tuple(i for i in range(data.dim()) if i != ax)
-        var, mean = torch.var_mean(data.float(), dim=red, correction=0)
+        if low_precision:
+            mean, var = _LowPrecisionStats.apply(data, red)
+        else:
+            var, mean = torch.var_mean(data.float(), dim=red, correction=0)
         m = attrs["momentum"]
         with torch.no_grad():
             new_mm = moving_mean * m + mean.detach() * (1 - m)

@@ -14,8 +14,19 @@ replace the NDArrays' tensors.  SGD, NAG, Adam and RMSProp also have a
 in place, with PyTorch's foreach kernels (one launch chain for the model),
 which ``Module``'s fused step runs, as the reference's four classes with a
 ``fused_update``; the others train on the eager path there, as in the
-reference.  Weights train in float32: ``multi_precision`` comes with the
-port's bf16 slice.
+reference.
+
+``multi_precision=True`` gives a bf16 or fp16 weight a master fp32 copy
+(``create_state_multi_precision``: the state is ``(inner_state, master)``,
+the reference's layout, which the ``.states`` pickle carries): the update
+runs in fp32 on the master with the gradient widened, and the weight is
+cast again from the new master (``update_multi_precision``; SGD through
+its ``mp_sgd_update``/``mp_sgd_mom_update`` ops).  SGD's fused update takes
+such a weight too (``fused_mp``), with the flat state ``(master,
+*inner_leaves)`` of :func:`fused_state_leaves`, and repeats the eager ops'
+arithmetic operation for operation in foreach kernels, so the fused and
+eager paths give bit-identical masters and weights.  NAG, Adam and RMSProp
+train low-precision weights on the eager path.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from . import amp as _amp
 from .base import MXNetError
 from .ndarray import ndarray as nd
 from .ops import optimizer_ops as _ops
@@ -33,7 +45,7 @@ from .ops import optimizer_ops as _ops
 __all__ = ["Optimizer", "SGD", "Signum", "FTML", "DCASGD", "NAG", "SGLD",
            "Adam", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl", "Adamax",
            "Nadam", "LBSGD", "Test", "Updater", "get_updater", "create",
-           "register"]
+           "register", "fused_state_leaves"]
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -62,9 +74,6 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None):
-        if multi_precision:
-            raise MXNetError("multi_precision comes with the port's bf16 "
-                             "slice; this optimizer trains float32 weights")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -75,7 +84,7 @@ class Optimizer:
         self.num_update = begin_num_update
         self._index_update_count: Dict[Any, int] = {}
         self.clip_gradient = clip_gradient
-        self.multi_precision = False
+        self.multi_precision = multi_precision
         self.param_dict = param_dict or {}
         self.idx2name = dict(param_idx2name or {})
         self.sym_info = ()
@@ -87,8 +96,36 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def create_state_multi_precision(self, index, weight):
+        """The slot's state; in multi-precision mode a low-precision weight
+        gets ``(create_state(master), master)``, ``master`` its fp32 copy
+        (``optimizer.py:66-76``)."""
+        if self.multi_precision and _amp.is_low_precision(weight.dtype):
+            w32 = weight.astype(np.float32)
+            return (self.create_state(index, w32), w32)
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """The generic multi-precision step (``optimizer.py:78-90``): the
+        fp32 update on the master with the gradient widened to fp32, then
+        the low-precision weight cast again from the new master."""
+        if self._mp_state(weight, state):
+            inner, w32 = state
+            self.update(index, w32, grad.astype(np.float32), inner)
+            w32.copyto(weight)
+            return
+        self.update(index, weight, grad, state)
+
+    def _mp_state(self, weight, state):
+        """Whether ``state`` is the multi-precision layout ``(inner_state,
+        master_fp32)`` of this low-precision weight."""
+        return (self.multi_precision and _amp.is_low_precision(weight.dtype)
+                and isinstance(state, tuple) and len(state) == 2
+                and isinstance(state[1], nd.NDArray)
+                and state[1]._data.dtype == torch.float32)
 
     def set_learning_rate(self, lr):
         self.lr = lr
@@ -184,6 +221,18 @@ class Optimizer:
         """Whether :meth:`fused_update` takes this weight."""
         return False
 
+    def fused_mp(self, weight) -> bool:
+        """Whether this weight takes the fused update in multi-precision
+        form: low-precision storage, its flat state ``(master,
+        *inner_leaves)``."""
+        return self.multi_precision and _amp.is_low_precision(weight.dtype)
+
+    def _fused_dtype_ok(self, weight) -> bool:
+        """fp32 weights; a low-precision one only in multi-precision mode
+        (``optimizer.py:225-233``)."""
+        return weight._data.dtype == torch.float32 or self.fused_mp(weight)
+
+
     def fused_slot_lr(self, lr, t):
         """The slot's learning rate with any host-side correction folded in
         (Adam's bias correction), as the eager update computes it."""
@@ -193,28 +242,46 @@ class Optimizer:
                      grads: List[torch.Tensor], states: List[Any]):
         """The update of every slot in ``indices`` at once, in place on the
         weight and state tensors (``states[j]`` is the slot's state as a
-        tensor, a tuple of tensors or None); ``grads`` are consumed.  Each
-        slot is counted and its learning rate taken in order, as the eager
-        loop does (``fused_step.py:1015-1021``); slots with the same (lr,
-        wd) go through one chain of foreach kernels."""
+        tensor, a tuple of tensors or None; for a multi-precision weight,
+        :meth:`fused_mp`, the flat tuple ``(master, *inner_leaves)``);
+        ``grads`` are consumed.  Each slot is counted and its learning rate
+        taken in order, as the eager loop does
+        (``fused_step.py:1015-1021``); slots with the same (lr, wd) go
+        through one chain of foreach kernels.  A multi-precision slot's
+        gradient is widened to fp32, the chain updates its master, and the
+        weight is cast again from it (``fused_update_mp``,
+        ``optimizer.py:209-222``).  Weight decay is added as ``g + wd * w``
+        in two roundings, as the update ops add it."""
         groups: Dict[tuple, List[int]] = {}
         for j, i in enumerate(indices):
             self._update_count(i)
             t = self._index_update_count[i]
             key = (self.fused_slot_lr(self._get_lr(i), t), self._get_wd(i))
             groups.setdefault(key, []).append(j)
+        mp = [self.fused_mp(w) for w in weights]
         with torch.no_grad():
+            grads = [g.float() if m else g for g, m in zip(grads, mp)]
+            targets = [s[0] if m else w
+                       for w, s, m in zip(weights, states, mp)]
+            # only SGD fuses low-precision weights: its state is the
+            # momentum or None
+            inner = [(s[1] if len(s) > 1 else None) if m else s
+                     for s, m in zip(states, mp)]
             if self.rescale_grad != 1.0:
                 torch._foreach_mul_(grads, self.rescale_grad)
             if self.clip_gradient is not None and self.clip_gradient >= 0:
                 torch._foreach_clamp_min_(grads, -self.clip_gradient)
                 torch._foreach_clamp_max_(grads, self.clip_gradient)
             for (lr, wd), js in groups.items():
-                w = [weights[j] for j in js]
+                w = [targets[j] for j in js]
                 g = [grads[j] for j in js]
                 if wd:
-                    torch._foreach_add_(g, w, alpha=wd)
-                self._fused_group(lr, w, g, [states[j] for j in js])
+                    torch._foreach_add_(g, torch._foreach_mul(w, wd))
+                self._fused_group(lr, w, g, [inner[j] for j in js])
+            low = [j for j, m in enumerate(mp) if m]
+            if low:
+                torch._foreach_copy_([weights[j] for j in low],
+                                     [targets[j] for j in low])
 
     def _fused_group(self, lr, w, g, states):
         raise MXNetError("%s has no fused update" % type(self).__name__)
@@ -237,24 +304,40 @@ class SGD(Optimizer):
         return _zeros_like(weight)
 
     def update(self, index, weight, grad, state):
+        """One slot's update; a multi-precision state ``(mom, master)`` goes
+        through the ``mp_sgd_mom_update``/``mp_sgd_update`` ops
+        (``optimizer.py:319-339``)."""
         self._update_count(index)
         attrs = self._common_kwargs(index)
-        if state is not None:
+        if isinstance(state, tuple):
+            mom, w32 = state
+            if mom is not None:
+                attrs["momentum"] = self.momentum
+                self._run(_ops._mp_sgd_mom_update, attrs, weight, grad, mom,
+                          w32)
+            else:
+                self._run(_ops._mp_sgd_update, attrs, weight, grad, w32)
+        elif state is not None:
             attrs["momentum"] = self.momentum
             self._run(_ops._sgd_mom_update, attrs, weight, grad, state)
         else:
             self._run(_ops._sgd_update, attrs, weight, grad)
 
+    update_multi_precision = update
+
     def supports_fused(self, weight) -> bool:
-        return weight._data.dtype == torch.float32
+        return self._fused_dtype_ok(weight)
 
     def _fused_group(self, lr, w, g, states):
+        """``mom = momentum * mom - lr * g``, ``w += mom`` (or ``w -= lr *
+        g``), each product and sum rounded as the update ops round them."""
+        lg = torch._foreach_mul(g, lr)
         if self.momentum != 0.0:
             torch._foreach_mul_(states, self.momentum)
-            torch._foreach_add_(states, g, alpha=-lr)
+            torch._foreach_sub_(states, lg)
             torch._foreach_add_(w, states)
         else:
-            torch._foreach_add_(w, g, alpha=-lr)
+            torch._foreach_sub_(w, lg)
 
 
 @register
@@ -713,7 +796,8 @@ class Updater:
         """The slot's state on the weight's context, made now if it has
         none."""
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
             self.states_synced[index] = True
         elif not self.states_synced.get(index, True):
             ctx = _state_context(self.states[index])
@@ -724,7 +808,8 @@ class Updater:
         return self.states[index]
 
     def __call__(self, index, grad, weight):
-        self.optimizer.update(index, weight, grad, self.state(index, weight))
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.state(index, weight))
 
     def set_states(self, states):
         from .context import cpu
@@ -739,6 +824,28 @@ class Updater:
         states = {k: _state_to_numpy(v) for k, v in self.states.items()}
         return pickle.dumps((states, self.optimizer.num_update)
                             if dump_optimizer else states)
+
+
+def fused_state_leaves(state, mp=False):
+    """An updater state flattened into a tuple of NDArray leaves for the
+    fused step (None -> ``()``), or None when its structure is not fusable
+    (``optimizer.py:744-776``).  With ``mp`` the state must be the
+    multi-precision layout ``(inner_state, master)``, and the master comes
+    first: ``(master, *inner_leaves)``."""
+    if mp:
+        if not (isinstance(state, (tuple, list)) and len(state) == 2
+                and isinstance(state[1], nd.NDArray)):
+            return None
+        inner = fused_state_leaves(state[0])
+        return None if inner is None else (state[1],) + inner
+    if state is None:
+        return ()
+    if isinstance(state, nd.NDArray):
+        return (state,)
+    if isinstance(state, (tuple, list)) and all(
+            isinstance(s, nd.NDArray) for s in state):
+        return tuple(state)
+    return None
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -233,6 +233,22 @@ class Symbol:
                              % missing)
         return arg_shapes, out_shapes, aux_shapes
 
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types) as torch dtypes: the given
+        argument dtypes (a torch or numpy dtype, or a name), float32 for the
+        rest, as the reference's default-everything-float32 pass; auxiliary
+        states and outputs are float32."""
+        from ..ndarray.ndarray import torch_dtype
+        arg_names = self.list_arguments()
+        known = {n: torch_dtype(t) for n, t in zip(arg_names, args)
+                 if t is not None}
+        known.update({k: torch_dtype(v) for k, v in kwargs.items()
+                      if v is not None})
+        arg_types = [known.get(n, torch.float32) for n in arg_names]
+        out_types = [torch.float32] * len(self._outputs)
+        aux_types = [torch.float32] * len(self.list_auxiliary_states())
+        return arg_types, out_types, aux_types
+
     # ---- serialization --------------------------------------------------
     def tojson(self) -> str:
         """Reference-format graph JSON (nodes/arg_nodes/heads)."""
@@ -279,23 +295,28 @@ class Symbol:
                         dict(args_grad or {}), _norm_grad_req(grad_req,
                                                               arg_names))
 
-    def simple_bind(self, ctx=None, grad_req="write", **shapes):
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    **shapes):
         """Infer every shape from the given input shapes, allocate zeros
         for arguments, gradients (where ``grad_req`` is not ``"null"``)
         and auxiliary states on ``ctx``, and bind (``symbol.py:389``).
-        Everything is float32, as the reference's type inference gives
-        this graph."""
+        Dtypes come from :meth:`infer_type` over ``type_dict``: an
+        argument and its gradient take its entry, everything else is
+        float32."""
         from ..context import current_context
         from ..executor import Executor
         from ..ndarray import ndarray as nd
         ctx = ctx or current_context()
         arg_shapes, _, aux_shapes = self.infer_shape(**shapes)
+        arg_types, _, aux_types = self.infer_type(**(type_dict or {}))
         arg_names = self.list_arguments()
         req = _norm_grad_req(grad_req, arg_names)
-        args = {n: nd.zeros(s, ctx=ctx) for n, s in zip(arg_names, arg_shapes)}
-        auxs = {n: nd.zeros(s, ctx=ctx) for n, s in
-                zip(self.list_auxiliary_states(), aux_shapes)}
-        grads = {n: nd.zeros(s, ctx=ctx) for n, s in zip(arg_names, arg_shapes)
+        args = {n: nd.zeros(s, ctx=ctx, dtype=t)
+                for n, s, t in zip(arg_names, arg_shapes, arg_types)}
+        auxs = {n: nd.zeros(s, ctx=ctx, dtype=t) for n, s, t in
+                zip(self.list_auxiliary_states(), aux_shapes, aux_types)}
+        grads = {n: nd.zeros(s, ctx=ctx, dtype=t)
+                 for n, s, t in zip(arg_names, arg_shapes, arg_types)
                  if req.get(n, "null") != "null"}
         return Executor(self, ctx, args, auxs, grads, req)
 

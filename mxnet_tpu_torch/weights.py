@@ -11,6 +11,12 @@ Module's, with its optimizer's states (``from_jax_updater``).  ``from_jax_moe_pa
 port's, and ``from_jax_stage_params`` a dict of stage-stacked ``(S, ...)``
 block parameters (``pipeline_transformer``'s), so that both packages' parallel
 compositions compute with the same weights.
+
+The reference's bf16 arrays reach numpy as ``ml_dtypes.bfloat16``, which the
+port does not import: they are told by the dtype's name and carried across
+bit for bit through an ``int16`` view (``ndarray.bf16_from_numpy``), so a
+bf16 weight stays bf16.  A multi-precision updater's states, ``(inner,
+master)`` per slot, carry across in the reference's pickle like any other.
 """
 from __future__ import annotations
 
@@ -79,7 +85,8 @@ def from_jax_module(jax_mod, ctx: Optional[Context] = None, mod=None,
     a missing or extra name, or a shape that differs, raises.  With
     ``optimizer_states`` (and ``mod``'s optimizer initialised) the
     reference Module's updater states and update counts carry over too
-    (:func:`from_jax_updater`)."""
+    (:func:`from_jax_updater`), masters of a multi-precision updater
+    included.  bf16 values stay bf16, bit for bit."""
     ctx = ctx or current_context()
     arg, aux = jax_mod.get_params()
     out = []
@@ -135,6 +142,8 @@ def from_jax_updater(jax_updater, updater):
 
 def _tensor(value, ctx: Context):
     arr = np.asarray(value.asnumpy() if hasattr(value, "asnumpy") else value)
+    if nd.is_numpy_bf16(arr):
+        return nd.bf16_from_numpy(arr).to(ctx.torch_device)
     return torch.as_tensor(np.array(arr), device=ctx.torch_device)
 
 

@@ -20,6 +20,17 @@ jax has) instead of ``pl.unblocked``, so the reference side of the wgrad
 test is a ``pallas_call`` built here around the reference's own kernel
 body, frame plan, row-frame flattening and cotangent framing.  Tolerance
 of the wgrad: 1e-4 of the largest |dw|.
+
+bf16 (the mixed-precision training step): kernel 2's bf16 arm against the
+same Pallas wgrad run on bf16 inputs, and kernel 12, the 1x1 weight
+gradient of ``tools/probe_conv_fixes.py:173``, whose body the probe defines
+inside ``main()`` and which is therefore rebuilt here as written and run as
+a ``pallas_call`` in interpret mode on the probe's strided rows.  bf16
+products are exact in fp32, so these agree within 1e-5 of the largest
+|dw| (fp32 sums in another order).  ``conv1x1``'s forward and both
+gradients against ``jax.vjp`` of XLA's convolution in bf16: both round one
+fp32 sum to bf16, so within one bf16 step of each value (2^-7 relative)
+plus 1e-3 of the largest |value|.
 """
 import functools
 
@@ -34,9 +45,13 @@ from jax.experimental import pallas as pl
 import mxnet_tpu  # noqa: F401  (registers ops)
 from mxnet_tpu.ops import pallas_conv as pc
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ndarray.ndarray import bf16_from_numpy
 from mxnet_tpu_torch.ops import hopper_conv as hc
+from mxnet_tpu_torch.ops import nn as tnn
 
 RTOL = ATOL = 1e-4
+BF16_WGRAD_TOL = 1e-5      # of the largest |dw|: exact products, fp32 sums
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-3
 
 
 class _Ref:
@@ -304,3 +319,180 @@ def test_wgrad_kernel_matches_plain_on_card():
             (before[0] + 1, before[1] + split)
         err = (got - want).abs().max().item() / want.abs().max().item()
         assert err <= 1e-4, (N, C, H, W, O, err)
+
+
+# --------------------------------------------------------------------------
+# bf16: kernel 2's bf16 arm and kernel 12 (the 1x1 weight gradient)
+# --------------------------------------------------------------------------
+def _bf16(a):
+    """(jax bf16 array, the same bits as a torch bf16 tensor)."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, bf16_from_numpy(np.asarray(j))
+
+
+def test_wgrad_bf16_matches_pallas_kernel():
+    """Kernel 2's plain arm on bf16 x and dy (widened to fp32, fp32 out)
+    against the reference's Pallas wgrad on the same bf16 inputs."""
+    N, H, W, C, O = 3, 5, 7, 8, 16
+    r = np.random.default_rng(14)
+    xj, xt = _bf16(r.standard_normal((N, H, W, C)))
+    gj, gt = _bf16(r.standard_normal((N, H, W, O)))
+    want, _ = _pallas_wgrad_s1(xj, gj, hc.S1_PADS, 3, 3)
+    got = hc.taps_wgrad(xt, gt, hc.S1_PADS, 3, 3)
+    assert got.dtype == torch.float32
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy() / scale, want / scale, rtol=0,
+                               atol=BF16_WGRAD_TOL)
+
+
+def _probe_wgrad_kernel(x_ref, g_ref, o_ref):
+    """The kernel body of ``tools/probe_conv_fixes.py:164-169``, as
+    written there."""
+    @pl.when(pl.program_id(0) == 0)
+    def _():
+        o_ref[:] = jnp.zeros_like(o_ref)
+    o_ref[:] += jax.lax.dot_general(
+        x_ref[:], g_ref[:], (((0,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32)
+
+
+def _probe_wgrad(x_rows, g_rows, TR):
+    """The probe's ``pallas_call`` (``probe_conv_fixes.py:171-180``) over
+    (R, C) and (R, O) bf16 rows in TR-row tiles, in interpret mode; its
+    fp32 output, before the probe's cast to bf16."""
+    R, Cs = x_rows.shape
+    Cl = g_rows.shape[1]
+    return np.asarray(pl.pallas_call(
+        _probe_wgrad_kernel, grid=(R // TR,),
+        in_specs=[pl.BlockSpec((TR, Cs), lambda i: (i, 0)),
+                  pl.BlockSpec((TR, Cl), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((Cs, Cl), lambda i: (0, 0)),
+        out_shape=jax.ShapeDtypeStruct((Cs, Cl), jnp.float32),
+        interpret=True)(x_rows, g_rows))
+
+
+@pytest.mark.parametrize("stride,N,H,W,C,O,TR", [
+    (1, 2, 8, 8, 16, 24, 32),      # 4 grid steps
+    (2, 2, 8, 6, 16, 24, 8),       # the probe's x[:, ::2, ::2] rows
+])
+def test_conv1x1_wgrad_plain_matches_probe_kernel(stride, N, H, W, C, O,
+                                                  TR):
+    r = np.random.default_rng(15)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    xj, xt = _bf16(r.standard_normal((N, H, W, C)) * 0.1)
+    gj, gt = _bf16(r.standard_normal((N, Ho, Wo, O)) * 0.1)
+    want = _probe_wgrad(xj[:, ::stride, ::stride, :].reshape(-1, C),
+                        gj.reshape(-1, O), TR)
+    before = hc.conv1x1_wgrad_launches
+    got = hc.conv1x1_wgrad(xt, gt, stride)
+    assert hc.conv1x1_wgrad_launches == before
+    assert got.dtype == torch.float32 and got.shape == (C, O)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy() / scale, want / scale, rtol=0,
+                               atol=BF16_WGRAD_TOL)
+
+
+def _lax_conv1x1(stride):
+    def conv(x, w):
+        dn = jax.lax.conv_dimension_numbers(x.shape, w.shape,
+                                            ("NCHW", "OIHW", "NCHW"))
+        return jax.lax.conv_general_dilated(x, w, (stride, stride),
+                                            [(0, 0), (0, 0)],
+                                            dimension_numbers=dn)
+    return conv
+
+
+def _assert_bf16_close(got, want, what):
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    atol = BF16_ATOL * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=BF16_RTOL, atol=atol,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("stride,N,C,H,W,O", [
+    (1, 2, 8, 6, 7, 16),
+    (2, 2, 8, 8, 6, 12),
+])
+def test_conv1x1_matches_jax_vjp_in_bf16(stride, N, C, H, W, O):
+    """``conv1x1`` (cuDNN forward and dgrad, kernel 12's plain arm for the
+    weight gradient) against ``jax.vjp`` of XLA's bf16 convolution."""
+    r = np.random.default_rng(16)
+    xj, xt = _bf16(r.standard_normal((N, C, H, W)))
+    wj, wt = _bf16(r.standard_normal((O, C, 1, 1)) * 0.3)
+    want_y, vjp = jax.vjp(_lax_conv1x1(stride), xj, wj)
+    gj, gt = _bf16(r.standard_normal(want_y.shape))
+    want_dx, want_dw = vjp(gj)
+    xt.requires_grad_()
+    wt.requires_grad_()
+    y = hc.conv1x1(xt, wt, stride)
+    dx, dw = torch.autograd.grad(y, [xt, wt], gt)
+    assert y.dtype == dx.dtype == dw.dtype == torch.bfloat16
+    for got, want, what in ((y.detach(), want_y, "y"), (dx, want_dx, "dx"),
+                            (dw, want_dw, "dw")):
+        assert tuple(got.shape) == tuple(want.shape)
+        _assert_bf16_close(got, want, what)
+
+
+def _conv_attrs(kernel, stride):
+    from mxnet_tpu_torch.ops import get_op
+    return get_op("Convolution").parse_attrs({
+        "kernel": str(kernel), "stride": str(stride), "num_filter": "8",
+        "pad": "(1, 1)" if kernel == (3, 3) else "(0, 0)", "no_bias": "True"})
+
+
+@pytest.mark.parametrize("dtype,kernel,stride,hw,mode", [
+    (torch.bfloat16, (1, 1), (1, 1), 6, "1x1"),
+    (torch.bfloat16, (1, 1), (2, 2), 6, "1x1"),
+    (torch.bfloat16, (1, 1), (2, 2), 7, None),     # odd H, W at stride 2
+    (torch.float32, (1, 1), (1, 1), 6, None),      # fp32 1x1s stay on cuDNN
+    (torch.bfloat16, (3, 3), (1, 1), 6, "s1"),
+])
+def test_conv_dispatch_takes_kernel_12_for_bf16_1x1(dtype, kernel, stride,
+                                                    hw, mode):
+    attrs = _conv_attrs(kernel, stride)
+    data = torch.zeros((1, 8, hw, hw), dtype=dtype)
+    assert tnn.hopper_conv_mode(attrs, data) == mode
+
+
+def test_conv1x1_wgrad_cuda_arm_raises_on_limits():
+    """The CUDA arm's checks run before any launch: a dtype or channel
+    count outside the kernel's envelope raises, naming the limit."""
+    x = torch.zeros((1, 4, 4, 12), dtype=torch.bfloat16)
+    g = torch.zeros((1, 4, 4, 16), dtype=torch.bfloat16)
+    with pytest.raises(MXNetError, match="multiples of 8"):
+        hc._conv1x1_wgrad_cuda(x, g, 1)
+    with pytest.raises(MXNetError, match="bfloat16"):
+        hc._conv1x1_wgrad_cuda(x.float(), g.float(), 1)
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        hc._taps_wgrad_cuda(x.half(), g.half(), hc.S1_PADS, 3, 3)
+
+
+@pytest.mark.cuda
+def test_conv1x1_wgrad_kernel_matches_plain_on_card():
+    """Kernel 12 vs its plain version on the same card tensors: rows off
+    the tile, C = 8, odd spatial dims at stride 2, one split and many
+    (1e-4 of the largest |dw|); each call launches the partial pass once
+    and the reduction pass once when it splits the rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    r = np.random.default_rng(17)
+    for N, H, W, C, O, s in [(3, 7, 9, 24, 40, 1), (5, 10, 10, 8, 16, 1),
+                             (3, 7, 9, 24, 40, 2), (16, 14, 14, 256, 1024, 1),
+                             (8, 14, 14, 512, 256, 2)]:
+        Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
+        x = torch.from_numpy(r.standard_normal((N, H, W, C))
+                             .astype(np.float32)).cuda().bfloat16()
+        g = torch.from_numpy(r.standard_normal((N, Ho, Wo, O))
+                             .astype(np.float32)).cuda().bfloat16()
+        before = (hc.conv1x1_wgrad_launches, hc.conv1x1_wgrad_reduce_launches)
+        got = hc.conv1x1_wgrad(x, g, s)
+        want = hc.conv1x1_wgrad_plain(x, g, s)
+        torch.cuda.synchronize()
+        split = hc.conv1x1_wgrad_splits(N * Ho * Wo, C, O, sms) > 1
+        assert (hc.conv1x1_wgrad_launches,
+                hc.conv1x1_wgrad_reduce_launches) == \
+            (before[0] + 1, before[1] + split)
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        assert err <= 1e-4, (N, H, W, C, O, s, err)
