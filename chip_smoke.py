@@ -34,8 +34,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    up to 32; answer 8 concurrent requests of 1-8 rows of mixed SLO classes
    and check every answer against a ``Predictor`` on the CPU (the plain
    versions): same top-1, probabilities within 1e-4.  Then a closed loop
-   of 8 clients measures images/s and latency.  The kernel launch counter,
-   zeroed just before, must read 16 per executed forward.
+   of 8 clients measures images/s and latency; halfway through it the
+   server's weights are swapped (``swap_params``) for a second seeded set:
+   every answer must match the CPU's on the old or the new weights, and no
+   executed batch may mix the two.  The kernel launch counter, zeroed just
+   before, must read 16 per executed forward.  Then the gateway: a
+   ``ModelRegistry`` of the full-width ResNet-50 (buckets 1-4) and a small
+   MLP on gpu(0), routed by name, the HTTP endpoint on 127.0.0.1 port 0
+   answering one POST for each model, and a swap through the registry,
+   every answer against the CPU's.
 4. profile: one batch-32 forward as the server runs it (host copy in,
    forward, host copy out), timed on the host and traced with
    torch.profiler: device busy share and device time by kernel group.
@@ -194,6 +201,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    activation bytes at bf16 <= 0.65x fp32's, bf16 weights and fp32
    masters under the flag, fp32 without; images/s of both; one bf16 step
    fused and one eager with bit-equal masters and weights.
+
+2h. fused bottleneck kernel (run after 2g): kernel 13
+   (``fused_bottleneck.cu``, the identity bottleneck of
+   ``tools/probe_fused_block.py:74`` with BatchNorm folded) against
+   ``fused_bottleneck_plain`` on the same bf16 card tensors at ResNet-50
+   v1's 4 identity-bottleneck shapes at batch 128 (56x56/256/64,
+   28x28/512/128, 14x14/1024/256, 7x7/2048/512), the probe's own (N 32,
+   28x28, 512/128) and two ragged ones (N 1 at 9x11; a narrow 128/32 block
+   at 15x17): within one bf16 step (rtol 2^-7) plus 1e-3 of the largest
+   |out|.  Each with its time beside the plain version's, the bound (bytes
+   over 3.35 TB/s or FLOPs over 989 TFLOP/s) and the unfused cuDNN bf16
+   sequence on the same folded weights (three channels-last ``F.conv2d``
+   with bias, ReLU and the residual as elementwise ops; the yardstick
+   only).
+16. bf16 inference: phase 15's bf16 Module after its steps, the eval pass
+   of a bf16 run: ``predict`` over an ``NDArrayIter`` of 2 batches of 128
+   from ``RandomState(3)`` and ``score`` with ``Accuracy``, the counters
+   zeroed just before and read just after: 12 kernel-13 and 4 kernel-1
+   launches a forward, none of kernels 2 or 12.  The same weights and
+   moving statistics in an fp32 Module bound for inference measure the
+   bf16 band of the logits (norm of the difference over the fp32 norm) and
+   the share of equal top-1; the CPU's bf16 logits at batch 8 (plain arms)
+   must lie within twice that band of the card's.  bf16 and fp32 inference
+   images/s (median of 10 forwards after 2 warm-ups), none of them folding
+   (the folded weights are cached), a profile of the bf16 forward by group
+   with its idle share, and the folding's one-off time after a weight
+   change.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
@@ -667,6 +701,127 @@ def phase_bf16_kernels():
         del x, dy, w, xn, dyn, got, want
     torch.cuda.empty_cache()
     return w1x1, wgrad, fwd, dgrad
+
+
+# --------------------------------------------------------------------------
+# kernel 13: ResNet-50 v1's identity bottlenecks, (H = W, Cin, Cm, blocks a
+# forward): the units after each stage's first, 2 + 3 + 5 + 2
+RESNET50_IDENTITY = [(56, 256, 64, 2), (28, 512, 128, 3), (14, 1024, 256, 5),
+                     (7, 2048, 512, 2)]
+# kernel 13 against its plain version: each rounds three fp32 sums to bf16,
+# in another order, so an element may round to the neighbouring bf16 value
+# (2^-7 relative) and carry an earlier rounding's difference (1e-3 of the
+# largest |out|)
+FB_RTOL = 2.0 ** -7
+FB_ATOL_REL = 1e-3
+
+
+def _block_inputs(N, H, W, Cin, Cm, gen, dev):
+    """A random bf16 block input and He-scaled folded weights in the
+    kernel's layout (the residual branch's last 1x1 scaled down, as in a
+    trained ResNet), biases a tenth of unit scale."""
+    bf = torch.bfloat16
+
+    def randn(*shape, scale):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    x = torch.relu(randn(N, H, W, Cin, scale=1.0)).to(bf)
+    w1 = randn(Cm, Cin, scale=math.sqrt(2.0 / Cin)).to(bf)
+    w2 = randn(9, Cm, Cm, scale=math.sqrt(2.0 / (9 * Cm))).to(bf)
+    w3 = randn(Cin, Cm, scale=0.2 * math.sqrt(2.0 / Cm)).to(bf)
+    b = randn(3, Cin, scale=0.1)
+    return x, w1, w2, w3, b
+
+
+def _unfused_block(x, w1, w2, w3, b):
+    """The same folded block as three channels-last cuDNN bf16 convolutions
+    with bias, ReLU and the residual as PyTorch elementwise ops (the
+    yardstick only: the port never calls it)."""
+    Cm = w1.shape[0]
+    bf = torch.bfloat16
+    xc = x.permute(0, 3, 1, 2)
+    W1 = w1.reshape(Cm, -1, 1, 1).contiguous(
+        memory_format=torch.channels_last)
+    W2 = w2.reshape(3, 3, Cm, Cm).permute(2, 3, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    W3 = w3.reshape(-1, Cm, 1, 1).contiguous(
+        memory_format=torch.channels_last)
+    h = torch.relu_(F.conv2d(xc, W1, b[0, :Cm].to(bf)))
+    h = torch.relu_(F.conv2d(h, W2, b[1, :Cm].to(bf), padding=1))
+    return torch.relu_(F.conv2d(h, W3, b[2].to(bf)).add_(xc))
+
+
+def _block_cost(N, H, W, Cin, Cm):
+    """(FLOP, bytes) of one block: x read and out written once, the folded
+    weights and the fp32 biases read once."""
+    flops = 2.0 * N * H * W * (2 * Cin * Cm + 9 * Cm * Cm)
+    nbytes = 2.0 * 2 * N * H * W * Cin + 2.0 * (2 * Cin * Cm + 9 * Cm * Cm) \
+        + 4.0 * 3 * Cin
+    return flops, nbytes
+
+
+def phase_fused_block_kernels():
+    """Phase 2h: kernel 13 (``fused_bottleneck.cu``) against
+    ``fused_bottleneck_plain`` on the same bf16 card tensors at the 4
+    identity-bottleneck shapes of ResNet-50 v1 at batch 128, the probe's own
+    (N 32, 28x28, 512/128) and two ragged ones (N 1 at 9x11; a narrow
+    128/32 block at 15x17), within FB_RTOL and FB_ATOL_REL.  Each with its
+    time, the plain version's, the unfused cuDNN bf16 sequence's on the same
+    folded weights (the yardstick) and the bound.  Returns per-shape
+    records."""
+    from mxnet_tpu_torch.ops import hopper_block as hb
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    shapes = [("ragged", 1, 9, 11, 256, 64, 0),
+              ("narrow", 3, 15, 17, 128, 32, 0),
+              ("probe", 32, 28, 28, 512, 128, 0)] + [
+        ("resnet50", BF16_BATCH, H, H, Cin, Cm, count)
+        for H, Cin, Cm, count in RESNET50_IDENTITY]
+    records = []
+    for label, N, H, W, Cin, Cm, count in shapes:
+        args = _block_inputs(N, H, W, Cin, Cm, gen, dev)
+        got = hb.fused_bottleneck(*args).float()
+        want = hb.fused_bottleneck_plain(*args).float()
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        excess = ((got - want).abs() - FB_RTOL * want.abs()).max().item()
+        err = (got - want).abs().max().item()
+        check(excess <= FB_ATOL_REL * scale, "kernel 13 disagrees with its "
+              "plain version at %s N=%d %dx%d %d/%d: max |err| - rtol |want| "
+              "= %g > %g of max |out| %g" % (label, N, H, W, Cin, Cm,
+                                             excess / scale, FB_ATOL_REL,
+                                             scale))
+        check(math.isfinite(scale) and scale > 0, "kernel 13's plain output "
+              "is degenerate at %s" % label)
+        flops, nbytes = _block_cost(N, H, W, Cin, Cm)
+        bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16)
+        rec = {"shape": label, "N": N, "H": H, "W": W, "Cin": Cin, "Cm": Cm,
+               "instances_per_forward": count, "gflop": flops / 1e9,
+               "max_abs_err": err, "max_out": scale,
+               "excess_over_rtol": excess, "rtol": FB_RTOL,
+               "atol_rel": FB_ATOL_REL,
+               "ms": time_ms(lambda: hb.fused_bottleneck(*args)),
+               "plain_ms": time_ms(lambda: hb.fused_bottleneck_plain(*args),
+                                   iters=5, warmup=1),
+               "library_ms": time_ms(lambda: _unfused_block(*args)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        records.append(rec)
+        print("[fused-block] kernel 13 %s N=%d %dx%d %d/%d: max_abs_err %.3g "
+              "(max |out| %.3g) | kernel %.4f ms (%.1f TFLOP/s), plain %.4f "
+              "ms, unfused cuDNN bf16 %.4f ms, bound %.4f ms (%s)"
+              % (label, N, H, W, Cin, Cm, err, scale, rec["ms"],
+                 rec["tflops"], rec["plain_ms"], rec["library_ms"], bound_ms,
+                 bound_by))
+        del args, got, want
+    fwd = [r for r in records if r["instances_per_forward"]]
+    print("[fused-block] a ResNet-50 forward's %d blocks at batch %d: kernel "
+          "%.4f ms, plain %.4f ms, unfused cuDNN %.4f ms, bound %.4f ms"
+          % tuple([sum(r["instances_per_forward"] for r in fwd), BF16_BATCH]
+                  + [sum(r[k] * r["instances_per_forward"] for r in fwd)
+                     for k in ("ms", "plain_ms", "library_ms", "bound_ms")]))
+    torch.cuda.empty_cache()
+    return records
 
 
 # --------------------------------------------------------------------------
@@ -1520,7 +1675,7 @@ def resnet_params(arg_names, arg_shapes, aux_names, aux_shapes, seed):
     return out
 
 
-def resnet50_probs():
+def resnet50_probs(seed=SEED):
     """The served graph, full-width ResNet-50's softmax over ``fc1_output``,
     and its seeded weights."""
     from mxnet_tpu_torch import sym
@@ -1530,8 +1685,116 @@ def resnet50_probs():
     args, outs, auxs = probs.infer_shape(data=(1, 3, 224, 224))
     check(outs == [(1, 1000)], "ResNet-50 output shape %s" % outs)
     params = resnet_params(probs.list_arguments(), args,
-                           probs.list_auxiliary_states(), auxs, SEED)
+                           probs.list_auxiliary_states(), auxs, seed)
     return probs, params
+
+
+def _check_served(got, want, what):
+    """A served answer against the CPU's: same shape, finite, same top-1,
+    probabilities within PROB_TOL; returns the max |dp|."""
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          "%s: bad answer shape %s" % (what, got.shape))
+    check((got.argmax(1) == want.argmax(1)).all(),
+          "%s: top-1 differs from the CPU run" % what)
+    worst = float(np.abs(got - want).max())
+    check(worst <= PROB_TOL, "%s: probabilities differ by %g > %g"
+          % (what, worst, PROB_TOL))
+    return worst
+
+
+def _small_model():
+    """A small MLP (data (n, 32) -> FC 64, relu, FC 10, softmax) and its
+    seeded weights: the registry's second model."""
+    from mxnet_tpu_torch import sym
+    h = sym.Activation(sym.FullyConnected(sym.var("data"), num_hidden=64,
+                                          name="fc1"), act_type="relu")
+    net = sym.softmax(sym.FullyConnected(h, num_hidden=10, name="fc2"),
+                      axis=1)
+    r = np.random.default_rng(SEED + 5)
+    params = {"arg:fc1_weight": r.standard_normal((64, 32)) / math.sqrt(32),
+              "arg:fc1_bias": r.standard_normal(64) * 0.1,
+              "arg:fc2_weight": r.standard_normal((10, 64)) / 8.0,
+              "arg:fc2_bias": r.standard_normal(10) * 0.1}
+    return net, {k: v.astype(np.float32) for k, v in params.items()}
+
+
+def _post_json(port, doc):
+    import urllib.request
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/predict" % port, data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, json.loads(r.read())
+
+
+def phase_gateway(card, probs, params, new_params, images, ref):
+    """Phase 3's gateway: a ``ModelRegistry`` of the full-width ResNet-50
+    (buckets up to 4) and a small MLP on gpu(0), routed by name, and the
+    HTTP endpoint on 127.0.0.1 port 0 answering one POST for each model;
+    every answer against the CPU's.  Then a swap of ResNet-50's weights
+    through the registry, answered against the CPU on the new weights."""
+    from mxnet_tpu_torch import cpu, gpu, serving
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.weights import from_jax_params
+    mlp, mlp_params = _small_model()
+    x = np.random.default_rng(SEED + 6).standard_normal((3, 32)) \
+        .astype(np.float32)
+    mlp_ref = Predictor(mlp.tojson(), from_jax_params(mlp_params, cpu()),
+                        ctx=cpu(), input_shapes={"data": x.shape}) \
+        .forward(data=x)[0].asnumpy()
+    reg = serving.ModelRegistry()
+    t0 = time.perf_counter()
+    try:
+        reg.register("resnet50", probs.tojson(),
+                     from_jax_params(params, gpu(0)), {"data": (3, 224, 224)},
+                     ctx=gpu(0), max_batch_size=4, batch_timeout_ms=2.0)
+        reg.register("mlp", mlp.tojson(), from_jax_params(mlp_params, gpu(0)),
+                     {"data": (32,)}, ctx=gpu(0), max_batch_size=4)
+        setup_s = time.perf_counter() - t0
+        check(reg.models() == ["mlp", "resnet50"], "registry holds %s"
+              % reg.models())
+        worst = max(
+            _check_served(reg.predict({"data": images[:2]},
+                                      model="resnet50")[0], ref[:2],
+                          "registry resnet50"),
+            _check_served(reg.predict({"data": x}, model="mlp")[0], mlp_ref,
+                          "registry mlp"))
+        port = serving.start_http_server(reg, host="127.0.0.1", port=0)
+        try:
+            status, doc = _post_json(port, {"inputs": {
+                "data": images[2:3].tolist()}, "model": "resnet50"})
+            check(status == 200 and doc["rows"] == 1, "HTTP resnet50: %d"
+                  % status)
+            http_worst = _check_served(np.array(doc["outputs"][0],
+                                                np.float32), ref[2:3],
+                                       "HTTP resnet50")
+            status, doc = _post_json(port, {"inputs": {"data": x.tolist()},
+                                            "model": "mlp"})
+            check(status == 200 and doc["rows"] == 3, "HTTP mlp: %d" % status)
+            http_worst = max(http_worst, _check_served(
+                np.array(doc["outputs"][0], np.float32), mlp_ref, "HTTP mlp"))
+        finally:
+            serving.stop_http_server()
+        reg.swap_params("resnet50", new_params)
+        new_ref = Predictor(
+            probs.tojson(), from_jax_params(new_params, cpu()), ctx=cpu(),
+            input_shapes={"data": (1, 3, 224, 224)}).forward(
+                data=images[:1])[0].asnumpy()
+        swapped = _check_served(reg.predict({"data": images[:1]},
+                                            model="resnet50")[0], new_ref,
+                                "registry resnet50 after its swap")
+        health = reg.health()
+        check(health["status"] == "serving", "registry health %s" % health)
+    finally:
+        reg.stop_all()
+    print("[gateway] ModelRegistry of resnet50 (buckets 1-4) and mlp built "
+          "and warmed in %.2f s; routed answers match the CPU (max |dp| "
+          "%.3g), HTTP on 127.0.0.1:%d answers both (max |dp| %.3g), a swap "
+          "through the registry answers as the CPU on the new weights (max "
+          "|dp| %.3g) on %s" % (setup_s, worst, port, http_worst, swapped,
+                                card))
+    return {"registry_setup_s": setup_s, "max_dp": worst,
+            "http_max_dp": http_worst, "swap_max_dp": swapped}
 
 
 def phase_serving(card):
@@ -1561,10 +1824,21 @@ def phase_serving(card):
     classes = ["realtime", "standard", "batch"]
     images = rng.standard_normal((sum(rows), 3, 224, 224)).astype(np.float32)
     offsets = np.cumsum([0] + rows)
+    # the weights swapped in halfway through the closed loop
+    _, new_params = resnet50_probs(SEED + 3)
+    executed = []
+    execute = server._execute
 
-    def burst(n_clients, per_client, make_request):
+    def recording_execute(live):
+        executed.append(list(live))
+        execute(live)
+
+    server._execute = recording_execute
+
+    def burst(n_clients, per_client, make_request, midway=None):
         """n_clients threads, each submitting per_client requests in turn;
-        returns [(client, i, latency_s, outputs)] and the wall seconds."""
+        returns [(client, i, latency_s, outputs, request)] and the wall
+        seconds.  ``midway`` runs once half the requests are answered."""
         results, errors = [], []
         lock = threading.Lock()
         go = threading.Barrier(n_clients + 1)
@@ -1575,9 +1849,11 @@ def phase_serving(card):
                 for i in range(per_client):
                     inputs, slo = make_request(c, i)
                     t0 = time.perf_counter()
-                    out = server.predict(inputs, slo_class=slo, timeout=300)
+                    req = server.submit(inputs, slo_class=slo)
+                    out = req.result(300)
                     with lock:
-                        results.append((c, i, time.perf_counter() - t0, out))
+                        results.append((c, i, time.perf_counter() - t0, out,
+                                        req))
             except Exception as e:  # noqa: BLE001 - reported below
                 with lock:
                     errors.append(repr(e))
@@ -1588,6 +1864,12 @@ def phase_serving(card):
             t.start()
         go.wait()
         t0 = time.perf_counter()
+        if midway is not None:
+            half = n_clients * per_client // 2
+            while len(results) < half and not errors and any(
+                    t.is_alive() for t in threads):
+                time.sleep(0.001)
+            midway()
         for t in threads:
             t.join(600)
         wall = time.perf_counter() - t0
@@ -1603,8 +1885,15 @@ def phase_serving(card):
     loop_rows, n_clients, per_client = 8, 8, 8
     loop_img = rng.standard_normal((loop_rows, 3, 224, 224)) \
         .astype(np.float32)
+    swap_s = []
+
+    def swap():
+        t0 = time.perf_counter()
+        server.swap_params(from_jax_params(new_params, gpu(0)))
+        swap_s.append(time.perf_counter() - t0)
+
     loop, loop_wall = burst(n_clients, per_client, lambda c, i: (
-        {"data": loop_img}, "standard"))
+        {"data": loop_img}, "standard"), midway=swap)
     launches = hc.launches
     batches = server.batches - batches0
     server.stop()
@@ -1622,9 +1911,10 @@ def phase_serving(card):
               ["%.2f" % v for v in lat], sum(rows) / wall, card))
     loop_lat = np.array([r[2] * 1e3 for r in loop])
     loop_ips = n_clients * per_client * loop_rows / loop_wall
-    print("[serving] closed loop, %d clients x %d requests of %d images: "
-          "%.1f images/s, latency p50 %.2f ms p99 %.2f ms on %s" % (
-              n_clients, per_client, loop_rows, loop_ips,
+    print("[serving] closed loop, %d clients x %d requests of %d images, "
+          "the weights swapped halfway (swap_params %.2f ms): %.1f images/s, "
+          "latency p50 %.2f ms p99 %.2f ms on %s" % (
+              n_clients, per_client, loop_rows, swap_s[0] * 1e3, loop_ips,
               np.percentile(loop_lat, 50), np.percentile(loop_lat, 99), card))
 
     # reference: the same graph and weights on the CPU (plain versions)
@@ -1632,25 +1922,44 @@ def phase_serving(card):
     ref_pred = Predictor(js, from_jax_params(params, cpu()), ctx=cpu(),
                          input_shapes={"data": images.shape})
     ref = ref_pred.forward(data=images)[0].asnumpy()
-    print("[serving] CPU reference forward of %d images in %.2f s"
-          % (len(images), time.perf_counter() - t0))
+    loop_refs = [Predictor(js, from_jax_params(p, cpu()), ctx=cpu(),
+                           input_shapes={"data": loop_img.shape})
+                 .forward(data=loop_img)[0].asnumpy()
+                 for p in (params, new_params)]
+    print("[serving] CPU reference forwards of %d + 2 x %d images in %.2f s"
+          % (len(images), loop_rows, time.perf_counter() - t0))
     worst = 0.0
-    for c, _, _, out in answers:
-        got = out[0]
-        want = ref[offsets[c]:offsets[c + 1]]
-        check(got.shape == want.shape and np.isfinite(got).all(),
-              "request %d: bad answer shape %s" % (c, got.shape))
-        check((got.argmax(1) == want.argmax(1)).all(),
-              "request %d: top-1 differs from the CPU run" % c)
-        worst = max(worst, float(np.abs(got - want).max()))
+    for c, _, _, out, _ in answers:
+        worst = max(worst, _check_served(
+            out[0], ref[offsets[c]:offsets[c + 1]], "request %d" % c))
     print("[serving] all %d answers match the CPU run: same top-1, max "
           "|dp| %.3g (tol %g), max p %.4f" % (len(answers), worst, PROB_TOL,
                                               float(ref.max())))
-    check(worst <= PROB_TOL, "probabilities differ by %g > %g"
-          % (worst, PROB_TOL))
+    # the hot swap: every answer is the CPU's on the old or the new weights,
+    # and every request of one executed batch on the same set
+    check(np.abs(loop_refs[0] - loop_refs[1]).max() > 100 * PROB_TOL,
+          "the two weight sets give the same answers")
+    weight_set, swap_worst = {}, 0.0
+    for _, _, _, out, req in loop:
+        errs = [float(np.abs(out[0] - r).max()) for r in loop_refs]
+        k = int(np.argmin(errs))
+        swap_worst = max(swap_worst, _check_served(
+            out[0], loop_refs[k], "closed-loop request on weight set %d" % k))
+        weight_set[id(req)] = k
+    mixed = [b for b in executed if len({weight_set[id(r)] for r in b
+                                         if id(r) in weight_set}) > 1]
+    counts = [sum(v == k for v in weight_set.values()) for k in (0, 1)]
+    print("[serving] hot swap: %d answers on the old weights and %d on the "
+          "new, each matching the CPU on its set (max |dp| %.3g), %d "
+          "batches, none mixing two sets" % (counts[0], counts[1],
+                                             swap_worst, len(executed)))
+    check(not mixed and min(counts) > 0, "the swap mixed weight sets in %d "
+          "batches (answers per set %s)" % (len(mixed), counts))
+    gateway = phase_gateway(card, probs, params, new_params, images, ref)
     return launches, {"images_per_s": loop_ips,
                       "latency_p50_ms": float(np.percentile(loop_lat, 50)),
-                      "latency_p99_ms": float(np.percentile(loop_lat, 99))}
+                      "latency_p99_ms": float(np.percentile(loop_lat, 99)),
+                      "swap_answers_per_set": counts, "gateway": gateway}
 
 
 def _kernel_group(name: str) -> str:
@@ -3212,10 +3521,11 @@ def _mean_ce(mod, y):
     return float(np.mean(-np.log(np.maximum(rows, 1e-30))))
 
 
-def _bf16_run(bf16, card):
+def _bf16_run(bf16, card, keep=False):
     """One run of bench_bf16: 30 steps on the repeated batch (the mean
     cross-entropy of each step's own softmax output), the third step's
-    memory, and 2 warm-up and 10 timed steps."""
+    memory, and 2 warm-up and 10 timed steps.  With ``keep`` returns the
+    trained Module too."""
     import gc
     from mxnet_tpu_torch import gpu
     gc.collect()
@@ -3263,6 +3573,8 @@ def _bf16_run(bf16, card):
              out["master_dtypes"], out["params_bytes"] / 1e6, mem / 1e9,
              step_ms, out["images_per_s"], card,
              ["%.4f" % v for v in losses]))
+    if keep:
+        return out, mod
     del mod, ex, params, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -3297,7 +3609,8 @@ def _one_bf16_step(fused):
 def phase_bf16_module(card):
     """Phase 15: bench.py --bf16 (``bench_bf16``) on one H100: fp32, then
     bf16 (``MXNET_TPU_BF16=1``, multi-precision SGD), from one seed, 30
-    steps each on the repeated batch at lr 0.01, with bench.py's three
+    steps each on the repeated batch at lr 0.01 (the bf16 Module, trained,
+    is returned beside the summary for phase 16), with bench.py's three
     checks: both curves descend by max(0.05, 2%) of their first loss and
     bf16's final-third mean stays within the fp32 tail's maximum + max(0.15,
     10% of the fp32 final mean) (bench.py:583-598); parameter bytes plus
@@ -3308,7 +3621,7 @@ def phase_bf16_module(card):
     bf16 weights must be bit-equal."""
     t_phase = time.perf_counter()
     r32 = _bf16_run(False, card)
-    r16 = _bf16_run(True, card)
+    r16, mod16 = _bf16_run(True, card, keep=True)
     check(r32["weight_dtype"] == ["torch.float32"]
           and r16["weight_dtype"] == ["torch.bfloat16"]
           and r16["master_dtypes"] == ["torch.float32"]
@@ -3358,7 +3671,275 @@ def phase_bf16_module(card):
     return {"fp32": r32, "bf16": r16, "mem_ratio": ratio,
             "band_hi": band_hi, "descended": descended,
             "fused_vs_eager_bit_equal": len(wf),
-            "phase_s": time.perf_counter() - t_phase}
+            "phase_s": time.perf_counter() - t_phase}, mod16
+
+
+# --------------------------------------------------------------------------
+# bf16 inference (phase 16): the eval pass of phase 15's bf16 run
+INFER = dict(batches=2, cpu_batch=8, data_seed=3)
+
+
+def _counts():
+    from mxnet_tpu_torch.ops import hopper_block as hb, hopper_conv as hc
+    return {"fused_bottleneck": hb.launches,
+            "implicit_gemm_conv": hc.launches,
+            "taps_wgrad": hc.wgrad_launches + hc.wgrad_reduce_launches,
+            "conv1x1_wgrad": (hc.conv1x1_wgrad_launches
+                              + hc.conv1x1_wgrad_reduce_launches)}
+
+
+def _zero_counts():
+    from mxnet_tpu_torch.ops import hopper_block as hb, hopper_conv as hc
+    hb.launches = hc.launches = 0
+    hc.wgrad_launches = hc.wgrad_reduce_launches = 0
+    hc.conv1x1_wgrad_launches = hc.conv1x1_wgrad_reduce_launches = 0
+
+
+def _check_forward_counts(counts, forwards, what):
+    want = {"fused_bottleneck": 12 * forwards,
+            "implicit_gemm_conv": 4 * forwards, "taps_wgrad": 0,
+            "conv1x1_wgrad": 0}
+    check(counts == want, "%s: %d bf16 forwards launched %s, expected %s"
+          % (what, forwards, counts, want))
+
+
+def _infer_module(ctx, sym, bf16, batch, arg, aux):
+    """A Module of ``sym`` bound for inference at ``batch`` (bf16 under
+    ``MXNET_TPU_BF16``, read at bind) with the given parameters."""
+    import mxnet_tpu_torch as mx
+    labels = "softmax_label" in sym.list_arguments()
+    mod = mx.mod.Module(sym, data_names=("data",),
+                        label_names=("softmax_label",) if labels else None,
+                        context=[ctx])
+    old = os.environ.pop("MXNET_TPU_BF16", None)
+    if bf16:
+        os.environ["MXNET_TPU_BF16"] = "1"
+    try:
+        mod.bind(data_shapes=[("data", (batch, 3, 224, 224))],
+                 label_shapes=([("softmax_label", (batch,))] if labels
+                               else None), for_training=False)
+    finally:
+        os.environ.pop("MXNET_TPU_BF16", None)
+        if old is not None:
+            os.environ["MXNET_TPU_BF16"] = old
+    mod.set_params(arg, aux, allow_extra=True)
+    return mod
+
+
+def _logits_symbol(mod):
+    """The logits under a Module's SoftmaxOutput: the final Dense's
+    output."""
+    internals = mod.symbol.get_internals()
+    name = [n for n in internals.list_outputs() if "dense" in n][-1]
+    return internals[name]
+
+
+def _infer_group(name: str) -> str:
+    lname = name.lower()
+    if "fused_bottleneck_kernel" in name:
+        return "kernel 13 (fused bottleneck)"
+    if "taps_conv_kernel" in name:
+        return "kernel 1 (3x3 of the projection units)"
+    if "Memcpy" in name or "Memset" in name:
+        return "memcpy/memset"
+    if "copy" in lname or "nchwtonhwc" in lname or "nhwctonchw" in lname:
+        return "layout and dtype copies"
+    if any(k in lname for k in ("conv", "gemm", "xmma", "cudnn", "cutlass",
+                                "sm80_", "sm90_")):
+        return "cuDNN/cuBLAS (7x7 stem, 1x1s, fc)"
+    return "BN and elementwise"
+
+
+def _inference_profile(card, forward, fwd_ms, tag="bf16-infer-profile"):
+    """Device time by group over 2 forwards (torch.profiler), the idle
+    share against the median unprofiled forward."""
+    from torch.profiler import ProfilerActivity, profile
+    n = 2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            forward()
+        torch.cuda.synchronize()
+    groups, counts = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        g = _infer_group(e.name)
+        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
+        counts[g] = counts.get(g, 0) + 1
+    device_ms = sum(groups.values()) / n / 1e3
+    check(device_ms > 0, "the profiler recorded no device time")
+    check(counts.get("kernel 13 (fused bottleneck)", 0) == 12 * n,
+          "the profile saw %s kernel-13 launches in %d forwards"
+          % (counts.get("kernel 13 (fused bottleneck)"), n))
+    idle = max(0.0, 1 - device_ms / fwd_ms)
+    print("[%s] one batch-%d forward: %.2f ms device busy, %.2f ms wall "
+          "unprofiled (%.1f%% idle), %d launches on %s"
+          % (tag, BF16MOD["batch"], device_ms, fwd_ms, 100 * idle,
+             sum(counts.values()) // n, card))
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print("[%s]   %-40s %8.3f ms/forward (%.1f%%), %4d launches"
+              % (tag, g, us / n / 1e3, 100.0 * us / n / 1e3 / device_ms,
+                 counts[g] // n))
+    return {"forward_device_ms": device_ms, "idle_share": idle,
+            "device_ms_by_group": {g: us / n / 1e3 for g, us in
+                                   groups.items()},
+            "launches_by_group": {g: c // n for g, c in counts.items()}}
+
+
+def _timed_forwards(mod, batch):
+    """Median ms of 10 forwards after 2 warm-ups, each ending in
+    ``torch.cuda.synchronize()``."""
+    times = []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward(batch, is_train=False)
+        mod.get_outputs()[0].wait_to_read()
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_bf16_inference(card, mod16):
+    """Phase 16: bf16 inference of full-width ResNet-50 v1 through
+    ``Module``, the eval pass of phase 15's bf16 run.  ``predict`` over an
+    ``NDArrayIter`` of 2 batches of 128 from ``RandomState(3)`` and
+    ``score`` with ``Accuracy`` on phase 15's trained bf16 Module, the
+    counters zeroed just before and read just after (12 kernel-13 and 4
+    kernel-1 launches a forward, no kernel 2 or 12); the same weights
+    (bf16 values, exact in fp32) and moving statistics in an fp32 Module
+    bound for inference measure the bf16 band on the logits (norm of the
+    difference over the fp32 norm) and the share of matching top-1; at
+    batch 8 the same weights on the CPU (plain arms, kernel 13's included)
+    give bf16 logits within twice that band of the card's.  bf16 and fp32
+    inference images/s (median of 10 forwards after 2 warm-ups), a
+    profile of the bf16 forward by group with its idle share, and the
+    one-off folding time of the 12 blocks after a weight change."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cpu, gpu
+    from mxnet_tpu_torch import weights as wmod
+    t_phase = time.perf_counter()
+    B, n = BF16MOD["batch"], INFER["batches"]
+    rs = np.random.RandomState(INFER["data_seed"])
+    X = rs.uniform(size=(n * B, 3, 224, 224)).astype(np.float32)
+    Y = rs.randint(0, BF16MOD["classes"], (n * B,)).astype(np.float32)
+    it = mx.io.NDArrayIter(X, Y, batch_size=B, ctx=gpu(0))
+    ex = mod16._exec_group.execs[0]
+    check(ex._plan(False).n_fused == 12, "the bf16 inference plan fused %d "
+          "blocks, expected 12" % ex._plan(False).n_fused)
+
+    # the main path: the counts zeroed just before, read just after
+    _zero_counts()
+    t0 = time.perf_counter()
+    probs16 = mod16.predict(it).asnumpy()
+    score = dict(mod16.score(it, "acc"))
+    path_s = time.perf_counter() - t0
+    path_counts = _counts()
+    _check_forward_counts(path_counts, 2 * n, "predict + score")
+    check(probs16.shape == (n * B, BF16MOD["classes"])
+          and np.isfinite(probs16).all()
+          and np.allclose(probs16.sum(1), 1.0, atol=1e-3),
+          "bf16 predict gave %s" % (probs16.shape,))
+    acc_pred = float(np.mean(probs16.argmax(1) == Y))
+    check(abs(score["accuracy"] - acc_pred) < 1e-9, "score %s against "
+          "predict's accuracy %g" % (score, acc_pred))
+    print("[bf16-infer] predict + score over %d batches of %d in %.2f s: "
+          "probabilities %s, accuracy %.4f; launches %s on %s"
+          % (n, B, path_s, probs16.shape, score["accuracy"], path_counts,
+             card))
+
+    arg, aux = mod16.get_params()
+    mod32 = _infer_module(gpu(0), mod16.symbol, False, B, arg, aux)
+    check(str(mod32._exec_group.execs[0].arg_dict[
+        mod16._param_names[0]]._data.dtype) == "torch.float32",
+        "the fp32 Module bound bf16 weights")
+    probs32 = mod32.predict(it).asnumpy()
+    logits = {}
+    for bf16 in (True, False):
+        lm = _infer_module(gpu(0), _logits_symbol(mod16), bf16, B, arg, aux)
+        logits[bf16] = lm.predict(it).asnumpy().astype(np.float64)
+        del lm
+    band = float(np.linalg.norm(logits[True] - logits[False])
+                 / np.linalg.norm(logits[False]))
+    top1 = float(np.mean(logits[True].argmax(1) == logits[False].argmax(1)))
+    print("[bf16-infer] bf16 against fp32 on the same weights: logits "
+          "within %.4g of the fp32 norm, top-1 equal in %.4f of %d rows, "
+          "probabilities max |dp| %.3g" % (band, top1, n * B,
+                                           float(np.abs(probs16 - probs32)
+                                                 .max())))
+    check(0 < band < 0.1 and top1 > 0.5, "bf16 band %g, top-1 share %g"
+          % (band, top1))
+
+    # the CPU at batch 8, the same weights, plain arms
+    Bc = INFER["cpu_batch"]
+    carg = {k: mx.nd.NDArray(v._data.cpu()) for k, v in arg.items()}
+    caux = {k: mx.nd.NDArray(v._data.cpu()) for k, v in aux.items()}
+    cmod = _infer_module(cpu(), _logits_symbol(mod16), True, Bc, carg, caux)
+    t0 = time.perf_counter()
+    cpu_logits = cmod.predict(mx.io.NDArrayIter(X[:Bc], batch_size=Bc,
+                                                ctx=cpu())).asnumpy()
+    cpu_s = time.perf_counter() - t0
+    card16, card32 = logits[True][:Bc], logits[False][:Bc]
+    cpu_err = float(np.linalg.norm(cpu_logits - card16)
+                    / np.linalg.norm(card32))
+    print("[bf16-infer] the CPU's bf16 logits at batch %d (%.1f s) against "
+          "the card's: %.4g of the fp32 norm (tol 2 x band = %.4g)"
+          % (Bc, cpu_s, cpu_err, 2 * band))
+    check(cpu_err <= 2 * band, "the CPU's bf16 logits differ from the "
+          "card's by %g > 2 x %g" % (cpu_err, band))
+    del cmod, carg, caux
+
+    # images/s: the batch on the card, forwards timed, counters per forward
+    batch = mx.io.DataBatch([mx.nd.array(X[:B], gpu(0))],
+                            [mx.nd.array(Y[:B], gpu(0))])
+    folds = []
+    real_fold = wmod.fold_bottleneck
+    wmod.fold_bottleneck = lambda *a, **k: folds.append(1) or real_fold(*a,
+                                                                         **k)
+    try:
+        mod16.forward(batch, is_train=False)
+        torch.cuda.synchronize()
+        folds.clear()
+        _zero_counts()
+        ms16 = _timed_forwards(mod16, batch)
+        _check_forward_counts(_counts(), WARMUP_STEPS + TIMED_STEPS,
+                              "timed forwards")
+    finally:
+        wmod.fold_bottleneck = real_fold
+    check(not folds, "the timed forwards folded %d blocks: the cache missed"
+          % len(folds))
+    ms32 = _timed_forwards(mod32, batch)
+    ips16, ips32 = B / ms16 * 1e3, B / ms32 * 1e3
+    print("[bf16-infer] batch-%d forward: bf16 %.2f ms (%.1f images/s), "
+          "fp32 %.2f ms (%.1f images/s), %.2fx on %s"
+          % (B, ms16, ips16, ms32, ips32, ms32 / ms16, card))
+    profile = _inference_profile(card, lambda: (
+        mod16.forward(batch, is_train=False),
+        mod16.get_outputs()[0].wait_to_read()), ms16)
+
+    # the folding a weight change costs: the 12 blocks folded again
+    fused = [st[2] for st in ex._plan(False).steps
+             if hasattr(st[2], "_folded")]
+    values = ex._values()
+    names = {id(node): node.name for node in mod16.symbol._topo()
+             if node.is_var}
+    fold_inputs = [[values[names[e[0]]] for e in f.params] for f in fused]
+    fold_ms = time_ms(lambda: [real_fold(*f._fold_args(p))
+                               for f, p in zip(fused, fold_inputs)],
+                      iters=5, warmup=1)
+    print("[bf16-infer] folding the 12 blocks after a weight change: %.3f "
+          "ms; none in the timed forwards (cached)" % fold_ms)
+    del mod32
+    torch.cuda.empty_cache()
+    return path_counts, {
+        "accuracy": score["accuracy"], "band": band, "top1_share": top1,
+        "cpu_err": cpu_err, "bf16_forward_ms": ms16, "fp32_forward_ms": ms32,
+        "bf16_images_per_s": ips16, "fp32_images_per_s": ips32,
+        "fold_ms": fold_ms, "profile": profile,
+        "phase_s": time.perf_counter() - t_phase}
 
 
 def _ring_entries(k4, k10, launches):
@@ -3461,6 +4042,24 @@ def _bf16_entries(k1, k2, bf16_kernels, launches):
     return k12
 
 
+def _block_entry(records, launches):
+    """Kernel 13's ``kernels`` entry: times summed over one batch-128 bf16
+    ResNet-50 forward's 12 blocks, launches from phase 16's predict and
+    score."""
+    fwd = [r for r in records if r["instances_per_forward"]]
+    k13 = {"name": "fused_bottleneck", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/fused_bottleneck.cu",
+           "replaces": "tools/probe_fused_block.py:74",
+           "launches": launches["fused_bottleneck"],
+           "max_abs_err": max(r["max_abs_err"] for r in records),
+           "bound_by": "operations" if all(
+               r["bound_by"] == "operations" for r in fwd) else "bytes",
+           "shapes": records}
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        k13[key] = sum(r[key] * r["instances_per_forward"] for r in fwd)
+    return k13
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -3481,6 +4080,7 @@ def main() -> int:
     k4, k10 = phase_ring_kernels(card)
     k11 = phase_rtc(card)
     bf16_kernels = phase_bf16_kernels()
+    block_kernels = phase_fused_block_kernels()
     serving_launches, served = phase_serving(card)
     served["profile"] = phase_profile(card)
     print("[serving] summary " + json.dumps(dict(served, card=card)))
@@ -3517,17 +4117,23 @@ def main() -> int:
     bf16_launches, bf16_trained = phase_bf16_training(card, fp32_ips)
     print("[bf16-training] summary "
           + json.dumps(dict(bf16_trained, card=card)))
-    bf16_moduled = phase_bf16_module(card)
+    bf16_moduled, mod16 = phase_bf16_module(card)
     print("[bf16-module] summary " + json.dumps(dict(bf16_moduled,
                                                      card=card)))
+    infer_launches, inferred = phase_bf16_inference(card, mod16)
+    del mod16
+    print("[bf16-infer] summary " + json.dumps(dict(inferred, card=card)))
     print("[done] all phases passed in %.1f s" % (time.perf_counter() - t0))
     k1, k2 = _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches)
     k1["module_launches"] = mod_launches["implicit_gemm_conv"]
     k2["module_launches"] = (mod_launches["taps_wgrad"]
                              + mod_launches["taps_wgrad reduction"])
     k12 = _bf16_entries(k1, k2, bf16_kernels, bf16_launches)
+    k13 = _block_entry(block_kernels, infer_launches)
+    k1["bf16_inference_launches"] = infer_launches["implicit_gemm_conv"]
     print(json.dumps({"kernels": [k1, k2] + lstm + attn
-                      + _ring_entries(k4, k10, ring_launches) + [k11, k12]}))
+                      + _ring_entries(k4, k10, ring_launches)
+                      + [k11, k12, k13]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,15 @@ the gradients of every argument whose ``grad_req`` is not ``"null"`` with
 ``torch.autograd.grad``.  ``backward`` runs the forward again (as the
 reference recomputes it inside its fused program), with the generators of
 the last forward, so a step with dropout sees the same masks.
+
+An inference plan (``train=False``) runs each ResNet v1 identity bottleneck
+it finds as one step (:class:`_FusedBottleneck`): on a bf16 input, its
+BatchNorms folded into the three convolutions and the block on kernel 13
+(``ops/hopper_block.py``).
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +32,156 @@ from .context import Context
 from .ndarray.ndarray import NDArray
 
 __all__ = ["Executor"]
+
+_Entry = Tuple[int, int]
+_ADD_OPS = ("broadcast_add", "elemwise_add")
+# the body of an identity bottleneck from its last node back to its first
+_BODY = ("BatchNorm", "1x1", "relu", "BatchNorm", "3x3", "relu", "BatchNorm",
+         "1x1")
+
+
+def _conv_is(attrs, kernel):
+    """A stride-1, ungrouped, undilated NCHW convolution: 1x1 with pad 0 or
+    3x3 with pad 1."""
+    pad = (0, 0) if kernel == "1x1" else (1, 1)
+    return (tuple(attrs["kernel"]) == ((1, 1) if kernel == "1x1" else (3, 3))
+            and tuple(attrs["stride"] or (1, 1)) == (1, 1)
+            and tuple(attrs["pad"] or (0, 0)) == pad
+            and tuple(attrs["dilate"] or (1, 1)) == (1, 1)
+            and attrs["num_group"] == 1 and attrs["layout"] in (None, "NCHW"))
+
+
+def _find_bottlenecks(ops, heads) -> Dict[int, "_FusedBottleneck"]:
+    """Every ResNet v1 identity bottleneck among ``ops``, keyed by the id of
+    its last node: Convolution 1x1 -> BatchNorm -> relu -> Convolution 3x3
+    -> BatchNorm -> relu -> Convolution 1x1 -> BatchNorm -> add of the
+    block's input -> relu, with BatchNorm on axis 1 and each convolution at
+    stride 1 (:func:`_conv_is`).  The add's other operand must be the very
+    entry the first convolution reads; every node before the last has its
+    first output read once, by the next node, and no other output read, and
+    none of them is a head."""
+    uses: Dict[_Entry, int] = {}
+    for node in ops:
+        for p, i in node.inputs:
+            uses[(id(p), i)] = uses.get((id(p), i), 0) + 1
+
+    def private(node):
+        return all((id(node), i) not in heads
+                   and uses.get((id(node), i), 0) == (i == 0)
+                   for i in range(node.num_outputs()))
+
+    def body(entry, x_entry):
+        nodes = []
+        for kind in _BODY:
+            node, idx = entry
+            if idx or node.is_var or not private(node):
+                return None
+            name, attrs = node.op.name, node.parsed_attrs()
+            if kind == "BatchNorm":
+                ok = name == kind and attrs["axis"] in (1, -3)
+            elif kind == "relu":
+                ok = name == "Activation" and attrs["act_type"] == "relu"
+            else:
+                ok = name == "Convolution" and _conv_is(attrs, kind)
+            if not ok:
+                return None
+            nodes.append(node)
+            entry = node.inputs[0]
+        return nodes[::-1] if entry == x_entry else None
+
+    found = {}
+    for relu in ops:
+        if relu.op.name != "Activation" or \
+                relu.parsed_attrs()["act_type"] != "relu":
+            continue
+        add, idx = relu.inputs[0]
+        if idx or add.is_var or add.op.name not in _ADD_OPS \
+                or not private(add):
+            continue
+        a, b = add.inputs
+        for branch, x_entry in ((a, b), (b, a)):
+            nodes = body(branch, x_entry)
+            if nodes:
+                found[id(relu)] = _FusedBottleneck(nodes + [add, relu],
+                                                   x_entry)
+                break
+    return found
+
+
+class _FusedBottleneck:
+    """One step of an inference plan for an identity bottleneck's ten nodes
+    (``nodes``: conv1, bn1, relu, conv2, bn2, relu, conv3, bn3, add, relu).
+
+    On a bf16 input the three BatchNorms are folded into the convolutions
+    (:func:`~mxnet_tpu_torch.weights.fold_bottleneck`) and the block runs
+    as :func:`~mxnet_tpu_torch.ops.hopper_block.fused_bottleneck`, on
+    kernel 13 for a tensor on the card and its plain version on the CPU.
+    The folded weights are cached, keyed on each source tensor's identity
+    and version, so they follow every change of the parameters.  An input
+    of any other dtype, or one whose channels the last convolution does not
+    give back (the add would broadcast), runs the ten original steps: fp32
+    inference is unchanged, since kernel 13 is a bf16 kernel.  The step
+    has no backward, and raises when autograd would record it."""
+
+    def __init__(self, nodes, x_entry):
+        self.nodes = nodes
+        self.attrs = [n.parsed_attrs() for n in nodes]
+        self.x_entry = (id(x_entry[0]), x_entry[1])
+        self.params = [(id(p), i) for n in nodes[:8]
+                       if n.op.name != "Activation" for p, i in n.inputs[1:]]
+        self.inputs = [self.x_entry] + self.params
+        # conv3's weight: after it, conv3's bias (if any) and bn3's 4 inputs
+        self._w3 = len(self.params) - len(nodes[6].inputs) - 3
+        self._cache = None
+
+    def _fold_args(self, params):
+        it = iter(params)
+        args = []
+        for node, attrs in zip(self.nodes[:8], self.attrs):
+            if node.op.name == "Convolution":
+                w = next(it)
+                bias = next(it) if len(node.inputs) > 2 else None
+                args += [w, None if attrs["no_bias"] else bias]
+            elif node.op.name == "BatchNorm":
+                args.append(tuple(next(it) for _ in range(4))
+                            + (attrs["eps"], attrs["fix_gamma"]))
+        return args
+
+    def _folded(self, params):
+        cache = self._cache
+        if cache is not None and all(
+                ref() is t and version == t._version
+                for (ref, version), t in zip(cache[0], params)):
+            return cache[1]
+        from .weights import fold_bottleneck
+        folded = fold_bottleneck(*self._fold_args(params))
+        if not any(t.is_inference() for t in params):
+            self._cache = ([(weakref.ref(t), t._version) for t in params],
+                           folded)
+        return folded
+
+    def _unfused(self, x, params):
+        env = {self.x_entry: x}
+        env.update(zip(self.params, params))
+        for node, attrs in zip(self.nodes, self.attrs):
+            res = node.op.fn(attrs, *[env[(id(p), i)] for p, i in node.inputs])
+            for i, o in enumerate(res if isinstance(res, tuple) else (res,)):
+                env[(id(node), i)] = o
+        return env[(id(self.nodes[-1]), 0)]
+
+    def __call__(self, attrs, x, *params):
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                t.requires_grad for t in params)):
+            raise MXNetError("the fused identity bottleneck of an inference "
+                             "plan has no backward; gradients take the "
+                             "training plan")
+        if x.dtype != torch.bfloat16 or x.dim() != 4 \
+                or params[self._w3].shape[0] != x.shape[1]:
+            return self._unfused(x, params)
+        from .ops import hopper_block
+        y = hopper_block.fused_bottleneck(x.permute(0, 2, 3, 1).contiguous(),
+                                          *self._folded(params))
+        return y.permute(0, 3, 1, 2)
 
 
 class _Plan:
@@ -40,7 +196,11 @@ class _Plan:
     :meth:`execute` returns (BatchNorm's moving statistics).  Each
     ``needs_rng`` op gets a slot (``n_rng`` in all), as in the reference
     (``executor.py:79-100``): :meth:`execute` hands it the generator of its
-    slot, or ``None`` when it is given none."""
+    slot, or ``None`` when it is given none.
+
+    With ``train=False`` each identity bottleneck that
+    :func:`_find_bottlenecks` finds becomes one :class:`_FusedBottleneck`
+    step (``n_fused`` in all) in place of its ten nodes."""
 
     def __init__(self, symbol, train: bool = False):
         self.train = train
@@ -51,18 +211,19 @@ class _Plan:
         aux_ids = {id(n): n.name for n in self.topo
                    if n.is_var and n.name in set(self.aux_names)}
         ops = [node for node in self.topo if not node.is_var]
-        last_use: Dict[Tuple[int, int], int] = {}
-        for s, node in enumerate(ops):
-            for p, i in node.inputs:
-                last_use[(id(p), i)] = s
         keep = set(self.out_entries)
-        release: List[List[Tuple[int, int]]] = [[] for _ in ops]
-        for entry, s in last_use.items():
-            if entry not in keep:
-                release[s].append(entry)
-        self.steps = []
+        fused = {} if train else _find_bottlenecks(ops, keep)
+        inside = {id(n) for f in fused.values() for n in f.nodes[:-1]}
+        # (out id, input entries, fn, attrs, writeback, rng slot) per step
+        units = []
         self.n_rng = 0
-        for s, node in enumerate(ops):
+        for node in ops:
+            if id(node) in inside:
+                continue
+            if id(node) in fused:
+                f = fused[id(node)]
+                units.append((id(node), f.inputs, f, None, {}, None))
+                continue
             attrs = node.parsed_attrs()
             if node.op.train_aware:
                 attrs = dict(attrs, __train__=train)
@@ -76,7 +237,20 @@ class _Plan:
             if node.op.needs_rng:
                 slot = self.n_rng
                 self.n_rng += 1
-            self.steps.append((node, attrs, writeback, release[s], slot))
+            units.append((id(node), [(id(p), i) for p, i in node.inputs],
+                          node.op.fn, attrs, writeback, slot))
+        #: identity bottlenecks run as one step each (inference plans only)
+        self.n_fused = len(fused)
+        last_use: Dict[_Entry, int] = {}
+        for s, unit in enumerate(units):
+            for entry in unit[1]:
+                last_use[entry] = s
+        release: List[List[_Entry]] = [[] for _ in units]
+        for entry, s in last_use.items():
+            if entry not in keep:
+                release[s].append(entry)
+        self.steps = [unit[:5] + (release[s], unit[5])
+                      for s, unit in enumerate(units)]
 
     def execute(self, values: Dict[str, torch.Tensor],
                 generators: Optional[Sequence[torch.Generator]] = None
@@ -92,16 +266,17 @@ class _Plan:
                 env[(id(node), 0)] = values[node.name]
         new_aux = {n: values[n] for n in self.aux_names}
         device = next(iter(values.values())).device if values else None
-        for node, attrs, writeback, release, slot in self.steps:
-            ins = [env[(id(p), i)] for p, i in node.inputs]
+        for out_id, inputs, fn, attrs, writeback, release, slot in \
+                self.steps:
+            ins = [env[e] for e in inputs]
             if not ins:
                 attrs = dict(attrs, __device__=device)
             if slot is not None:
                 ins.insert(0, generators[slot] if generators else None)
-            res = node.op.fn(attrs, *ins)
+            res = fn(attrs, *ins)
             outs = res if isinstance(res, tuple) else (res,)
             for i, o in enumerate(outs):
-                env[(id(node), i)] = o
+                env[(out_id, i)] = o
             for oi, aux_name in writeback.items():
                 new_aux[aux_name] = outs[oi]
             for entry in release:

@@ -134,3 +134,21 @@ class Predictor:
         new._aux_params = self._aux_params
         new._bind(input_shapes)
         return new
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=True):
+        """Copy new weights into the bound executor (the hot-swap path),
+        then re-point the shared parameter dicts at the live bound arrays
+        (``predictor.py:242-273``): a copy made at bind (parameters given on
+        another device) would otherwise pin a dead weight set on the card
+        across every later swap.  The bucket predictors of a server share
+        these dicts and, on one device, the bound arrays themselves, so one
+        copy of the weights serves them all."""
+        self._executor.copy_params_from(arg_params, aux_params,
+                                        allow_extra_params)
+        for name, arr in self._executor.arg_dict.items():
+            if name not in self._input_names and name in self._arg_params:
+                self._arg_params[name] = arr
+        for name, arr in self._executor.aux_dict.items():
+            if name in self._aux_params:
+                self._aux_params[name] = arr

@@ -11,9 +11,15 @@ Request path: ``submit`` validates and admits into the SLO scheduler
 (bounded queue, explicit :class:`QueueFullError` / :class:`AdmissionError`
 on overload); a worker thread forms a batch, drops expired-deadline
 requests *before* execution, concatenates the survivors' rows, zero-pads
-to the bucket size, runs the bucket's predictor and slices each request's
-rows back out.  Worker threads launch on the card themselves: every kernel
-runs on the calling thread's current stream.
+to the bucket size, runs the bucket's predictor under the swap lock and
+slices each request's rows back out.  ``swap_params`` takes the same lock,
+so every batch runs against exactly one weight set: a hot swap is atomic
+at batch granularity.  Worker threads launch on the card themselves: every
+kernel runs on the calling thread's current stream.
+
+Not ported yet: the mesh-sharded Predictor (``mesh=``,
+``sharding_rules=``), which needs sharded execution, and the telemetry,
+tracing, runlog and memory-census hooks of the reference server.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..base import get_env
 from .batcher import (DeadlineExceededError, QueueFullError, Request,
                       ServerClosedError, ServingError, pow2_buckets)
 from .scheduler import SLO_CLASSES, AdmissionError, SloScheduler
@@ -32,15 +39,42 @@ __all__ = ["ServingConfig", "ModelServer"]
 
 
 class ServingConfig:
-    """Server knobs, with the reference package's defaults."""
+    """Server knobs; constructor arguments override the ``MXNET_SERVING_*``
+    environment defaults, as in the reference (``server.py:87-132``)."""
 
-    def __init__(self, max_batch_size=8, batch_buckets=None,
-                 batch_timeout_ms=2.0, queue_depth=256,
-                 default_deadline_ms=0.0, num_workers=1,
-                 shed_batch_at=0.5, shed_standard_at=0.8,
-                 retry_after_ms=50.0):
+    def __init__(self, max_batch_size=None, batch_buckets=None,
+                 batch_timeout_ms=None, queue_depth=None,
+                 default_deadline_ms=None, num_workers=None,
+                 shed_batch_at=None, shed_standard_at=None,
+                 retry_after_ms=None):
+        if max_batch_size is None:
+            max_batch_size = get_env("MXNET_SERVING_MAX_BATCH", 8, int)
+        if batch_timeout_ms is None:
+            batch_timeout_ms = get_env(
+                "MXNET_SERVING_BATCH_TIMEOUT_MS", 2.0, float)
+        if queue_depth is None:
+            queue_depth = get_env("MXNET_SERVING_QUEUE_DEPTH", 256, int)
+        if default_deadline_ms is None:
+            default_deadline_ms = get_env(
+                "MXNET_SERVING_DEADLINE_MS", 0.0, float)
+        if num_workers is None:
+            num_workers = get_env("MXNET_SERVING_WORKERS", 1, int)
         if batch_buckets is None:
-            batch_buckets = pow2_buckets(int(max_batch_size))
+            env_buckets = get_env("MXNET_SERVING_BUCKETS", None)
+            if env_buckets:
+                batch_buckets = tuple(
+                    int(b) for b in env_buckets.split(",") if b.strip())
+            else:
+                batch_buckets = pow2_buckets(int(max_batch_size))
+        if shed_batch_at is None:
+            shed_batch_at = get_env("MXNET_SERVING_SHED_BATCH_AT", 0.5,
+                                    float)
+        if shed_standard_at is None:
+            shed_standard_at = get_env("MXNET_SERVING_SHED_STANDARD_AT",
+                                       0.8, float)
+        if retry_after_ms is None:
+            retry_after_ms = get_env("MXNET_SERVING_RETRY_AFTER_MS", 50.0,
+                                     float)
         self.max_batch_size = int(max_batch_size)
         self.batch_buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
         self.batch_timeout_ms = float(batch_timeout_ms)
@@ -66,14 +100,21 @@ class ModelServer:
     config : ServingConfig, optional
         Extra keyword arguments build one (``max_batch_size=...`` etc.).
     name : str
-        Model name, reported by ``stats()``.
+        Model name, reported by ``stats()``; the key it registers under in
+        a :class:`~mxnet_tpu_torch.serving.registry.ModelRegistry`.
+    mesh, sharding_rules
+        The reference's mesh-sharded Predictor; not ported yet (raises).
     """
 
     def __init__(self, symbol_json, params, example_shapes, ctx=None,
                  config: Optional[ServingConfig] = None,
-                 name: str = "default", **config_kwargs):
+                 name: str = "default", mesh=None, sharding_rules=None,
+                 **config_kwargs):
         from ..predictor import Predictor
 
+        if mesh is not None or sharding_rules is not None:
+            raise ServingError("ModelServer(mesh=, sharding_rules=): the "
+                               "mesh-sharded Predictor is not ported yet")
         if config is None:
             config = ServingConfig(**config_kwargs)
         elif config_kwargs:
@@ -102,6 +143,7 @@ class ModelServer:
             self._predictors[b] = base.reshape(
                 {k: (b,) + s for k, s in self._example_shapes.items()})
 
+        self._swap_lock = threading.Lock()
         self._workers: List[threading.Thread] = []
         self._started = False
         self._stopped = False
@@ -138,12 +180,13 @@ class ModelServer:
         if self._warmed:
             return
         t0 = time.perf_counter()
-        for b, pred in sorted(self._predictors.items()):
-            feed = {k: np.zeros((b,) + s, np.float32)
-                    for k, s in self._example_shapes.items()}
-            outs = pred.forward(**feed)
-            for o in outs:
-                o.asnumpy()          # waits for the device
+        with self._swap_lock:
+            for b, pred in sorted(self._predictors.items()):
+                feed = {k: np.zeros((b,) + s, np.float32)
+                        for k, s in self._example_shapes.items()}
+                outs = pred.forward(**feed)
+                for o in outs:
+                    o.asnumpy()          # waits for the device
         self.warmup_seconds = time.perf_counter() - t0
         self._warmed = True
 
@@ -243,6 +286,28 @@ class ModelServer:
         return self.submit(inputs, deadline_ms=deadline_ms,
                            slo_class=slo_class).result(timeout)
 
+    # -- hot swap ----------------------------------------------------------
+    def swap_params(self, params, aux_params=None):
+        """Atomically replace the served weights between batches.
+
+        ``params`` is a {name: array} dict (``arg:``/``aux:`` prefixes
+        accepted, checkpoint convention).  Shapes must match the bound
+        graph: a swap never rebinds.  The swap lock excludes batch
+        execution, so every request's batch runs against exactly one
+        weight set (old or new, never a mix)."""
+        args, auxs = {}, dict(aux_params or {})
+        for k, v in dict(params).items():
+            if k.startswith("arg:"):
+                args[k[4:]] = v
+            elif k.startswith("aux:"):
+                auxs[k[4:]] = v
+            else:
+                args[k] = v
+        with self._swap_lock:
+            for pred in self._predictors.values():
+                pred.copy_params_from(args, auxs or None,
+                                      allow_extra_params=True)
+
     # -- execution ---------------------------------------------------------
     def _worker_loop(self):
         while True:
@@ -284,7 +349,8 @@ class ModelServer:
         pred = self._predictors[bucket]
         # the host copy waits for the device, so a fault in the batch's
         # kernels surfaces here and fails this batch's requests
-        outs = [o.asnumpy() for o in pred.forward(**feed)]
+        with self._swap_lock:
+            outs = [o.asnumpy() for o in pred.forward(**feed)]
         with self._count_lock:
             self.batches += 1
         offset = 0

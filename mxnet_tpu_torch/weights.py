@@ -10,7 +10,10 @@ structure, by name, and ``from_jax_module`` a reference Module's into a port
 Module's, with its optimizer's states (``from_jax_updater``).  ``from_jax_moe_params`` carries a reference ``MoEParams`` into the
 port's, and ``from_jax_stage_params`` a dict of stage-stacked ``(S, ...)``
 block parameters (``pipeline_transformer``'s), so that both packages' parallel
-compositions compute with the same weights.
+compositions compute with the same weights.  ``fold_bottleneck`` folds a
+ResNet v1 identity bottleneck's three convolutions and BatchNorms into the
+layout of kernel 13 (``ops/hopper_block.py``), and ``from_probe_block``
+carries the arrays of ``tools/probe_fused_block.py`` into that layout.
 
 The reference's bf16 arrays reach numpy as ``ml_dtypes.bfloat16``, which the
 port does not import: they are told by the dtype's name and carried across
@@ -30,7 +33,8 @@ from .context import Context, current_context
 from .ndarray import ndarray as nd
 
 __all__ = ["from_jax_params", "from_jax_block", "from_jax_module",
-           "from_jax_updater", "from_jax_moe_params", "from_jax_stage_params"]
+           "from_jax_updater", "from_jax_moe_params", "from_jax_stage_params",
+           "fold_bottleneck", "from_probe_block"]
 
 
 def from_jax_params(params, ctx: Optional[Context] = None
@@ -168,3 +172,65 @@ def from_jax_stage_params(params, ctx: Optional[Context] = None
                          "leading stage dim, got shapes %s"
                          % {k: tuple(t.shape) for k, t in out.items()})
     return out
+
+
+def _bn_scale_shift(conv_bias, gamma, beta, mean, var, eps, fix_gamma):
+    """Per-channel (s, t) with BatchNorm(conv + bias) = conv * s + t at
+    inference: ``s = gamma / sqrt(var + eps)`` (gamma taken as 1 under
+    ``fix_gamma``), ``t = beta + (bias - mean) * s``, in fp32."""
+    f32 = torch.float32
+    s = torch.rsqrt(var.to(f32) + eps)
+    if not fix_gamma:
+        s = s * gamma.to(f32)
+    shift = -mean.to(f32) if conv_bias is None \
+        else conv_bias.to(f32) - mean.to(f32)
+    return s, beta.to(f32) + shift * s
+
+
+def fold_bottleneck(conv1_weight, conv1_bias, bn1, conv2_weight, conv2_bias,
+                    bn2, conv3_weight, conv3_bias, bn3, dtype=torch.bfloat16):
+    """Fold an identity bottleneck at inference into kernel 13's operands.
+
+    The convolutions' OIHW weights (1x1 ``(Cm, Cin)``, 3x3 ``(Cm, Cm)``, 1x1
+    ``(Cin, Cm)``) and biases (``None`` where a convolution has none), and
+    each BatchNorm as ``(gamma, beta, moving_mean, moving_var, eps,
+    fix_gamma)``.  Each folded weight is ``W * s`` per output channel and
+    each bias ``t`` (:func:`_bn_scale_shift`), computed in fp32; the weights
+    are rounded to ``dtype`` once.  Returns ``(w1 (Cm, Cin), w2 (9, Cm, Cm),
+    w3 (Cin, Cm), b (3, Cin) fp32)``, every weight ``(out, in)`` as the
+    convolutions' own, tap ``3 * dy + dx`` of w2, rows 0 and 1 of b holding
+    the first two biases in their first Cm entries."""
+    f32 = torch.float32
+    folded = []
+    for w, bias, bn in ((conv1_weight, conv1_bias, bn1),
+                        (conv2_weight, conv2_bias, bn2),
+                        (conv3_weight, conv3_bias, bn3)):
+        s, t = _bn_scale_shift(bias, *bn)
+        folded.append((w.to(f32) * s.reshape(-1, 1, 1, 1), t))
+    (w1, t1), (w2, t2), (w3, t3) = folded
+    Cm, Cin = w1.shape[:2]
+    b = torch.zeros((3, Cin), dtype=f32, device=w1.device)
+    b[0, :Cm] = t1
+    b[1, :Cm] = t2
+    b[2] = t3
+    return (w1[:, :, 0, 0].to(dtype).contiguous(),
+            w2.permute(2, 3, 0, 1).reshape(9, Cm, Cm).to(dtype).contiguous(),
+            w3[:, :, 0, 0].to(dtype).contiguous(), b)
+
+
+def from_probe_block(w1, w2, w3, b, ctx: Optional[Context] = None):
+    """``tools/probe_fused_block.py``'s block operands (numpy, bf16 as
+    ``ml_dtypes.bfloat16`` or float32; w1 (Cin, Cm), w2 (9, Cm, Cm) as (in,
+    out) per tap, w3 (Cm, Cin), b (3, Cin)) as tensors on ``ctx`` (default
+    ``gpu(0)``) in kernel 13's layout, the weights transposed to (out, in)
+    and b fp32.  bf16 stays bf16, bit for bit."""
+    ctx = ctx or current_context()
+    w1, w2, w3, b = (_tensor(v, ctx) for v in (w1, w2, w3, b))
+    Cin, Cm = w1.shape
+    if tuple(w2.shape) != (9, Cm, Cm) or tuple(w3.shape) != (Cm, Cin) \
+            or tuple(b.shape) != (3, Cin):
+        raise MXNetError("from_probe_block: w1 %s, w2 %s, w3 %s and b %s do "
+                         "not form a block" % tuple(tuple(t.shape)
+                                                    for t in (w1, w2, w3, b)))
+    return (w1.t().contiguous(), w2.transpose(1, 2).contiguous(),
+            w3.t().contiguous(), b.float())
