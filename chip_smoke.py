@@ -169,22 +169,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    shapes of a batch-128 ResNet-50 v1 step, at the probe's (401,408 x 64)
    x (401,408 x 256) and at four ragged shapes (rows off the tile, C = 8,
    odd spatial dims at stride 2), within 1e-4 of the largest |dw| (fp32
-   sums in another order; bf16 products are exact in fp32); kernel 2's
-   bf16 arm against ``taps_wgrad_plain`` (1e-4 of the largest |dw|) and
-   kernel 1 in bf16, forward and dgrad, against ``taps_conv_plain`` (both
-   round one fp32 sum to bf16: rtol 2^-7, atol 1e-4 of the largest
-   |value|) at the 4 Gluon 3x3 shapes at batch 128.  Each with its time,
-   TFLOP/s and bound (bf16 tensor-core peak, or bytes over 3.35 TB/s where
-   larger) beside the plain version's and cuDNN's bf16 yardstick
-   (``conv2d_weight`` / ``conv2d_input`` / ``F.conv2d``, never called by
-   the port on these shapes).
+   sums in another order; bf16 products are exact in fp32); kernels 1 and
+   2's bf16 kernels on the tensor cores (``taps_conv_bf16.cu``, forward
+   and dgrad, against ``taps_conv_plain``: both round one fp32 sum to
+   bf16, rtol 2^-7, atol 1e-4 of the largest |value|; ``taps_wgrad_bf16.cu``
+   against ``taps_wgrad_plain``, 1e-4 of the largest |dw|) at ragged
+   shapes (N 3 7x9 C 24 O 40; N 2 5x5 C 3 O 8; N 5 33x31 C 24 O 40, rows
+   off the stage and the tile), the stride-2 class through ``conv3x3_s2``
+   (N 2 10x10 C 8 O 16; kernel 2 at its space-to-depth form) and an ``x``
+   at storage offset 1 (the element path; kernel 1 also at 28x28 with 128
+   channels at batch 128, at both of its tiles), each call launching the
+   bf16 kernel once, kernel 2 twice on the same inputs with bit-equal
+   results; their blocks an SM holds against the host plans'; then at the
+   4 Gluon 3x3 shapes at batch 128, kernel 1's forward at both of its
+   tiles.  Each with its time, TFLOP/s and bound (bf16 tensor-core peak,
+   or bytes over 3.35 TB/s where larger) beside the plain version's and
+   cuDNN's bf16 yardstick (``conv2d_weight`` / ``conv2d_input`` /
+   ``F.conv2d``, never called by the port on these shapes); each kernel's
+   sum over a step must be under the fp32 CUDA-core ceiling (its FLOPs over
+   67 TFLOP/s).
 14. bf16 training: bench.py ``main()`` on its accelerator, Gluon
    ``resnet50_v1`` (224 px, 1,000 classes) trained by
    ``FusedTrainer(..., dtype="bfloat16")`` (SGD lr 0.1, momentum 0.9) at
    batch 128 on gpu(0).  The counters, zeroed before the first step and
-   read after the last timed one, must read 32 launches of kernel 1, 16 +
-   13 of kernel 2 and 36 of kernel 12's partial pass with its reductions a
-   step; the masters stay fp32, the loss finite and falling; 2 warm-up and
+   read after the last timed one, must read a step 32 launches of kernel
+   1's bf16 kernel, 16 of kernel 2's bf16 partial pass with the bf16
+   plan's reductions (16 on 132 SMs), none of their fp32 kernels, and 36
+   of kernel 12's partial pass with its reductions; the profile reads the
+   same bf16 launches from the trace; the masters stay fp32, the loss
+   finite and falling; 2 warm-up and
    10 timed steps give bf16 train images/s, printed beside phase 5's fp32;
    two profiled steps the device time by group and the idle share, and
    one step the NHWC copies that the 1x1s' and the 3x3s' backwards make.
@@ -199,8 +212,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    0.01, momentum 0.9), 30 steps each on ``RandomState(3)``'s batch:
    bench.py's convergence band, parameter bytes plus the step's peak
    activation bytes at bf16 <= 0.65x fp32's, bf16 weights and fp32
-   masters under the flag, fp32 without; images/s of both; one bf16 step
-   fused and one eager with bit-equal masters and weights.
+   masters under the flag, fp32 without; kernels 1 and 2's launches over
+   each run's 42 steps (bf16: 32 of the bf16 conv kernel, 16 of the bf16
+   wgrad and its plan's reductions a step, no fp32 ones; fp32 the reverse,
+   at the fp32 kernel's splits); images/s of both; one bf16 step fused and
+   one eager with bit-equal masters and weights.
 
 2h. fused bottleneck kernel (run after 2g): kernel 13
    (``fused_bottleneck.cu``, the identity bottleneck of
@@ -218,8 +234,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 16. bf16 inference: phase 15's bf16 Module after its steps, the eval pass
    of a bf16 run: ``predict`` over an ``NDArrayIter`` of 2 batches of 128
    from ``RandomState(3)`` and ``score`` with ``Accuracy``, the counters
-   zeroed just before and read just after: 12 kernel-13 and 4 kernel-1
-   launches a forward, none of kernels 2 or 12.  The same weights and
+   zeroed just before and read just after: 12 kernel-13 and 4 launches of
+   kernel 1's bf16 kernel a forward, none of its fp32 kernel or of kernels
+   2 or 12 (the profile reads the same from the trace).  The same weights and
    moving statistics in an fp32 Module bound for inference measure the
    bf16 band of the logits (norm of the difference over the fp32 norm) and
    the share of equal top-1; the CPU's bf16 logits at batch 8 (plain arms)
@@ -284,6 +301,11 @@ RESNET50_3X3 = [("s1", 64, 56, 3), ("s1", 128, 28, 3), ("s1", 256, 14, 5),
 # the 3x3 convolutions of a Gluon ResNet-50 v1 (stride on the 1x1, so all
 # stride 1): (C = O, H = W, instances per step)
 GLUON_3X3 = [(64, 56, 3), (128, 28, 4), (256, 14, 6), (512, 7, 3)]
+# ragged bf16 shapes for the tensor-core kernels, (N, H, W, C, O): channels
+# off the 8-channel copy and the 64-channel tile, C = 3, rows off the
+# 32-row wgrad stage and the 128-row conv tile; the last (5,115 rows) splits
+# the wgrad rows with a ragged last split
+RAGGED_BF16 = [(3, 7, 9, 24, 40), (2, 5, 5, 3, 8), (5, 33, 31, 24, 40)]
 WGRAD_TOL = 1e-4       # max |dw_kernel - dw_plain| / max |dw_plain|
 # first training step on the card vs the CPU: the loss, and each 3x3
 # weight's update in Frobenius norm (the one-step gradient of a 53-layer
@@ -562,14 +584,140 @@ def _bf16_close(got, want):
             (got - want).abs().max().item())
 
 
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _at_offset_1(t):
+    """``t``'s values in a contiguous tensor at storage offset 1 (2 bytes
+    off a 16-byte boundary in bf16: the bf16 kernels' element path)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    check(out.is_contiguous() and out.data_ptr() % 16 == 2,
+          "the misaligned view is not 2 bytes off")
+    return out
+
+
+def _bf16_occupancy_checks(hc, dev):
+    """The blocks an SM holds of each bf16 kernel, read on the card, against
+    what the host plans assume."""
+    import ctypes
+    from mxnet_tpu_torch import _build
+    lc, lw = _build.load("taps_conv_bf16"), _build.load("taps_wgrad_bf16")
+    got = {}
+    n = ctypes.c_int()
+    for bn, per_sm, _ in hc._CONV_BF16_TILES:
+        for vec in (0, 1):
+            check(lc.mxtt_taps_conv_bf16_occupancy(bn, vec, dev.index,
+                                                   ctypes.byref(n)) == 0,
+                  "occupancy query of taps_conv_bf16 failed")
+            got["conv bn %d vec %d" % (bn, vec)] = (n.value, per_sm)
+    for vec in (0, 1):
+        check(lw.mxtt_taps_wgrad_bf16_occupancy(vec, dev.index,
+                                                ctypes.byref(n)) == 0,
+              "occupancy query of taps_wgrad_bf16 failed")
+        got["wgrad vec %d" % vec] = (n.value, hc._WGRAD_BF16_PER_SM)
+    print("[bf16-kernels] blocks an SM holds (card, plan): %s" % got)
+    check(all(card == plan for card, plan in got.values()),
+          "the bf16 kernels' occupancy differs from the plans': %s" % got)
+
+
+def _ragged_bf16_3x3_checks(hc, dev, randn):
+    """Kernels 1 and 2 in bf16 against their plain versions at ragged
+    shapes, the stride-2 class through ``conv3x3_s2``, and an operand that
+    is a contiguous view at storage offset 1 (2-byte aligned: the element
+    path), kernel 1's also at a Gluon shape where the plan takes the
+    128-column tile, at both tiles; kernel 2 twice on the same inputs must
+    give the same bits.  Each call must launch the bf16 kernel once."""
+    def k1(x, taps, pads, KH, KW, label, bn=None):
+        before = hc.launches_bf16
+        got = (hc.taps_conv(x, taps, pads, KH, KW) if bn is None
+               else hc._taps_conv_cuda(x, taps, pads, KH, KW, bn=bn))
+        want = hc.taps_conv_plain(x, taps, pads, KH, KW)
+        torch.cuda.synchronize()
+        ok, err = _bf16_close(got, want)
+        check(ok and hc.launches_bf16 == before + 1, "kernel 1 (bf16) at %s: "
+              "max abs err %g, %d launches" % (label, err,
+                                               hc.launches_bf16 - before))
+        return err
+
+    def k2(x, dy, pads, KH, KW, label):
+        before = (hc.wgrad_launches_bf16, hc.launches_bf16)
+        got = hc.taps_wgrad(x, dy, pads, KH, KW)
+        again = hc.taps_wgrad(x, dy, pads, KH, KW)
+        want = hc.taps_wgrad_plain(x, dy, pads, KH, KW)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        check(err <= WGRAD_TOL and hc.wgrad_launches_bf16 == before[0] + 2,
+              "kernel 2 (bf16) at %s: %g of max |dw| (tol %g), %d launches"
+              % (label, err, WGRAD_TOL, hc.wgrad_launches_bf16 - before[0]))
+        check(torch.equal(got, again), "kernel 2 (bf16) gave other bits on "
+              "the same inputs at %s" % label)
+        return err
+
+    errs = {}
+    for N, H, W, C, O in RAGGED_BF16:
+        label = "N=%d %dx%d C=%d O=%d" % (N, H, W, C, O)
+        x = randn(N, H, W, C)
+        errs["k1 " + label] = k1(x, randn(9, C, O, scale=0.2), hc.S1_PADS,
+                                 3, 3, label)
+        errs["k2 " + label] = k2(x, randn(N, H, W, O), hc.S1_PADS, 3, 3,
+                                 label)
+    # the stride-2 class: 2x2 taps on 4C channels after space-to-depth
+    data = randn(2, 8, 10, 10)
+    w = randn(16, 8, 3, 3, scale=0.2)
+    before = hc.launches_bf16
+    got = hc.conv3x3_s2(data, w)
+    want = hc.conv3x3_s2_plain(data, w)
+    torch.cuda.synchronize()
+    ok, err = _bf16_close(got, want)
+    check(ok and hc.launches_bf16 == before + 1, "kernel 1 (bf16) through "
+          "conv3x3_s2 at N=2 10x10 C=8 O=16: max abs err %g" % err)
+    errs["k1 s2 N=2 10x10 C=8 O=16"] = err
+    xs = hc.s2d_nhwc(data.permute(0, 2, 3, 1)).contiguous()
+    errs["k2 s2d N=2 5x5 C=32 O=16"] = k2(xs, randn(2, 5, 5, 16),
+                                          hc.S2_PADS, 2, 2, "s2d 5x5 C=32")
+    # an operand 2 bytes off a 16-byte boundary
+    N, H, W, C, O = RAGGED_BF16[0]
+    x = _at_offset_1(randn(N, H, W, C))
+    errs["k1 misaligned"] = k1(x, randn(9, C, O, scale=0.2), hc.S1_PADS, 3,
+                               3, "x at storage offset 1")
+    errs["k2 misaligned"] = k2(x, randn(N, H, W, O), hc.S1_PADS, 3, 3,
+                               "x at storage offset 1")
+    # the element path at the main path's size: 28x28, 128 channels, batch
+    # 128, where the plan takes the 128-column tile; both tiles
+    N, H, C = BF16_BATCH, 28, 128
+    x = _at_offset_1(randn(N, H, H, C))
+    taps = randn(9, C, C, scale=1.0 / math.sqrt(9 * C))
+    plan = hc.conv_bf16_plan(N * H * H, C, C, _sms(dev), (x.data_ptr(),))
+    check(plan.bn == 128 and not plan.vec, "the plan for x at storage "
+          "offset 1 at 28x28/128 is %s, not the 128-column element path"
+          % (plan,))
+    for bn in (128, 64):
+        label = "x at storage offset 1, N=%d %dx%d C=O=%d, tile %d" % (
+            N, H, H, C, bn)
+        errs["k1 misaligned %dx%d C=%d tile %d" % (H, H, C, bn)] = k1(
+            x, taps, hc.S1_PADS, 3, 3, label, bn)
+    print("[bf16-kernels] ragged, stride-2 and misaligned shapes: kernels 1 "
+          "and 2 (bf16) match their plain versions, kernel 2 bit-equal on "
+          "reruns (kernel 1 max abs err, kernel 2 of max |dw|): %s"
+          % ", ".join("%s %.3g" % kv for kv in errs.items()))
+    return errs
+
+
 def phase_bf16_kernels():
     """Phase 2g: kernel 12 (``conv1x1_wgrad.cu``) against its plain version
     at the 15 1x1 shapes of a batch-128 ResNet-50 v1 step, the probe's own
-    (401,408 x 64) x (401,408 x 256) and three ragged shapes; kernel 2's
-    bf16 arm and kernel 1 in bf16 (forward and dgrad) at the 4 Gluon 3x3
-    shapes at batch 128.  Times beside the plain versions', the bf16
-    tensor-core bound and cuDNN's (the yardstick only).  Returns per-shape
-    records (kernel 12, kernel 2, kernel 1 forward, kernel 1 dgrad)."""
+    (401,408 x 64) x (401,408 x 256) and three ragged shapes; kernels 1 and
+    2 in bf16 (``taps_conv_bf16.cu``, forward and dgrad, and
+    ``taps_wgrad_bf16.cu``) at ragged, stride-2 and misaligned shapes, with
+    their occupancy against the host plans', and at the 4 Gluon 3x3 shapes
+    at batch 128, kernel 2 twice on the same inputs (bit-equal), kernel 1's
+    forward at both of its tiles.  Times beside the plain versions', the
+    bf16 tensor-core bound and cuDNN's (the yardstick only); each bf16 3x3
+    kernel's step sum must be under the fp32 CUDA-core ceiling.  Returns per-shape records (kernel 12, kernel
+    2, kernel 1 forward, kernel 1 dgrad) and the ragged shapes' errors."""
     from mxnet_tpu_torch.ops import hopper_conv as hc
     fp32_exact()
     dev = torch.device("cuda", 0)
@@ -630,6 +778,8 @@ def phase_bf16_kernels():
                            bound_ms, bound_by))
         del x, g, xn, gn
 
+    ragged = _ragged_bf16_3x3_checks(hc, dev, randn)
+    _bf16_occupancy_checks(hc, dev)
     wgrad, fwd, dgrad = [], [], []
     for C, H, count in GLUON_3X3:
         N, O = BF16_BATCH, C
@@ -641,18 +791,23 @@ def phase_bf16_kernels():
                   "instances_per_step": count, "gflop": flops / 1e9}
 
         got = hc.taps_wgrad(x, dy, hc.S1_PADS, 3, 3)
+        again = hc.taps_wgrad(x, dy, hc.S1_PADS, 3, 3)
         want = hc.taps_wgrad_plain(x, dy, hc.S1_PADS, 3, 3)
         torch.cuda.synchronize()
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
-        check(err <= WGRAD_TOL * scale, "kernel 2's bf16 arm disagrees with "
-              "its plain version at C=%d H=%d: %g > %g of max |dw|"
+        check(err <= WGRAD_TOL * scale, "kernel 2 (bf16) disagrees with its "
+              "plain version at C=%d H=%d: %g > %g of max |dw|"
               % (C, H, err / scale, WGRAD_TOL))
+        check(torch.equal(got, again), "kernel 2 (bf16) gave other bits on "
+              "the same inputs at C=%d H=%d" % (C, H))
         bound_ms, bound_by = _bound(
             flops, 2.0 * (x.numel() + dy.numel()) + 4.0 * 9 * C * O,
             PEAK_BF16)
+        plan = hc.wgrad_bf16_plan(N * H * H, C, O, 3, 3, _sms(dev))
         rec = dict(common, max_abs_err=err, max_rel_err=err / scale,
-                   tol_rel=WGRAD_TOL,
+                   tol_rel=WGRAD_TOL, splits=plan.splits, rows=plan.rows,
+                   bit_equal_rerun=True,
                    ms=time_ms(lambda: hc.taps_wgrad(x, dy, hc.S1_PADS, 3, 3)),
                    plain_ms=time_ms(lambda: hc.taps_wgrad_plain(
                        x, dy, hc.S1_PADS, 3, 3)),
@@ -677,8 +832,9 @@ def phase_bf16_kernels():
                   "at C=%d H=%d: max abs err %g" % (label, C, H, err))
             bound_ms, bound_by = _bound(
                 flops, 2.0 * (x.numel() + w.numel() + dy.numel()), PEAK_BF16)
+            plan = hc.conv_bf16_plan(N * H * H, C, O, _sms(dev))
             r = dict(common, max_abs_err=err, rtol=BF16_RTOL,
-                     atol_rel=BF16_ATOL_REL,
+                     atol_rel=BF16_ATOL_REL, tile=plan.bn,
                      ms=time_ms(lambda: hc.taps_conv(inp, taps, hc.S1_PADS,
                                                      3, 3)),
                      plain_ms=time_ms(lambda: hc.taps_conv_plain(
@@ -686,6 +842,18 @@ def phase_bf16_kernels():
                      library_ms=time_ms(lib), bound_ms=bound_ms,
                      bound_by=bound_by)
             r["tflops"] = flops / r["ms"] / 1e9
+            if label == "forward":   # both tiles, for the plan's choice
+                r["tile_ms"], r["tile_max_abs_err"] = {}, {}
+                for bn in (64, 128):
+                    def tile():
+                        return hc._taps_conv_cuda(inp, taps, hc.S1_PADS, 3,
+                                                  3, bn=bn)
+                    ok, err = _bf16_close(tile(), want)
+                    check(ok, "kernel 1 (bf16 forward) at tile %d disagrees "
+                          "with its plain version at C=%d H=%d: max abs err "
+                          "%g" % (bn, C, H, err))
+                    r["tile_max_abs_err"][bn] = err
+                    r["tile_ms"][bn] = time_ms(tile)
             records.append(r)
         fwd.append(records[0])
         dgrad.append(records[1])
@@ -694,13 +862,32 @@ def phase_bf16_kernels():
                          ("kernel 1 bf16 dgrad", records[1])):
             print("[bf16-kernels] %s C=O=%d %dx%d N=%d: max_abs_err %.3g | "
                   "kernel %.4f ms (%.1f TFLOP/s), plain %.4f ms, cuDNN bf16 "
-                  "%.4f ms, bound %.4f ms (%s)"
+                  "%.4f ms, bound %.4f ms (%s)%s"
                   % (label, C, H, H, N, r["max_abs_err"], r["ms"],
                      r["tflops"], r["plain_ms"], r["library_ms"],
-                     r["bound_ms"], r["bound_by"]))
-        del x, dy, w, xn, dyn, got, want
+                     r["bound_ms"], r["bound_by"],
+                     "; tile %d, tiles 64/128: %.4f/%.4f ms, max abs err "
+                     "%.3g/%.3g" % (r["tile"], r["tile_ms"][64],
+                                    r["tile_ms"][128],
+                                    r["tile_max_abs_err"][64],
+                                    r["tile_max_abs_err"][128])
+                     if "tile_ms" in r else
+                     "; %d splits of %d rows, rerun bit-equal"
+                     % (r["splits"], r["rows"]) if "splits" in r else ""))
+        del x, dy, w, xn, dyn, got, want, again
+    for name, records in (("kernel 1 bf16 (forward and dgrad)", fwd + dgrad),
+                          ("kernel 2 bf16", wgrad)):
+        ms = sum(r["ms"] * r["instances_per_step"] for r in records)
+        gflop = sum(r["gflop"] * r["instances_per_step"] for r in records)
+        fma_ms = gflop * 1e9 / PEAK_FP32 * 1e3
+        print("[bf16-kernels] %s over a batch-%d step: %.3f ms (%.1f "
+              "TFLOP/s); the fp32 CUDA-core ceiling %.3f ms"
+              % (name, BF16_BATCH, ms, gflop / ms, fma_ms))
+        check(ms < fma_ms, "%s takes %.3f ms a step, not under the fp32 "
+              "CUDA-core ceiling %.3f ms: not on the tensor cores"
+              % (name, ms, fma_ms))
     torch.cuda.empty_cache()
-    return w1x1, wgrad, fwd, dgrad
+    return w1x1, wgrad, fwd, dgrad, ragged
 
 
 # --------------------------------------------------------------------------
@@ -2048,13 +2235,46 @@ def gluon_resnet50(ctx, batch):
     return net, nd.array(x, ctx=ctx), nd.array(y, ctx=ctx)
 
 
-def wgrad_reductions_per_step(batch=BATCH):
+def wgrad_reductions_per_step(batch=BATCH, bf16=False):
     """Launches of kernel 2's reduction pass in one training step at
-    ``batch``: one for each 3x3 convolution whose wgrad rows are split."""
+    ``batch``: one for each 3x3 convolution whose wgrad rows are split, by
+    the fp32 kernel's ``wgrad_splits`` or the bf16 kernel's plan."""
     from mxnet_tpu_torch.ops import hopper_conv as hc
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if bf16:
+        return sum(count for C, H, count in GLUON_3X3
+                   if hc.wgrad_bf16_plan(batch * H * H, C, C, 3, 3, sms)
+                   .splits > 1)
     return sum(count for C, H, count in GLUON_3X3
                if hc.wgrad_splits(batch * H * H, C, C, 9, sms) > 1)
+
+
+def _conv_counts(hc):
+    """Kernels 1 and 2's launch counters, the fp32 kernels' apart from the
+    bf16 ones."""
+    return {"implicit_gemm_conv": hc.launches - hc.launches_bf16,
+            "taps_conv_bf16": hc.launches_bf16,
+            "taps_wgrad": hc.wgrad_launches - hc.wgrad_launches_bf16,
+            "taps_wgrad reduction": (hc.wgrad_reduce_launches
+                                     - hc.wgrad_reduce_launches_bf16),
+            "taps_wgrad_bf16": hc.wgrad_launches_bf16,
+            "taps_wgrad_bf16 reduction": hc.wgrad_reduce_launches_bf16}
+
+
+def _zero_conv_counts(hc):
+    hc.launches = hc.launches_bf16 = 0
+    hc.wgrad_launches = hc.wgrad_reduce_launches = 0
+    hc.wgrad_launches_bf16 = hc.wgrad_reduce_launches_bf16 = 0
+
+
+def bf16_step_counts(batch=BF16_BATCH):
+    """Kernels 1 and 2's launches in one bf16 training step: every 3x3 on
+    the bf16 kernels (16 forwards and 16 dgrads, 16 wgrads and the plan's
+    reductions), none on the fp32 ones."""
+    return {"implicit_gemm_conv": 0, "taps_conv_bf16": 32, "taps_wgrad": 0,
+            "taps_wgrad reduction": 0, "taps_wgrad_bf16": 16,
+            "taps_wgrad_bf16 reduction": wgrad_reductions_per_step(batch,
+                                                                   True)}
 
 
 def w1x1_reductions_per_step(batch=BF16_BATCH):
@@ -2171,12 +2391,25 @@ def phase_training(card):
         (ft, x, y)
 
 
+def _k1_kind(name: str):
+    """"bf16" or "fp32" for a launch of kernel 1 in a trace, else None."""
+    if "taps_conv_bf16_kernel" in name:
+        return "bf16"
+    if "taps_conv_kernel" in name:
+        return "fp32"
+    return None
+
+
 def _train_group(name: str) -> str:
     lname = name.lower()
     if "conv1x1_wgrad_kernel" in name:
         return "kernel 12 1x1 wgrad partial pass"
     if "sum_partials_1x1_kernel" in name:
         return "kernel 12 1x1 wgrad reduction pass"
+    if "taps_wgrad_bf16_kernel" in name:
+        return "kernel 2 bf16 wgrad partial pass"
+    if "sum_splits_bf16_kernel" in name:
+        return "kernel 2 bf16 wgrad reduction pass"
     if "taps_wgrad_kernel" in name:
         return "kernel 2 wgrad partial pass"
     if "sum_splits_kernel" in name:
@@ -2194,13 +2427,15 @@ def _train_group(name: str) -> str:
 
 
 def phase_training_profile(card, step, step_ms, tag="train-profile",
-                           batch=BATCH, w1x1=None):
+                           batch=BATCH, w1x1=None, bf16=False):
     """Where one training step's device time goes (torch.profiler), over
     two calls of ``step``: kernel 1 forward and dgrad told apart by order
     (a step's first 16 launches are the forward).  The idle share is taken
     against ``step_ms``, the median unprofiled step, since the profiler
     slows the host's dispatch.  ``w1x1`` is kernel 12's (partial,
-    reduction) launches a step, checked in the trace when given."""
+    reduction) launches a step, checked in the trace when given; ``bf16``
+    says which of kernels 1 and 2's libraries the step must launch (and the
+    other never)."""
     from torch.profiler import ProfilerActivity, profile
     n = 2
     torch.cuda.synchronize()
@@ -2214,23 +2449,33 @@ def phase_training_profile(card, step, step_ms, tag="train-profile",
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-    groups, counts, taps_seen = {}, {}, 0
+    groups, counts = {}, {}
+    taps_seen = {"fp32": 0, "bf16": 0}
     for e in kernels:
-        if "taps_conv_kernel" in e.name:
-            g = ("kernel 1 forward" if taps_seen % 32 < 16
-                 else "kernel 1 dgrad")
-            taps_seen += 1
+        kind = _k1_kind(e.name)
+        if kind is not None:
+            g = ("kernel 1%s %s" % (" bf16" if kind == "bf16" else "",
+                                    "forward" if taps_seen[kind] % 32 < 16
+                                    else "dgrad"))
+            taps_seen[kind] += 1
         else:
             g = _train_group(e.name)
         groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
         counts[g] = counts.get(g, 0) + 1
-    check(taps_seen == 32 * n, "profile saw %d kernel-1 launches in %d "
-          "steps" % (taps_seen, n))
-    traced = (counts.get("kernel 2 wgrad partial pass", 0),
-              counts.get("kernel 2 wgrad reduction pass", 0))
-    check(traced == (16 * n, wgrad_reductions_per_step(batch) * n),
-          "profile saw %d wgrad partial and %d reduction launches in %d "
-          "steps" % (traced + (n,)))
+    want_k1 = {"fp32": 0, "bf16": 32 * n} if bf16 else {"fp32": 32 * n,
+                                                         "bf16": 0}
+    check(taps_seen == want_k1, "profile saw %s kernel-1 launches in %d "
+          "steps, expected %s" % (taps_seen, n, want_k1))
+    k2, other = (("kernel 2 bf16 wgrad", "kernel 2 wgrad") if bf16
+                 else ("kernel 2 wgrad", "kernel 2 bf16 wgrad"))
+    traced = (counts.get(k2 + " partial pass", 0),
+              counts.get(k2 + " reduction pass", 0))
+    check(traced == (16 * n, wgrad_reductions_per_step(batch, bf16) * n)
+          and not any(g.startswith(other) for g in counts),
+          "profile saw %d %s partial and %d reduction launches in %d steps "
+          "(and %s)" % (traced[0], k2, traced[1], n,
+                        {g: c for g, c in counts.items()
+                         if g.startswith(other)}))
     if w1x1 is not None:
         seen = (counts.get("kernel 12 1x1 wgrad partial pass", 0),
                 counts.get("kernel 12 1x1 wgrad reduction pass", 0))
@@ -3315,8 +3560,10 @@ def phase_bf16_training(card, fp32_ips):
     (224 px, 1,000 classes) trained by ``FusedTrainer(dtype="bfloat16")``
     at batch 128 (SGD lr 0.1, momentum 0.9) on gpu(0): the launch counters,
     zeroed just before the first step and read after the last timed one,
-    must read 32 kernel-1 launches, 16 + 13 of kernel 2 and 36 of kernel
-    12's partial pass with its reductions a step; the masters stay fp32 and
+    must read 32 launches of kernel 1's bf16 kernel, 16 of kernel 2's bf16
+    partial pass with the bf16 plan's reductions (16 on 132 SMs), none of
+    their fp32 kernels, and 36 of kernel 12's partial pass with its
+    reductions a step; the masters stay fp32 and
     the loss finite and falling.  The first step at batch 8 (4 if the CPU
     step takes over 60 s) against the CPU from the same fp32 weights: the
     loss, every trained parameter's update and the whole update (by norm)
@@ -3337,7 +3584,7 @@ def phase_bf16_training(card, fp32_ips):
                       dtype="bfloat16")
     print("[bf16-training] resnet50_v1 at batch %d, FusedTrainer bf16, made "
           "in %.2f s" % (BF16_BATCH, time.perf_counter() - t0))
-    hc.launches = hc.wgrad_launches = hc.wgrad_reduce_launches = 0
+    _zero_conv_counts(hc)
     hc.conv1x1_wgrad_launches = hc.conv1x1_wgrad_reduce_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3353,15 +3600,12 @@ def phase_bf16_training(card, fp32_ips):
             times.append(time.perf_counter() - t0)
         losses.append(float(loss.asnumpy()))
     steps = 1 + WARMUP_STEPS + TIMED_STEPS
-    launches = {"implicit_gemm_conv": hc.launches,
-                "taps_wgrad": hc.wgrad_launches,
-                "taps_wgrad reduction": hc.wgrad_reduce_launches,
-                "conv1x1_wgrad": hc.conv1x1_wgrad_launches,
-                "conv1x1_wgrad reduction": hc.conv1x1_wgrad_reduce_launches}
-    want = {"implicit_gemm_conv": 32, "taps_wgrad": 16,
-            "taps_wgrad reduction": wgrad_reductions_per_step(BF16_BATCH),
-            "conv1x1_wgrad": 36,
-            "conv1x1_wgrad reduction": w1x1_reductions_per_step(BF16_BATCH)}
+    launches = dict(_conv_counts(hc), **{
+        "conv1x1_wgrad": hc.conv1x1_wgrad_launches,
+        "conv1x1_wgrad reduction": hc.conv1x1_wgrad_reduce_launches})
+    want = dict(bf16_step_counts(BF16_BATCH), **{
+        "conv1x1_wgrad": 36,
+        "conv1x1_wgrad reduction": w1x1_reductions_per_step(BF16_BATCH)})
     print("[bf16-training] %d steps ran %s launches (per step %s; expected "
           "%s)" % (steps, launches, {k: v / steps for k, v in
                                       launches.items()}, want))
@@ -3384,7 +3628,7 @@ def phase_bf16_training(card, fp32_ips):
              ["%.4f" % v for v in losses]))
     profile = phase_training_profile(
         card, lambda: ft.step(x, y), step_ms, "bf16-profile", BF16_BATCH,
-        (36, w1x1_reductions_per_step(BF16_BATCH)))
+        (36, w1x1_reductions_per_step(BF16_BATCH)), bf16=True)
     copies = _count_nhwc_copies(lambda: ft.step(x, y))
     profile["nhwc_copies"] = copies
     print("[bf16-profile] NHWC conversions in one step (calls, copies, MB): "
@@ -3528,12 +3772,14 @@ def _bf16_run(bf16, card, keep=False):
     trained Module too."""
     import gc
     from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch.ops import hopper_conv as hc
     gc.collect()
     torch.cuda.empty_cache()
     mod = _bf16_module(gpu(0), bf16)
     batch, y = _bf16_batch(gpu(0))
     ex = mod._exec_group.execs[0]
     losses, mem = [], None
+    _zero_conv_counts(hc)
     for i in range(BF16MOD["steps"]):
         if i == 2:      # the optimizer states exist from the first update
             torch.cuda.synchronize()
@@ -3554,6 +3800,18 @@ def _bf16_run(bf16, card, keep=False):
         torch.cuda.synchronize()
         if i >= WARMUP_STEPS:
             times.append(time.perf_counter() - t0)
+    counts = _conv_counts(hc)
+    steps = BF16MOD["steps"] + WARMUP_STEPS + TIMED_STEPS
+    want = bf16_step_counts() if bf16 else {
+        "implicit_gemm_conv": 32, "taps_conv_bf16": 0, "taps_wgrad": 16,
+        "taps_wgrad reduction": wgrad_reductions_per_step(BF16MOD["batch"]),
+        "taps_wgrad_bf16": 0, "taps_wgrad_bf16 reduction": 0}
+    print("[bf16-module] %s: kernels 1 and 2 launched %s in %d steps "
+          "(expected %s a step)" % ("bf16" if bf16 else "fp32", counts,
+                                    steps, want))
+    check(counts == {k: v * steps for k, v in want.items()},
+          "%s Module: kernel 1 and 2 launches %s over %d steps, expected %s "
+          "a step" % ("bf16" if bf16 else "fp32", counts, steps, want))
     params = [ex.arg_dict[n]._data for n in mod._param_names]
     dtypes = {str(t.dtype) for t in params if t.dim() == 4}
     masters = {str(st[1]._data.dtype) for st in mod._updater.states.values()
@@ -3561,6 +3819,7 @@ def _bf16_run(bf16, card, keep=False):
     step_ms = float(np.median(times)) * 1e3
     third = max(1, len(losses) // 3)
     out = {"weight_dtype": sorted(dtypes), "master_dtypes": sorted(masters),
+           "conv_launches": counts,
            "params_bytes": sum(t.numel() * t.element_size() for t in params),
            "activations_bytes": mem, "step_ms": step_ms,
            "images_per_s": BF16MOD["batch"] / (step_ms / 1e3),
@@ -3682,7 +3941,8 @@ INFER = dict(batches=2, cpu_batch=8, data_seed=3)
 def _counts():
     from mxnet_tpu_torch.ops import hopper_block as hb, hopper_conv as hc
     return {"fused_bottleneck": hb.launches,
-            "implicit_gemm_conv": hc.launches,
+            "taps_conv_bf16": hc.launches_bf16,
+            "implicit_gemm_conv": hc.launches - hc.launches_bf16,
             "taps_wgrad": hc.wgrad_launches + hc.wgrad_reduce_launches,
             "conv1x1_wgrad": (hc.conv1x1_wgrad_launches
                               + hc.conv1x1_wgrad_reduce_launches)}
@@ -3690,15 +3950,15 @@ def _counts():
 
 def _zero_counts():
     from mxnet_tpu_torch.ops import hopper_block as hb, hopper_conv as hc
-    hb.launches = hc.launches = 0
-    hc.wgrad_launches = hc.wgrad_reduce_launches = 0
+    hb.launches = 0
+    _zero_conv_counts(hc)
     hc.conv1x1_wgrad_launches = hc.conv1x1_wgrad_reduce_launches = 0
 
 
 def _check_forward_counts(counts, forwards, what):
     want = {"fused_bottleneck": 12 * forwards,
-            "implicit_gemm_conv": 4 * forwards, "taps_wgrad": 0,
-            "conv1x1_wgrad": 0}
+            "taps_conv_bf16": 4 * forwards, "implicit_gemm_conv": 0,
+            "taps_wgrad": 0, "conv1x1_wgrad": 0}
     check(counts == want, "%s: %d bf16 forwards launched %s, expected %s"
           % (what, forwards, counts, want))
 
@@ -3738,8 +3998,10 @@ def _infer_group(name: str) -> str:
     lname = name.lower()
     if "fused_bottleneck_kernel" in name:
         return "kernel 13 (fused bottleneck)"
+    if "taps_conv_bf16_kernel" in name:
+        return "kernel 1 bf16 (3x3 of the projection units)"
     if "taps_conv_kernel" in name:
-        return "kernel 1 (3x3 of the projection units)"
+        return "kernel 1 fp32 (3x3 of the projection units)"
     if "Memcpy" in name or "Memset" in name:
         return "memcpy/memset"
     if "copy" in lname or "nchwtonhwc" in lname or "nhwctonchw" in lname:
@@ -3773,6 +4035,10 @@ def _inference_profile(card, forward, fwd_ms, tag="bf16-infer-profile"):
     check(counts.get("kernel 13 (fused bottleneck)", 0) == 12 * n,
           "the profile saw %s kernel-13 launches in %d forwards"
           % (counts.get("kernel 13 (fused bottleneck)"), n))
+    k1 = (counts.get("kernel 1 bf16 (3x3 of the projection units)", 0),
+          counts.get("kernel 1 fp32 (3x3 of the projection units)", 0))
+    check(k1 == (4 * n, 0), "the profile saw %d bf16 and %d fp32 kernel-1 "
+          "launches in %d forwards" % (k1 + (n,)))
     idle = max(0.0, 1 - device_ms / fwd_ms)
     print("[%s] one batch-%d forward: %.2f ms device busy, %.2f ms wall "
           "unprofiled (%.1f%% idle), %d launches on %s"
@@ -4002,11 +4268,13 @@ def _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches):
 
 
 def _bf16_entries(k1, k2, bf16_kernels, launches):
-    """Kernel 12's ``kernels`` entry, and kernels 1 and 2's bf16 keys: times
-    summed over the calls of one batch-128 bf16 training step (kernel 12:
-    its 36 1x1 wgrads; kernel 2: the 16 3x3 wgrads; kernel 1: the 16
-    forwards and 16 dgrads), launches from phase 14's run."""
-    w1x1, wgrad, fwd, dgrad = bf16_kernels
+    """Kernel 12's ``kernels`` entry and those of kernels 1 and 2's bf16
+    kernels (``taps_conv_bf16.cu``, ``taps_wgrad_bf16.cu``), named again
+    under kernels 1 and 2's ``bf16`` keys: times summed over the calls of
+    one batch-128 bf16 training step (kernel 12: its 36 1x1 wgrads; kernel
+    2: the 16 3x3 wgrads; kernel 1: the 16 forwards and 16 dgrads), launches
+    from phase 14's run."""
+    w1x1, wgrad, fwd, dgrad, ragged = bf16_kernels
 
     def step_sum(records, key):
         return sum(r[key] * r["instances_per_step"] for r in records)
@@ -4028,18 +4296,36 @@ def _bf16_entries(k1, k2, bf16_kernels, launches):
         k12[key] = step_sum(w1x1, key)
     k12["bound_by"] = bound_by(w1x1)
     k12["shapes"] = w1x1
-    k1["bf16"] = {"launches": launches["implicit_gemm_conv"],
-                  "max_abs_err": max(r["max_abs_err"] for r in fwd + dgrad),
-                  "bound_by": bound_by(fwd + dgrad),
-                  "forward_shapes": fwd, "dgrad_shapes": dgrad}
-    k2["bf16"] = {"launches": (launches["taps_wgrad"]
-                               + launches["taps_wgrad reduction"]),
-                  "max_abs_err": max(r["max_abs_err"] for r in wgrad),
-                  "bound_by": bound_by(wgrad), "shapes": wgrad}
+    k1b = {"name": "taps_conv_bf16", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/taps_conv_bf16.cu",
+           "replaces": "mxnet_tpu/ops/pallas_conv.py:152",
+           "launches": launches["taps_conv_bf16"],
+           "max_abs_err": max(r["max_abs_err"] for r in fwd + dgrad),
+           "bound_by": bound_by(fwd + dgrad),
+           "forward_shapes": fwd, "dgrad_shapes": dgrad}
+    k2b = {"name": "taps_wgrad_bf16", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/taps_wgrad_bf16.cu",
+           "replaces": "mxnet_tpu/ops/pallas_conv.py:165",
+           "launches": (launches["taps_wgrad_bf16"]
+                        + launches["taps_wgrad_bf16 reduction"]),
+           "partial_launches": launches["taps_wgrad_bf16"],
+           "reduce_launches": launches["taps_wgrad_bf16 reduction"],
+           "max_abs_err": max(r["max_abs_err"] for r in wgrad),
+           "max_rel_err": max(r["max_rel_err"] for r in wgrad),
+           "bound_by": bound_by(wgrad), "shapes": wgrad}
     for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-        k1["bf16"][key] = step_sum(fwd, key) + step_sum(dgrad, key)
-        k2["bf16"][key] = step_sum(wgrad, key)
-    return k12
+        k1b[key] = step_sum(fwd, key) + step_sum(dgrad, key)
+        k2b[key] = step_sum(wgrad, key)
+    for entry, records in ((k1b, fwd + dgrad), (k2b, wgrad)):
+        entry["tflops"] = step_sum(records, "gflop") / entry["ms"]
+        entry["ragged_errs"] = {k: v for k, v in ragged.items()
+                                if k.startswith("k1" if entry is k1b
+                                                else "k2")}
+    for entry, base in ((k1b, k1), (k2b, k2)):
+        base["bf16"] = {key: entry[key] for key in (
+            "name", "source", "launches", "ms", "tflops",
+            "bound_ms", "library_ms")}
+    return k12, k1b, k2b
 
 
 def _block_entry(records, launches):
@@ -4128,12 +4414,17 @@ def main() -> int:
     k1["module_launches"] = mod_launches["implicit_gemm_conv"]
     k2["module_launches"] = (mod_launches["taps_wgrad"]
                              + mod_launches["taps_wgrad reduction"])
-    k12 = _bf16_entries(k1, k2, bf16_kernels, bf16_launches)
+    k12, k1b, k2b = _bf16_entries(k1, k2, bf16_kernels, bf16_launches)
     k13 = _block_entry(block_kernels, infer_launches)
-    k1["bf16_inference_launches"] = infer_launches["implicit_gemm_conv"]
+    k1b["bf16_inference_launches"] = infer_launches["taps_conv_bf16"]
+    k1b["module_launches"] = bf16_moduled["bf16"]["conv_launches"][
+        "taps_conv_bf16"]
+    k2b["module_launches"] = (
+        bf16_moduled["bf16"]["conv_launches"]["taps_wgrad_bf16"]
+        + bf16_moduled["bf16"]["conv_launches"]["taps_wgrad_bf16 reduction"])
     print(json.dumps({"kernels": [k1, k2] + lstm + attn
                       + _ring_entries(k4, k10, ring_launches)
-                      + [k11, k12, k13]}))
+                      + [k11, k12, k13, k1b, k2b]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes).  All sources that lack a current build are compiled at once, one
-``nvcc`` process per source.  A library is named after a hash of its source
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+``nvcc`` process per source.  A library is named after a hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 Builds go to ``build/`` inside this package, which ``.gitignore`` lists.
 
 Importing this module needs neither ``nvcc`` nor a GPU; only ``build`` and
@@ -48,6 +49,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / ("lib%s_%s.so" % (src.stem, digest.hexdigest()[:16]))
 
 

@@ -12,8 +12,9 @@
 // 3x3 / stride-2 / pad-1 ones run it with 2x2 taps on 4C channels after the exact
 // space-to-depth rewrite done by the Python wrapper (mxnet_tpu_torch/ops/hopper_conv.py).
 //
-// Numerics: inputs fp32 or bf16, every product and sum in fp32 FMA on the CUDA
-// cores (no TF32, no tensor cores), output rounded once to the input type.
+// Numerics: fp32 in and out, every product and sum in fp32 FMA on the CUDA
+// cores (no TF32, no tensor cores).  bf16 inputs take taps_conv_bf16.cu (the
+// tensor cores) instead.
 // Against the plain PyTorch version (a per-tap loop of fp32 matmuls) only the
 // order of the sums differs; at unit-scale data the two agree to 1e-4 absolute
 // and relative, the tolerance the tests and chip_smoke.py state.
@@ -42,7 +43,6 @@
 // Tensor cores (TF32 wgmma), TMA and a pipelined shared-memory ring are the later
 // steps towards that bound.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -63,9 +63,7 @@ static_assert((BM / TM) * (BN / TN) == THREADS, "thread tile must cover the bloc
 static_assert(BM % A_ROWS == 0 && BK % B_ROWS == 0, "loads must cover the stage");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -189,7 +187,8 @@ cudaError_t launch(const void* x, const void* taps, void* y, int N, int H, int W
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
+// Plain C entry point, bound with ctypes.  dtype: 0 = float32 (any other code is
+// cudaErrorInvalidValue: bf16 has its own library, taps_conv_bf16.cu).
 // x: (N, H, W, C), taps: (KH*KW, C, O), y: (N, Ho, Wo, O), all contiguous on
 // `device`.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mxtt_taps_conv(const void* x, const void* taps, void* y, int dtype,
@@ -201,9 +200,6 @@ extern "C" int mxtt_taps_conv(const void* x, const void* taps, void* y, int dtyp
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     err = launch<float>(x, taps, y, N, H, W, C, O, KH, KW, pad_top, pad_left, Ho, Wo, s);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(x, taps, y, N, H, W, C, O, KH, KW, pad_top, pad_left, Ho,
-                                Wo, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -6,16 +6,15 @@
 //   dw[dh * KW + dw, c, o] = sum_{n, ho, wo} xpad[n, ho + dh, wo + dw, c] * dy[n, ho, wo, o]
 //
 // with xpad as in implicit_gemm_conv.cu (x padded by pad_top/pad_left rows and columns of
-// zeros, Ho x Wo the output size), x and dy in fp32 or bf16 (both the same), dw in fp32.
-// ResNet-50's 3x3 / stride-1 / pad-1 convolutions call it with 3x3 taps on the layer's
-// input and the cotangent of its output, both NHWC; the bf16 training step (the
-// reference's dot_general with preferred_element_type=f32) calls it with bf16 ones.
+// zeros, Ho x Wo the output size), x, dy and dw in fp32.  ResNet-50's 3x3 / stride-1 /
+// pad-1 convolutions call it with 3x3 taps on the layer's input and the cotangent of its
+// output, both NHWC; bf16 inputs (the bf16 training step) take taps_wgrad_bf16.cu, the
+// tensor cores, instead.
 //
-// Numerics: bf16 inputs are widened to fp32 as they are loaded; every product and sum
-// is fp32 FMA on the CUDA cores (no TF32, no tensor cores), as in implicit_gemm_conv.cu.
-// Against the plain PyTorch version (one fp32 x_tap^T @ dy matmul per tap on the
-// widened inputs) only the order of the sums differs; the tolerance the tests and
-// chip_smoke.py state is 1e-4 of the largest |dw|, for both input types.
+// Numerics: every product and sum is fp32 FMA on the CUDA cores (no TF32, no tensor
+// cores), as in implicit_gemm_conv.cu.  Against the plain PyTorch version (one fp32
+// x_tap^T @ dy matmul per tap) only the order of the sums differs; the tolerance the
+// tests and chip_smoke.py state is 1e-4 of the largest |dw|.
 //
 // Design.  The TPU kernel carries one (KH*KW, C, O) fp32 block in VMEM across a
 // sequential grid over row tiles.  On the H100 blocks run in parallel in no order, so
@@ -40,7 +39,6 @@
 // 512->512 at 7 (x3); each does 2*M*C*O*9 = 7.4 GFLOP on 6-51 MB of x and dy, so every
 // one is bound by operations (0.110 ms at 67 TFLOP/s fp32), not by bytes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,7 +57,6 @@ static_assert((BC / TC) * (BO / TO) == THREADS, "thread tile must cover the bloc
 static_assert(BK % ROWS_PER_PASS == 0, "loads must cover the stage");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -166,7 +163,8 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restr
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16, the type of
+// Plain C entry point, bound with ctypes.  dtype: 0 = float32 (any other code is
+// cudaErrorInvalidValue: bf16 has its own library, taps_wgrad_bf16.cu), the type of
 // x: (N, H, W, C) and dy: (N, Ho, Wo, O); out: (KH*KW, C, O) fp32, workspace:
 // (splits, KH*KW, C, O) fp32 when splits > 1 (else unused), all contiguous on `device`.
 // Rows are dealt to splits in runs of 16; a split left without rows writes zeros.
@@ -186,21 +184,16 @@ extern "C" int mxtt_taps_wgrad(const void* x, const void* dy, float* out, float*
   const long long total = (long long)KH * KW * C * O;
   if (total == 0) return cudaSuccess;
   if (M == 0) return (int)cudaMemsetAsync(out, 0, total * sizeof(float), s);
-  if (splits < 1 || (splits > 1 && workspace == nullptr) || dtype < 0 || dtype > 1)
+  if (splits < 1 || (splits > 1 && workspace == nullptr) || dtype != 0)
     return (int)cudaErrorInvalidValue;
   long long rows = (M + splits - 1) / splits;
   rows = (rows + BK - 1) / BK * BK;
   const dim3 grid((unsigned)(((C + BC - 1) / BC) * ((O + BO - 1) / BO)), (unsigned)(KH * KW),
                   (unsigned)splits);
   float* dst = splits > 1 ? workspace : out;
-  if (dtype == 0)
-    taps_wgrad_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), dst, N, H, W, C, O, KH,
-        KW, pad_top, pad_left, Ho, Wo, rows);
-  else
-    taps_wgrad_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy), dst, N,
-        H, W, C, O, KH, KW, pad_top, pad_left, Ho, Wo, rows);
+  taps_wgrad_kernel<float><<<grid, THREADS, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), dst, N, H, W, C, O, KH,
+      KW, pad_top, pad_left, Ho, Wo, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   launched[0] = 1;

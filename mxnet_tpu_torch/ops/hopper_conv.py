@@ -22,16 +22,22 @@ the function of the TPU kernel ``_wgrad_kernel``.  The stride-2 backward is
 plain PyTorch (``torch.nn.grad``), because the reference's is XLA's
 transposed convolution, not a Pallas kernel.
 
-:func:`taps_conv` and :func:`taps_wgrad` launch the CUDA kernels in
-``mxnet_tpu_torch/csrc/implicit_gemm_conv.cu`` and ``taps_wgrad.cu`` for a
-tensor on the card, and raise if they cannot; for a tensor on the CPU (or a
-``meta`` tensor, during shape inference) they run :func:`taps_conv_plain`
-and :func:`taps_wgrad_plain`, per-tap loops of fp32 matmuls.  There is no
-fallback from one to the other.  ``launches`` counts launches of the
-convolution kernel (forward and dgrad); ``wgrad_launches`` and
-``wgrad_reduce_launches`` count launches of the wgrad kernel's two passes,
+:func:`taps_conv` and :func:`taps_wgrad` launch CUDA kernels for a tensor
+on the card, and raise if they cannot: float32 goes to
+``mxnet_tpu_torch/csrc/implicit_gemm_conv.cu`` and ``taps_wgrad.cu`` (fp32
+FMA on the CUDA cores), bfloat16 to ``taps_conv_bf16.cu`` and
+``taps_wgrad_bf16.cu`` (the tensor cores, fp32 sums).  For a tensor on the
+CPU (or a ``meta`` tensor, during shape inference) they run
+:func:`taps_conv_plain` and :func:`taps_wgrad_plain`, per-tap loops of fp32
+matmuls.  There is no fallback from one arm to another.  ``launches``
+counts launches of the convolution kernels (forward and dgrad, both
+dtypes), ``launches_bf16`` those of the bf16 one; ``wgrad_launches`` and
+``wgrad_reduce_launches`` count launches of the wgrad kernels' two passes,
 the partial sums and, when the rows are split, their reduction, as the
-CUDA entry point reports them.
+CUDA entry points report them, and ``wgrad_launches_bf16`` and
+``wgrad_reduce_launches_bf16`` those of the bf16 kernel.  The bf16 kernels'
+host plans (:func:`conv_bf16_plan`, :func:`wgrad_bf16_plan`: tile, split,
+workspace and load path) are pure Python.
 
 The layout work around the kernels (NHWC views, the tap and space-to-depth
 rewrites) is plain PyTorch shared by both arms, so the CPU tests reach it.
@@ -40,9 +46,9 @@ returned as an NCHW view of NHWC memory, so consecutive kernels hand each
 other channels-last tensors without a copy.  A cotangent that reaches the
 backward in NCHW memory is copied to NHWC once per convolution.
 
-Kernels 1 and 2 take float32 or bfloat16 (both operands the same); kernel 2
-widens bf16 to fp32 as it loads and returns fp32, as the reference's
-``dot_general(..., preferred_element_type=f32)`` does.
+Kernels 1 and 2 take float32 or bfloat16 (both operands the same); kernel
+2 returns fp32 for either, as the reference's ``dot_general(...,
+preferred_element_type=f32)`` does.
 
 ``conv1x1`` is the bf16 training step's 1x1 convolution (stride 1, or
 stride 2 on even H and W, which is the 1x1 on ``x[:, :, ::2, ::2]`` as
@@ -60,7 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,16 +76,27 @@ from ..base import MXNetError
 __all__ = ["conv3x3_same", "conv3x3_same_plain", "conv3x3_s2",
            "conv3x3_s2_plain", "taps_conv", "taps_conv_plain", "taps_wgrad",
            "taps_wgrad_plain", "dgrad_taps", "conv1x1", "conv1x1_wgrad",
-           "conv1x1_wgrad_plain", "launches", "wgrad_launches",
-           "wgrad_reduce_launches", "conv1x1_wgrad_launches",
+           "conv1x1_wgrad_plain", "conv_bf16_plan", "wgrad_bf16_plan",
+           "bf16_vec_path",
+           "launches", "launches_bf16", "wgrad_launches",
+           "wgrad_reduce_launches", "wgrad_launches_bf16",
+           "wgrad_reduce_launches_bf16", "conv1x1_wgrad_launches",
            "conv1x1_wgrad_reduce_launches"]
 
-#: convolution kernel launches so far (CUDA arm of :func:`taps_conv` only)
+#: convolution kernel launches so far (CUDA arm of :func:`taps_conv`, both
+#: dtypes)
 launches = 0
-#: wgrad partial-pass launches so far (CUDA arm of :func:`taps_wgrad` only)
+#: launches of the bf16 convolution kernel (``taps_conv_bf16.cu``) so far
+launches_bf16 = 0
+#: wgrad partial-pass launches so far (CUDA arm of :func:`taps_wgrad`, both
+#: dtypes)
 wgrad_launches = 0
 #: wgrad reduction-pass launches so far (CUDA arm, calls with splits > 1)
 wgrad_reduce_launches = 0
+#: partial-pass launches of the bf16 wgrad kernel (``taps_wgrad_bf16.cu``)
+wgrad_launches_bf16 = 0
+#: reduction-pass launches of the bf16 wgrad kernel (calls with splits > 1)
+wgrad_reduce_launches_bf16 = 0
 #: 1x1 wgrad partial-pass launches so far (CUDA arm of :func:`conv1x1_wgrad`)
 conv1x1_wgrad_launches = 0
 #: 1x1 wgrad reduction-pass launches so far (CUDA arm, calls with splits > 1)
@@ -93,6 +110,8 @@ S2_PADS: _Pads = ((1, 0), (1, 0))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _wgrad_fn = None
+_conv_bf16_fn = None
+_wgrad_bf16_fn = None
 _w1x1_fn = None
 #: rows per stage of the wgrad kernel (BK in taps_wgrad.cu)
 _WGRAD_BK = 16
@@ -136,8 +155,84 @@ def _kernel():
     return _fn
 
 
-def _taps_conv_cuda(x, taps, pads: _Pads, KH: int, KW: int):
-    global launches
+def _conv_bf16_kernel():
+    global _conv_bf16_fn
+    if _conv_bf16_fn is None:
+        from .. import _build
+        fn = _build.load("taps_conv_bf16").mxtt_taps_conv_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _conv_bf16_fn = fn
+    return _conv_bf16_fn
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+#: output pixels per block of the bf16 convolution kernel (BM in
+#: taps_conv_bf16.cu)
+_CONV_BF16_BM = 128
+#: its instantiations: (column tile BN, blocks an SM holds, an SM's rate
+#: relative to the 128-column tile's).  The blocks an SM holds follow from
+#: the shared memory (3 stages of 32 or 24 KB) and the
+#: ``__launch_bounds__``, and chip_smoke.py's phase 2g checks them on the
+#: card; the rate is the two tiles' times where both fill whole waves (28x28
+#: at 128 channels, batch 128), which phase 2g prints.
+_CONV_BF16_TILES = ((128, 2, 1.0), (64, 3, 0.89))
+
+
+def bf16_vec_path(C: int, O: int, *ptrs: int) -> bool:
+    """Whether the bf16 kernels take their 16-byte copy path: C and O
+    multiples of 8 and every operand 16-byte aligned; otherwise the same
+    kernel loads element by element."""
+    return C % 8 == 0 and O % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+class ConvBf16Plan(NamedTuple):
+    """Launch of ``taps_conv_bf16.cu``: column tile, load path and grid."""
+    bn: int
+    vec: bool
+    grid: Tuple[int, int]
+
+
+def conv_bf16_plan(M: int, C: int, O: int, sms: int,
+                   ptrs: Tuple[int, ...] = ()) -> ConvBf16Plan:
+    """The bf16 convolution kernel's launch for ``M`` output pixels, ``C``
+    input and ``O`` output channels on ``sms`` SMs.  Of the 128 x 128 and
+    128 x 64 tiles it takes the one whose grid costs least: its waves (at
+    least one: a grid smaller than the SMs' resident blocks still takes a
+    wave's time) times the columns an SM computes in a wave over its rate.
+    At 7x7 the 128-column tile leaves a quarter of its one wave empty, and
+    at 56x56 (O = 64) half of each tile; 128 columns on a tie, which read
+    fewer bytes.  ``ptrs`` are the operands' addresses, for the load
+    path."""
+    best = None
+    for bn, per_sm, rate in _CONV_BF16_TILES:
+        grid = (max(1, _cdiv(M, _CONV_BF16_BM)), _cdiv(O, bn))
+        waves = max(1.0, grid[0] * grid[1] / (per_sm * sms))
+        cost = waves * per_sm * bn / rate
+        if best is None or cost < best[0]:
+            best = (cost, bn, grid)
+    _, bn, grid = best
+    return ConvBf16Plan(bn, bf16_vec_path(C, O, *ptrs), grid)
+
+
+def _taps_conv_cuda(x, taps, pads: _Pads, KH: int, KW: int,
+                    bn: Optional[int] = None):
+    """The CUDA arm of :func:`taps_conv`.  ``bn`` (64 or 128) sets the
+    bf16 kernel's column tile in place of the plan's, to time and check
+    both tiles on one shape."""
+    global launches, launches_bf16
     if x.dtype not in _DTYPE_CODE:
         raise MXNetError("taps_conv: dtype %s is not supported on CUDA "
                          "(float32, bfloat16)" % x.dtype)
@@ -155,16 +250,29 @@ def _taps_conv_cuda(x, taps, pads: _Pads, KH: int, KW: int):
     if Ho < 1 or Wo < 1:
         raise MXNetError("taps_conv: empty output for input %s"
                          % (tuple(x.shape),))
+    bf16 = x.dtype == torch.bfloat16
+    if bn is not None and (not bf16 or bn not in (64, 128)):
+        raise MXNetError("taps_conv: a column tile of %s for %s; the bf16 "
+                         "kernel has 64 and 128" % (bn, x.dtype))
     y = torch.empty((N, Ho, Wo, O), dtype=x.dtype, device=x.device)
-    fn = _kernel()
-    err = fn(x.data_ptr(), taps.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype],
-             N, H, W, C, O, KH, KW, pads[0][0], pads[1][0], Ho, Wo,
-             x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if bf16:
+        plan = conv_bf16_plan(N * Ho * Wo, C, O, _sm_count(x.device),
+                              (x.data_ptr(), taps.data_ptr(), y.data_ptr()))
+        err = _conv_bf16_kernel()(
+            x.data_ptr(), taps.data_ptr(), y.data_ptr(), N, H, W, C, O, KH,
+            KW, pads[0][0], pads[1][0], Ho, Wo, bn or plan.bn, int(plan.vec),
+            x.device.index, _stream(x.device))
+    else:
+        err = _kernel()(
+            x.data_ptr(), taps.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype],
+            N, H, W, C, O, KH, KW, pads[0][0], pads[1][0], Ho, Wo,
+            x.device.index, _stream(x.device))
     if err != 0:
-        raise MXNetError("implicit_gemm_conv launch failed: CUDA error %d"
-                         % err)
+        raise MXNetError("%s launch failed: CUDA error %d" % (
+            "taps_conv_bf16" if bf16 else "implicit_gemm_conv", err))
     with _count_lock:
         launches += 1
+        launches_bf16 += bf16
     return y
 
 
@@ -210,15 +318,74 @@ def _wgrad_kernel():
 
 
 def wgrad_splits(M: int, C: int, O: int, taps: int, sms: int) -> int:
-    """Row splits of the wgrad kernel's grid: enough blocks for about four
-    per SM, at most one split per 16-row stage."""
+    """Row splits of the fp32 wgrad kernel's grid: enough blocks for about
+    four per SM, at most one split per 16-row stage."""
     tiles = (-(-C // _WGRAD_TILE)) * (-(-O // _WGRAD_TILE)) * taps
     want = -(-4 * sms // tiles)
     return max(1, min(want, -(-M // _WGRAD_BK)))
 
 
+def _wgrad_bf16_kernel():
+    global _wgrad_bf16_fn
+    if _wgrad_bf16_fn is None:
+        from .. import _build
+        fn = _build.load("taps_wgrad_bf16").mxtt_taps_wgrad_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        fn.restype = ctypes.c_int
+        _wgrad_bf16_fn = fn
+    return _wgrad_bf16_fn
+
+
+#: rows per stage of the bf16 wgrad kernel (BK in taps_wgrad_bf16.cu)
+_WGRAD_BF16_BK = 32
+#: input and output channels per block tile of the bf16 wgrad kernel
+_WGRAD_BF16_TILE = 64
+#: taps of one row a block of the bf16 wgrad kernel computes
+_WGRAD_BF16_TAPS = 3
+#: blocks of the bf16 wgrad kernel an SM holds (4 x 16 KB of shared memory,
+#: 128 threads)
+_WGRAD_BF16_PER_SM = 3
+#: the fewest stages a split of the bf16 wgrad kernel walks
+_WGRAD_BF16_MIN_STAGES = 8
+#: the most splits (the grid's z extent)
+_WGRAD_BF16_MAX_SPLITS = 65535
+
+
+class WgradBf16Plan(NamedTuple):
+    """Launch of ``taps_wgrad_bf16.cu``: split ``s`` sums rows ``[s * rows,
+    (s + 1) * rows)`` of the ``M``; the grid; the fp32 workspace of the
+    partial sums (None with one split, which writes dw itself)."""
+    splits: int
+    rows: int
+    grid: Tuple[int, int, int]
+    workspace: Optional[Tuple[int, int, int, int]]
+
+
+def wgrad_bf16_plan(M: int, C: int, O: int, KH: int, KW: int,
+                    sms: int) -> WgradBf16Plan:
+    """The bf16 wgrad kernel's launch for ``M`` rows on ``sms`` SMs: as
+    many row splits as fill the SMs' resident blocks once (whole waves),
+    each at least 8 stages of 32 rows, rows dealt in whole stages so that
+    every split has rows."""
+    taps = KH * KW
+    grid_xy = (_cdiv(C, _WGRAD_BF16_TILE) * _cdiv(O, _WGRAD_BF16_TILE),
+               KH * _cdiv(KW, _WGRAD_BF16_TAPS))
+    want = max(1, _WGRAD_BF16_PER_SM * sms // (grid_xy[0] * grid_xy[1]))
+    splits = max(1, min(want, _cdiv(M, _WGRAD_BF16_MIN_STAGES
+                                    * _WGRAD_BF16_BK),
+                        _WGRAD_BF16_MAX_SPLITS))
+    stage = _WGRAD_BF16_BK
+    rows = max(stage, _cdiv(_cdiv(M, splits), stage) * stage)
+    splits = max(1, _cdiv(M, rows))
+    return WgradBf16Plan(splits, rows, grid_xy + (splits,),
+                         (splits, taps, C, O) if splits > 1 else None)
+
+
 def _taps_wgrad_cuda(x, dy, pads: _Pads, KH: int, KW: int):
     global wgrad_launches, wgrad_reduce_launches
+    global wgrad_launches_bf16, wgrad_reduce_launches_bf16
     if x.dtype not in _DTYPE_CODE or dy.dtype != x.dtype:
         raise MXNetError("taps_wgrad: the CUDA kernel takes float32 or "
                          "bfloat16 x and dy of one dtype, got %s and %s"
@@ -233,23 +400,38 @@ def _taps_wgrad_cuda(x, dy, pads: _Pads, KH: int, KW: int):
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise MXNetError("taps_wgrad: x and dy must be contiguous")
     O = dy.shape[3]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = wgrad_splits(N * Ho * Wo, C, O, KH * KW, sms)
+    sms = _sm_count(x.device)
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty((KH * KW, C, O), dtype=torch.float32, device=x.device)
-    ws = (torch.empty((splits, KH * KW, C, O), dtype=torch.float32,
-                      device=x.device) if splits > 1 else None)
     launched = (ctypes.c_int * 2)()
-    err = _wgrad_kernel()(
-        x.data_ptr(), dy.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, _DTYPE_CODE[x.dtype],
-        N, H, W, C, O, KH, KW, pads[0][0], pads[1][0], Ho, Wo, splits, sms,
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-        launched)
+    if bf16:
+        plan = wgrad_bf16_plan(N * Ho * Wo, C, O, KH, KW, sms)
+        ws = (torch.empty(plan.workspace, dtype=torch.float32,
+                          device=x.device) if plan.workspace else None)
+        err = _wgrad_bf16_kernel()(
+            x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, N, H, W, C, O, KH,
+            KW, pads[0][0], pads[1][0], Ho, Wo, plan.splits, plan.rows,
+            int(bf16_vec_path(C, O, x.data_ptr(), dy.data_ptr())), sms,
+            x.device.index, _stream(x.device), launched)
+    else:
+        splits = wgrad_splits(N * Ho * Wo, C, O, KH * KW, sms)
+        ws = (torch.empty((splits, KH * KW, C, O), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None)
+        err = _wgrad_kernel()(
+            x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, _DTYPE_CODE[x.dtype],
+            N, H, W, C, O, KH, KW, pads[0][0], pads[1][0], Ho, Wo, splits,
+            sms, x.device.index, _stream(x.device), launched)
     with _count_lock:
         wgrad_launches += launched[0]
         wgrad_reduce_launches += launched[1]
+        if bf16:
+            wgrad_launches_bf16 += launched[0]
+            wgrad_reduce_launches_bf16 += launched[1]
     if err != 0:
-        raise MXNetError("taps_wgrad launch failed: CUDA error %d" % err)
+        raise MXNetError("%s launch failed: CUDA error %d" % (
+            "taps_wgrad_bf16" if bf16 else "taps_wgrad", err))
     return out
 
 

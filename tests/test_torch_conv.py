@@ -173,25 +173,47 @@ def test_plain_is_the_cpu_arm_and_counts_no_launch():
 def test_kernel_matches_plain_on_card(kind, dtype, tol):
     """The CUDA kernel vs its plain version on the same card tensors, odd
     and even spatial dims, a ragged channel count and a ragged tile edge
-    (fp32 FMA vs fp32 matmul: 1e-4; bf16 output rounding: 2e-2)."""
+    (fp32 FMA vs fp32 matmul: 1e-4; bf16 output rounding: 2e-2); bf16 takes
+    the tensor-core kernel (``launches_bf16``), also for data at storage
+    offset 1 (its element path), there at 28x28 with 128 channels and batch
+    128 too, where the plan takes the 128-column tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     fn, plain = ((hc.conv3x3_same, hc.conv3x3_same_plain) if kind == "s1"
                  else (hc.conv3x3_s2, hc.conv3x3_s2_plain))
     shapes = ([(3, 20, 7, 9, 70), (2, 64, 14, 14, 64), (1, 3, 1, 1, 5),
-               (5, 33, 11, 13, 129)] if kind == "s1"
+               (5, 33, 11, 13, 129), (3, 24, 7, 9, 40), (2, 3, 5, 5, 8)]
+              if kind == "s1"
               else [(3, 20, 8, 6, 70), (2, 64, 14, 14, 64), (1, 3, 2, 2, 5),
-                    (5, 33, 12, 10, 129)])
+                    (5, 33, 12, 10, 129), (2, 8, 10, 10, 16)])
+    bf16 = dtype == torch.bfloat16
+    if bf16 and kind == "s1":
+        shapes.append((128, 128, 28, 28, 128))
     for N, C, H, W, O in shapes:
         x, w = _case(N, C, H, W, O, seed=3)
         xt = torch.from_numpy(x).cuda().to(dtype)
         wt = torch.from_numpy(w).cuda().to(dtype)
-        before = hc.launches
-        got = fn(xt, wt).float()
-        want = plain(xt, wt).float()
-        torch.cuda.synchronize()
-        assert hc.launches == before + 1
-        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        # bf16 also as a channels-last view of NHWC memory at storage offset
+        # 1, which reaches the stride-1 kernel without a copy
+        datas = [xt] + ([_at_offset_1(xt.permute(0, 2, 3, 1))
+                         .permute(0, 3, 1, 2)] if bf16 else [])
+        for data in datas:
+            before = (hc.launches, hc.launches_bf16)
+            got = fn(data, wt).float()
+            want = plain(data, wt).float()
+            torch.cuda.synchronize()
+            assert (hc.launches, hc.launches_bf16) == \
+                (before[0] + 1, before[1] + bf16)
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def _at_offset_1(t):
+    """``t``'s values in a contiguous tensor at storage offset 1 (2 bytes
+    off a 16-byte boundary in bf16)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def _pallas_wgrad_s1(x, g, pads, KH, KW):
@@ -295,30 +317,43 @@ def test_dgrad_matches_pallas_taps_kernel_on_flipped_taps():
 
 @pytest.mark.cuda
 def test_wgrad_kernel_matches_plain_on_card():
-    """The wgrad kernel vs its plain version on the same card tensors:
-    ragged channel counts, odd spatial dims, one split and many (fp32 FMA
-    vs fp32 matmul: 1e-4 of the largest |dw|); each call launches the
-    partial pass once and the reduction pass once if it splits the rows."""
+    """The wgrad kernels vs their plain version on the same card tensors:
+    ragged channel counts, odd spatial dims, rows off the 32-row stage, one
+    split and many, bf16 data at storage offset 1 (fp32 sums in another
+    order: 1e-4 of the largest |dw|); each call launches the partial pass
+    once and the reduction pass once if it splits the rows, in bf16 on the
+    tensor-core kernel, and a bf16 rerun gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for N, C, H, W, O in [(3, 20, 7, 9, 70), (1, 3, 1, 1, 5),
-                          (5, 33, 11, 13, 129), (32, 64, 14, 14, 64),
-                          (32, 512, 7, 7, 512)]:
-        r = np.random.default_rng(9)
-        x = torch.from_numpy(r.standard_normal((N, H, W, C))
-                             .astype(np.float32)).cuda()
-        g = torch.from_numpy(r.standard_normal((N, H, W, O))
-                             .astype(np.float32)).cuda()
-        before = (hc.wgrad_launches, hc.wgrad_reduce_launches)
-        got = hc.taps_wgrad(x, g, hc.S1_PADS, 3, 3)
-        want = hc.taps_wgrad_plain(x, g, hc.S1_PADS, 3, 3)
-        torch.cuda.synchronize()
-        split = hc.wgrad_splits(N * H * W, C, O, 9, sms) > 1
-        assert (hc.wgrad_launches, hc.wgrad_reduce_launches) == \
-            (before[0] + 1, before[1] + split)
-        err = (got - want).abs().max().item() / want.abs().max().item()
-        assert err <= 1e-4, (N, C, H, W, O, err)
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for N, C, H, W, O in [(3, 20, 7, 9, 70), (1, 3, 1, 1, 5),
+                              (5, 33, 11, 13, 129), (32, 64, 14, 14, 64),
+                              (32, 512, 7, 7, 512), (3, 24, 7, 9, 40),
+                              (5, 24, 33, 31, 40)]:
+            r = np.random.default_rng(9)
+            x = torch.from_numpy(r.standard_normal((N, H, W, C))
+                                 .astype(np.float32)).cuda().to(dtype)
+            g = torch.from_numpy(r.standard_normal((N, H, W, O))
+                                 .astype(np.float32)).cuda().to(dtype)
+            if bf16 and C == 24:
+                x = _at_offset_1(x)
+            before = (hc.wgrad_launches, hc.wgrad_reduce_launches,
+                      hc.wgrad_launches_bf16, hc.wgrad_reduce_launches_bf16)
+            got = hc.taps_wgrad(x, g, hc.S1_PADS, 3, 3)
+            want = hc.taps_wgrad_plain(x, g, hc.S1_PADS, 3, 3)
+            torch.cuda.synchronize()
+            split = (hc.wgrad_bf16_plan(N * H * W, C, O, 3, 3, sms).splits
+                     if bf16 else hc.wgrad_splits(N * H * W, C, O, 9, sms)) > 1
+            assert (hc.wgrad_launches, hc.wgrad_reduce_launches,
+                    hc.wgrad_launches_bf16, hc.wgrad_reduce_launches_bf16) \
+                == (before[0] + 1, before[1] + split, before[2] + bf16,
+                    before[3] + (bf16 and split))
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            assert err <= 1e-4, (dtype, N, C, H, W, O, err)
+            if bf16:
+                assert torch.equal(got, hc.taps_wgrad(x, g, hc.S1_PADS, 3, 3))
 
 
 # --------------------------------------------------------------------------
@@ -496,3 +531,251 @@ def test_conv1x1_wgrad_kernel_matches_plain_on_card():
             (before[0] + 1, before[1] + split)
         err = (got - want).abs().max().item() / want.abs().max().item()
         assert err <= 1e-4, (N, H, W, C, O, s, err)
+
+
+# --------------------------------------------------------------------------
+# the bf16 tensor-core kernels (taps_conv_bf16.cu, taps_wgrad_bf16.cu): the
+# host plans, a plain walk of the wgrad plan against the reference's Pallas
+# wgrad, and the dtype routing of the CUDA arms
+# --------------------------------------------------------------------------
+H100_SMS = 132
+# the 4 Gluon ResNet-50 v1 3x3 shapes at batch 128: (C = O, H = W), and each
+# one's (conv tile BN, wgrad splits, rows a split) on 132 SMs
+GLUON_BF16_PLANS = [((64, 56), (64, 131, 3072)), ((128, 28), (128, 33, 3072)),
+                    ((256, 14), (128, 8, 3136)), ((512, 7), (64, 2, 3136))]
+# ragged: (N, H, W, C, O)
+RAGGED_BF16 = [(3, 7, 9, 24, 40), (2, 5, 5, 3, 8), (5, 33, 31, 24, 40),
+               (1, 1, 1, 3, 5), (5, 11, 13, 33, 129)]
+
+
+@pytest.mark.parametrize("shape,want", GLUON_BF16_PLANS)
+def test_bf16_plans_at_the_gluon_shapes(shape, want):
+    """Tile and split at the main path's shapes on 132 SMs (3 blocks an SM
+    of the 128 x 64 tile and of the wgrad block, 2 of the 128 x 128 tile):
+    the 128 x 64 tile where O = 64 and where the larger one leaves most of
+    its one wave empty (7x7), the wgrad's splits filling one wave, each at
+    least 8 stages of 32 rows."""
+    C, H = shape
+    M = 128 * H * H
+    conv = hc.conv_bf16_plan(M, C, C, H100_SMS)
+    assert conv.bn == want[0] and conv.vec
+    assert conv.grid == (M // 128, C // conv.bn)
+    plan = hc.wgrad_bf16_plan(M, C, C, 3, 3, H100_SMS)
+    assert (plan.splits, plan.rows) == want[1:]
+    assert plan.grid == ((C // 64) ** 2, 3, plan.splits)
+    assert plan.grid[0] * plan.grid[1] * plan.splits <= 3 * H100_SMS
+    assert plan.workspace == (plan.splits, 9, C, C)
+
+
+@pytest.mark.parametrize("N,H,W,C,O", RAGGED_BF16)
+@pytest.mark.parametrize("KH,KW", [(3, 3), (2, 2), (1, 5)])
+def test_bf16_wgrad_plan_deals_every_row_once(N, H, W, C, O, KH, KW):
+    """Every row in exactly one split, every split with rows, rows dealt in
+    whole 32-row stages, every tap in exactly one block row of the grid,
+    and a workspace only when the rows are split."""
+    M = N * H * W
+    plan = hc.wgrad_bf16_plan(M, C, O, KH, KW, H100_SMS)
+    assert plan.rows % 32 == 0 and plan.splits >= 1
+    owner = np.zeros(M, np.int64)
+    for s in range(plan.splits):
+        lo, hi = s * plan.rows, min((s + 1) * plan.rows, M)
+        assert lo < hi
+        owner[lo:hi] += 1
+    assert (owner == 1).all()
+    assert plan.grid[0] == -(-C // 64) * -(-O // 64)
+    taps = [dh * KW + dw0 + t for dh in range(KH) for dw0 in range(0, KW, 3)
+            for t in range(min(3, KW - dw0))]
+    assert plan.grid[1] == KH * -(-KW // 3)
+    assert sorted(taps) == list(range(KH * KW))
+    assert plan.workspace == ((plan.splits, KH * KW, C, O)
+                              if plan.splits > 1 else None)
+    conv = hc.conv_bf16_plan(M, C, O, H100_SMS)
+    assert conv.bn in (64, 128)
+    assert conv.grid == (-(-M // 128), -(-O // conv.bn))
+    assert conv.vec == (C % 8 == 0 and O % 8 == 0)
+
+
+def test_bf16_load_path_follows_alignment():
+    """16-byte copies only for C and O multiples of 8 on 16-byte aligned
+    operands; anything else takes the element path of the same kernel,
+    at the tile the plan picks for the shape (the 128-column one at 28x28
+    with 128 channels and batch 128)."""
+    assert hc.bf16_vec_path(64, 64, 0, 256, 4096)
+    assert not hc.bf16_vec_path(64, 64, 2, 256)
+    assert not hc.bf16_vec_path(24, 44, 0, 0)
+    assert not hc.bf16_vec_path(3, 8)
+    assert not hc.conv_bf16_plan(100, 64, 64, H100_SMS, (0, 2, 16)).vec
+    M = 128 * 28 * 28
+    aligned = hc.conv_bf16_plan(M, 128, 128, H100_SMS, (0, 256, 4096))
+    offset = hc.conv_bf16_plan(M, 128, 128, H100_SMS, (2, 256, 4096))
+    assert (aligned.bn, aligned.vec, offset.bn, offset.vec) == \
+        (128, True, 128, False)
+
+
+def _walk_wgrad_bf16_plan(x, dy, pads, KH, KW, plan):
+    """The bf16 wgrad kernel's arithmetic in plain PyTorch: for each split
+    of the plan, each tap's input rows gathered by the kernel's own index
+    math (pixel of row m, shifted by the tap, zero off the image), the fp32
+    partial x_tapᵀ @ dy over the split's rows, then the partials summed in
+    split order."""
+    N, H, W, C = x.shape
+    O = dy.shape[-1]
+    Ho, Wo = hc._out_hw(H, W, KH, KW, pads)
+    M = N * Ho * Wo
+    (pt, _), (pl, _) = pads
+    xf, g = x.float(), dy.reshape(M, O).float()
+    parts = torch.zeros((plan.splits, KH * KW, C, O))
+    for s in range(plan.splits):
+        m = torch.arange(s * plan.rows, min((s + 1) * plan.rows, M))
+        n, rem = m // (Ho * Wo), m % (Ho * Wo)
+        for tap in range(KH * KW):
+            hi = rem // Wo + tap // KW - pt
+            wi = rem % Wo + tap % KW - pl
+            ok = (hi >= 0) & (hi < H) & (wi >= 0) & (wi < W)
+            rows = xf[n, hi.clamp(0, H - 1), wi.clamp(0, W - 1)]
+            rows = rows * ok[:, None]
+            parts[s, tap] = rows.t() @ g[m]
+    out = parts[0]
+    for s in range(1, plan.splits):
+        out = out + parts[s]
+    return out
+
+
+@pytest.mark.parametrize("N,H,W,C,O,taps,pads", [
+    (3, 14, 14, 8, 16, 3, hc.S1_PADS),      # 588 rows: 3 splits, ragged last
+    (2, 6, 8, 12, 8, 2, hc.S2_PADS),        # space-to-depth form: 2x2 taps
+])
+def test_wgrad_bf16_plan_walk_matches_pallas_kernel(N, H, W, C, O, taps,
+                                                    pads):
+    """The plain walk of the bf16 wgrad plan (row ranges, halo, split order)
+    against the reference's Pallas wgrad on the same bf16 inputs, within
+    1e-5 of the largest |dw|, as test_wgrad_bf16_matches_pallas_kernel."""
+    r = np.random.default_rng(19)
+    Ho, Wo = hc._out_hw(H, W, taps, taps, pads)
+    xj, xt = _bf16(r.standard_normal((N, H, W, C)))
+    gj, gt = _bf16(r.standard_normal((N, Ho, Wo, O)))
+    plan = hc.wgrad_bf16_plan(N * Ho * Wo, C, O, taps, taps, H100_SMS)
+    assert plan.splits == (3 if taps == 3 else 1)
+    want, _ = _pallas_wgrad_s1(xj, gj, pads, taps, taps)
+    got = _walk_wgrad_bf16_plan(xt, gt, pads, taps, taps, plan)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy() / scale, want / scale, rtol=0,
+                               atol=BF16_WGRAD_TOL)
+
+
+class _FakeKernel:
+    """Stands in for a ctypes function: records its arguments, reports the
+    launches a real entry point would and returns 0."""
+
+    def __init__(self, name, calls):
+        self.name, self.calls = name, calls
+
+    def __call__(self, *args):
+        self.calls.append((self.name, args))
+        if "wgrad" in self.name:
+            launched = args[-1]
+            splits = args[15] if self.name.endswith("bf16") else args[16]
+            launched[0], launched[1] = 1, int(splits > 1)
+        return 0
+
+
+class _FakeLib:
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __getattr__(self, name):
+        fn = _FakeKernel(name, self.calls)
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.fixture
+def fake_kernels(monkeypatch):
+    """The conv wrappers' CUDA arms on CPU tensors with the libraries,
+    stream and SM count faked: each call records (library, entry, args)."""
+    from mxnet_tpu_torch import _build
+    calls, loaded = [], []
+
+    def load(name):
+        loaded.append(name)
+        return _FakeLib(calls)
+
+    monkeypatch.setattr(_build, "load", load)
+    for attr in ("_fn", "_wgrad_fn", "_conv_bf16_fn", "_wgrad_bf16_fn"):
+        monkeypatch.setattr(hc, attr, None)
+    monkeypatch.setattr(hc, "_stream", lambda device: 0)
+    monkeypatch.setattr(hc, "_sm_count", lambda device: H100_SMS)
+    for attr in ("launches", "launches_bf16", "wgrad_launches",
+                 "wgrad_reduce_launches", "wgrad_launches_bf16",
+                 "wgrad_reduce_launches_bf16"):
+        monkeypatch.setattr(hc, attr, 0)
+    return calls, loaded
+
+
+def test_cuda_arms_pick_the_library_by_dtype(fake_kernels):
+    """bf16 goes to taps_conv_bf16 / taps_wgrad_bf16 with the host plan's
+    tile, split and load path; fp32 to implicit_gemm_conv / taps_wgrad with
+    dtype code 0; the bf16 counters count only the bf16 launches."""
+    calls, loaded = fake_kernels
+    N, H, C, O = 128, 14, 256, 256
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros((N, H, H, C), dtype=dtype)
+        taps = torch.zeros((9, C, O), dtype=dtype)
+        dy = torch.zeros((N, H, H, O), dtype=dtype)
+        assert hc._taps_conv_cuda(x, taps, hc.S1_PADS, 3, 3).dtype == dtype
+        assert hc._taps_wgrad_cuda(x, dy, hc.S1_PADS, 3, 3).dtype == \
+            torch.float32
+    assert loaded == ["taps_conv_bf16", "taps_wgrad_bf16",
+                      "implicit_gemm_conv", "taps_wgrad"]
+    names = [c[0] for c in calls]
+    assert names == ["mxtt_taps_conv_bf16", "mxtt_taps_wgrad_bf16",
+                     "mxtt_taps_conv", "mxtt_taps_wgrad"]
+    conv16, wgrad16, conv32, wgrad32 = (c[1] for c in calls)
+    plan = hc.conv_bf16_plan(N * H * H, C, O, H100_SMS)
+    assert conv16[3:16] == (N, H, H, C, O, 3, 3, 1, 1, H, H, plan.bn, 1)
+    wplan = hc.wgrad_bf16_plan(N * H * H, C, O, 3, 3, H100_SMS)
+    assert wgrad16[4:18] == (N, H, H, C, O, 3, 3, 1, 1, H, H, wplan.splits,
+                             wplan.rows, 1)
+    assert wgrad16[3] is not None      # the workspace of the 8 splits
+    assert conv32[3] == 0 and wgrad32[4] == 0      # dtype code: float32
+    assert (hc.launches, hc.launches_bf16) == (2, 1)
+    assert (hc.wgrad_launches, hc.wgrad_launches_bf16) == (2, 1)
+    assert (hc.wgrad_reduce_launches, hc.wgrad_reduce_launches_bf16) == (2, 1)
+
+
+def test_bf16_cuda_arm_takes_a_tile_in_place_of_the_plans(fake_kernels):
+    """``bn`` reaches the bf16 kernel in place of the plan's tile, with the
+    plan's load path, and counts as a launch; fp32 or another tile
+    raises."""
+    calls, _ = fake_kernels
+    x = torch.zeros((2, 7, 7, 64), dtype=torch.bfloat16)
+    taps = torch.zeros((9, 64, 64), dtype=torch.bfloat16)
+    for bn in (64, 128):
+        hc._taps_conv_cuda(x, taps, hc.S1_PADS, 3, 3, bn=bn)
+    assert [c[1][14:16] for c in calls] == [(64, 1), (128, 1)]
+    assert hc.launches_bf16 == 2
+    for xt, tt, bn in ((x, taps, 32), (x.float(), taps.float(), 64)):
+        with pytest.raises(MXNetError):
+            hc._taps_conv_cuda(xt, tt, hc.S1_PADS, 3, 3, bn=bn)
+    assert len(calls) == 2 and hc.launches == 2
+
+
+def test_bf16_cuda_arm_takes_the_element_path_when_misaligned(fake_kernels):
+    """A contiguous bf16 view at storage offset 1 (2-byte aligned) and a
+    channel count off 8 reach the bf16 kernels with vec = 0, never the
+    fp32 library or the plain version."""
+    calls, loaded = fake_kernels
+    buf = torch.zeros(3 * 7 * 9 * 24 + 1, dtype=torch.bfloat16)
+    x = buf[1:].view(3, 7, 9, 24)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    taps = torch.zeros((9, 24, 40), dtype=torch.bfloat16)
+    dy = torch.zeros((3, 7, 9, 40), dtype=torch.bfloat16)
+    hc._taps_conv_cuda(x, taps, hc.S1_PADS, 3, 3)
+    hc._taps_wgrad_cuda(x, dy, hc.S1_PADS, 3, 3)
+    x3 = torch.zeros((2, 5, 5, 3), dtype=torch.bfloat16)
+    hc._taps_conv_cuda(x3, torch.zeros((9, 3, 8), dtype=torch.bfloat16),
+                       hc.S1_PADS, 3, 3)
+    assert loaded == ["taps_conv_bf16", "taps_wgrad_bf16"]
+    conv, wgrad, conv3 = (c[1] for c in calls)
+    assert conv[15] == 0 and wgrad[17] == 0 and conv3[15] == 0
+    assert hc.launches_bf16 == 2 and hc.wgrad_launches_bf16 == 1
