@@ -14,12 +14,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the plain version's and cuDNN's time (``F.conv2d``, the yardstick only:
    the port never calls it for these shapes) and the bound.
 2b. backward kernels: at each of the 4 stride-1 3x3 shapes of a Gluon
-   ResNet-50 v1, batch 32, fp32, kernel 2 (wgrad) against
-   ``taps_wgrad_plain`` (within 1e-4 of the largest |dw|) and kernel 1 as
-   dgrad (flipped, io-swapped taps) against the plain version (rtol = atol
-   = 1e-4), after ragged shapes; kernel, plain and cuDNN times
-   (``torch.nn.grad.conv2d_weight`` / ``conv2d_input``, the yardsticks
-   only) and the fp32 bound.
+   ResNet-50 v1, batch 32, fp32, kernel 2 (wgrad, ``taps_wgrad.cu``)
+   against ``taps_wgrad_plain`` (within 1e-4 of the largest |dw|) and
+   kernel 1 as dgrad (flipped, io-swapped taps) against the plain version
+   (rtol = atol = 1e-4), after ragged shapes (both of kernel 2's tiles, its
+   2x2 space-to-depth form, an x at storage offset 1: its 4-byte copy
+   path); kernel 2 also at batch 128.  Every kernel-2 call runs twice,
+   bit-equal, launching the partial pass once and the reduction pass once
+   when its plan (``hopper_conv.wgrad_fp32_plan``) splits the rows; its
+   blocks an SM, read on the card, must equal the plan's.  Kernel, plain
+   and cuDNN times (``torch.nn.grad.conv2d_weight`` / ``conv2d_input``, the
+   yardsticks only), TFLOP/s, the plan's tile and splits and the fp32
+   bound, and kernel 2's sums over a batch-32 and a batch-128 step; where
+   the whole-wave rule of ``wgrad_bf16_plan`` splits the rows otherwise
+   than the plan's cost model, that launch is checked and timed too.
 2c. LSTM kernels: kernel 8 (``lstm_fwd.cu``) and kernel 9 (``lstm_bwd.cu``)
    against their plain versions (``hopper_rnn.lstm_fwd_plain`` /
    ``lstm_bwd_plain``) at two ragged shapes, at the edges of their
@@ -54,8 +62,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its norm); then 2 warm-up and 10 timed steps give train images/s.  The
    launch counters, zeroed just before the first step, must read per step
    32 kernel-1 launches, 16 launches of kernel 2's partial pass and one
-   launch of its reduction pass for each of those 16 whose rows are split
-   (13 on a 132-SM card).
+   launch of its reduction pass for each of those 16 whose rows its plan
+   splits (all 16 on a 132-SM card).
 6. training profile: two steps under torch.profiler, device time and
    launches by group (kernel 1 forward, kernel 1 dgrad, kernel 2's two
    passes, cuDNN, BatchNorm and elementwise, layout copies, optimizer),
@@ -151,7 +159,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``Xavier(gaussian, 2)`` after ``random.seed(7)``, SGD lr 0.1 momentum
    0.9 through ``kvstore='local'``, the batch from ``RandomState(3)``.  The
    first fused step, with the counters zeroed just before it and read
-   after the last timed step (32 kernel-1 launches, 16 and 13 of kernel
+   after the last timed step (32 kernel-1 launches, 16 and 16 of kernel
    2's passes a step, as phase 5), against the eager path
    (``MXNET_TPU_FUSED_STEP=0``) and against the CPU: probabilities within
    1e-4, each update within 1% of its norm and 5% for the 3x3 weights,
@@ -167,9 +175,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1x1 weight gradient of ``tools/probe_conv_fixes.py:173``) against
    ``conv1x1_wgrad_plain`` on the same bf16 card tensors at the 15 1x1
    shapes of a batch-128 ResNet-50 v1 step, at the probe's (401,408 x 64)
-   x (401,408 x 256) and at four ragged shapes (rows off the tile, C = 8,
-   odd spatial dims at stride 2), within 1e-4 of the largest |dw| (fp32
-   sums in another order; bf16 products are exact in fp32); kernels 1 and
+   x (401,408 x 256) and at ten ragged shapes (rows off the tile, C = 8,
+   odd spatial dims at stride 2, an empty split closing a cluster, each of
+   its six tiles), each also with x at storage offset 1 (its element path,
+   also at 56x56 C 256 O 128 stride 2, batch 128), within 1e-4 of the
+   largest |dw| (fp32 sums in another order; bf16 products are exact in
+   fp32), every call twice, bit-equal, launching the partial pass once and
+   the reduction pass once when its plan (``conv1x1_wgrad_plan``) leaves
+   more than one partial; its blocks an SM, read on the card, at least the
+   plan's one; its sum over a batch-128 step beside cuDNN's; kernels 1 and
    2's bf16 kernels on the tensor cores (``taps_conv_bf16.cu``, forward
    and dgrad, against ``taps_conv_plain``: both round one fp32 sum to
    bf16, rtol 2^-7, atol 1e-4 of the largest |value|; ``taps_wgrad_bf16.cu``
@@ -195,7 +209,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    read after the last timed one, must read a step 32 launches of kernel
    1's bf16 kernel, 16 of kernel 2's bf16 partial pass with the bf16
    plan's reductions (16 on 132 SMs), none of their fp32 kernels, and 36
-   of kernel 12's partial pass with its reductions; the profile reads the
+   of kernel 12's partial pass with its plan's reductions (35 on 132 SMs);
+   the profile reads the
    same bf16 launches from the trace; the masters stay fp32, the loss
    finite and falling; 2 warm-up and
    10 timed steps give bf16 train images/s, printed beside phase 5's fp32;
@@ -359,6 +374,40 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed_steps(step, on_result=None):
+    """Host-clock seconds of ``TIMED_STEPS`` calls of ``step`` after
+    ``WARMUP_STEPS``, each call between two ``torch.cuda.synchronize()``;
+    ``on_result`` gets every call's result, after its time is taken."""
+    times = []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            times.append(time.perf_counter() - t0)
+        if on_result is not None:
+            on_result(out)
+    return times
+
+
+def profiled_kernels(step, n):
+    """The device's kernels, in start order, of ``n`` calls of ``step``
+    under torch.profiler, and the profiled wall ms a call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start), wall_ms
+
+
 # --------------------------------------------------------------------------
 def phase_build():
     from mxnet_tpu_torch import _build
@@ -448,84 +497,215 @@ def phase_kernels():
 
 
 # --------------------------------------------------------------------------
+def _wgrad_fp32_check(hc, x, dy, pads, KH, KW, label):
+    """Kernel 2 (fp32) against ``taps_wgrad_plain`` on the same card
+    tensors, run twice: the two results must be bit-equal, each call must
+    launch the partial pass once and the reduction pass once if the plan
+    splits the rows.  Returns (result, max abs error, max |dw|)."""
+    N, H, W, C = x.shape
+    Ho, Wo = hc._out_hw(H, W, KH, KW, pads)
+    plan = hc.wgrad_fp32_plan(N * Ho * Wo, C, dy.shape[3], KH, KW,
+                              _sms(x.device), (x.data_ptr(), dy.data_ptr()))
+    before = (hc.wgrad_launches, hc.wgrad_reduce_launches)
+    got = hc.taps_wgrad(x, dy, pads, KH, KW)
+    again = hc.taps_wgrad(x, dy, pads, KH, KW)
+    want = hc.taps_wgrad_plain(x, dy, pads, KH, KW)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    launched = (hc.wgrad_launches - before[0],
+                hc.wgrad_reduce_launches - before[1])
+    check(err <= WGRAD_TOL * scale, "kernel 2 (fp32) disagrees with its "
+          "plain version at %s: %g > %g of max |dw|" % (label, err / scale,
+                                                        WGRAD_TOL))
+    check(torch.equal(got, again), "kernel 2 (fp32) gave other bits on the "
+          "same inputs at %s" % label)
+    check(launched == (2, 2 * (plan.splits > 1)), "kernel 2 (fp32) at %s "
+          "launched %s (partial, reduction) in two calls, the plan %s"
+          % (label, launched, plan))
+    return got, err, scale
+
+
+def _fp32_wgrad_occupancy_checks(hc, dev):
+    """The blocks an SM holds of kernel 2's fp32 partial pass at both tiles
+    and load paths, read on the card, against what its plan assumes."""
+    import ctypes
+    from mxnet_tpu_torch import _build
+    lib = _build.load("taps_wgrad")
+    n = ctypes.c_int()
+    got = {}
+    for tile in hc._WGRAD_FP32_TAPS:
+        for vec in (0, 1):
+            check(lib.mxtt_taps_wgrad_occupancy(tile, vec, dev.index,
+                                                ctypes.byref(n)) == 0,
+                  "occupancy query of taps_wgrad failed")
+            got["tile %d vec %d" % (tile, vec)] = (n.value,
+                                                   hc._WGRAD_FP32_PER_SM)
+    print("[backward] kernel 2 (fp32) blocks an SM holds (card, plan): %s"
+          % got)
+    check(all(card == plan for card, plan in got.values()),
+          "kernel 2 (fp32)'s occupancy differs from its plan's: %s" % got)
+    return {k: v[0] for k, v in got.items()}
+
+
 def _ragged_backward_checks(hc, dev, gen):
     """Kernel 2 and the dgrad against their plain versions at ragged
-    channel counts, odd spatial dims and a ragged row split, fp32."""
-    for N, C, H, W, O in [(3, 20, 7, 9, 70), (1, 3, 1, 1, 5),
-                          (5, 33, 11, 13, 129)]:
+    channel counts, odd spatial dims, rows off the 16-row stage and a
+    ragged row split, both of kernel 2's tiles, its 2x2 space-to-depth
+    form, and an x at storage offset 1 (4 bytes off a 16-byte boundary:
+    the 4-byte copy path), fp32; kernel 2 bit-equal on reruns."""
+    errs = {}
+    for N, C, H, W, O, off in [(3, 20, 7, 9, 70, 0), (1, 3, 1, 1, 5, 0),
+                               (5, 33, 11, 13, 129, 0),
+                               (4, 136, 9, 11, 72, 0),
+                               (3, 24, 7, 9, 40, 1),
+                               (2, 256, 14, 14, 256, 1)]:
         x = torch.randn(N, H, W, C, device=dev, generator=gen)
+        if off:
+            x = _at_offset_1(x)
         dy = torch.randn(N, H, W, O, device=dev, generator=gen)
         w = torch.randn(O, C, 3, 3, device=dev, generator=gen) * 0.1
-        got = hc.taps_wgrad(x, dy, hc.S1_PADS, 3, 3)
-        want = hc.taps_wgrad_plain(x, dy, hc.S1_PADS, 3, 3)
-        err = (got - want).abs().max().item() / want.abs().max().item()
-        check(err <= WGRAD_TOL, "wgrad kernel disagrees at N=%d C=%d %dx%d "
-              "O=%d: %g of max |dw| > %g" % (N, C, H, W, O, err, WGRAD_TOL))
+        label = "N=%d C=%d %dx%d O=%d%s" % (N, C, H, W, O,
+                                           " at storage offset 1" * off)
+        _, err, scale = _wgrad_fp32_check(hc, x, dy, hc.S1_PADS, 3, 3, label)
+        errs[label] = err / scale
         taps = hc.dgrad_taps(w)
         got = hc.taps_conv(dy, taps, hc.S1_PADS, 3, 3)
         want = hc.taps_conv_plain(dy, taps, hc.S1_PADS, 3, 3)
         check(torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL),
               "dgrad disagrees at N=%d C=%d %dx%d O=%d: max abs err %g"
               % (N, C, H, W, O, (got - want).abs().max().item()))
-    print("[backward] ragged shapes: kernel 2 and dgrad match their plain "
-          "versions")
+    x = torch.randn(2, 5, 5, 32, device=dev, generator=gen)
+    dy = torch.randn(2, 5, 5, 16, device=dev, generator=gen)
+    _, err, scale = _wgrad_fp32_check(hc, x, dy, hc.S2_PADS, 2, 2,
+                                      "s2d 5x5 C=32 O=16")
+    errs["s2d 5x5 C=32 O=16"] = err / scale
+    print("[backward] ragged shapes: kernel 2 (of max |dw|, bit-equal on "
+          "reruns) and dgrad match their plain versions: %s"
+          % ", ".join("%s %.3g" % kv for kv in errs.items()))
+    return errs
+
+
+def _fp32_whole_wave(hc, x, dy, plan, want, scale):
+    """Kernel 2 (fp32) at a Gluon shape with the whole-wave rule's row
+    split in place of its plan's: as many splits as fill the SMs' resident
+    blocks once (``wgrad_bf16_plan``'s rule, at kernel 2 fp32's blocks an
+    SM), each at least the plan's fewest stages, through the C entry.
+    Checked against ``want`` (within 1e-4 of ``scale``) and timed: (splits,
+    ms), or (the plan's splits, None) where the two rules agree."""
+    import ctypes
+    N, H, W, C = x.shape
+    O = dy.shape[3]
+    M, bk = N * H * W, hc._WGRAD_FP32_BK
+    blocks = plan.grid[0] * plan.grid[1]
+    splits = max(1, min(hc._WGRAD_FP32_PER_SM * _sms(x.device) // blocks,
+                        hc._cdiv(M, hc._WGRAD_FP32_MIN_STAGES * bk)))
+    rows = hc._cdiv(hc._cdiv(M, splits), bk) * bk
+    splits = hc._cdiv(M, rows)
+    if splits == plan.splits:
+        return splits, None
+    out = torch.empty((9, C, O), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((splits, 9, C, O), dtype=torch.float32,
+                      device=x.device) if splits > 1 else None)
+    launched = (ctypes.c_int * 2)()
+
+    def run():
+        err = hc._wgrad_kernel()(
+            x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, N, H, W, C, O, 3, 3,
+            1, 1, H, W, plan.tile, splits, rows, int(plan.vec),
+            x.device.index, hc._stream(x.device), launched)
+        check(err == 0, "kernel 2 (fp32) with %d splits failed: CUDA error "
+              "%d" % (splits, err))
+    run()
+    torch.cuda.synchronize()
+    err = (out - want).abs().max().item()
+    check(err <= WGRAD_TOL * scale, "kernel 2 (fp32) with the whole-wave "
+          "rule's %d splits disagrees with its plan's result: %g of max |dw|"
+          % (splits, err / scale))
+    return splits, time_ms(run)
+
+
+def _fp32_wgrad_shape(hc, N, C, H, count, gen, dev, occupancy):
+    """Kernel 2 (fp32) at one Gluon shape: checked twice against its plain
+    version and timed beside it, cuDNN's ``conv2d_weight`` and the bound;
+    returns (record, x, dy, the OIHW weight, NCHW views)."""
+    O = C
+    x = torch.randn(N, H, H, C, device=dev, generator=gen)
+    dy = torch.randn(N, H, H, O, device=dev, generator=gen)
+    w = torch.randn(O, C, 3, 3, device=dev, generator=gen) / math.sqrt(9 * C)
+    xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    flops = 2.0 * N * H * H * C * O * 9
+    label = "C=O=%d %dx%d N=%d" % (C, H, H, N)
+    got, err, scale = _wgrad_fp32_check(hc, x, dy, hc.S1_PADS, 3, 3, label)
+    lib = torch.nn.grad.conv2d_weight(xn, w.shape, dyn, padding=1)
+    err_lib = (got.reshape(3, 3, C, O).permute(3, 2, 0, 1)
+               - lib).abs().max().item()
+    plan = hc.wgrad_fp32_plan(N * H * H, C, O, 3, 3, _sms(dev),
+                              (x.data_ptr(), dy.data_ptr()))
+    ms = time_ms(lambda: hc.taps_wgrad(x, dy, hc.S1_PADS, 3, 3))
+    ww_splits, ww_ms = _fp32_whole_wave(hc, x, dy, plan, got, scale)
+    plain_ms = time_ms(lambda: hc.taps_wgrad_plain(x, dy, hc.S1_PADS, 3, 3))
+    lib_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+        xn, w.shape, dyn, padding=1))
+    bound_ms, bound_by = _bound(
+        flops, 4.0 * (x.numel() + dy.numel() + 9 * C * O))
+    rec = {"N": N, "C": C, "O": O, "H": H, "W": H,
+           "instances_per_step": count, "gflop": flops / 1e9,
+           "max_abs_err": err, "max_rel_err": err / scale,
+           "tol_rel": WGRAD_TOL, "max_abs_err_vs_cudnn": err_lib,
+           "tile": plan.tile, "splits": plan.splits, "rows": plan.rows,
+           "blocks_per_sm": {"card": occupancy["tile %d vec %d" % (
+               plan.tile, int(plan.vec))], "plan": hc._WGRAD_FP32_PER_SM},
+           "whole_wave_splits": ww_splits,
+           "whole_wave_ms": ms if ww_ms is None else ww_ms,
+           "bit_equal_rerun": True, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "tflops": flops / ms / 1e9}
+    print("[backward] wgrad C=O=%d %dx%d N=%d (tile %d, %d splits of %d "
+          "rows, %d blocks an SM, plan %d; rerun bit-equal): max_abs_err "
+          "%.3g (%.3g of max |dw|, tol %g) vs cuDNN %.3g | kernel %.4f ms "
+          "(%.1f TFLOP/s), plain %.4f ms, cuDNN %.4f ms, bound %.4f ms (%s)"
+          % (C, H, H, N, plan.tile, plan.splits, plan.rows,
+             rec["blocks_per_sm"]["card"], hc._WGRAD_FP32_PER_SM, err,
+             err / scale, WGRAD_TOL, err_lib, ms, rec["tflops"], plain_ms,
+             lib_ms, bound_ms, bound_by))
+    if ww_ms is not None:
+        print("[backward]   the whole-wave rule's %d splits at C=O=%d %dx%d "
+              "N=%d: %.4f ms (the plan's %d: %.4f ms)"
+              % (ww_splits, C, H, H, N, ww_ms, plan.splits, ms))
+    return rec, x, dy, w, xn, dyn
+
+
+def _step_sum(records):
+    """A step's sums of the per-shape records' times, and TFLOP/s."""
+    out = {key: sum(r[key] * r["instances_per_step"] for r in records)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["tflops"] = sum(r["gflop"] * r["instances_per_step"]
+                        for r in records) / out["ms"]
+    return out
 
 
 def phase_backward_kernels():
     """Kernel 2 (wgrad) and kernel 1 as dgrad against their plain versions
-    at the 4 stride-1 3x3 shapes of a Gluon ResNet-50 v1, batch 32, fp32;
-    returns per-shape records."""
+    at the 4 stride-1 3x3 shapes of a Gluon ResNet-50 v1, batch 32, fp32,
+    kernel 2 also at batch 128; returns per-shape records (kernel 2 at
+    batch 32 and 128, the dgrad) and kernel 2's ragged checks."""
     from mxnet_tpu_torch.ops import hopper_conv as hc
     fp32_exact()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    _ragged_backward_checks(hc, dev, gen)
+    ragged = _ragged_backward_checks(hc, dev, gen)
+    occupancy = _fp32_wgrad_occupancy_checks(hc, dev)
     wgrad, dgrad = [], []
     for C, H, count in GLUON_3X3:
         O = C
-        x = torch.randn(BATCH, H, H, C, device=dev, generator=gen)
-        dy = torch.randn(BATCH, H, H, O, device=dev, generator=gen)
-        w = torch.randn(O, C, 3, 3, device=dev, generator=gen) \
-            / math.sqrt(9 * C)
-        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        rec, x, dy, w, xn, dyn = _fp32_wgrad_shape(hc, BATCH, C, H, count,
+                                                   gen, dev, occupancy)
+        wgrad.append(rec)
         flops = 2.0 * BATCH * H * H * C * O * 9
         common = {"N": BATCH, "C": C, "O": O, "H": H, "W": H,
                   "instances_per_step": count, "gflop": flops / 1e9}
-
-        # wgrad: kernel 2 vs x_tap^T @ dy per tap
-        got = hc.taps_wgrad(x, dy, hc.S1_PADS, 3, 3)
-        want = hc.taps_wgrad_plain(x, dy, hc.S1_PADS, 3, 3)
-        lib = torch.nn.grad.conv2d_weight(xn, w.shape, dyn, padding=1)
-        torch.cuda.synchronize()
-        scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        err_lib = (got.reshape(3, 3, C, O).permute(3, 2, 0, 1)
-                   - lib).abs().max().item()
-        ms = time_ms(lambda: hc.taps_wgrad(x, dy, hc.S1_PADS, 3, 3))
-        plain_ms = time_ms(lambda: hc.taps_wgrad_plain(x, dy, hc.S1_PADS,
-                                                       3, 3))
-        lib_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
-            xn, w.shape, dyn, padding=1))
-        bound_ms, bound_by = _bound(
-            flops, 4.0 * (x.numel() + dy.numel() + 9 * C * O))
-        splits = hc.wgrad_splits(BATCH * H * H, C, O, 9, torch.cuda
-                                 .get_device_properties(dev)
-                                 .multi_processor_count)
-        rec = dict(common, max_abs_err=err, max_rel_err=err / scale,
-                   tol_rel=WGRAD_TOL, max_abs_err_vs_cudnn=err_lib,
-                   splits=splits, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   tflops=flops / ms / 1e9)
-        wgrad.append(rec)
-        print("[backward] wgrad C=O=%d %dx%d N=%d (%d splits): max_abs_err "
-              "%.3g (%.3g of max |dw|, tol %g) vs cuDNN %.3g | kernel %.4f "
-              "ms (%.1f TFLOP/s), plain %.4f ms, cuDNN %.4f ms, bound %.4f "
-              "ms (%s)" % (C, H, H, BATCH, splits, err, err / scale,
-                           WGRAD_TOL, err_lib, ms, rec["tflops"], plain_ms,
-                           lib_ms, bound_ms, bound_by))
-        check(err <= WGRAD_TOL * scale, "wgrad kernel disagrees with its "
-              "plain version at C=%d H=%d: %g > %g of max |dw|"
-              % (C, H, err / scale, WGRAD_TOL))
 
         # dgrad: kernel 1 on the cotangent with flipped, io-swapped taps
         taps = hc.dgrad_taps(w)
@@ -557,22 +737,74 @@ def phase_backward_kernels():
         check(ok, "dgrad disagrees with its plain version at C=%d H=%d: max "
               "abs err %g > tol %g" % (C, H, err, KERNEL_TOL))
         del x, dy, w, got, want, lib
-    return wgrad, dgrad
+    wgrad128 = []
+    for C, H, count in GLUON_3X3:
+        wgrad128.append(_fp32_wgrad_shape(hc, BF16_BATCH, C, H, count, gen,
+                                          dev, occupancy)[0])
+        torch.cuda.empty_cache()
+    for batch, records in ((BATCH, wgrad), (BF16_BATCH, wgrad128)):
+        t = _step_sum(records)
+        ww = sum(r["whole_wave_ms"] * r["instances_per_step"]
+                 for r in records)
+        print("[backward] kernel 2 fp32 over a batch-%d step: %.3f ms (%.1f "
+              "TFLOP/s), plain %.3f ms, cuDNN %.3f ms, bound %.3f ms; under "
+              "the whole-wave rule %.3f ms"
+              % (batch, t["ms"], t["tflops"], t["plain_ms"], t["library_ms"],
+                 t["bound_ms"], ww))
+    return wgrad, wgrad128, dgrad, ragged
 
 
 # --------------------------------------------------------------------------
 def _w1x1_check(hc, x, g, stride, label):
-    """Kernel 12 against ``conv1x1_wgrad_plain`` on the same card tensors;
-    returns (max abs error, max |dw|)."""
+    """Kernel 12 against ``conv1x1_wgrad_plain`` on the same card tensors,
+    run twice: the two results must be bit-equal, each call must launch the
+    partial pass once and the reduction pass once if the plan leaves more
+    than one partial.  Returns (max abs error, max |dw|, the plan)."""
+    N, H, W, C = x.shape
+    _, Ho, Wo, O = g.shape
+    plan = hc.conv1x1_wgrad_plan(N * Ho * Wo, C, O, _sms(x.device),
+                                 (x.data_ptr(), g.data_ptr()))
+    before = (hc.conv1x1_wgrad_launches, hc.conv1x1_wgrad_reduce_launches)
     got = hc.conv1x1_wgrad(x, g, stride)
+    again = hc.conv1x1_wgrad(x, g, stride)
     want = hc.conv1x1_wgrad_plain(x, g, stride)
     torch.cuda.synchronize()
     scale = want.abs().max().item()
     err = (got - want).abs().max().item()
+    launched = (hc.conv1x1_wgrad_launches - before[0],
+                hc.conv1x1_wgrad_reduce_launches - before[1])
     check(err <= W1X1_TOL * scale, "kernel 12 disagrees with its plain "
           "version at %s: %g > %g of max |dw|" % (label, err / scale,
                                                   W1X1_TOL))
-    return err, scale
+    check(torch.equal(got, again), "kernel 12 gave other bits on the same "
+          "inputs at %s" % label)
+    check(launched == (2, 2 * (plan.workspace is not None)), "kernel 12 at "
+          "%s launched %s (partial, reduction) in two calls, the plan %s"
+          % (label, launched, plan))
+    return err, scale, plan
+
+
+def _w1x1_occupancy_checks(hc, dev):
+    """The blocks an SM holds of kernel 12's partial pass at each tile and
+    load path, read on the card: at least the one its plan puts there."""
+    import ctypes
+    from mxnet_tpu_torch import _build
+    lib = _build.load("conv1x1_wgrad")
+    n = ctypes.c_int()
+    got = {}
+    for bc, bo in ((64, 64), (128, 128), (64, 256), (256, 64), (256, 128),
+                   (128, 256)):
+        for vec in (0, 1):
+            check(lib.mxtt_conv1x1_wgrad_occupancy(bc, bo, vec, dev.index,
+                                                   ctypes.byref(n)) == 0,
+                  "occupancy query of conv1x1_wgrad failed")
+            got["%dx%d vec %d" % (bc, bo, vec)] = n.value
+    print("[bf16-kernels] kernel 12 blocks an SM holds (card; the plan puts "
+          "%d on an SM): %s" % (hc._W1X1_PER_SM, got))
+    check(all(card >= hc._W1X1_PER_SM for card in got.values()),
+          "kernel 12 holds fewer blocks an SM than its plan puts there: %s"
+          % got)
+    return got
 
 
 def _bf16_close(got, want):
@@ -589,13 +821,14 @@ def _sms(dev) -> int:
 
 
 def _at_offset_1(t):
-    """``t``'s values in a contiguous tensor at storage offset 1 (2 bytes
-    off a 16-byte boundary in bf16: the bf16 kernels' element path)."""
+    """``t``'s values in a contiguous tensor at storage offset 1 (one
+    element off a 16-byte boundary, 2 bytes in bf16, 4 in fp32: the
+    kernels' element paths)."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     out = buf[1:].view(t.shape)
     out.copy_(t)
-    check(out.is_contiguous() and out.data_ptr() % 16 == 2,
-          "the misaligned view is not 2 bytes off")
+    check(out.is_contiguous() and out.data_ptr() % 16 == t.element_size(),
+          "the misaligned view is not one element off")
     return out
 
 
@@ -708,16 +941,18 @@ def _ragged_bf16_3x3_checks(hc, dev, randn):
 
 def phase_bf16_kernels():
     """Phase 2g: kernel 12 (``conv1x1_wgrad.cu``) against its plain version
-    at the 15 1x1 shapes of a batch-128 ResNet-50 v1 step, the probe's own
-    (401,408 x 64) x (401,408 x 256) and three ragged shapes; kernels 1 and
-    2 in bf16 (``taps_conv_bf16.cu``, forward and dgrad, and
+    at ragged and misaligned shapes, the probe's own (401,408 x 64) x
+    (401,408 x 256) and the 15 1x1 shapes of a batch-128 ResNet-50 v1 step,
+    every call twice and bit-equal, its occupancy against its plan's;
+    kernels 1 and 2 in bf16 (``taps_conv_bf16.cu``, forward and dgrad, and
     ``taps_wgrad_bf16.cu``) at ragged, stride-2 and misaligned shapes, with
     their occupancy against the host plans', and at the 4 Gluon 3x3 shapes
     at batch 128, kernel 2 twice on the same inputs (bit-equal), kernel 1's
     forward at both of its tiles.  Times beside the plain versions', the
     bf16 tensor-core bound and cuDNN's (the yardstick only); each bf16 3x3
-    kernel's step sum must be under the fp32 CUDA-core ceiling.  Returns per-shape records (kernel 12, kernel
-    2, kernel 1 forward, kernel 1 dgrad) and the ragged shapes' errors."""
+    kernel's step sum must be under the fp32 CUDA-core ceiling.  Returns
+    per-shape records (kernel 12, kernel 2, kernel 1 forward, kernel 1
+    dgrad) and the ragged shapes' errors."""
     from mxnet_tpu_torch.ops import hopper_conv as hc
     fp32_exact()
     dev = torch.device("cuda", 0)
@@ -727,31 +962,55 @@ def phase_bf16_kernels():
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf)
 
-    # ragged: rows off the 32-row stage and the 64-channel tile, C = 8,
-    # odd spatial dims at stride 2
+    # ragged: rows off the 64-row stage and the channel tiles, C = 8, odd
+    # spatial dims at stride 2, an empty split closing a cluster, each tile;
+    # each also with x at storage offset 1 (the element path)
+    w1x1_ragged = {}
     for N, H, W, C, O, s in [(3, 7, 9, 24, 40, 1), (5, 10, 10, 8, 16, 1),
-                             (3, 7, 9, 24, 40, 2), (2, 5, 5, 8, 8, 2)]:
+                             (3, 7, 9, 24, 40, 2), (2, 5, 5, 8, 8, 2),
+                             (4, 11, 35, 16, 24, 1), (4, 11, 13, 64, 256, 2),
+                             (6, 12, 12, 256, 64, 1), (2, 8, 8, 136, 72, 1),
+                             (40, 16, 16, 520, 136, 2),
+                             (3, 9, 11, 136, 512, 1)]:
         Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
-        _w1x1_check(hc, randn(N, H, W, C), randn(N, Ho, Wo, O), s,
-                    "N=%d %dx%d C=%d O=%d stride %d" % (N, H, W, C, O, s))
-    print("[bf16-kernels] ragged shapes: kernel 12 matches its plain version")
+        x, g = randn(N, H, W, C), randn(N, Ho, Wo, O)
+        for off in (0, 1):
+            label = "N=%d %dx%d C=%d O=%d stride %d%s" % (
+                N, H, W, C, O, s, " at storage offset 1" * off)
+            err, scale, _ = _w1x1_check(hc, _at_offset_1(x) if off else x, g,
+                                        s, label)
+            w1x1_ragged[label] = err / scale
+    print("[bf16-kernels] ragged and misaligned shapes: kernel 12 matches "
+          "its plain version, bit-equal on reruns (of max |dw|): %s"
+          % ", ".join("%s %.3g" % kv for kv in w1x1_ragged.items()))
     # the probe's own shape and data scale (tools/probe_conv_fixes.py:151)
     R, Cs, Cl = BF16_BATCH * 56 * 56, 64, 256
     x = randn(R, Cs, scale=0.1).reshape(BF16_BATCH, 56, 56, Cs)
     g = randn(R, Cl, scale=0.1).reshape(BF16_BATCH, 56, 56, Cl)
-    err, scale = _w1x1_check(hc, x, g, 1, "the probe's shape")
+    err, scale, _ = _w1x1_check(hc, x, g, 1, "the probe's shape")
     print("[bf16-kernels] kernel 12 at the probe's (%d x %d) x (%d x %d): "
           "max_abs_err %.3g (%.3g of max |dw|, tol %g)"
           % (R, Cs, R, Cl, err, err / scale, W1X1_TOL))
+    # the element path at a main-path shape: 56 -> 28 px, 256 -> 128, s2
+    x = _at_offset_1(randn(BF16_BATCH, 56, 56, 256))
+    err, scale, plan = _w1x1_check(hc, x, randn(BF16_BATCH, 28, 28, 128), 2,
+                                   "x at storage offset 1, N=128 56x56 "
+                                   "C=256 O=128 stride 2")
+    check(not plan.vec, "the plan for x at storage offset 1 takes the "
+          "16-byte path")
+    w1x1_ragged["N=128 56x56 C=256 O=128 s2 at storage offset 1"] = \
+        err / scale
+    print("[bf16-kernels] kernel 12 on its element path at N=128 56x56 "
+          "C=256 O=128 stride 2: %.3g of max |dw|" % (err / scale))
     del x, g
+    occupancy = _w1x1_occupancy_checks(hc, dev)
 
     w1x1 = []
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for C, O, Ho, s, count in RESNET50_1X1:
         N, H = BF16_BATCH, Ho * s
         x, g = randn(N, H, H, C), randn(N, Ho, Ho, O)
-        err, scale = _w1x1_check(hc, x, g, s, "C=%d O=%d %d px stride %d"
-                                 % (C, O, H, s))
+        err, scale, plan = _w1x1_check(hc, x, g, s, "C=%d O=%d %d px "
+                                       "stride %d" % (C, O, H, s))
         xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
         ms = time_ms(lambda: hc.conv1x1_wgrad(x, g, s))
         plain_ms = time_ms(lambda: hc.conv1x1_wgrad_plain(x, g, s))
@@ -764,19 +1023,32 @@ def phase_bf16_kernels():
                                     PEAK_BF16)
         rec = {"N": N, "C": C, "O": O, "H": H, "Ho": Ho, "stride": s,
                "instances_per_step": count, "gflop": flops / 1e9,
-               "splits": hc.conv1x1_wgrad_splits(M, C, O, sms),
+               "tile": list(plan.tile), "splits": plan.splits,
+               "rows": plan.rows, "cluster": plan.cluster,
+               "blocks_per_sm": {"card": occupancy["%dx%d vec 1"
+                                                   % plan.tile],
+                                 "plan": hc._W1X1_PER_SM},
+               "bit_equal_rerun": True,
                "max_abs_err": err, "max_rel_err": err / scale,
                "tol_rel": W1X1_TOL, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "tflops": flops / ms / 1e9}
         w1x1.append(rec)
-        print("[bf16-kernels] kernel 12 C=%d O=%d %d->%d px s%d N=%d (%d "
-              "splits): max_abs_err %.3g (%.3g of max |dw|) | kernel %.4f ms "
-              "(%.1f TFLOP/s), plain %.4f ms, cuDNN bf16 %.4f ms, bound %.4f "
-              "ms (%s)" % (C, O, H, Ho, s, N, rec["splits"], err,
-                           err / scale, ms, rec["tflops"], plain_ms, lib_ms,
-                           bound_ms, bound_by))
+        print("[bf16-kernels] kernel 12 C=%d O=%d %d->%d px s%d N=%d (tile "
+              "%dx%d, %d splits of %d rows in clusters of %d, %d blocks an "
+              "SM, plan %d; rerun bit-equal): max_abs_err %.3g (%.3g of max "
+              "|dw|) | kernel %.4f ms (%.1f TFLOP/s), plain %.4f ms, cuDNN "
+              "bf16 %.4f ms, bound %.4f ms (%s)"
+              % (C, O, H, Ho, s, N, plan.tile[0], plan.tile[1], plan.splits,
+                 plan.rows, plan.cluster, rec["blocks_per_sm"]["card"],
+                 hc._W1X1_PER_SM, err, err / scale, ms, rec["tflops"],
+                 plain_ms, lib_ms, bound_ms, bound_by))
         del x, g, xn, gn
+    t = _step_sum(w1x1)
+    print("[bf16-kernels] kernel 12 over a batch-%d step: %.3f ms (%.1f "
+          "TFLOP/s), plain %.3f ms, cuDNN bf16 %.3f ms, bound %.3f ms"
+          % (BF16_BATCH, t["ms"], t["tflops"], t["plain_ms"],
+             t["library_ms"], t["bound_ms"]))
 
     ragged = _ragged_bf16_3x3_checks(hc, dev, randn)
     _bf16_occupancy_checks(hc, dev)
@@ -887,6 +1159,7 @@ def phase_bf16_kernels():
               "CUDA-core ceiling %.3f ms: not on the tensor cores"
               % (name, ms, fma_ms))
     torch.cuda.empty_cache()
+    ragged.update({"k12 " + k: v for k, v in w1x1_ragged.items()})
     return w1x1, wgrad, fwd, dgrad, ragged
 
 
@@ -1212,15 +1485,9 @@ def phase_lm_training(card):
     # the last timed one
     hr.lstm_fwd_launches = 0
     hr.lstm_bwd_launches = 0
-    losses, times = [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = ft.step(x, y)
-        torch.cuda.synchronize()
-        if i >= WARMUP_STEPS:
-            times.append(time.perf_counter() - t0)
-        losses.append(float(loss.asnumpy()))
+    losses = []
+    times = timed_steps(lambda: ft.step(x, y),
+                        lambda loss: losses.append(float(loss.asnumpy())))
     steps = len(losses)
     launches = {"lstm_fwd": hr.lstm_fwd_launches,
                 "lstm_bwd": hr.lstm_bwd_launches}
@@ -2238,15 +2505,12 @@ def gluon_resnet50(ctx, batch):
 def wgrad_reductions_per_step(batch=BATCH, bf16=False):
     """Launches of kernel 2's reduction pass in one training step at
     ``batch``: one for each 3x3 convolution whose wgrad rows are split, by
-    the fp32 kernel's ``wgrad_splits`` or the bf16 kernel's plan."""
+    the fp32 kernel's plan or the bf16 kernel's."""
     from mxnet_tpu_torch.ops import hopper_conv as hc
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    if bf16:
-        return sum(count for C, H, count in GLUON_3X3
-                   if hc.wgrad_bf16_plan(batch * H * H, C, C, 3, 3, sms)
-                   .splits > 1)
+    plan = hc.wgrad_bf16_plan if bf16 else hc.wgrad_fp32_plan
     return sum(count for C, H, count in GLUON_3X3
-               if hc.wgrad_splits(batch * H * H, C, C, 9, sms) > 1)
+               if plan(batch * H * H, C, C, 3, 3, sms).splits > 1)
 
 
 def _conv_counts(hc):
@@ -2279,11 +2543,12 @@ def bf16_step_counts(batch=BF16_BATCH):
 
 def w1x1_reductions_per_step(batch=BF16_BATCH):
     """Launches of kernel 12's reduction pass in one bf16 training step at
-    ``batch``: one for each 1x1 convolution whose wgrad rows are split."""
+    ``batch``: one for each 1x1 convolution whose plan leaves more than one
+    partial (its rows split over more than one cluster)."""
     from mxnet_tpu_torch.ops import hopper_conv as hc
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sum(count for C, O, H, _, count in RESNET50_1X1
-               if hc.conv1x1_wgrad_splits(batch * H * H, C, O, sms) > 1)
+               if hc.conv1x1_wgrad_plan(batch * H * H, C, O, sms).workspace)
 
 
 def _conv3x3_weights(net):
@@ -2327,15 +2592,9 @@ def phase_training(card):
     first_s = time.perf_counter() - t0
     ft.sync_params()
     w_gpu = {k: net.collect_params()[k].data().asnumpy() for k in convs}
-    losses, times = [loss0], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = ft.step(x, y)
-        torch.cuda.synchronize()
-        if i >= WARMUP_STEPS:
-            times.append(time.perf_counter() - t0)
-        losses.append(float(loss.asnumpy()))
+    losses = [loss0]
+    times = timed_steps(lambda: ft.step(x, y),
+                        lambda loss: losses.append(float(loss.asnumpy())))
     steps = 1 + WARMUP_STEPS + TIMED_STEPS
     launches = {"implicit_gemm_conv": hc.launches,
                 "taps_wgrad": hc.wgrad_launches,
@@ -2404,16 +2663,16 @@ def _train_group(name: str) -> str:
     lname = name.lower()
     if "conv1x1_wgrad_kernel" in name:
         return "kernel 12 1x1 wgrad partial pass"
-    if "sum_partials_1x1_kernel" in name:
-        return "kernel 12 1x1 wgrad reduction pass"
     if "taps_wgrad_bf16_kernel" in name:
         return "kernel 2 bf16 wgrad partial pass"
-    if "sum_splits_bf16_kernel" in name:
-        return "kernel 2 bf16 wgrad reduction pass"
     if "taps_wgrad_kernel" in name:
         return "kernel 2 wgrad partial pass"
-    if "sum_splits_kernel" in name:
-        return "kernel 2 wgrad reduction pass"
+    if "split_sum_kernel" in name:       # csrc/split_sum.cuh, by its tag
+        for tag, group in (("bf16_1x1_wgrad", "kernel 12 1x1 wgrad"),
+                           ("bf16_3x3_wgrad", "kernel 2 bf16 wgrad"),
+                           ("fp32_3x3_wgrad", "kernel 2 wgrad")):
+            if tag in name:
+                return group + " reduction pass"
     if "Memcpy" in name or "Memset" in name:
         return "memcpy/memset"
     if "copy" in lname or "nchwtonhwc" in lname or "nhwctonchw" in lname:
@@ -2436,19 +2695,8 @@ def phase_training_profile(card, step, step_ms, tag="train-profile",
     reduction) launches a step, checked in the trace when given; ``bf16``
     says which of kernels 1 and 2's libraries the step must launch (and the
     other never)."""
-    from torch.profiler import ProfilerActivity, profile
     n = 2
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
+    kernels, wall_ms = profiled_kernels(step, n)
     groups, counts = {}, {}
     taps_seen = {"fp32": 0, "bf16": 0}
     for e in kernels:
@@ -3286,15 +3534,7 @@ def phase_module(card):
     t0 = time.perf_counter()
     p_gpu, w_gpu = _one_step(mod, batch)
     first_s = time.perf_counter() - t0
-    times, losses = [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mod.forward_backward(batch)
-        mod.update()
-        torch.cuda.synchronize()
-        if i >= WARMUP_STEPS:
-            times.append(time.perf_counter() - t0)
+    times = timed_steps(lambda: (mod.forward_backward(batch), mod.update()))
     out = mod.get_outputs()[0].asnumpy()
     steps = 1 + WARMUP_STEPS + TIMED_STEPS
     launches = {"implicit_gemm_conv": hc.launches,
@@ -3590,15 +3830,8 @@ def phase_bf16_training(card, fp32_ips):
     t0 = time.perf_counter()
     losses = [float(ft.step(x, y).asnumpy())]
     first_s = time.perf_counter() - t0
-    times = []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = ft.step(x, y)
-        torch.cuda.synchronize()
-        if i >= WARMUP_STEPS:
-            times.append(time.perf_counter() - t0)
-        losses.append(float(loss.asnumpy()))
+    times = timed_steps(lambda: ft.step(x, y),
+                        lambda loss: losses.append(float(loss.asnumpy())))
     steps = 1 + WARMUP_STEPS + TIMED_STEPS
     launches = dict(_conv_counts(hc), **{
         "conv1x1_wgrad": hc.conv1x1_wgrad_launches,
@@ -4259,6 +4492,7 @@ def _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches):
         entry["bound_by"] = "operations" if all(
             r["bound_by"] == "operations" for r in records) else "bytes"
         entry["library_ms"] = step_sum(records, "library_ms", fwd_too)
+    k2["tflops"] = _step_sum(wgrad)["tflops"]
     k1["dgrad_shapes"] = dgrad
     k1["serving_forward"] = {"launches": serving_launches, **{
         k: fwd[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
@@ -4316,11 +4550,11 @@ def _bf16_entries(k1, k2, bf16_kernels, launches):
     for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
         k1b[key] = step_sum(fwd, key) + step_sum(dgrad, key)
         k2b[key] = step_sum(wgrad, key)
-    for entry, records in ((k1b, fwd + dgrad), (k2b, wgrad)):
+    for entry, records, prefix in ((k1b, fwd + dgrad, "k1 "),
+                                   (k2b, wgrad, "k2 "), (k12, w1x1, "k12 ")):
         entry["tflops"] = step_sum(records, "gflop") / entry["ms"]
         entry["ragged_errs"] = {k: v for k, v in ragged.items()
-                                if k.startswith("k1" if entry is k1b
-                                                else "k2")}
+                                if k.startswith(prefix)}
     for entry, base in ((k1b, k1), (k2b, k2)):
         base["bf16"] = {key: entry[key] for key in (
             "name", "source", "launches", "ms", "tflops",
@@ -4360,7 +4594,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     fwd = phase_kernels()
-    wgrad, dgrad = phase_backward_kernels()
+    wgrad, wgrad128, dgrad, wgrad_ragged = phase_backward_kernels()
     lstm = phase_lstm_kernels()
     attn = phase_attn_kernels(card)
     k4, k10 = phase_ring_kernels(card)
@@ -4411,6 +4645,8 @@ def main() -> int:
     print("[bf16-infer] summary " + json.dumps(dict(inferred, card=card)))
     print("[done] all phases passed in %.1f s" % (time.perf_counter() - t0))
     k1, k2 = _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches)
+    k2["batch128"] = dict(_step_sum(wgrad128), shapes=wgrad128)
+    k2["ragged_errs"] = wgrad_ragged
     k1["module_launches"] = mod_launches["implicit_gemm_conv"]
     k2["module_launches"] = (mod_launches["taps_wgrad"]
                              + mod_launches["taps_wgrad reduction"])

@@ -1,30 +1,16 @@
 // PTX building blocks of the bf16 tensor-core kernels (taps_conv_bf16.cu,
-// taps_wgrad_bf16.cu): 16-byte cp.async with zero fill, ldmatrix, mma.sync m16n8k16 (bf16
-// in, fp32 accumulate), the XOR swizzle of 16-byte chunks and the element load path.
+// taps_wgrad_bf16.cu, conv1x1_wgrad.cu): ldmatrix, mma.sync m16n8k16 (bf16 in, fp32
+// accumulate), the XOR swizzle of 16-byte chunks and the element load path; the cp.async
+// copies with zero fill come from cp_async.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; a source size of 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -61,7 +47,5 @@ __device__ __forceinline__ uint4 load8(const bf16* p, Ok ok) {
   for (int j = 0; j < 8; ++j) v[j] = ok(j) ? p[j] : __float2bfloat16(0.f);
   return *reinterpret_cast<const uint4*>(v);
 }
-
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace

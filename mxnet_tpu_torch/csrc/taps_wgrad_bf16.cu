@@ -34,9 +34,10 @@
 // 16-byte chunks of the 128-byte tile rows are XOR-swizzled by the row's low three bits.
 // Each of the 4 warps owns a 32 x 32 quadrant of the tile for each tap: 3 x 2 x 4 m16n8
 // fp32 accumulators.  Each split writes its partial (KH*KW, C, O) sums to a workspace
-// (splits, KH*KW, C, O) that the wrapper allocates, and a second pass sums the partials in
-// split order: the result is deterministic (the same inputs give the same bits on every
-// run), which fp32 atomics would not be.  With one split the first pass writes dw itself.
+// (splits, KH*KW, C, O) that the wrapper allocates, and split_sum.cuh's pass sums the
+// partials in a fixed order: the result is deterministic (the same inputs give the same
+// bits on every run), which fp32 atomics would not be.  With one split the first pass
+// writes dw itself.
 //   Operands that a 16-byte copy cannot take (C or O not a multiple of 8, x or dy not
 // 16-byte aligned) take a slower load path inside the same kernel (template VEC = false):
 // bf16 loads into registers and 16-byte shared-memory stores.
@@ -49,8 +50,11 @@
 // persistent grid, TMA and wgmma are the later steps towards the bound.
 
 #include "mma_bf16.cuh"
+#include "split_sum.cuh"
 
 namespace {
+
+struct bf16_3x3_wgrad;                 // names this library's split sum in a trace
 
 constexpr int BC = 64;                     // input channels per block
 constexpr int BO = 64;                     // output channels per block
@@ -217,6 +221,7 @@ taps_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     }
   }
   cp_async_wait<0>();
+  allow_split_sum();
 
   // out is (splits, KH*KW, C, O): this block's partial sums for its split and taps
   const int g = lane >> 2, q = lane & 3;
@@ -238,19 +243,6 @@ taps_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
           if (o + 1 < O) p[1] = acc[t][i][j][2 * h + 1];
         }
       }
-  }
-}
-
-// out[i] = sum_{s < splits} part[s * total + i], in order s = 0, 1, ...  The same pass as
-// taps_wgrad.cu's and conv1x1_wgrad.cu's, kept under its own name so that a trace tells
-// the three libraries' reductions apart.
-__global__ void sum_splits_bf16_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                       long long total, int splits) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += part[(long long)k * total + i];
-    out[i] = s;
   }
 }
 
@@ -284,7 +276,7 @@ cudaError_t launch_partial(dim3 grid, const void* x, const void* dy, float* dst,
 extern "C" int mxtt_taps_wgrad_bf16(const void* x, const void* dy, float* out,
                                     float* workspace, int N, int H, int W, int C, int O,
                                     int KH, int KW, int pad_top, int pad_left, int Ho, int Wo,
-                                    int splits, long long rows_per_split, int vec, int sms,
+                                    int splits, long long rows_per_split, int vec,
                                     int device, void* stream, int* launched) {
   launched[0] = launched[1] = 0;
   cudaError_t err = cudaSetDevice(device);
@@ -310,12 +302,7 @@ extern "C" int mxtt_taps_wgrad_bf16(const void* x, const void* dy, float* out,
   if (err != cudaSuccess) return (int)err;
   launched[0] = 1;
   if (splits == 1) return (int)cudaSuccess;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  const long long cap = 8LL * (sms > 0 ? sms : 132);
-  if (blocks > cap) blocks = cap;
-  sum_splits_bf16_kernel<<<(unsigned)blocks, threads, 0, s>>>(workspace, out, total, splits);
-  err = cudaGetLastError();
+  err = launch_split_sum<bf16_3x3_wgrad>(workspace, out, total, splits, s);
   if (err == cudaSuccess) launched[1] = 1;
   return (int)err;
 }

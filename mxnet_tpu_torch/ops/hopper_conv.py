@@ -35,9 +35,10 @@ dtypes), ``launches_bf16`` those of the bf16 one; ``wgrad_launches`` and
 ``wgrad_reduce_launches`` count launches of the wgrad kernels' two passes,
 the partial sums and, when the rows are split, their reduction, as the
 CUDA entry points report them, and ``wgrad_launches_bf16`` and
-``wgrad_reduce_launches_bf16`` those of the bf16 kernel.  The bf16 kernels'
-host plans (:func:`conv_bf16_plan`, :func:`wgrad_bf16_plan`: tile, split,
-workspace and load path) are pure Python.
+``wgrad_reduce_launches_bf16`` those of the bf16 kernel.  The kernels' host
+plans (:func:`conv_bf16_plan`, :func:`wgrad_bf16_plan`,
+:func:`wgrad_fp32_plan`, :func:`conv1x1_wgrad_plan`: tile, split, workspace
+and load path) are pure Python.
 
 The layout work around the kernels (NHWC views, the tap and space-to-depth
 rewrites) is plain PyTorch shared by both arms, so the CPU tests reach it.
@@ -65,6 +66,7 @@ two passes); on the CPU it runs :func:`conv1x1_wgrad_plain`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple, Optional, Tuple
 
@@ -77,9 +79,8 @@ __all__ = ["conv3x3_same", "conv3x3_same_plain", "conv3x3_s2",
            "conv3x3_s2_plain", "taps_conv", "taps_conv_plain", "taps_wgrad",
            "taps_wgrad_plain", "dgrad_taps", "conv1x1", "conv1x1_wgrad",
            "conv1x1_wgrad_plain", "conv_bf16_plan", "wgrad_bf16_plan",
-           "bf16_vec_path",
-           "launches", "launches_bf16", "wgrad_launches",
-           "wgrad_reduce_launches", "wgrad_launches_bf16",
+           "wgrad_fp32_plan", "conv1x1_wgrad_plan", "bf16_vec_path", "fp32_vec_path", "launches", "launches_bf16",
+           "wgrad_launches", "wgrad_reduce_launches", "wgrad_launches_bf16",
            "wgrad_reduce_launches_bf16", "conv1x1_wgrad_launches",
            "conv1x1_wgrad_reduce_launches"]
 
@@ -113,10 +114,6 @@ _wgrad_fn = None
 _conv_bf16_fn = None
 _wgrad_bf16_fn = None
 _w1x1_fn = None
-#: rows per stage of the wgrad kernel (BK in taps_wgrad.cu)
-_WGRAD_BK = 16
-#: output channels per block tile of the wgrad kernel (BC = BO)
-_WGRAD_TILE = 64
 
 
 def _out_hw(H, W, KH, KW, pads: _Pads):
@@ -167,12 +164,23 @@ def _conv_bf16_kernel():
     return _conv_bf16_fn
 
 
+#: SMs of each CUDA device by index, read once
+_SMS = {}
+
+
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream, from the CUDA build's
+    direct accessor: a fortieth of ``current_stream(device).cuda_stream``'s
+    host time (``chip_ab.py stream``), paid by every kernel call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _SMS.get(device.index)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device.index] = sms
+    return sms
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -310,19 +318,105 @@ def _wgrad_kernel():
     if _wgrad_fn is None:
         from .. import _build
         fn = _build.load("taps_wgrad").mxtt_taps_wgrad
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _wgrad_fn = fn
     return _wgrad_fn
 
 
-def wgrad_splits(M: int, C: int, O: int, taps: int, sms: int) -> int:
-    """Row splits of the fp32 wgrad kernel's grid: enough blocks for about
-    four per SM, at most one split per 16-row stage."""
-    tiles = (-(-C // _WGRAD_TILE)) * (-(-O // _WGRAD_TILE)) * taps
-    want = -(-4 * sms // tiles)
-    return max(1, min(want, -(-M // _WGRAD_BK)))
+#: rows per stage of the fp32 wgrad kernel (BK in taps_wgrad.cu)
+_WGRAD_FP32_BK = 16
+#: its tiles: input = output channels of a block -> taps of a row it takes
+_WGRAD_FP32_TAPS = {128: 1, 64: 3}
+#: blocks of the fp32 wgrad kernel an SM holds (256 threads under
+#: ``__launch_bounds__(256, 2)``, 64 KB of shared memory each); chip_smoke.py's
+#: phase 2b reads it back from the card
+_WGRAD_FP32_PER_SM = 2
+#: the fewest stages a split of the fp32 wgrad kernel walks
+_WGRAD_FP32_MIN_STAGES = 8
+#: the most splits (the grid's z extent)
+_WGRAD_FP32_MAX_SPLITS = 65535
+#: the plan's cost model, in SM clocks: a block's ring fill and epilogue in
+#: stages; fp32 FMAs an SM issues a clock; bytes of the split sum the card
+#: moves a clock (80% of 3.35 TB/s at 1.755 GHz); one launch of the sum.
+#: At 7 px it splits where the whole-wave rule of ``wgrad_bf16_plan`` does
+#: not, and runs 1.4-1.7x faster there (chip_smoke.py's phase 2b times both)
+_WGRAD_FP32_FILL = 3
+_FMA_PER_SM_CLK = 128
+_SUM_BYTES_PER_CLK = 1527
+_SUM_LAUNCH_CLK = 5000
+
+
+def fp32_vec_path(C: int, O: int, *ptrs: int) -> bool:
+    """Whether the fp32 wgrad kernel takes its 16-byte copy path: C and O
+    multiples of 4 and every operand 16-byte aligned; otherwise the same
+    kernel copies 4 bytes at a time."""
+    return C % 4 == 0 and O % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+class WgradFp32Plan(NamedTuple):
+    """Launch of ``taps_wgrad.cu``: the channel tile (128: one tap a
+    block; 64: the 3 taps of a row a block); split ``s`` sums rows
+    ``[s * rows, (s + 1) * rows)`` of the ``M``; the grid; the fp32
+    workspace of the partial sums (None with one split, which writes dw
+    itself); the load path."""
+    tile: int
+    splits: int
+    rows: int
+    grid: Tuple[int, int, int]
+    workspace: Optional[Tuple[int, int, int, int]]
+    vec: bool
+
+
+@functools.lru_cache(maxsize=256)
+def _wgrad_fp32_split(M: int, C: int, O: int, KH: int, KW: int, sms: int):
+    """(tile, splits, rows, grid) of :func:`wgrad_fp32_plan`."""
+    tile = 64 if min(C, O) <= 64 else 128
+    taps = _WGRAD_FP32_TAPS[tile]
+    grid_xy = (_cdiv(C, tile) * _cdiv(O, tile), KH * _cdiv(KW, taps))
+    blocks = grid_xy[0] * grid_xy[1]
+    slots = _WGRAD_FP32_PER_SM * sms
+    bk = _WGRAD_FP32_BK
+    stage_clk = bk * taps * tile * tile / _FMA_PER_SM_CLK
+    sum_bytes = 4.0 * KH * KW * C * O
+    most = max(1, min(_cdiv(M, _WGRAD_FP32_MIN_STAGES * bk),
+                      _WGRAD_FP32_MAX_SPLITS, _cdiv(8 * slots, blocks)))
+    best = None
+    for want in range(1, most + 1):
+        rows = _cdiv(_cdiv(M, want), bk) * bk
+        splits = _cdiv(M, rows)
+        if splits != want:
+            continue
+        waves = _cdiv(blocks * splits, slots)
+        cost = (waves * _WGRAD_FP32_PER_SM * (rows // bk + _WGRAD_FP32_FILL)
+                * stage_clk)
+        if splits > 1:
+            cost += ((2 * splits + 1) * sum_bytes / _SUM_BYTES_PER_CLK
+                     + _SUM_LAUNCH_CLK)
+        if best is None or cost < best[0]:
+            best = (cost, splits, rows)
+    _, splits, rows = best
+    return tile, splits, rows, grid_xy + (splits,)
+
+
+def wgrad_fp32_plan(M: int, C: int, O: int, KH: int, KW: int, sms: int,
+                    ptrs: Tuple[int, ...] = ()) -> WgradFp32Plan:
+    """The fp32 wgrad kernel's launch for ``M`` rows on ``sms`` SMs.  The
+    64-channel tile with the 3 taps of a row where C or O is at most 64,
+    else the 128-channel tile.  Of the row splits whose rows are dealt in
+    whole 16-row stages, every split at least 8 stages (or one split), it
+    takes the one whose launch costs least in SM clocks: whole waves of the
+    blocks the SMs hold (a partly filled wave costs a full one, since a
+    block alone on an SM leaves half its FMA issue idle), each the busiest
+    SM's stages plus the ring's fill, plus the split sum's bytes (partials
+    written and read, dw written) and launch.  ``ptrs`` are the operands'
+    addresses, for the load path."""
+    tile, splits, rows, grid = _wgrad_fp32_split(M, C, O, KH, KW, sms)
+    return WgradFp32Plan(tile, splits, rows, grid,
+                         (splits, KH * KW, C, O) if splits > 1 else None,
+                         fp32_vec_path(C, O, *ptrs))
 
 
 def _wgrad_bf16_kernel():
@@ -331,7 +425,7 @@ def _wgrad_bf16_kernel():
         from .. import _build
         fn = _build.load("taps_wgrad_bf16").mxtt_taps_wgrad_bf16
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
-                       + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _wgrad_bf16_fn = fn
@@ -412,17 +506,18 @@ def _taps_wgrad_cuda(x, dy, pads: _Pads, KH: int, KW: int):
             x.data_ptr(), dy.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None, N, H, W, C, O, KH,
             KW, pads[0][0], pads[1][0], Ho, Wo, plan.splits, plan.rows,
-            int(bf16_vec_path(C, O, x.data_ptr(), dy.data_ptr())), sms,
+            int(bf16_vec_path(C, O, x.data_ptr(), dy.data_ptr())),
             x.device.index, _stream(x.device), launched)
     else:
-        splits = wgrad_splits(N * Ho * Wo, C, O, KH * KW, sms)
-        ws = (torch.empty((splits, KH * KW, C, O), dtype=torch.float32,
-                          device=x.device) if splits > 1 else None)
+        plan = wgrad_fp32_plan(N * Ho * Wo, C, O, KH, KW, sms,
+                               (x.data_ptr(), dy.data_ptr()))
+        ws = (torch.empty(plan.workspace, dtype=torch.float32,
+                          device=x.device) if plan.workspace else None)
         err = _wgrad_kernel()(
             x.data_ptr(), dy.data_ptr(), out.data_ptr(),
-            ws.data_ptr() if ws is not None else None, _DTYPE_CODE[x.dtype],
-            N, H, W, C, O, KH, KW, pads[0][0], pads[1][0], Ho, Wo, splits,
-            sms, x.device.index, _stream(x.device), launched)
+            ws.data_ptr() if ws is not None else None, N, H, W, C, O, KH, KW,
+            pads[0][0], pads[1][0], Ho, Wo, plan.tile, plan.splits, plan.rows,
+            int(plan.vec), x.device.index, _stream(x.device), launched)
     with _count_lock:
         wgrad_launches += launched[0]
         wgrad_reduce_launches += launched[1]
@@ -581,9 +676,19 @@ def conv3x3_s2_plain(data, weight):
 # 1x1 convolution with the weight gradient on kernel 12
 # --------------------------------------------------------------------------
 #: rows per stage of the 1x1 wgrad kernel (BK in conv1x1_wgrad.cu)
-_W1X1_BK = 32
-#: channels per block tile of the 1x1 wgrad kernel (BC = BO)
-_W1X1_TILE = 64
+_W1X1_BK = 64
+#: blocks of the 1x1 wgrad kernel the plan puts on an SM: one block keeps
+#: 64-96 KB of its ring in flight, enough for its share of device memory, and
+#: a second would double the partials' round trip; the card holds at least
+#: this many (chip_smoke.py's phase 2g reads it back)
+_W1X1_PER_SM = 1
+#: the fewest stages a split of the 1x1 wgrad kernel walks
+_W1X1_MIN_STAGES = 4
+#: the most splits (the grid's y extent)
+_W1X1_MAX_SPLITS = 65534
+#: blocks of consecutive splits that sum their tiles on chip (CLUSTER in
+#: conv1x1_wgrad.cu) when the rows are split
+_W1X1_CLUSTER = 2
 #: channel counts the 1x1 wgrad kernel takes: multiples of 8 in [8, 2048]
 W1X1_MAX_CHANNELS = 2048
 
@@ -607,18 +712,77 @@ def _w1x1_kernel():
         from .. import _build
         fn = _build.load("conv1x1_wgrad").mxtt_conv1x1_wgrad
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _w1x1_fn = fn
     return _w1x1_fn
 
 
-def conv1x1_wgrad_splits(M: int, C: int, O: int, sms: int) -> int:
-    """Row splits of the 1x1 wgrad kernel's grid: enough blocks for about
-    four per SM, at most one split per 32-row stage."""
-    tiles = (-(-C // _W1X1_TILE)) * (-(-O // _W1X1_TILE))
-    want = -(-4 * sms // tiles)
-    return max(1, min(want, -(-M // _W1X1_BK)))
+class Conv1x1WgradPlan(NamedTuple):
+    """Launch of ``conv1x1_wgrad.cu``: the (input, output) channel tile;
+    split ``s`` sums rows ``[s * rows, (s + 1) * rows)`` of the ``M``; the
+    grid; the blocks of consecutive splits in a cluster, which sum their
+    tiles on chip into one partial (2 when the rows are split, the last
+    split then possibly empty); the fp32 workspace of the partials (None
+    with one, which is dw itself); the load path."""
+    tile: Tuple[int, int]
+    splits: int
+    rows: int
+    grid: Tuple[int, int]
+    cluster: int
+    workspace: Optional[Tuple[int, int, int]]
+    vec: bool
+
+
+def _conv1x1_wgrad_tile(C: int, O: int) -> Tuple[int, int]:
+    """The 1x1 wgrad kernel's (input, output) channel tile, as wide as the
+    channels allow, since each operand is read again once per tile of the
+    other's channels: 64 x 256 or 256 x 64 where one side has at most 64
+    channels and the other more than 128 (ResNet's 64 <-> 256 layers at 56
+    px, which then read x and g once), 64 x 64 where both are small, 256 x
+    128 or 128 x 256 (16 warps) where both sides are wider, the 256 along
+    the wider side, else 128 x 128."""
+    if C <= 64:
+        return (64, 256) if O > 128 else (64, 64)
+    if O <= 64:
+        return (256, 64) if C > 128 else (64, 64)
+    if C >= 256 and O >= 128 and C >= O:
+        return 256, 128
+    if O >= 256:
+        return 128, 256
+    return 128, 128
+
+
+@functools.lru_cache(maxsize=256)
+def _conv1x1_wgrad_split(M: int, C: int, O: int, sms: int):
+    """(tile, splits, rows, grid, cluster) of :func:`conv1x1_wgrad_plan`."""
+    bc, bo = _conv1x1_wgrad_tile(C, O)
+    tiles = _cdiv(C, bc) * _cdiv(O, bo)
+    want = max(1, _W1X1_PER_SM * sms // tiles)
+    splits = max(1, min(want, _cdiv(M, _W1X1_MIN_STAGES * _W1X1_BK),
+                        _W1X1_MAX_SPLITS))
+    cluster = _W1X1_CLUSTER if splits > 1 else 1
+    splits = splits // cluster * cluster        # whole clusters, in the wave
+    rows = max(_W1X1_BK, _cdiv(_cdiv(M, splits), _W1X1_BK) * _W1X1_BK)
+    splits = _cdiv(_cdiv(M, rows), cluster) * cluster
+    return (bc, bo), splits, rows, (tiles, splits), cluster
+
+
+def conv1x1_wgrad_plan(M: int, C: int, O: int, sms: int,
+                       ptrs: Tuple[int, ...] = ()) -> Conv1x1WgradPlan:
+    """Kernel 12's launch for ``M`` rows on ``sms`` SMs: the tile, and as
+    many row splits as fill one wave of one block an SM, each at least 4
+    stages of 64 rows, rows dealt in whole stages so that every split but
+    a cluster's last has rows; split rows go in clusters of 2 blocks, so
+    the workspace holds half as many partials.  ``ptrs`` are the operands'
+    addresses: 16-byte copies where all are 16-byte aligned, else the
+    element path."""
+    tile, splits, rows, grid, cluster = _conv1x1_wgrad_split(M, C, O, sms)
+    partials = splits // cluster
+    return Conv1x1WgradPlan(tile, splits, rows, grid, cluster,
+                            (partials, C, O) if partials > 1 else None,
+                            all(p % 16 == 0 for p in ptrs))
 
 
 def _conv1x1_wgrad_cuda(x, g, stride: int):
@@ -626,7 +790,8 @@ def _conv1x1_wgrad_cuda(x, g, stride: int):
     if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
         raise MXNetError("conv1x1_wgrad: the CUDA kernel takes bfloat16 x "
                          "and g, got %s and %s" % (x.dtype, g.dtype))
-    if g.device != x.device:
+    dev = x.device
+    if g.device != dev:
         raise MXNetError("conv1x1_wgrad: g must be on x's device")
     if x.dim() != 4 or g.dim() != 4:
         raise MXNetError("conv1x1_wgrad: x and g must be NHWC, got %s and %s"
@@ -645,20 +810,19 @@ def _conv1x1_wgrad_cuda(x, g, stride: int):
                              % (name, n, W1X1_MAX_CHANNELS))
     if not (x.is_contiguous() and g.is_contiguous()):
         raise MXNetError("conv1x1_wgrad: x and g must be contiguous")
-    if x.data_ptr() % 16 or g.data_ptr() % 16:
-        raise MXNetError("conv1x1_wgrad: x and g must start on a 16-byte "
-                         "boundary (the kernel's vector loads)")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = conv1x1_wgrad_splits(N * Ho * Wo, C, O, sms)
-    out = torch.empty((C, O), dtype=torch.float32, device=x.device)
-    ws = (torch.empty((splits, C, O), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    x_ptr, g_ptr = x.data_ptr(), g.data_ptr()
+    plan = conv1x1_wgrad_plan(N * Ho * Wo, C, O, _sm_count(dev),
+                              (x_ptr, g_ptr))
+    out = torch.empty((C, O), dtype=torch.float32, device=dev)
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=dev)
+          if plan.workspace else None)
     launched = (ctypes.c_int * 2)()
     err = _w1x1_kernel()(
-        x.data_ptr(), g.data_ptr(), out.data_ptr(),
+        x_ptr, g_ptr, out.data_ptr(),
         ws.data_ptr() if ws is not None else None,
-        N, H, W, C, O, Ho, Wo, stride, splits, sms, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream, launched)
+        N, H, W, C, O, Ho, Wo, stride, plan.tile[0], plan.tile[1],
+        plan.splits, plan.rows, plan.cluster, int(plan.vec), dev.index,
+        _stream(dev), launched)
     with _count_lock:
         conv1x1_wgrad_launches += launched[0]
         conv1x1_wgrad_reduce_launches += launched[1]

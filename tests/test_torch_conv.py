@@ -318,11 +318,12 @@ def test_dgrad_matches_pallas_taps_kernel_on_flipped_taps():
 @pytest.mark.cuda
 def test_wgrad_kernel_matches_plain_on_card():
     """The wgrad kernels vs their plain version on the same card tensors:
-    ragged channel counts, odd spatial dims, rows off the 32-row stage, one
-    split and many, bf16 data at storage offset 1 (fp32 sums in another
-    order: 1e-4 of the largest |dw|); each call launches the partial pass
-    once and the reduction pass once if it splits the rows, in bf16 on the
-    tensor-core kernel, and a bf16 rerun gives the same bits."""
+    ragged channel counts, odd spatial dims, rows off the 16- and 32-row
+    stages, one split and many, both fp32 tiles, data at storage offset 1
+    (the element paths; fp32 sums in another order: 1e-4 of the largest
+    |dw|); each call launches the partial pass once and the reduction pass
+    once if it splits the rows, in bf16 on the tensor-core kernel, and a
+    rerun gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -331,29 +332,29 @@ def test_wgrad_kernel_matches_plain_on_card():
         for N, C, H, W, O in [(3, 20, 7, 9, 70), (1, 3, 1, 1, 5),
                               (5, 33, 11, 13, 129), (32, 64, 14, 14, 64),
                               (32, 512, 7, 7, 512), (3, 24, 7, 9, 40),
-                              (5, 24, 33, 31, 40)]:
+                              (5, 24, 33, 31, 40), (4, 136, 9, 11, 72)]:
             r = np.random.default_rng(9)
             x = torch.from_numpy(r.standard_normal((N, H, W, C))
                                  .astype(np.float32)).cuda().to(dtype)
             g = torch.from_numpy(r.standard_normal((N, H, W, O))
                                  .astype(np.float32)).cuda().to(dtype)
-            if bf16 and C == 24:
+            if C == 24:
                 x = _at_offset_1(x)
             before = (hc.wgrad_launches, hc.wgrad_reduce_launches,
                       hc.wgrad_launches_bf16, hc.wgrad_reduce_launches_bf16)
             got = hc.taps_wgrad(x, g, hc.S1_PADS, 3, 3)
             want = hc.taps_wgrad_plain(x, g, hc.S1_PADS, 3, 3)
             torch.cuda.synchronize()
-            split = (hc.wgrad_bf16_plan(N * H * W, C, O, 3, 3, sms).splits
-                     if bf16 else hc.wgrad_splits(N * H * W, C, O, 9, sms)) > 1
+            split = (hc.wgrad_bf16_plan(N * H * W, C, O, 3, 3, sms)
+                     if bf16 else hc.wgrad_fp32_plan(N * H * W, C, O, 3, 3,
+                                                     sms)).splits > 1
             assert (hc.wgrad_launches, hc.wgrad_reduce_launches,
                     hc.wgrad_launches_bf16, hc.wgrad_reduce_launches_bf16) \
                 == (before[0] + 1, before[1] + split, before[2] + bf16,
                     before[3] + (bf16 and split))
             err = (got - want).abs().max().item() / want.abs().max().item()
             assert err <= 1e-4, (dtype, N, C, H, W, O, err)
-            if bf16:
-                assert torch.equal(got, hc.taps_wgrad(x, g, hc.S1_PADS, 3, 3))
+            assert torch.equal(got, hc.taps_wgrad(x, g, hc.S1_PADS, 3, 3))
 
 
 # --------------------------------------------------------------------------
@@ -506,31 +507,39 @@ def test_conv1x1_wgrad_cuda_arm_raises_on_limits():
 @pytest.mark.cuda
 def test_conv1x1_wgrad_kernel_matches_plain_on_card():
     """Kernel 12 vs its plain version on the same card tensors: rows off
-    the tile, C = 8, odd spatial dims at stride 2, one split and many
-    (1e-4 of the largest |dw|); each call launches the partial pass once
-    and the reduction pass once when it splits the rows."""
+    the tile, C = 8, odd spatial dims at stride 2, one split and many, each
+    of its four tiles, x at storage offset 1 (the element path; 1e-4 of the
+    largest |dw|); each call launches the partial pass once and the
+    reduction pass once when its plan leaves more than one partial (a
+    cluster of 2 splits sums its tiles on chip into one), and a rerun gives
+    the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     r = np.random.default_rng(17)
     for N, H, W, C, O, s in [(3, 7, 9, 24, 40, 1), (5, 10, 10, 8, 16, 1),
                              (3, 7, 9, 24, 40, 2), (16, 14, 14, 256, 1024, 1),
-                             (8, 14, 14, 512, 256, 2)]:
+                             (8, 14, 14, 512, 256, 2), (4, 11, 13, 64, 256, 2),
+                             (6, 12, 12, 256, 64, 1)]:
         Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
         x = torch.from_numpy(r.standard_normal((N, H, W, C))
                              .astype(np.float32)).cuda().bfloat16()
         g = torch.from_numpy(r.standard_normal((N, Ho, Wo, O))
                              .astype(np.float32)).cuda().bfloat16()
-        before = (hc.conv1x1_wgrad_launches, hc.conv1x1_wgrad_reduce_launches)
-        got = hc.conv1x1_wgrad(x, g, s)
-        want = hc.conv1x1_wgrad_plain(x, g, s)
-        torch.cuda.synchronize()
-        split = hc.conv1x1_wgrad_splits(N * Ho * Wo, C, O, sms) > 1
-        assert (hc.conv1x1_wgrad_launches,
-                hc.conv1x1_wgrad_reduce_launches) == \
-            (before[0] + 1, before[1] + split)
-        err = (got - want).abs().max().item() / want.abs().max().item()
-        assert err <= 1e-4, (N, H, W, C, O, s, err)
+        for xin in (x, _at_offset_1(x)):
+            before = (hc.conv1x1_wgrad_launches,
+                      hc.conv1x1_wgrad_reduce_launches)
+            got = hc.conv1x1_wgrad(xin, g, s)
+            want = hc.conv1x1_wgrad_plain(xin, g, s)
+            torch.cuda.synchronize()
+            split = hc.conv1x1_wgrad_plan(
+                N * Ho * Wo, C, O, sms).workspace is not None
+            assert (hc.conv1x1_wgrad_launches,
+                    hc.conv1x1_wgrad_reduce_launches) == \
+                (before[0] + 1, before[1] + split)
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            assert err <= 1e-4, (N, H, W, C, O, s, err)
+            assert torch.equal(got, hc.conv1x1_wgrad(xin, g, s))
 
 
 # --------------------------------------------------------------------------
@@ -612,12 +621,31 @@ def test_bf16_load_path_follows_alignment():
         (128, True, 128, False)
 
 
+def _split_sum(parts):
+    """The fixed order of ``csrc/split_sum.cuh`` over (splits, ...)
+    partials: up to 8 contiguous groups of splits, each summed in split
+    order from zero, then the group sums in group order."""
+    splits = parts.shape[0]
+    groups = min(splits, 8)
+    per = -(-splits // groups)
+    sums = []
+    for grp in range(groups):
+        acc = torch.zeros_like(parts[0])
+        for k in range(grp * per, min(splits, (grp + 1) * per)):
+            acc = acc + parts[k]
+        sums.append(acc)
+    out = sums[0]
+    for acc in sums[1:]:
+        out = out + acc
+    return out
+
+
 def _walk_wgrad_bf16_plan(x, dy, pads, KH, KW, plan):
     """The bf16 wgrad kernel's arithmetic in plain PyTorch: for each split
     of the plan, each tap's input rows gathered by the kernel's own index
     math (pixel of row m, shifted by the tap, zero off the image), the fp32
     partial x_tapᵀ @ dy over the split's rows, then the partials summed in
-    split order."""
+    the split sum's order."""
     N, H, W, C = x.shape
     O = dy.shape[-1]
     Ho, Wo = hc._out_hw(H, W, KH, KW, pads)
@@ -635,10 +663,7 @@ def _walk_wgrad_bf16_plan(x, dy, pads, KH, KW, plan):
             rows = xf[n, hi.clamp(0, H - 1), wi.clamp(0, W - 1)]
             rows = rows * ok[:, None]
             parts[s, tap] = rows.t() @ g[m]
-    out = parts[0]
-    for s in range(1, plan.splits):
-        out = out + parts[s]
-    return out
+    return _split_sum(parts)
 
 
 @pytest.mark.parametrize("N,H,W,C,O,taps,pads", [
@@ -663,6 +688,235 @@ def test_wgrad_bf16_plan_walk_matches_pallas_kernel(N, H, W, C, O, taps,
                                atol=BF16_WGRAD_TOL)
 
 
+# --------------------------------------------------------------------------
+# the redesigned fp32 wgrad (taps_wgrad.cu) and kernel 12 (conv1x1_wgrad.cu):
+# their host plans, and plain walks of them against the reference kernels
+# --------------------------------------------------------------------------
+# the 4 Gluon ResNet-50 v1 3x3 shapes, (C = O, H = W)
+GLUON_3X3 = [(64, 56), (128, 28), (256, 14), (512, 7)]
+# ResNet-50 v1's 15 1x1 shapes of a training step, (C, O, output H = W,
+# stride)
+RESNET50_1X1 = [(64, 64, 56, 1), (64, 256, 56, 1), (256, 64, 56, 1),
+                (256, 128, 28, 2), (256, 512, 28, 2), (128, 512, 28, 1),
+                (512, 128, 28, 1), (512, 256, 14, 2), (512, 1024, 14, 2),
+                (256, 1024, 14, 1), (1024, 256, 14, 1), (1024, 512, 7, 2),
+                (1024, 2048, 7, 2), (512, 2048, 7, 1), (2048, 512, 7, 1)]
+
+
+def _assert_deals_every_row_once(M, splits, rows, stage, cluster=1):
+    """Every row in exactly one split, rows in whole stages, every split
+    with rows but a cluster's last, which may pad the splits to a whole
+    number of clusters."""
+    assert rows % stage == 0 and splits >= 1 and splits % cluster == 0
+    owner = np.zeros(M, np.int64)
+    for s in range(splits):
+        lo, hi = s * rows, min((s + 1) * rows, M)
+        assert lo < hi or (cluster > 1 and s == splits - 1)
+        owner[lo:hi] += 1
+    assert (owner == 1).all()
+
+
+@pytest.mark.parametrize("batch", [32, 128])
+@pytest.mark.parametrize("C,H", GLUON_3X3)
+def test_fp32_wgrad_plan_deals_every_row_once(C, H, batch):
+    """At the main path's shapes: every row in exactly one split, every
+    split with rows and at least 8 whole 16-row stages, the 64-channel tile
+    with 3 taps a block only where the channels are 64, at least a block
+    for every SM, and a workspace only when the rows are split."""
+    M = batch * H * H
+    plan = hc.wgrad_fp32_plan(M, C, C, 3, 3, H100_SMS, (0, 256))
+    _assert_deals_every_row_once(M, plan.splits, plan.rows, 16)
+    assert plan.splits == 1 or plan.rows >= 8 * 16
+    assert plan.tile == (64 if C == 64 else 128) and plan.vec
+    taps = 3 if plan.tile == 64 else 1
+    assert plan.grid == ((C // plan.tile) ** 2, 3 * (3 // taps), plan.splits)
+    assert plan.workspace == ((plan.splits, 9, C, C) if plan.splits > 1
+                              else None)
+    # not under one wave at 2 blocks an SM, where the rows allow it
+    assert plan.grid[0] * plan.grid[1] * plan.splits >= H100_SMS
+
+
+@pytest.mark.parametrize("N,H,W,C,O", RAGGED_BF16 + [(2, 5, 7, 72, 130)])
+@pytest.mark.parametrize("KH,KW", [(3, 3), (2, 2), (1, 5)])
+def test_fp32_wgrad_plan_deals_every_tap_and_row_once(N, H, W, C, O, KH, KW):
+    """Ragged shapes: every row in exactly one split, every (tap, channel
+    tile) in exactly one block of the grid, 16-byte copies only for C and
+    O multiples of 4 on aligned operands."""
+    M = N * H * W
+    plan = hc.wgrad_fp32_plan(M, C, O, KH, KW, H100_SMS)
+    _assert_deals_every_row_once(M, plan.splits, plan.rows, 16)
+    taps = 3 if plan.tile == 64 else 1
+    assert plan.tile == (64 if min(C, O) <= 64 else 128)
+    seen = np.zeros((KH * KW, -(-C // plan.tile), -(-O // plan.tile)), int)
+    ctiles = -(-C // plan.tile)
+    for bx in range(plan.grid[0]):
+        for by in range(plan.grid[1]):
+            dh, dw0 = by // -(-KW // taps), (by % -(-KW // taps)) * taps
+            for t in range(min(taps, KW - dw0)):
+                seen[dh * KW + dw0 + t, bx % ctiles, bx // ctiles] += 1
+    assert (seen == 1).all()
+    assert plan.vec == (C % 4 == 0 and O % 4 == 0)
+    assert not hc.wgrad_fp32_plan(M, C, O, KH, KW, H100_SMS, (4, 0)).vec
+
+
+@pytest.mark.parametrize("C,O,H,stride", RESNET50_1X1)
+def test_conv1x1_wgrad_plan_deals_every_row_once(C, O, H, stride):
+    """At the 15 1x1 shapes of a batch-128 step: every row in exactly one
+    split, every split at least 4 whole 64-row stages, one wave of one
+    block an SM, split rows in clusters of 2 (half as many partials), the
+    64 x 256 / 256 x 64 tiles at the 64 <-> 256 layers (x and g read once)
+    and 256 x 128 / 128 x 256, the 256 along the wider side, where both
+    sides are wider."""
+    M = 128 * H * H
+    plan = hc.conv1x1_wgrad_plan(M, C, O, H100_SMS, (0, 256))
+    assert plan.cluster == (2 if plan.splits > 1 else 1)
+    _assert_deals_every_row_once(M, plan.splits, plan.rows, 64, plan.cluster)
+    assert plan.splits == 1 or plan.rows >= 4 * 64
+    want = {(64, 64): (64, 64), (64, 256): (64, 256), (256, 64): (256, 64)}
+    assert plan.tile == want.get((C, O), (256, 128) if C >= O
+                                 else (128, 256)) and plan.vec
+    tiles = (C // plan.tile[0]) * (O // plan.tile[1])
+    assert plan.grid == (tiles, plan.splits)
+    # one wave of one block an SM, less what whole stages round away
+    assert H100_SMS // 2 < tiles * plan.splits <= H100_SMS \
+        or plan.splits == 1
+    assert plan.workspace == ((plan.splits // 2, C, O) if plan.splits > 2
+                              else None)
+
+
+def test_conv1x1_wgrad_plan_at_ragged_and_misaligned_inputs():
+    """Rows off the stage and few rows: still every row once; a misaligned
+    operand takes the element path."""
+    for M in (1, 31, 65, 765, 5000):
+        for C, O in ((8, 8), (24, 40), (136, 72), (64, 512), (512, 136)):
+            plan = hc.conv1x1_wgrad_plan(M, C, O, H100_SMS)
+            _assert_deals_every_row_once(M, plan.splits, plan.rows, 64,
+                                         plan.cluster)
+    assert not hc.conv1x1_wgrad_plan(100, 64, 64, H100_SMS, (2, 16)).vec
+
+
+def _walk_wgrad_fp32_plan(x, dy, pads, KH, KW, plan):
+    """The fp32 wgrad kernel's arithmetic in plain PyTorch, block by block
+    of the plan's grid: for each split, channel tile and group of taps, the
+    tap's input rows gathered by the kernel's index math (pixel of row m,
+    shifted by the tap, zero off the image), the partial x_tapᵀ @ dy over the
+    split's rows and the tile's channels; every output element written by
+    exactly one block of each split; then the split sum."""
+    N, H, W, C = x.shape
+    O = dy.shape[-1]
+    Ho, Wo = hc._out_hw(H, W, KH, KW, pads)
+    M = N * Ho * Wo
+    (pt, _), (pl, _) = pads
+    T = plan.tile
+    taps = 3 if T == 64 else 1
+    groups, ctiles = -(-KW // taps), -(-C // T)
+    parts = torch.full((plan.splits, KH * KW, C, O), float("nan"))
+    for s in range(plan.grid[2]):
+        m = torch.arange(s * plan.rows, min((s + 1) * plan.rows, M))
+        n, rem = m // (Ho * Wo), m % (Ho * Wo)
+        g = dy.reshape(M, O)[m]
+        for bx in range(plan.grid[0]):
+            c0, o0 = (bx % ctiles) * T, (bx // ctiles) * T
+            for by in range(plan.grid[1]):
+                dh, dw0 = by // groups, (by % groups) * taps
+                for tap in range(dh * KW + dw0, dh * KW + min(KW, dw0 + taps)):
+                    hi = rem // Wo + tap // KW - pt
+                    wi = rem % Wo + tap % KW - pl
+                    ok = (hi >= 0) & (hi < H) & (wi >= 0) & (wi < W)
+                    rows = x[n, hi.clamp(0, H - 1), wi.clamp(0, W - 1),
+                             c0:c0 + T] * ok[:, None]
+                    assert parts[s, tap, c0:c0 + T, o0:o0 + T].isnan().all()
+                    parts[s, tap, c0:c0 + T, o0:o0 + T] = \
+                        rows.t() @ g[:, o0:o0 + T]
+    assert not parts.isnan().any()
+    return _split_sum(parts)
+
+
+@pytest.mark.parametrize("N,H,W,C,O,taps,pads,splits", [
+    (3, 14, 14, 8, 16, 3, hc.S1_PADS, 5),   # 588 rows, ragged last split
+    (2, 6, 8, 12, 8, 2, hc.S2_PADS, 1),     # space-to-depth form: 2x2 taps
+    (2, 5, 7, 72, 130, 3, hc.S1_PADS, 1),   # 128-channel tiles, 2 of O
+])
+def test_wgrad_fp32_plan_walk_matches_pallas_kernel(N, H, W, C, O, taps,
+                                                    pads, splits):
+    """The plain walk of the fp32 wgrad plan (grid, row ranges, halo, split
+    sum) against the reference's Pallas wgrad (``_wgrad_kernel`` per grid
+    step in interpret mode) on the same fp32 inputs, within 1e-4 of the
+    largest |dw|."""
+    r = np.random.default_rng(20)
+    Ho, Wo = hc._out_hw(H, W, taps, taps, pads)
+    x = r.standard_normal((N, H, W, C)).astype(np.float32)
+    g = r.standard_normal((N, Ho, Wo, O)).astype(np.float32)
+    plan = hc.wgrad_fp32_plan(N * Ho * Wo, C, O, taps, taps, H100_SMS)
+    assert plan.splits == splits
+    want, _ = _pallas_wgrad_s1(jnp.asarray(x), jnp.asarray(g), pads, taps,
+                               taps)
+    got = _walk_wgrad_fp32_plan(torch.from_numpy(x), torch.from_numpy(g),
+                                pads, taps, taps, plan)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy() / scale, want / scale, rtol=RTOL,
+                               atol=ATOL)
+
+
+def _walk_conv1x1_wgrad_plan(x, g, stride, plan):
+    """Kernel 12's arithmetic in plain PyTorch, block by block of the
+    plan's grid: for each split and channel tile, the x rows of the split's
+    output pixels (n, i, j) at (n, s*i, s*j), the fp32 partial x_rowsᵀ @
+    g_rows over the tile's channels, each output element written once per
+    split (zeros for a cluster's empty last split); each cluster's partials
+    summed in rank order; then the split sum."""
+    N, H, W, C = x.shape
+    _, Ho, Wo, O = g.shape
+    M = N * Ho * Wo
+    bc, bo = plan.tile
+    ctiles = -(-C // bc)
+    parts = torch.full((plan.splits, C, O), float("nan"))
+    for s in range(plan.grid[1]):
+        m = torch.arange(min(s * plan.rows, M), min((s + 1) * plan.rows, M))
+        n, i, j = m // (Ho * Wo), m % (Ho * Wo) // Wo, m % Wo
+        xr = x[n, stride * i, stride * j].float()
+        gr = g.reshape(M, O)[m].float()
+        for bx in range(plan.grid[0]):
+            c0, o0 = (bx % ctiles) * bc, (bx // ctiles) * bo
+            assert parts[s, c0:c0 + bc, o0:o0 + bo].isnan().all()
+            parts[s, c0:c0 + bc, o0:o0 + bo] = \
+                xr[:, c0:c0 + bc].t() @ gr[:, o0:o0 + bo]
+    assert not parts.isnan().any()
+    cl = plan.cluster
+    clustered = torch.zeros((plan.splits // cl, C, O))
+    for r in range(cl):
+        clustered = clustered + parts[r::cl]
+    return _split_sum(clustered)
+
+
+@pytest.mark.parametrize("stride,N,H,W,C,O,TR,splits", [
+    (1, 4, 11, 35, 16, 24, 220, 6),    # 1,540 rows: 5 splits, the last
+                                       # ragged, and an empty 6th closing
+                                       # the last cluster
+    (2, 3, 29, 33, 16, 24, 85, 2),     # the probe's x[:, ::2, ::2] rows
+    (1, 2, 8, 8, 136, 72, 32, 1),      # 128 x 128 tiles, 2 of C
+    (1, 3, 8, 8, 520, 136, 64, 1),     # 256 x 128 tiles, 3 x 2 of them
+])
+def test_conv1x1_wgrad_plan_walk_matches_probe_kernel(stride, N, H, W, C, O,
+                                                      TR, splits):
+    """The plain walk of kernel 12's plan (grid, strided rows, split sum)
+    against the probe's Pallas ``wgrad_kernel`` in interpret mode on the
+    same bf16 inputs, within 1e-5 of the largest |dw|, as
+    test_conv1x1_wgrad_plain_matches_probe_kernel."""
+    r = np.random.default_rng(21)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    xj, xt = _bf16(r.standard_normal((N, H, W, C)) * 0.1)
+    gj, gt = _bf16(r.standard_normal((N, Ho, Wo, O)) * 0.1)
+    plan = hc.conv1x1_wgrad_plan(N * Ho * Wo, C, O, H100_SMS)
+    assert plan.splits == splits
+    want = _probe_wgrad(xj[:, ::stride, ::stride, :].reshape(-1, C),
+                        gj.reshape(-1, O), TR)
+    got = _walk_conv1x1_wgrad_plan(xt, gt, stride, plan)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy() / scale, want / scale, rtol=0,
+                               atol=BF16_WGRAD_TOL)
+
+
 class _FakeKernel:
     """Stands in for a ctypes function: records its arguments, reports the
     launches a real entry point would and returns 0."""
@@ -670,12 +924,20 @@ class _FakeKernel:
     def __init__(self, name, calls):
         self.name, self.calls = name, calls
 
+    #: the positions of ``splits`` and of the splits summed on chip (none:
+    #: one) in each wgrad entry point's arguments
+    SPLITS_ARG = {"mxtt_taps_wgrad": (16, None),
+                  "mxtt_taps_wgrad_bf16": (15, None),
+                  "mxtt_conv1x1_wgrad": (14, 16)}
+
     def __call__(self, *args):
         self.calls.append((self.name, args))
-        if "wgrad" in self.name:
+        if self.name in self.SPLITS_ARG:
+            at, cluster_at = self.SPLITS_ARG[self.name]
+            cluster = 1 if cluster_at is None else args[cluster_at]
             launched = args[-1]
-            splits = args[15] if self.name.endswith("bf16") else args[16]
-            launched[0], launched[1] = 1, int(splits > 1)
+            launched[0] = 1
+            launched[1] = int(args[at] // cluster > 1)
         return 0
 
 
@@ -701,21 +963,24 @@ def fake_kernels(monkeypatch):
         return _FakeLib(calls)
 
     monkeypatch.setattr(_build, "load", load)
-    for attr in ("_fn", "_wgrad_fn", "_conv_bf16_fn", "_wgrad_bf16_fn"):
+    for attr in ("_fn", "_wgrad_fn", "_conv_bf16_fn", "_wgrad_bf16_fn",
+                 "_w1x1_fn"):
         monkeypatch.setattr(hc, attr, None)
     monkeypatch.setattr(hc, "_stream", lambda device: 0)
     monkeypatch.setattr(hc, "_sm_count", lambda device: H100_SMS)
     for attr in ("launches", "launches_bf16", "wgrad_launches",
                  "wgrad_reduce_launches", "wgrad_launches_bf16",
-                 "wgrad_reduce_launches_bf16"):
+                 "wgrad_reduce_launches_bf16", "conv1x1_wgrad_launches",
+                 "conv1x1_wgrad_reduce_launches"):
         monkeypatch.setattr(hc, attr, 0)
     return calls, loaded
 
 
 def test_cuda_arms_pick_the_library_by_dtype(fake_kernels):
     """bf16 goes to taps_conv_bf16 / taps_wgrad_bf16 with the host plan's
-    tile, split and load path; fp32 to implicit_gemm_conv / taps_wgrad with
-    dtype code 0; the bf16 counters count only the bf16 launches."""
+    tile, split and load path; fp32 to implicit_gemm_conv (dtype code 0) /
+    taps_wgrad with its plan's tile, split, rows and load path; the bf16
+    counters count only the bf16 launches."""
     calls, loaded = fake_kernels
     N, H, C, O = 128, 14, 256, 256
     for dtype in (torch.bfloat16, torch.float32):
@@ -737,7 +1002,11 @@ def test_cuda_arms_pick_the_library_by_dtype(fake_kernels):
     assert wgrad16[4:18] == (N, H, H, C, O, 3, 3, 1, 1, H, H, wplan.splits,
                              wplan.rows, 1)
     assert wgrad16[3] is not None      # the workspace of the 8 splits
-    assert conv32[3] == 0 and wgrad32[4] == 0      # dtype code: float32
+    assert conv32[3] == 0              # dtype code: float32
+    fplan = hc.wgrad_fp32_plan(N * H * H, C, O, 3, 3, H100_SMS)
+    assert wgrad32[4:19] == (N, H, H, C, O, 3, 3, 1, 1, H, H, 128,
+                             fplan.splits, fplan.rows, 1)
+    assert fplan.splits > 1 and wgrad32[3] is not None
     assert (hc.launches, hc.launches_bf16) == (2, 1)
     assert (hc.wgrad_launches, hc.wgrad_launches_bf16) == (2, 1)
     assert (hc.wgrad_reduce_launches, hc.wgrad_reduce_launches_bf16) == (2, 1)
@@ -779,3 +1048,46 @@ def test_bf16_cuda_arm_takes_the_element_path_when_misaligned(fake_kernels):
     conv, wgrad, conv3 = (c[1] for c in calls)
     assert conv[15] == 0 and wgrad[17] == 0 and conv3[15] == 0
     assert hc.launches_bf16 == 2 and hc.wgrad_launches_bf16 == 1
+
+
+def test_fp32_wgrad_cuda_arm_takes_the_4_byte_path_when_misaligned(
+        fake_kernels):
+    """An fp32 view at storage offset 1 (4 bytes off a 16-byte boundary)
+    and a channel count off 4 reach taps_wgrad with vec = 0 and the plan's
+    tile, never the plain version."""
+    calls, loaded = fake_kernels
+    buf = torch.zeros(3 * 7 * 9 * 24 + 1)
+    x = buf[1:].view(3, 7, 9, 24)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    hc._taps_wgrad_cuda(x, torch.zeros((3, 7, 9, 40)), hc.S1_PADS, 3, 3)
+    hc._taps_wgrad_cuda(torch.zeros((2, 5, 5, 70)),
+                        torch.zeros((2, 5, 5, 130)), hc.S1_PADS, 3, 3)
+    assert loaded == ["taps_wgrad"]
+    (_, small), (_, wide) = calls
+    assert (small[15], small[18]) == (64, 0)
+    assert (wide[15], wide[18]) == (128, 0)
+    assert hc.wgrad_launches == 2 and hc.wgrad_launches_bf16 == 0
+
+
+def test_conv1x1_wgrad_cuda_arm_follows_the_plan(fake_kernels):
+    """Kernel 12's CUDA arm passes the plan's tile, splits, rows and
+    cluster, the workspace when it splits, and the element path (vec = 0)
+    for an operand off a 16-byte boundary, which no longer raises."""
+    calls, loaded = fake_kernels
+    N, H, C, O = 128, 56, 64, 256
+    x = torch.zeros((N, H, H, C), dtype=torch.bfloat16)
+    g = torch.zeros((N, H, H, O), dtype=torch.bfloat16)
+    assert hc._conv1x1_wgrad_cuda(x, g, 1).shape == (C, O)
+    buf = torch.zeros(2 * 7 * 9 * 16 + 1, dtype=torch.bfloat16)
+    xm = buf[1:].view(2, 7, 9, 16)
+    hc._conv1x1_wgrad_cuda(xm, torch.zeros((2, 4, 5, 24),
+                                           dtype=torch.bfloat16), 2)
+    assert loaded == ["conv1x1_wgrad"]
+    (_, big), (_, small) = calls
+    plan = hc.conv1x1_wgrad_plan(N * H * H, C, O, H100_SMS)
+    assert big[4:18] == (N, H, H, C, O, H, H, 1, 64, 256, plan.splits,
+                         plan.rows, 2, 1)
+    assert big[3] is not None and plan.splits > 2
+    assert small[4:12] == (2, 7, 9, 16, 24, 4, 5, 2) and small[17] == 0
+    assert (hc.conv1x1_wgrad_launches,
+            hc.conv1x1_wgrad_reduce_launches) == (2, 1)
