@@ -8,6 +8,8 @@ directory; each is measured in a process of its own, in the order given
 ``chip_smoke.py`` beside this script.  It needs a CUDA card.
 
     python3 chip_ab.py steps TREE...   # ResNet-50 training steps
+    python3 chip_ab.py served TREE...  # the batch-32 fp32 served forward
+    python3 chip_ab.py infer16 TREE... # the batch-128 bf16 inference forward
     python3 chip_ab.py w1x1 TREE...    # kernel 12 at a bf16 step's 15 shapes
     python3 chip_ab.py stream          # host cost of a stream handle
 
@@ -15,7 +17,16 @@ directory; each is measured in a process of its own, in the order given
 ``FusedTrainer`` (SGD lr 0.1, momentum 0.9, ``chip_smoke.gluon_resnet50``'s
 weights and batch): fp32 at batch 32 (``chip_smoke.py``'s phase 5) and
 bf16 at batch 128 (phase 14); the median timed step gives images/s, and two
-profiled steps the device busy time and the idle share.  ``w1x1`` times
+profiled steps the device busy time and the idle share.  ``served`` runs
+the served ResNet-50 (``chip_smoke.resnet50_probs``' graph and weights)
+through a ``Predictor`` at batch 32, fp32, as the server runs a batch
+(host copy in, forward, host copy out; ``chip_smoke.py``'s phase 4):
+images/s from the median timed forward, and two profiled forwards the
+busy time, the idle share and kernel 1's share (its convolution and split
+sum).  ``infer16`` binds ``chip_smoke._bf16_module``'s bf16 Module
+(``bench.py --bf16``'s, under ``MXNET_TPU_BF16``) and times its inference
+forward at batch 128 (phase 16's, every identity bottleneck on kernel 13):
+images/s, busy time, idle share and kernel 13's share.  ``w1x1`` times
 kernel 12 (``hopper_conv.conv1x1_wgrad``) at the 15 shapes of
 ``chip_smoke.RESNET50_1X1`` at batch 128, each checked against its plain
 version.  Each checkout prints one line ``AB {json}``.  ``stream`` prints
@@ -77,6 +88,69 @@ def steps(tree):
             "bf16_b128": run(128, "bfloat16")}
 
 
+def _forward_profile(cs, step, step_ms, names):
+    """Busy ms a call of ``step`` over two profiled calls, the idle share
+    against ``step_ms``, and the busy ms of the kernels whose names hold
+    one of ``names``."""
+    n = 2
+    kernels, _ = cs.profiled_kernels(step, n)
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / n / 1e3
+    mine = sum(e.time_range.elapsed_us() for e in kernels
+               if any(k in e.name for k in names)) / n / 1e3
+    return {"busy_ms": busy, "idle": max(0.0, 1 - busy / step_ms),
+            "kernel_ms": mine}
+
+
+def served(tree):
+    import numpy as np
+    import torch
+    cs = _smoke(tree)
+    from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.weights import from_jax_params
+    probs, params = cs.resnet50_probs()
+    shape = (cs.BATCH, 3, 224, 224)
+    pred = Predictor(probs.tojson(), from_jax_params(params, gpu(0)),
+                     ctx=gpu(0), input_shapes={"data": shape})
+    feed = np.random.default_rng(cs.SEED + 2).standard_normal(shape) \
+        .astype(np.float32)
+
+    def step():
+        return pred.forward(data=feed)[0].asnumpy()
+    times = cs.timed_steps(step)
+    step_ms = float(np.median(times)) * 1e3
+    out = {"card": cs.card_line(), "forward_ms": step_ms,
+           "images_per_s": cs.BATCH / step_ms * 1e3,
+           "forwards_ms": [round(t * 1e3, 3) for t in times]}
+    out.update(_forward_profile(cs, step, step_ms,
+                                ("taps_conv_kernel", "fp32_3x3_conv")))
+    torch.cuda.synchronize()
+    return out
+
+
+def infer16(tree):
+    import numpy as np
+    import torch
+    cs = _smoke(tree)
+    from mxnet_tpu_torch import gpu
+    mod = cs._bf16_module(gpu(0), True)
+    batch, _ = cs._bf16_batch(gpu(0))
+
+    def step():
+        mod.forward(batch, is_train=False)
+        mod.get_outputs()[0].wait_to_read()
+    step()
+    times = cs.timed_steps(step)
+    step_ms = float(np.median(times)) * 1e3
+    B = cs.BF16MOD["batch"]
+    out = {"card": cs.card_line(), "forward_ms": step_ms,
+           "images_per_s": B / step_ms * 1e3,
+           "forwards_ms": [round(t * 1e3, 3) for t in times]}
+    out.update(_forward_profile(cs, step, step_ms, ("fused_bottleneck",)))
+    torch.cuda.synchronize()
+    return out
+
+
 def w1x1(tree):
     import torch
     cs = _smoke(tree)
@@ -121,7 +195,8 @@ def stream():
 
 
 def main(argv):
-    modes = {"steps": steps, "w1x1": w1x1}
+    modes = {"steps": steps, "served": served, "infer16": infer16,
+             "w1x1": w1x1}
     if len(argv) == 4 and argv[1] == "--one":
         tree = os.path.abspath(argv[3])
         print("AB " + json.dumps(dict(modes[argv[2]](tree), tree=argv[3])),

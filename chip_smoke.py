@@ -8,21 +8,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. build: compile every CUDA kernel source of the port with nvcc, all at
    once, and print the build seconds and ptxas' register/shared-memory use.
 2. kernels: at each of the 7 distinct 3x3 convolution shapes of a
-   ResNet-50 forward, batch 32, fp32, run the hand-written implicit-GEMM
-   kernel (through ``hopper_conv``) against its plain PyTorch version on
-   the same CUDA tensors, within rtol = atol = 1e-4.  Print the kernel's,
-   the plain version's and cuDNN's time (``F.conv2d``, the yardstick only:
-   the port never calls it for these shapes) and the bound.
+   ResNet-50 forward, batch 32, fp32 (the stride-2 ones natively), run the
+   hand-written implicit-GEMM kernel (through ``hopper_conv``) against its
+   plain PyTorch version on the same CUDA tensors, within rtol = atol =
+   1e-4, after ragged, misaligned (storage offset 1: its 4-byte copy path)
+   and odd stride-2 shapes.  Every kernel-1 fp32 call runs twice,
+   bit-equal, launching the convolution once and its split sum once when
+   its plan (``hopper_conv.conv_fp32_plan``) splits the reduction; its
+   blocks an SM at each tile, read on the card, must equal the plan's; at
+   each shape each tile at 1, 2 and the plan's splits is checked and
+   timed, and one stride-2 call is profiled: kernel 1 and its split sum,
+   and no kernel but the weight's layout copy.  Print the plan, the
+   kernel's time, the kernel's before its redesign (quoted), the plain
+   version's and cuDNN's (``F.conv2d``, the yardstick only: the port never
+   calls it for these shapes) and the bound, and their sums over a served
+   forward.
 2b. backward kernels: at each of the 4 stride-1 3x3 shapes of a Gluon
    ResNet-50 v1, batch 32, fp32, kernel 2 (wgrad, ``taps_wgrad.cu``)
    against ``taps_wgrad_plain`` (within 1e-4 of the largest |dw|) and
-   kernel 1 as dgrad (flipped, io-swapped taps) against the plain version
-   (rtol = atol = 1e-4), after ragged shapes (both of kernel 2's tiles, its
-   2x2 space-to-depth form, an x at storage offset 1: its 4-byte copy
-   path); kernel 2 also at batch 128.  Every kernel-2 call runs twice,
-   bit-equal, launching the partial pass once and the reduction pass once
-   when its plan (``hopper_conv.wgrad_fp32_plan``) splits the rows; its
-   blocks an SM, read on the card, must equal the plan's.  Kernel, plain
+   kernel 1 as dgrad (flipped, io-swapped taps; bit-equal reruns, its
+   plan's launches, its time beside the time before its redesign) against
+   the plain version (rtol = atol = 1e-4), after ragged shapes (both of
+   kernel 2's tiles, its 2x2 form with the reference's stride-2 pads, an x
+   at storage offset 1: its 4-byte copy path); kernel 2 also at batch
+   128.  Every kernel-2 call runs twice, bit-equal, launching the partial
+   pass once and the reduction pass once when its plan
+   (``hopper_conv.wgrad_fp32_plan``) splits the rows; its blocks an SM,
+   read on the card, must equal the plan's.  Kernel, plain
    and cuDNN times (``torch.nn.grad.conv2d_weight`` / ``conv2d_input``, the
    yardsticks only), TFLOP/s, the plan's tile and splits and the fp32
    bound, and kernel 2's sums over a batch-32 and a batch-128 step; where
@@ -46,7 +58,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    server's weights are swapped (``swap_params``) for a second seeded set:
    every answer must match the CPU's on the old or the new weights, and no
    executed batch may mix the two.  The kernel launch counter, zeroed just
-   before, must read 16 per executed forward.  Then the gateway: a
+   before, must read 16 per executed forward; each kernel-1 call's shape
+   is noted, and kernel 1's split sums must equal those its plan gives
+   the calls.  Then the gateway: a
    ``ModelRegistry`` of the full-width ResNet-50 (buckets 1-4) and a small
    MLP on gpu(0), routed by name, the HTTP endpoint on 127.0.0.1 port 0
    answering one POST for each model, and a swap through the registry,
@@ -61,9 +75,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    batch (loss within rtol 1e-4, each 3x3 weight's update within 5% of
    its norm); then 2 warm-up and 10 timed steps give train images/s.  The
    launch counters, zeroed just before the first step, must read per step
-   32 kernel-1 launches, 16 launches of kernel 2's partial pass and one
-   launch of its reduction pass for each of those 16 whose rows its plan
-   splits (all 16 on a 132-SM card).
+   32 kernel-1 launches with one split sum for each whose reduction its
+   plan splits (18 on a 132-SM card), 16 launches of kernel 2's partial
+   pass and one launch of its reduction pass for each of those 16 whose
+   rows its plan splits (all 16 on a 132-SM card).
 6. training profile: two steps under torch.profiler, device time and
    launches by group (kernel 1 forward, kernel 1 dgrad, kernel 2's two
    passes, cuDNN, BatchNorm and elementwise, layout copies, optimizer),
@@ -189,8 +204,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bf16, rtol 2^-7, atol 1e-4 of the largest |value|; ``taps_wgrad_bf16.cu``
    against ``taps_wgrad_plain``, 1e-4 of the largest |dw|) at ragged
    shapes (N 3 7x9 C 24 O 40; N 2 5x5 C 3 O 8; N 5 33x31 C 24 O 40, rows
-   off the stage and the tile), the stride-2 class through ``conv3x3_s2``
-   (N 2 10x10 C 8 O 16; kernel 2 at its space-to-depth form) and an ``x``
+   off the stage and the tile), the stride-2 class at stride 2 (N 2
+   10x10 C 8 O 16 through ``conv3x3_s2``, N 3 14x10 C 24 O 48; kernel 2 at
+   2x2 taps) and an ``x``
    at storage offset 1 (the element path; kernel 1 also at 28x28 with 128
    channels at batch 128, at both of its tiles), each call launching the
    bf16 kernel once, kernel 2 twice on the same inputs with bit-equal
@@ -240,9 +256,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    v1's 4 identity-bottleneck shapes at batch 128 (56x56/256/64,
    28x28/512/128, 14x14/1024/256, 7x7/2048/512), the probe's own (N 32,
    28x28, 512/128) and two ragged ones (N 1 at 9x11; a narrow 128/32 block
-   at 15x17): within one bf16 step (rtol 2^-7) plus 1e-3 of the largest
-   |out|.  Each with its time beside the plain version's, the bound (bytes
-   over 3.35 TB/s or FLOPs over 989 TFLOP/s) and the unfused cuDNN bf16
+   at 15x17), and each arm of its plan (``hopper_block.
+   fused_bottleneck_plan``: warps along a chunk's rows, band rows, ring
+   depth, h2 over h1 or apart) forced at N 3, 9x11, 128/64: within one
+   bf16 step (rtol 2^-7) plus 1e-3 of the largest |out|, every call twice
+   and bit-equal, one launch a call; the card's shared memory a block
+   against the plan's limit and one block an SM at each plan's layout.
+   Each with its time beside the time before its redesign (quoted) and
+   the plain version's, the bound (bytes over 3.35 TB/s or FLOPs over 989
+   TFLOP/s) and the unfused cuDNN bf16
    sequence on the same folded weights (three channels-last ``F.conv2d``
    with bias, ReLU and the residual as elementwise ops; the yardstick
    only).
@@ -425,13 +447,120 @@ def phase_build():
     return info
 
 
+# kernel 1 fp32's times in the last run of this script before its redesign
+# ("NVIDIA H100 80GB HBM3, 700.00 W"), ms a call at batch 32: the
+# served forward's 7 shapes and the Gluon dgrad's 4 (by C = O); the record
+# printed beside this run's times
+BEFORE_K1_MS = {("s1", 64, 56): 0.3052, ("s1", 128, 28): 0.3184,
+              ("s1", 256, 14): 0.4047, ("s1", 512, 7): 0.4758,
+              ("s2", 128, 56): 0.7376, ("s2", 256, 28): 0.7681,
+              ("s2", 512, 14): 1.0056}
+BEFORE_DGRAD_MS = {64: 0.3099, 128: 0.3125, 256: 0.4070, 512: 0.4839}
+# kernel 1 fp32 at ragged and misaligned shapes, (N, H, W, C, O, stride):
+# channels off the 4-channel copy and the tiles, C = 3, odd maps at stride 2
+RAGGED_FP32_CONV = [(3, 7, 9, 20, 70, 1), (1, 1, 1, 3, 5, 1),
+                    (5, 12, 10, 33, 129, 2), (2, 14, 14, 256, 256, 2),
+                    (3, 9, 11, 24, 40, 2)]
+
+
+def _conv_fp32_occupancy_checks(hc, dev):
+    """The blocks an SM holds of kernel 1 fp32 at each tile and load path,
+    read on the card, against what its plan assumes."""
+    import ctypes
+    from mxnet_tpu_torch import _build
+    lib = _build.load("implicit_gemm_conv")
+    n = ctypes.c_int()
+    got = {}
+    for bm, bn, per_sm, _ in hc._CONV_FP32_TILES:
+        for vec in (0, 1):
+            check(lib.mxtt_taps_conv_occupancy(bm, bn, vec, dev.index,
+                                               ctypes.byref(n)) == 0,
+                  "occupancy query of implicit_gemm_conv failed")
+            got["%dx%d vec %d" % (bm, bn, vec)] = (n.value, per_sm)
+    print("[kernels] kernel 1 (fp32) blocks an SM holds (card, plan): %s"
+          % got)
+    check(all(card == plan for card, plan in got.values()),
+          "kernel 1 (fp32)'s occupancy differs from its plan's: %s" % got)
+    return {k: v[0] for k, v in got.items()}
+
+
+def _conv_fp32_call(hc, x, taps, stride, plan, label):
+    """Kernel 1 fp32 at ``plan`` (None: the shape's own) against
+    ``taps_conv_plain`` on the same card tensors, run twice: within
+    KERNEL_TOL, bit-equal, each call one launch of the convolution and one of
+    its split sum when the plan splits.  Returns (result, plan, max abs
+    error)."""
+    N, H, W, C = x.shape
+    O = taps.shape[2]
+    Ho, Wo = hc._out_hw(H, W, 3, 3, hc.S1_PADS, stride)
+    want = hc.taps_conv_plain(x, taps, hc.S1_PADS, 3, 3, stride)
+    if plan is None:
+        plan = hc.conv_fp32_plan(N * Ho * Wo, C, O, 3, 3, _sms(x.device),
+                                 (x.data_ptr(), taps.data_ptr(), 0))
+    before = (hc.launches, hc.conv_reduce_launches)
+    got = hc._taps_conv_cuda(x, taps, hc.S1_PADS, 3, 3, stride, plan=plan)
+    again = hc._taps_conv_cuda(x, taps, hc.S1_PADS, 3, 3, stride, plan=plan)
+    torch.cuda.synchronize()
+    launched = (hc.launches - before[0], hc.conv_reduce_launches - before[1])
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL),
+          "kernel 1 (fp32) disagrees with its plain version at %s, tile %s, "
+          "%d splits: max abs err %g" % (label, plan.tile, plan.splits, err))
+    check(torch.equal(got, again), "kernel 1 (fp32) gave other bits on the "
+          "same inputs at %s, tile %s, %d splits" % (label, plan.tile,
+                                                     plan.splits))
+    check(launched == (2, 2 * (plan.splits > 1)), "kernel 1 (fp32) at %s "
+          "launched %s (convolution, split sum) in two calls, the plan %s"
+          % (label, launched, plan))
+    return got, plan, err
+
+
+def _ragged_conv_fp32_checks(hc, dev, gen):
+    """Kernel 1 fp32 at ragged shapes and stride 2 natively, each also with
+    x at storage offset 1 (4 bytes off a 16-byte boundary: the 4-byte copy
+    path), bit-equal on reruns."""
+    errs = {}
+    for N, H, W, C, O, stride in RAGGED_FP32_CONV:
+        x = torch.randn(N, H, W, C, device=dev, generator=gen)
+        taps = torch.randn(9, C, O, device=dev, generator=gen) * 0.1
+        for xx in (x, _at_offset_1(x)):
+            label = "N=%d %dx%d C=%d O=%d s%d%s" % (
+                N, H, W, C, O, stride, " offset 1" * (xx is not x))
+            _, plan, err = _conv_fp32_call(hc, xx, taps, stride, None, label)
+            check(plan.vec == (xx is x and C % 4 == 0 and O % 4 == 0),
+                  "kernel 1 (fp32) at %s took the %s path" % (
+                      label, "16-byte" if plan.vec else "4-byte"))
+            errs[label] = err
+    print("[kernels] ragged and misaligned shapes: kernel 1 (fp32) matches "
+          "its plain version, bit-equal on reruns: %s"
+          % ", ".join("%s %.3g" % kv for kv in errs.items()))
+    return errs
+
+
+def _s2_single_launch_check(hc, x, w, plan):
+    """One ``conv3x3_s2`` call under torch.profiler: the convolution kernel
+    once and the plan's split sum, and no copy of the input (the weight's
+    layout copy to taps is the only other kernel)."""
+    kernels, _ = profiled_kernels(lambda: hc.conv3x3_s2(x, w), 1)
+    names = [e.name for e in kernels]
+    convs = [n for n in names if "taps_conv_kernel" in n]
+    sums = [n for n in names if "split_sum_kernel" in n]
+    others = [n for n in names if n not in convs and n not in sums]
+    check(len(convs) == 1 and len(sums) == int(plan.splits > 1)
+          and len(others) <= 1, "a stride-2 call ran %s" % names)
+    return {"kernels": len(names), "others": others}
+
+
 def phase_kernels():
-    """Kernel vs plain at the 7 ResNet-50 3x3 shapes; returns the
-    ``kernels`` entry (without ``launches``)."""
+    """Kernel 1 fp32 vs plain at the 7 ResNet-50 3x3 shapes (stride 2
+    natively), each of its tiles and splits, ragged and misaligned shapes;
+    returns the ``kernels`` entry (without ``launches``)."""
     from mxnet_tpu_torch.ops import hopper_conv as hc
     fp32_exact()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    occupancy = _conv_fp32_occupancy_checks(hc, dev)
+    ragged = _ragged_conv_fp32_checks(hc, dev, gen)
     shapes = []
     for kind, C, H, count in RESNET50_3X3:
         O = C
@@ -443,6 +572,11 @@ def phase_kernels():
             .contiguous(memory_format=torch.channels_last)
         w = torch.randn(O, C, 3, 3, device=dev, generator=gen) \
             / math.sqrt(9 * C)
+        xh, taps = hc._nhwc(x), hc._s1_taps(w, torch.float32)
+        Ho = H // stride
+        M = BATCH * Ho * Ho
+        _, plan, _ = _conv_fp32_call(hc, xh, taps, stride, None,
+                                     "%s C=%d %d px" % (kind, C, H))
         y = fn(x, w)
         yp = plain(x, w)
         yl = F.conv2d(x, w, stride=stride, padding=1)
@@ -451,39 +585,73 @@ def phase_kernels():
         rel = err / yp.abs().max().item()
         err_lib = (y - yl).abs().max().item()
         ok = torch.allclose(y, yp, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        # every tile at 1 split, the plan's split and 2, each checked
+        variants = {}
+        ks = 9 * hc._cdiv(C, hc._CONV_FP32_BK)
+        for bm, bn, _, _ in hc._CONV_FP32_TILES:
+            for splits in sorted({1, 2, plan.splits}):
+                if hc._cdiv(ks, hc._cdiv(ks, splits)) != splits:
+                    continue
+                vp = hc.conv_fp32_plan(M, C, O, 3, 3, _sms(dev), (16, 16, 16),
+                                       tile=(bm, bn), splits=splits)
+                _conv_fp32_call(hc, xh, taps, stride, vp,
+                                "%s C=%d %d px" % (kind, C, H))
+                variants["%dx%d/%d" % (bm, bn, splits)] = time_ms(
+                    lambda: hc._taps_conv_cuda(xh, taps, hc.S1_PADS, 3, 3,
+                                               stride, plan=vp))
         ms = time_ms(lambda: fn(x, w))
         plain_ms = time_ms(lambda: plain(x, w))
         lib_ms = time_ms(lambda: F.conv2d(x, w, stride=stride, padding=1))
-        Ho = H // stride
         flops = 2.0 * BATCH * Ho * Ho * O * C * 9
         bound_ms, bound_by = _bound(
             flops, 4.0 * (x.numel() + w.numel() + BATCH * O * Ho * Ho))
         rec = {"class": kind, "N": BATCH, "C": C, "O": O, "H": H, "W": H,
                "Ho": Ho, "instances_per_forward": count,
+               "tile": list(plan.tile), "splits": plan.splits,
+               "blocks_per_sm": occupancy["%dx%d vec 1" % plan.tile],
+               "bit_equal_rerun": True, "variants_ms": variants,
                "max_abs_err": err, "max_rel_err": rel,
                "max_abs_err_vs_cudnn": err_lib, "tol": KERNEL_TOL,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "gflop": flops / 1e9, "tflops": flops / ms / 1e9}
+        if kind == "s2":
+            rec["profile"] = _s2_single_launch_check(hc, x, w, plan)
         shapes.append(rec)
-        print("[kernels] %s C=O=%d %dx%d->%dx%d N=%d: max_abs_err %.3g "
-              "(rel %.3g, tol %g) vs cuDNN fp32 %.3g | kernel %.4f ms "
-              "(%.1f TFLOP/s), plain %.4f ms, cuDNN %.4f ms, bound %.4f ms "
-              "(%s)" % (kind, C, H, H, Ho, Ho, BATCH, err, rel, KERNEL_TOL,
-                        err_lib, ms, rec["tflops"], plain_ms, lib_ms,
-                        rec["bound_ms"], rec["bound_by"]))
+        print("[kernels] %s C=O=%d %dx%d->%dx%d N=%d (tile %dx%d, %d splits; "
+              "rerun bit-equal): max_abs_err %.3g (rel %.3g, tol %g) vs cuDNN "
+              "fp32 %.3g | kernel %.4f ms (%.1f TFLOP/s; before %.4f), plain "
+              "%.4f ms, cuDNN %.4f ms, bound %.4f ms (%s)"
+              % (kind, C, H, H, Ho, Ho, BATCH, plan.tile[0], plan.tile[1],
+                 plan.splits, err, rel, KERNEL_TOL, err_lib, ms,
+                 rec["tflops"], BEFORE_K1_MS[(kind, C, H)], plain_ms, lib_ms,
+                 rec["bound_ms"], rec["bound_by"]))
+        print("[kernels]   tiles/splits ms: %s%s" % (
+            ", ".join("%s %.4f" % kv for kv in variants.items()),
+            "; a stride-2 call ran %d kernels (other than kernel 1 and its "
+            "split sum: %s)" % (rec["profile"]["kernels"],
+                                rec["profile"]["others"])
+            if kind == "s2" else ""))
         check(ok, "kernel disagrees with its plain version at %s C=%d H=%d: "
               "max abs err %g > tol %g" % (kind, C, H, err, KERNEL_TOL))
-        del x, w, y, yp, yl
+        del x, w, y, yp, yl, xh, taps
     per_fwd = lambda key: sum(s[key] * s["instances_per_forward"]
                               for s in shapes)
+    before_fwd = sum(BEFORE_K1_MS[(s["class"], s["C"], s["H"])]
+                     * s["instances_per_forward"] for s in shapes)
     flops_fwd = per_fwd("gflop") * 1e9
+    print("[kernels] kernel 1 fp32 over a batch-%d served forward's 16 calls: "
+          "%.3f ms (%.1f TFLOP/s; before %.3f), plain %.3f ms, cuDNN %.3f ms, "
+          "bound %.3f ms" % (BATCH, per_fwd("ms"), flops_fwd / per_fwd("ms")
+                             / 1e9, before_fwd, per_fwd("plain_ms"),
+                             per_fwd("library_ms"), per_fwd("bound_ms")))
     return {
         "name": "implicit_gemm_conv",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/implicit_gemm_conv.cu",
         "replaces": "mxnet_tpu/ops/pallas_conv.py:152",
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "max_abs_err": max([s["max_abs_err"] for s in shapes]
+                           + list(ragged.values())),
         # times of the 16 instances of one ResNet-50 forward at batch 32
         "ms": per_fwd("ms"),
         "plain_ms": per_fwd("plain_ms"),
@@ -492,6 +660,8 @@ def phase_kernels():
                                          for s in shapes) else "bytes"),
         "library_ms": per_fwd("library_ms"),
         "tflops_per_forward": flops_fwd / per_fwd("ms") / 1e9,
+        "occupancy": occupancy,
+        "ragged_errs": ragged,
         "shapes": shapes,
     }
 
@@ -709,7 +879,8 @@ def phase_backward_kernels():
 
         # dgrad: kernel 1 on the cotangent with flipped, io-swapped taps
         taps = hc.dgrad_taps(w)
-        got = hc.taps_conv(dy, taps, hc.S1_PADS, 3, 3)
+        got, plan, _ = _conv_fp32_call(hc, dy, taps, 1, None,
+                                       "dgrad C=%d %d px" % (C, H))
         want = hc.taps_conv_plain(dy, taps, hc.S1_PADS, 3, 3)
         lib = torch.nn.grad.conv2d_input(xn.shape, w, dyn, padding=1)
         torch.cuda.synchronize()
@@ -727,13 +898,16 @@ def phase_backward_kernels():
         rec = dict(common, max_abs_err=err, tol=KERNEL_TOL,
                    max_abs_err_vs_cudnn=err_lib, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   tflops=flops / ms / 1e9)
+                   tile=list(plan.tile), splits=plan.splits,
+                   bit_equal_rerun=True, tflops=flops / ms / 1e9)
         dgrad.append(rec)
-        print("[backward] dgrad C=O=%d %dx%d N=%d: max_abs_err %.3g (tol "
-              "%g) vs cuDNN %.3g | kernel %.4f ms (%.1f TFLOP/s), plain "
+        print("[backward] dgrad C=O=%d %dx%d N=%d (kernel 1 fp32, tile %dx%d, "
+              "%d splits; rerun bit-equal): max_abs_err %.3g (tol %g) vs "
+              "cuDNN %.3g | kernel %.4f ms (%.1f TFLOP/s; before %.4f), plain "
               "%.4f ms, cuDNN %.4f ms, bound %.4f ms (%s)"
-              % (C, H, H, BATCH, err, KERNEL_TOL, err_lib, ms, rec["tflops"],
-                 plain_ms, lib_ms, bound_ms, bound_by))
+              % (C, H, H, BATCH, plan.tile[0], plan.tile[1], plan.splits,
+                 err, KERNEL_TOL, err_lib, ms, rec["tflops"],
+                 BEFORE_DGRAD_MS[C], plain_ms, lib_ms, bound_ms, bound_by))
         check(ok, "dgrad disagrees with its plain version at C=%d H=%d: max "
               "abs err %g > tol %g" % (C, H, err, KERNEL_TOL))
         del x, dy, w, got, want, lib
@@ -897,7 +1071,20 @@ def _ragged_bf16_3x3_checks(hc, dev, randn):
                                  3, 3, label)
         errs["k2 " + label] = k2(x, randn(N, H, W, O), hc.S1_PADS, 3, 3,
                                  label)
-    # the stride-2 class: 2x2 taps on 4C channels after space-to-depth
+    # the stride-2 class, at stride 2 on the input (an odd map too)
+    for shape in ((2, 8, 10, 10), (3, 24, 14, 10)):
+        data = randn(*shape)
+        w = randn(2 * shape[1], shape[1], 3, 3, scale=0.2)
+        before = hc.launches_bf16
+        got = hc._taps_conv_cuda(hc._nhwc(data), hc._s1_taps(w, data.dtype),
+                                 hc.S1_PADS, 3, 3, 2)
+        want = hc.taps_conv_plain(hc._nhwc(data), hc._s1_taps(w, data.dtype),
+                                  hc.S1_PADS, 3, 3, 2)
+        torch.cuda.synchronize()
+        ok, err = _bf16_close(got, want)
+        check(ok and hc.launches_bf16 == before + 1, "kernel 1 (bf16) at "
+              "stride 2 at %s: max abs err %g" % (shape, err))
+        errs["k1 s2 %s" % (shape,)] = err
     data = randn(2, 8, 10, 10)
     w = randn(16, 8, 3, 3, scale=0.2)
     before = hc.launches_bf16
@@ -908,9 +1095,10 @@ def _ragged_bf16_3x3_checks(hc, dev, randn):
     check(ok and hc.launches_bf16 == before + 1, "kernel 1 (bf16) through "
           "conv3x3_s2 at N=2 10x10 C=8 O=16: max abs err %g" % err)
     errs["k1 s2 N=2 10x10 C=8 O=16"] = err
-    xs = hc.s2d_nhwc(data.permute(0, 2, 3, 1)).contiguous()
-    errs["k2 s2d N=2 5x5 C=32 O=16"] = k2(xs, randn(2, 5, 5, 16),
-                                          hc.S2_PADS, 2, 2, "s2d 5x5 C=32")
+    # kernel 2 at 2x2 taps with the reference's stride-2 pads
+    errs["k2 2x2 N=2 5x5 C=32 O=16"] = k2(randn(2, 5, 5, 32),
+                                          randn(2, 5, 5, 16), hc.S2_PADS, 2, 2,
+                                          "2x2 5x5 C=32")
     # an operand 2 bytes off a 16-byte boundary
     N, H, W, C, O = RAGGED_BF16[0]
     x = _at_offset_1(randn(N, H, W, C))
@@ -1220,45 +1408,112 @@ def _block_cost(N, H, W, Cin, Cm):
     return flops, nbytes
 
 
+# kernel 13's times in the last run of this script before its redesign
+# ("NVIDIA H100 80GB HBM3, 700.00 W"), ms a call, by shape label and H; the
+# record printed beside this run's times
+BEFORE_K13_MS = {("ragged", 9): 0.0422, ("narrow", 15): 0.0304,
+               ("probe", 28): 0.2183, ("resnet50", 56): 1.0027,
+               ("resnet50", 28): 0.8599, ("resnet50", 14): 0.7516,
+               ("resnet50", 7): 0.6935}
+# kernel 13's layouts forced at N 3, 9x11, 128/64, (warps along the rows,
+# band rows, ring depth): every layout, h2 in h1's buffer and apart, several
+# bands (a ragged last one) and chunks of rows, every ring depth
+FB_FORCED = [(1, 9, 2), (1, 3, 3), (2, 9, 4), (2, 2, 3), (4, 4, 3),
+             (4, 9, 2), (8, 2, 2), (8, 1, 2)]
+
+
+def _fb_check(hb, args, plan, label):
+    """Kernel 13 at ``plan`` (None: the shape's own) against its plain
+    version, run twice: within FB_RTOL and FB_ATOL_REL, bit-equal, one
+    launch a call.  Returns (result, max abs error, max |out|)."""
+    before = hb.launches
+    got = hb._fused_bottleneck_cuda(*args, plan=plan).float()
+    again = hb._fused_bottleneck_cuda(*args, plan=plan).float()
+    want = hb.fused_bottleneck_plain(*args).float()
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    excess = ((got - want).abs() - FB_RTOL * want.abs()).max().item()
+    err = (got - want).abs().max().item()
+    check(math.isfinite(scale) and scale > 0, "kernel 13's plain output is "
+          "degenerate at %s" % label)
+    check(excess <= FB_ATOL_REL * scale, "kernel 13 disagrees with its plain "
+          "version at %s: max |err| - rtol |want| = %g > %g of max |out| %g"
+          % (label, excess / scale, FB_ATOL_REL, scale))
+    check(torch.equal(got, again), "kernel 13 gave other bits on the same "
+          "inputs at %s" % label)
+    check(hb.launches == before + 2, "kernel 13 at %s launched %d times in "
+          "two calls" % (label, hb.launches - before))
+    return got, err, scale
+
+
+def _fb_occupancy_checks(hb, dev, plans):
+    """The card's shared memory a block against the plan's limit, and the
+    blocks an SM holds at each plan's layout and bytes (one, as the plans
+    assume)."""
+    import ctypes
+    from mxnet_tpu_torch import _build
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    check(optin == hb.SMEM_LIMIT, "the card's shared memory a block is %d "
+          "bytes, the plan's limit %d" % (optin, hb.SMEM_LIMIT))
+    lib = _build.load("fused_bottleneck")
+    n = ctypes.c_int()
+    got = {}
+    for plan in plans:
+        check(lib.mxtt_fused_bottleneck_occupancy(plan.wm, plan.smem,
+                                                  dev.index,
+                                                  ctypes.byref(n)) == 0,
+              "occupancy query of fused_bottleneck failed")
+        got["wm %d %d B" % (plan.wm, plan.smem)] = n.value
+    print("[fused-block] shared memory a block %d B; blocks an SM holds at "
+          "the plans' layouts: %s" % (optin, got))
+    check(all(v == 1 for v in got.values()), "kernel 13's occupancy differs "
+          "from its plans' one block an SM: %s" % got)
+    return got
+
+
 def phase_fused_block_kernels():
     """Phase 2h: kernel 13 (``fused_bottleneck.cu``) against
     ``fused_bottleneck_plain`` on the same bf16 card tensors at the 4
     identity-bottleneck shapes of ResNet-50 v1 at batch 128, the probe's own
-    (N 32, 28x28, 512/128) and two ragged ones (N 1 at 9x11; a narrow
-    128/32 block at 15x17), within FB_RTOL and FB_ATOL_REL.  Each with its
-    time, the plain version's, the unfused cuDNN bf16 sequence's on the same
-    folded weights (the yardstick) and the bound.  Returns per-shape
-    records."""
+    (N 32, 28x28, 512/128), two ragged ones (N 1 at 9x11; a narrow 128/32
+    block at 15x17) and each arm of its plan forced at one shape, within
+    FB_RTOL and FB_ATOL_REL, bit-equal on reruns.  Each with its time
+    beside the time before its redesign, the plain version's, the unfused
+    cuDNN bf16 sequence's on the same folded weights (the yardstick) and
+    the bound.  Returns per-shape records."""
     from mxnet_tpu_torch.ops import hopper_block as hb
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    sms = _sms(dev)
+    forced = {}
+    for wm, R, stages in FB_FORCED:
+        plan = hb._plan_for(3, 9, 11, 128, 64, min(sms, 5), wm, R, stages)
+        label = "wm %d, %d-row bands, %d slices, h2 %s" % (
+            wm, R, stages, "in h1" if hb._h2_in_h1(wm, R, 11, 64) else "apart")
+        args = _block_inputs(3, 9, 11, 128, 64, gen, dev)
+        _, err, scale = _fb_check(hb, args, plan, label)
+        forced[label] = err / scale
+    print("[fused-block] kernel 13 at N=3 9x11 128/64 with each arm forced "
+          "(rerun bit-equal), max |err| of max |out|: %s"
+          % ", ".join("%s %.3g" % kv for kv in forced.items()))
     shapes = [("ragged", 1, 9, 11, 256, 64, 0),
               ("narrow", 3, 15, 17, 128, 32, 0),
               ("probe", 32, 28, 28, 512, 128, 0)] + [
         ("resnet50", BF16_BATCH, H, H, Cin, Cm, count)
         for H, Cin, Cm, count in RESNET50_IDENTITY]
-    records = []
+    records, plans = [], []
     for label, N, H, W, Cin, Cm, count in shapes:
         args = _block_inputs(N, H, W, Cin, Cm, gen, dev)
-        got = hb.fused_bottleneck(*args).float()
-        want = hb.fused_bottleneck_plain(*args).float()
-        torch.cuda.synchronize()
-        scale = want.abs().max().item()
-        excess = ((got - want).abs() - FB_RTOL * want.abs()).max().item()
-        err = (got - want).abs().max().item()
-        check(excess <= FB_ATOL_REL * scale, "kernel 13 disagrees with its "
-              "plain version at %s N=%d %dx%d %d/%d: max |err| - rtol |want| "
-              "= %g > %g of max |out| %g" % (label, N, H, W, Cin, Cm,
-                                             excess / scale, FB_ATOL_REL,
-                                             scale))
-        check(math.isfinite(scale) and scale > 0, "kernel 13's plain output "
-              "is degenerate at %s" % label)
+        plan = hb.fused_bottleneck_plan(N, H, W, Cin, Cm, sms)
+        plans.append(plan)
+        _, err, scale = _fb_check(hb, args, None, "%s N=%d %dx%d %d/%d"
+                                  % (label, N, H, W, Cin, Cm))
         flops, nbytes = _block_cost(N, H, W, Cin, Cm)
         bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16)
         rec = {"shape": label, "N": N, "H": H, "W": W, "Cin": Cin, "Cm": Cm,
                "instances_per_forward": count, "gflop": flops / 1e9,
-               "max_abs_err": err, "max_out": scale,
-               "excess_over_rtol": excess, "rtol": FB_RTOL,
+               "plan": plan._asdict(), "bit_equal_rerun": True,
+               "max_abs_err": err, "max_out": scale, "rtol": FB_RTOL,
                "atol_rel": FB_ATOL_REL,
                "ms": time_ms(lambda: hb.fused_bottleneck(*args)),
                "plain_ms": time_ms(lambda: hb.fused_bottleneck_plain(*args),
@@ -1267,21 +1522,28 @@ def phase_fused_block_kernels():
                "bound_ms": bound_ms, "bound_by": bound_by}
         rec["tflops"] = flops / rec["ms"] / 1e9
         records.append(rec)
-        print("[fused-block] kernel 13 %s N=%d %dx%d %d/%d: max_abs_err %.3g "
-              "(max |out| %.3g) | kernel %.4f ms (%.1f TFLOP/s), plain %.4f "
-              "ms, unfused cuDNN bf16 %.4f ms, bound %.4f ms (%s)"
-              % (label, N, H, W, Cin, Cm, err, scale, rec["ms"],
-                 rec["tflops"], rec["plain_ms"], rec["library_ms"], bound_ms,
-                 bound_by))
-        del args, got, want
+        print("[fused-block] kernel 13 %s N=%d %dx%d %d/%d (wm %d, %d-row "
+              "bands, %d slices, grid %d; rerun bit-equal): max_abs_err %.3g "
+              "(max |out| %.3g) | kernel %.4f ms (%.1f TFLOP/s; before %.4f), "
+              "plain %.4f ms, unfused cuDNN bf16 %.4f ms, bound %.4f ms (%s)"
+              % (label, N, H, W, Cin, Cm, plan.wm, plan.rows, plan.stages,
+                 plan.grid, err, scale, rec["ms"], rec["tflops"],
+                 BEFORE_K13_MS[(label, H)], rec["plain_ms"], rec["library_ms"],
+                 bound_ms, bound_by))
+        del args
+    _fb_occupancy_checks(hb, dev, plans)
     fwd = [r for r in records if r["instances_per_forward"]]
     print("[fused-block] a ResNet-50 forward's %d blocks at batch %d: kernel "
-          "%.4f ms, plain %.4f ms, unfused cuDNN %.4f ms, bound %.4f ms"
-          % tuple([sum(r["instances_per_forward"] for r in fwd), BF16_BATCH]
-                  + [sum(r[k] * r["instances_per_forward"] for r in fwd)
-                     for k in ("ms", "plain_ms", "library_ms", "bound_ms")]))
+          "%.4f ms (before %.4f), plain %.4f ms, unfused cuDNN %.4f ms, bound "
+          "%.4f ms" % tuple(
+              [sum(r["instances_per_forward"] for r in fwd), BF16_BATCH,
+               sum(r["ms"] * r["instances_per_forward"] for r in fwd),
+               sum(BEFORE_K13_MS[(r["shape"], r["H"])]
+                   * r["instances_per_forward"] for r in fwd)]
+              + [sum(r[k] * r["instances_per_forward"] for r in fwd)
+                 for k in ("plain_ms", "library_ms", "bound_ms")]))
     torch.cuda.empty_cache()
-    return records
+    return records, forced
 
 
 # --------------------------------------------------------------------------
@@ -2331,8 +2593,18 @@ def phase_serving(card):
         check(not any(t.is_alive() for t in threads), "clients hung")
         return results, wall
 
-    # the main path: counts zeroed just before, read just after
-    hc.launches = 0
+    # the main path: counts zeroed just before, read just after; each
+    # kernel-1 call's shape is noted (the bucket a batch ran at sets how its
+    # plans split the reduction)
+    conv_calls = []
+    real_conv = hc._taps_conv_cuda
+
+    def noted_conv(x, taps, pads, KH, KW, stride=1, **kw):
+        conv_calls.append((tuple(x.shape), taps.shape[2], pads, KH, KW,
+                           stride))
+        return real_conv(x, taps, pads, KH, KW, stride, **kw)
+    hc._taps_conv_cuda = noted_conv
+    hc.launches = hc.conv_reduce_launches = 0
     batches0 = server.batches
     answers, wall = burst(len(rows), 1, lambda c, i: (
         {"data": images[offsets[c]:offsets[c + 1]]}, classes[c % 3]))
@@ -2348,14 +2620,26 @@ def phase_serving(card):
 
     loop, loop_wall = burst(n_clients, per_client, lambda c, i: (
         {"data": loop_img}, "standard"), midway=swap)
-    launches = hc.launches
+    launches, reductions = hc.launches, hc.conv_reduce_launches
     batches = server.batches - batches0
+    hc._taps_conv_cuda = real_conv
     server.stop()
-    print("[serving] %d forwards ran %d kernel launches (%.2f per forward)"
-          % (batches, launches, launches / max(batches, 1)))
-    check(batches > 0 and launches == 16 * batches,
+    sms = _sms(torch.device("cuda", 0))
+    want_sums = 0
+    for (N, H, W, C), O, pads, KH, KW, stride in conv_calls:
+        Ho, Wo = hc._out_hw(H, W, KH, KW, pads, stride)
+        want_sums += hc.conv_fp32_plan(N * Ho * Wo, C, O, KH, KW,
+                                       sms).splits > 1
+    print("[serving] %d forwards ran %d kernel launches (%.2f per forward) "
+          "and %d split sums (%d by the plans of the calls' shapes)"
+          % (batches, launches, launches / max(batches, 1), reductions,
+             want_sums))
+    check(batches > 0 and launches == 16 * batches == len(conv_calls),
           "expected 16 conv kernel launches per forward, got %d over %d "
           "forwards" % (launches, batches))
+    check(reductions == want_sums, "the served forwards ran %d split sums of "
+          "kernel 1, their plans %d" % (reductions, want_sums))
+    launches += reductions
 
     lat = sorted(r[2] * 1e3 for r in answers)
     print("[serving] %d concurrent requests (%d images, rows %s, classes "
@@ -2417,7 +2701,7 @@ def phase_serving(card):
 
 
 def _kernel_group(name: str) -> str:
-    if "taps_conv_kernel" in name:
+    if "taps_conv_kernel" in name or "fp32_3x3_conv" in name:
         return "implicit_gemm_conv (port)"
     if "Memcpy" in name or "Memset" in name:
         return "copies"
@@ -2513,10 +2797,21 @@ def wgrad_reductions_per_step(batch=BATCH, bf16=False):
                if plan(batch * H * H, C, C, 3, 3, sms).splits > 1)
 
 
+def conv_reductions_per_step(batch=BATCH):
+    """Launches of kernel 1 fp32's split sum in one training step at
+    ``batch``: one for each of the 16 forwards and 16 dgrads (C = O, so one
+    plan for both) whose reduction its plan splits."""
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sum(2 * count for C, H, count in GLUON_3X3
+               if hc.conv_fp32_plan(batch * H * H, C, C, 3, 3, sms).splits > 1)
+
+
 def _conv_counts(hc):
     """Kernels 1 and 2's launch counters, the fp32 kernels' apart from the
     bf16 ones."""
     return {"implicit_gemm_conv": hc.launches - hc.launches_bf16,
+            "implicit_gemm_conv reduction": hc.conv_reduce_launches,
             "taps_conv_bf16": hc.launches_bf16,
             "taps_wgrad": hc.wgrad_launches - hc.wgrad_launches_bf16,
             "taps_wgrad reduction": (hc.wgrad_reduce_launches
@@ -2526,7 +2821,7 @@ def _conv_counts(hc):
 
 
 def _zero_conv_counts(hc):
-    hc.launches = hc.launches_bf16 = 0
+    hc.launches = hc.launches_bf16 = hc.conv_reduce_launches = 0
     hc.wgrad_launches = hc.wgrad_reduce_launches = 0
     hc.wgrad_launches_bf16 = hc.wgrad_reduce_launches_bf16 = 0
 
@@ -2535,7 +2830,8 @@ def bf16_step_counts(batch=BF16_BATCH):
     """Kernels 1 and 2's launches in one bf16 training step: every 3x3 on
     the bf16 kernels (16 forwards and 16 dgrads, 16 wgrads and the plan's
     reductions), none on the fp32 ones."""
-    return {"implicit_gemm_conv": 0, "taps_conv_bf16": 32, "taps_wgrad": 0,
+    return {"implicit_gemm_conv": 0, "implicit_gemm_conv reduction": 0,
+            "taps_conv_bf16": 32, "taps_wgrad": 0,
             "taps_wgrad reduction": 0, "taps_wgrad_bf16": 16,
             "taps_wgrad_bf16 reduction": wgrad_reductions_per_step(batch,
                                                                    True)}
@@ -2583,7 +2879,7 @@ def phase_training(card):
 
     # the main path: counts zeroed just before the first step, read after
     # the last timed one
-    hc.launches = 0
+    hc.launches = hc.conv_reduce_launches = 0
     hc.wgrad_launches = 0
     hc.wgrad_reduce_launches = 0
     torch.cuda.synchronize()
@@ -2597,9 +2893,12 @@ def phase_training(card):
                         lambda loss: losses.append(float(loss.asnumpy())))
     steps = 1 + WARMUP_STEPS + TIMED_STEPS
     launches = {"implicit_gemm_conv": hc.launches,
+                "implicit_gemm_conv reduction": hc.conv_reduce_launches,
                 "taps_wgrad": hc.wgrad_launches,
                 "taps_wgrad reduction": hc.wgrad_reduce_launches}
-    want = {"implicit_gemm_conv": 32, "taps_wgrad": 16,
+    want = {"implicit_gemm_conv": 32,
+            "implicit_gemm_conv reduction": conv_reductions_per_step(),
+            "taps_wgrad": 16,
             "taps_wgrad reduction": wgrad_reductions_per_step()}
     print("[training] %d steps ran %s launches (per step %s; expected %s)"
           % (steps, launches, {k: v / steps for k, v in launches.items()},
@@ -2670,7 +2969,8 @@ def _train_group(name: str) -> str:
     if "split_sum_kernel" in name:       # csrc/split_sum.cuh, by its tag
         for tag, group in (("bf16_1x1_wgrad", "kernel 12 1x1 wgrad"),
                            ("bf16_3x3_wgrad", "kernel 2 bf16 wgrad"),
-                           ("fp32_3x3_wgrad", "kernel 2 wgrad")):
+                           ("fp32_3x3_wgrad", "kernel 2 wgrad"),
+                           ("fp32_3x3_conv", "kernel 1")):
             if tag in name:
                 return group + " reduction pass"
     if "Memcpy" in name or "Memset" in name:
@@ -2724,6 +3024,10 @@ def phase_training_profile(card, step, step_ms, tag="train-profile",
           "(and %s)" % (traced[0], k2, traced[1], n,
                         {g: c for g, c in counts.items()
                          if g.startswith(other)}))
+    k1_sums = counts.get("kernel 1 reduction pass", 0)
+    want_sums = 0 if bf16 else conv_reductions_per_step(batch) * n
+    check(k1_sums == want_sums, "profile saw %d kernel-1 split sums in %d "
+          "steps, expected %d" % (k1_sums, n, want_sums))
     if w1x1 is not None:
         seen = (counts.get("kernel 12 1x1 wgrad partial pass", 0),
                 counts.get("kernel 12 1x1 wgrad reduction pass", 0))
@@ -3530,6 +3834,7 @@ def phase_module(card):
     # the main path, counted: counts zeroed just before the first step,
     # read after the last timed one
     hc.launches = hc.wgrad_launches = hc.wgrad_reduce_launches = 0
+    hc.conv_reduce_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     p_gpu, w_gpu = _one_step(mod, batch)
@@ -3538,9 +3843,12 @@ def phase_module(card):
     out = mod.get_outputs()[0].asnumpy()
     steps = 1 + WARMUP_STEPS + TIMED_STEPS
     launches = {"implicit_gemm_conv": hc.launches,
+                "implicit_gemm_conv reduction": hc.conv_reduce_launches,
                 "taps_wgrad": hc.wgrad_launches,
                 "taps_wgrad reduction": hc.wgrad_reduce_launches}
-    want = {"implicit_gemm_conv": 32, "taps_wgrad": 16,
+    want = {"implicit_gemm_conv": 32,
+            "implicit_gemm_conv reduction": conv_reductions_per_step(),
+            "taps_wgrad": 16,
             "taps_wgrad reduction": wgrad_reductions_per_step()}
     print("[module] %d fused steps ran %s launches (per step %s; expected "
           "%s)" % (steps, launches, {k: v / steps for k, v in
@@ -4036,7 +4344,10 @@ def _bf16_run(bf16, card, keep=False):
     counts = _conv_counts(hc)
     steps = BF16MOD["steps"] + WARMUP_STEPS + TIMED_STEPS
     want = bf16_step_counts() if bf16 else {
-        "implicit_gemm_conv": 32, "taps_conv_bf16": 0, "taps_wgrad": 16,
+        "implicit_gemm_conv": 32,
+        "implicit_gemm_conv reduction": conv_reductions_per_step(
+            BF16MOD["batch"]),
+        "taps_conv_bf16": 0, "taps_wgrad": 16,
         "taps_wgrad reduction": wgrad_reductions_per_step(BF16MOD["batch"]),
         "taps_wgrad_bf16": 0, "taps_wgrad_bf16 reduction": 0}
     print("[bf16-module] %s: kernels 1 and 2 launched %s in %d steps "
@@ -4175,7 +4486,8 @@ def _counts():
     from mxnet_tpu_torch.ops import hopper_block as hb, hopper_conv as hc
     return {"fused_bottleneck": hb.launches,
             "taps_conv_bf16": hc.launches_bf16,
-            "implicit_gemm_conv": hc.launches - hc.launches_bf16,
+            "implicit_gemm_conv": (hc.launches - hc.launches_bf16
+                                   + hc.conv_reduce_launches),
             "taps_wgrad": hc.wgrad_launches + hc.wgrad_reduce_launches,
             "conv1x1_wgrad": (hc.conv1x1_wgrad_launches
                               + hc.conv1x1_wgrad_reduce_launches)}
@@ -4475,7 +4787,10 @@ def _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches):
 
     k1 = {"name": "implicit_gemm_conv", "route": "cuda",
           "source": fwd["source"], "replaces": fwd["replaces"],
-          "launches": launches["implicit_gemm_conv"],
+          "launches": (launches["implicit_gemm_conv"]
+                       + launches["implicit_gemm_conv reduction"]),
+          "conv_launches": launches["implicit_gemm_conv"],
+          "reduce_launches": launches["implicit_gemm_conv reduction"],
           "max_abs_err": max([fwd["max_abs_err"]]
                              + [r["max_abs_err"] for r in dgrad])}
     k2 = {"name": "taps_wgrad", "route": "cuda",
@@ -4495,8 +4810,9 @@ def _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches):
     k2["tflops"] = _step_sum(wgrad)["tflops"]
     k1["dgrad_shapes"] = dgrad
     k1["serving_forward"] = {"launches": serving_launches, **{
-        k: fwd[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                            "tflops_per_forward", "shapes")}}
+        k: fwd[k] for k in ("ms", "plain_ms", "bound_ms",
+                            "library_ms", "tflops_per_forward", "occupancy",
+                            "ragged_errs", "shapes")}}
     k2["shapes"] = wgrad
     return [k1, k2]
 
@@ -4600,7 +4916,7 @@ def main() -> int:
     k4, k10 = phase_ring_kernels(card)
     k11 = phase_rtc(card)
     bf16_kernels = phase_bf16_kernels()
-    block_kernels = phase_fused_block_kernels()
+    block_kernels, block_forced = phase_fused_block_kernels()
     serving_launches, served = phase_serving(card)
     served["profile"] = phase_profile(card)
     print("[serving] summary " + json.dumps(dict(served, card=card)))
@@ -4647,11 +4963,13 @@ def main() -> int:
     k1, k2 = _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches)
     k2["batch128"] = dict(_step_sum(wgrad128), shapes=wgrad128)
     k2["ragged_errs"] = wgrad_ragged
-    k1["module_launches"] = mod_launches["implicit_gemm_conv"]
+    k1["module_launches"] = (mod_launches["implicit_gemm_conv"]
+                             + mod_launches["implicit_gemm_conv reduction"])
     k2["module_launches"] = (mod_launches["taps_wgrad"]
                              + mod_launches["taps_wgrad reduction"])
     k12, k1b, k2b = _bf16_entries(k1, k2, bf16_kernels, bf16_launches)
     k13 = _block_entry(block_kernels, infer_launches)
+    k13["forced_arms"] = block_forced
     k1b["bf16_inference_launches"] = infer_launches["taps_conv_bf16"]
     k1b["module_launches"] = bf16_moduled["bf16"]["conv_launches"][
         "taps_conv_bf16"]

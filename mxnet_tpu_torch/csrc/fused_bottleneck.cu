@@ -14,349 +14,541 @@
 // the bias and the ReLU, as the probe pads h1 (probe_fused_block.py:46-49), so a border tap
 // adds nothing.
 //
-// Numerics: the tensor cores (wmma bf16 16x16x16, fp32 accumulate) add the products in
-// another order than the plain PyTorch version (fp32 matmuls), so an fp32 sum may round
-// to the neighbouring bf16 value at each of the three roundings: the two agree within one
-// bf16 step of the value (2^-7 relative) plus 1e-3 of the largest |out|, the tolerance
-// chip_smoke.py states.
+// Numerics: the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate) add the
+// products in another order than the plain PyTorch version (fp32 matmuls), so an fp32 sum
+// may round to the neighbouring bf16 value at each of the three roundings: the two agree
+// within one bf16 step of the value (2^-7 relative) plus 1e-3 of the largest |out|, the
+// tolerance chip_smoke.py states.
 //
-// Design.  The TPU kernel keeps a batch tile of 2 whole images in VMEM.  Here one CTA takes
-// one image and a band of R output rows, chosen by the host so that the band's
-// intermediates fit in shared memory, and the three convolutions run back to back in it:
-//   1. h1 for the band's R + 2 rows (the 3x3's halo), all W columns, into shared memory
-//      in a zero-padded (R + 2) x (W + 2) layout; rows outside the image stay zero;
-//   2. h2 for the band into shared memory.  The 3x3 is 9 shifted GEMMs over the padded h1:
-//      output pixel q = i * (W + 2) + j reads h1 row q + dy * (W + 2) + dx, so each tap is
-//      one GEMM over contiguous rows; the 2 junk columns of each row are computed and
-//      dropped;
-//   3. out in chunks of output channels: bias, the residual read from x and widened to
-//      fp32, ReLU, a bf16 store.
-// Each stage is a GEMM whose output is cut into 64 x 32 warp tiles, dealt to 8 warps row
-// tile first, so that the warps in flight read the same weights (L1 hits); a warp runs
-// wmma bf16 products into 4 x 2 fp32 accumulators, with A from shared memory (x staged
-// through a per-warp buffer in stage 1, one 32-channel chunk ahead in registers) and B,
-// the folded weights, loaded straight from global memory (L2-resident) as column-major
-// fragments (each lane's pairs along the reduction contiguous), 4 steps ahead in
-// registers.  The epilogue goes through a per-warp fp32 tile in shared memory and moves 8
-// channels (16 bytes) a lane.  Only x is read from and out written to device memory.
+// Bound at the main path's shapes (bf16, batch 128): every block is 55.9 GFLOP; x read
+// once, out written once, the weights once.  At 56x56/256 and 28x28/512 bytes bound it
+// (0.123 and 0.061 ms), at 14x14/1024 and 7x7/2048 operations (0.0565 ms each).  What
+// the design works against, on a card whose SMs each hold one such block at a time:
 //
-// Bound at the slice's shapes (bf16, batch 128): x read once, out written once, the
-// weights once; 2*M*(2*Cin*Cm + 9*Cm^2) FLOP.  At 56x56/256 and 28x28/512 bytes bound it
-// (0.123 and 0.061 ms), at 14x14/1024 and 7x7/2048 operations (0.0565 ms each): 0.825 ms
-// for a ResNet-50 forward's 12 blocks.  This first kernel reads the weights from L2 once per
-// 64-row tile in every CTA (it keeps none in shared memory), recomputes the halo rows of h1
-// and runs one CTA per SM; TMA, wgmma and weights shared across a cluster are the later
-// steps towards that bound.
+//   - Weight bytes from L2.  A block's folded weights are 0.14-8.9 MB.  Each CTA stages
+//     them in 64-channel k-slices through a cp.async ring in shared memory that all 8
+//     warps consume, warps splitting a chunk's rows before its columns, so that a weight
+//     byte crosses from L2 once per CTA for all of its pixels (a whole 7x7 image, 98
+//     output pixels at 14 px, 196 at 28, 392 at 56).
+//   - The tensor cores' operands.  mma.sync m16n8k16 from ldmatrix (csrc/mma_bf16.cuh),
+//     every warp a 64 x 64 tile of fp32 accumulators (8 ldmatrix.x4 to 32 MMAs a k16
+//     step, their addresses worked out once a slice, no branch among them); one CTA of
+//     256 threads an SM, so a thread may hold 128 accumulators.  The ring's 128-byte rows
+//     are XOR-swizzled, the h1 and h2 rows padded to 16 bytes past a multiple of 128:
+//     8 rows of ldmatrix hit 8 bank groups.
+//   - Shared memory.  h1 of a band of R output rows (with its halo rows, zero-padded
+//     columns) stays in shared memory, and so does h2, which is written over h1 where a
+//     band's h2 is one chunk (every main-path shape): the room goes to the ring.  The
+//     3x3 is 9 GEMMs over h1 whose A rows ldmatrix gathers per lane (output pixel (i, j)
+//     reads padded row (i + dy)(W + 2) + j + dx), so no junk columns are computed and a
+//     tap at the border reads the zero pad.  out leaves from the fragments, traded
+//     within each quad by shuffles so that a lane reads its residual and writes 16
+//     bytes of a row at once, the next row's residual loaded ahead.
+//   - Pipeline bubbles and waves.  A CTA is persistent: it walks its work units (image,
+//     band) chunk by chunk, the loads one flattened sequence of k-slices over all three
+//     stages and all units, so the ring runs on across chunk, stage and unit boundaries;
+//     a slice's copies are issued once its first k16 step's MMAs are in flight.
+//
+// On the card (chip_smoke.py phase 2h) it runs 0.33-0.56 ms a block, 100-168 TFLOP/s:
+// each slice ends in a barrier of the CTA's 8 warps, the only warps on the SM, and at 7
+// px each CTA streams all 8.9 MB of the weights from L2.  Warp-specialised loads with
+// wgmma, and clusters sharing weight slices by TMA multicast, are the next steps.
+//
+// The host plan (ops/hopper_block.py fused_bottleneck_plan) picks the warps' layout (WM
+// warps along the rows: a chunk of 64*WM rows by 512/WM columns), the band height R and
+// the ring's depth so that the buffers fit in shared memory, by a cost model over whole
+// waves of slices.
 //
 // Limits (the host entry returns cudaErrorInvalidValue outside them): Cin and Cm multiples
-// of 32; a band of one row must fit in the card's shared memory (W up to ~600 at Cm 64).
+// of 32 (a reduction off 64 channels zero-fills its last slice), every operand 16-byte
+// aligned, a plan whose buffers fit the card's shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "mma_bf16.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-using bf16 = __nv_bfloat16;
-
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TM = 64;                 // rows of a warp tile
-constexpr int TN = 32;                 // columns of a warp tile
-constexpr int FM = TM / 16, FN = TN / 16;
-constexpr int BD = 4;                  // steps of B held in registers ahead of use
-constexpr int PAD = 16;                // bf16 pad of an h1/h2 row: rows stay 32-byte aligned
-constexpr int KS1 = 32;                // x channels staged per chunk of stage 1
-constexpr int XLD = KS1 + 8;           // bf16 pitch of the stage-1 staging tile
-constexpr int XV = TM * KS1 / 8 / 32;  // 16-byte loads of x per lane per chunk
-constexpr int ELD = TN + 4;            // fp32 pitch of the epilogue tile
-constexpr int WARP_BUF = TM * XLD * 2; // bytes of a warp's staging / epilogue buffer
+constexpr int CH = 32;                 // the channel counts' granule
+constexpr int BK = 64;                 // reduction channels of a ring slice (128-byte rows)
+constexpr int MI = 4, NI = 8;          // m16 and n8 tiles of a warp's 64 x 64 tile
 
-static_assert(16 * ELD * 4 <= WARP_BUF, "the epilogue tile must fit the warp's buffer");
-static_assert((16 * XLD * 2) % 32 == 0 && WARP_BUF % 128 == 0, "wmma needs 32-byte bases");
-static_assert(16 * TN / 8 == 2 * 32, "the epilogue gives each lane 2 vectors of 8");
+// bytes of an h1 / h2 row of Cm channels: padded so that 8 rows hit 8 bank groups
+__host__ __device__ inline int row_bytes(int Cm) { return 2 * Cm + 16; }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-// rows of the padded h1 buffer and of the h2 buffer for a band of R output rows: the
-// shifted GEMMs of stage 2 read up to 2 * (W + 2) + 2 rows past the last 64-row tile
-__host__ __device__ inline int h1_rows(int R, int W) {
-  return round_up(R * (W + 2), TM) + 2 * (W + 2) + 2;
-}
-__host__ __device__ inline int h2_rows(int R, int W) { return round_up(R * W, TM); }
-
-inline size_t smem_bytes(int R, int W, int Cm) {
-  return (size_t)(h1_rows(R, W) + h2_rows(R, W)) * (Cm + PAD) * sizeof(bf16) +
-         (size_t)WARPS * WARP_BUF;
+// whether h2 shares h1's buffer: where a band's h2 is one chunk (its rows and Cm fit one
+// chunk) it is written once the 3x3 has read h1 for the last time, so it needs no buffer
+// of its own (the band's h1 must hold the chunk's rows)
+__host__ __device__ inline bool h2_in_h1(int wm, int R, int W, int Cm) {
+  const int bm = 64 * wm;
+  return R * W <= bm && Cm <= 512 / wm && (R + 2) * (W + 2) >= bm;
 }
 
-__device__ inline void zero(FragC (&acc)[FM][FN]) {
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+// dynamic shared memory of a plan: h1 of the band with its halo, the h2 tile of a
+// chunk's rows unless it shares h1's buffer, and the ring of slices (A rows of x, then B
+// rows of the weights)
+__host__ __device__ inline long long smem_bytes(int wm, int R, int W, int Cm, int stages) {
+  const int bm = 64 * wm, bn = 512 / wm;
+  const int h2_rows = h2_in_h1(wm, R, W, Cm) ? 0 : bm;
+  return (long long)((R + 2) * (W + 2) + h2_rows) * row_bytes(Cm) +
+         (long long)stages * 2 * BK * (bm + bn);
 }
 
-// B fragment j of a step: output channels 16 * j.. of the weights (out, in), which is B
-// in column-major order, so each lane's pairs along the reduction are contiguous
-__device__ inline void load_b(FragB (&b)[FN], const bf16* p, int ldb) {
-#pragma unroll
-  for (int j = 0; j < FN; ++j) wmma::load_matrix_sync(b[j], p + (size_t)16 * j * ldb, ldb);
+// a0..a3[k] for a k known only at run time, as selects (an array indexed by it would
+// go to local memory)
+__device__ __forceinline__ float pick4(float a0, float a1, float a2, float a3, int k) {
+  return k == 0 ? a0 : k == 1 ? a1 : k == 2 ? a2 : a3;
 }
 
-// acc += A . B over `steps` steps of 16: prep(s) runs first in step s, then A fragment i
-// of step s is read at a_row(s) + 16 * i rows (pitch lda, shared memory) and B of step s
-// at b_col(s) (global memory, column pitch ldb), loaded BD steps ahead into a ring of
-// registers
-template <class ARow, class BCol, class Prep>
-__device__ inline void warp_gemm(FragC (&acc)[FM][FN], int steps, ARow a_row, int lda,
-                                 BCol b_col, int ldb, Prep prep) {
-  FragB b[BD][FN];
-#pragma unroll
-  for (int d = 0; d < BD; ++d)
-    if (d < steps) load_b(b[d], b_col(d), ldb);
-  for (int s0 = 0; s0 < steps; s0 += BD) {
-#pragma unroll
-    for (int d = 0; d < BD; ++d) {
-      const int s = s0 + d;
-      if (s < steps) {
-        prep(s);
-        const bf16* a = a_row(s);
-        FragA fa[FM];
-#pragma unroll
-        for (int i = 0; i < FM; ++i) wmma::load_matrix_sync(fa[i], a + 16 * i * lda, lda);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], b[d][j], acc[i][j]);
-        if (s + BD < steps) load_b(b[d], b_col(s + BD), ldb);
-      }
+struct Shape {
+  int H, W, Cin, Cm, R, bands, units;
+};
+
+// Where a walk over the CTA's k-slices stands: the work unit (image, band), the stage
+// (0: h1, 1: h2, 2: out), the chunk of the stage's output rows (mc) and columns (nc), and
+// the slice within the chunk.  The producer (the loads) and the consumer (the MMAs and
+// epilogues) each walk one, the producer stages - 1 slices ahead.
+template <int WM>
+struct Cursor {
+  static constexpr int BM = 64 * WM, BN = 512 / WM;
+  int unit, stage, mc, nc, s;
+  int img, r0, rows, lo, M1, M2;          // the unit's geometry
+
+  __device__ void enter(const Shape& sh) {
+    img = unit / sh.bands;
+    r0 = (unit - img * sh.bands) * sh.R;
+    rows = min(sh.R, sh.H - r0);
+    lo = max(r0 - 1, 0);
+    const int hi = min(r0 + rows, sh.H - 1);
+    M1 = (hi - lo + 1) * sh.W;
+    M2 = rows * sh.W;
+    stage = mc = nc = s = 0;
+  }
+  __device__ bool valid(const Shape& sh) const { return unit < sh.units; }
+  __device__ int out_cols(const Shape& sh) const { return stage == 2 ? sh.Cin : sh.Cm; }
+  __device__ int slices(const Shape& sh) const {
+    const int km = (sh.Cm + BK - 1) / BK;
+    return stage == 0 ? (sh.Cin + BK - 1) / BK : stage == 1 ? 9 * km : km;
+  }
+  __device__ int chunk_rows() const { return (stage == 0 ? M1 : M2) - mc * BM; }
+  __device__ void next_chunk(const Shape& sh) {
+    s = slices(sh) - 1;
+    advance(sh);
+  }
+  __device__ void advance(const Shape& sh) {
+    if (++s < slices(sh)) return;
+    s = 0;
+    if (++nc * BN < out_cols(sh)) return;
+    nc = 0;
+    if (stage == 0) {
+      if (++mc * BM < M1) return;
+      mc = 0;
+      stage = 1;
+    } else if (stage == 1) {
+      stage = 2;
+    } else if (++mc * BM < M2) {
+      stage = 1;
+    } else {
+      unit += gridDim.x;
+      if (unit < sh.units) enter(sh);
     }
   }
-}
+};
 
-// hands the warp tile to `put(row, v)` 8 columns at a time: lane l owns columns
-// 8 * (l % 4) .. + 8 of rows l / 4 and l / 4 + 8 of each 16-row slab, v their fp32 sums
-template <class Put>
-__device__ inline void epilogue(FragC (&acc)[FM][FN], float* ep, int lane, Put put) {
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(ep + 16 * j, acc[i][j], ELD, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = lane / 4 + 8 * h;
-      const float4* src = reinterpret_cast<const float4*>(ep + r * ELD + 8 * (lane % 4));
-      const float4 lo = src[0], hi = src[1];
-      float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      put(16 * i + r, v);
-    }
-    __syncwarp();
-  }
-}
-
-// the 8 fp32 biases of this lane's columns
-__device__ inline void load8(float (&dst)[8], const float* p) {
-  const float4 lo = reinterpret_cast<const float4*>(p)[0];
-  const float4 hi = reinterpret_cast<const float4*>(p)[1];
-  dst[0] = lo.x; dst[1] = lo.y; dst[2] = lo.z; dst[3] = lo.w;
-  dst[4] = hi.x; dst[5] = hi.y; dst[6] = hi.z; dst[7] = hi.w;
-}
-
-// relu(v + bias) as 8 bf16 in one 16-byte word
-__device__ inline uint4 relu_pack(const float (&v)[8], const float (&bias)[8]) {
-  uint4 out;
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    o[k] = __floats2bfloat162_rn(fmaxf(v[2 * k] + bias[2 * k], 0.f),
-                                 fmaxf(v[2 * k + 1] + bias[2 * k + 1], 0.f));
-  return out;
-}
-
+template <int WM>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                         const bf16* __restrict__ w2, const bf16* __restrict__ w3,
-                        const float* __restrict__ b, bf16* __restrict__ out, int H, int W,
-                        int Cin, int Cm, int R) {
+                        const float* __restrict__ b, bf16* __restrict__ out, Shape sh,
+                        int stages) {
+  constexpr int BM = 64 * WM, BN = 512 / WM;
+  constexpr int ROW = 2 * BK;            // bytes of a ring slice's row
+  constexpr int A_COPIES = BM * 8 / THREADS, B_COPIES = BN * 8 / THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LD = Cm + PAD;
-  const int WP = W + 2;
-  const int n1 = h1_rows(R, W), n2 = h2_rows(R, W);
-  bf16* h1 = reinterpret_cast<bf16*>(smem);
-  bf16* h2 = h1 + (size_t)n1 * LD;
-  unsigned char* wbuf = reinterpret_cast<unsigned char*>(h2 + (size_t)n2 * LD);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  bf16* xs = reinterpret_cast<bf16*>(wbuf + warp * WARP_BUF);   // stage-1 staging
-  float* ep = reinterpret_cast<float*>(wbuf + warp * WARP_BUF); // epilogue (after staging)
-  const int c8 = 8 * (lane % 4);                                 // this lane's epilogue columns
+  const int W = sh.W, Cin = sh.Cin, Cm = sh.Cm;
+  const int WP = W + 2, P = row_bytes(Cm);
+  const bool alias = h2_in_h1(WM, sh.R, W, Cm);
+  unsigned char* h1 = smem;
+  unsigned char* h2 = alias ? h1 : h1 + (size_t)(sh.R + 2) * WP * P;
+  unsigned char* ring = h1 + (size_t)((sh.R + 2) * WP + (alias ? 0 : BM)) * P;
+  constexpr int SLOT = ROW * (BM + BN);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, q = lane & 3;
 
-  const int r0 = blockIdx.x * R;                 // first output row of the band
-  const int rows = min(R, H - r0);
-  const int lo = max(r0 - 1, 0), hi = min(r0 + rows, H - 1);   // image rows of h1
-  const int M1 = (hi - lo + 1) * W, M2 = rows * WP, M3 = rows * W;
-  const long long img = (long long)blockIdx.y * H * W;         // first pixel of the image
-
-  {  // zero h1 (halo, rows outside the image, slack rows) and h2 (rows past the band)
-    uint4* p = reinterpret_cast<uint4*>(h1);
-    const int vecs = (n1 + n2) * LD / 8;
-    for (int i = threadIdx.x; i < vecs; i += THREADS) p[i] = make_uint4(0u, 0u, 0u, 0u);
+  {  // zero h1 (its pad columns and out-of-image rows stay zero), h2 and the ring (an
+     // A row read past Cm channels, against zero weights, must read finite values)
+    uint4* p = reinterpret_cast<uint4*>(smem);
+    const int vecs = (int)((ring + stages * SLOT - smem) / 16);
+    for (int i = tid; i < vecs; i += THREADS) p[i] = make_uint4(0u, 0u, 0u, 0u);
   }
-  __syncthreads();
 
-  FragC acc[FM][FN];
-  float bias[8];
+  Cursor<WM> prod, cons;
+  prod.unit = cons.unit = blockIdx.x;
+  if (prod.valid(sh)) {
+    prod.enter(sh);
+    cons.enter(sh);
+  }
 
-  // stage 1: h1 = relu(x . w1 + b1) over the band's image rows lo..hi
-  {
-    const bf16* xb = x + (img + (long long)lo * W) * Cin;
-    const int mtiles = (M1 + TM - 1) / TM, items = mtiles * (Cm / TN);
-    for (int item = warp; item < items; item += WARPS) {
-      const int m0 = item % mtiles * TM, n0 = item / mtiles * TN;
-      // x rows m0.. in chunks of 32 channels, one chunk ahead in registers; rows past M1
-      // are zero
-      uint4 xr[XV];
-      auto load_x = [&](int k0) {
+  // one slice of the producer's chunk into ring slot `slot`: for stage 0 the chunk's x
+  // rows (zero past the rows) and w1's; for stages 1 and 2 the weights' rows alone;
+  // channels past the reduction's (a Cm or Cin off 64) zero
+  auto load = [&](int slot) {
+    unsigned char* a_s = ring + slot * SLOT;
+    unsigned char* b_s = a_s + ROW * BM;
+    const int kch = (Cm + BK - 1) / BK;
+    const bf16* wrow;
+    int ldk, k0;
+    if (prod.stage == 0) {
+      k0 = prod.s * BK;
+      const bf16* xb = x + ((long long)prod.img * sh.H + prod.lo) * W * Cin + k0;
 #pragma unroll
-        for (int v = 0; v < XV; ++v) {
-          const int e = lane + 32 * v, r = e / (KS1 / 8), c = e % (KS1 / 8) * 8;
-          xr[v] = m0 + r < M1
-                      ? *reinterpret_cast<const uint4*>(xb + (long long)(m0 + r) * Cin + k0 + c)
-                      : make_uint4(0u, 0u, 0u, 0u);
+      for (int i = 0; i < A_COPIES; ++i) {
+        const int e = tid + THREADS * i, r = e >> 3, c = e & 7;
+        const int m = prod.mc * BM + r;
+        const bool ok = m < prod.M1 && k0 + 8 * c < Cin;
+        cp_async16(smem_addr(a_s + swz(r, c, ROW)), ok ? xb + (long long)m * Cin + 8 * c : x,
+                   ok);
+      }
+      wrow = w1;
+      ldk = Cin;
+    } else if (prod.stage == 1) {
+      const int tap = prod.s / kch;
+      k0 = (prod.s - tap * kch) * BK;
+      wrow = w2 + (size_t)tap * Cm * Cm;
+      ldk = Cm;
+    } else {
+      k0 = prod.s * BK;
+      wrow = w3;
+      ldk = Cm;
+    }
+    const int ncols = prod.out_cols(sh);
+#pragma unroll
+    for (int j = 0; j < B_COPIES; ++j) {
+      const int e = tid + THREADS * j, r = e >> 3, c = e & 7;
+      const int n = prod.nc * BN + r;
+      const bool ok = n < ncols && k0 + 8 * c < ldk;
+      cp_async16(smem_addr(b_s + swz(r, c, ROW)), ok ? wrow + (size_t)n * ldk + k0 + 8 * c : w1,
+                 ok);
+    }
+  };
+  auto wait_ring = [&]() {   // all but the newest stages - 2 groups have landed
+    switch (stages) {
+      case 2: cp_async_wait<0>(); break;
+      case 3: cp_async_wait<1>(); break;
+      default: cp_async_wait<2>();
+    }
+  };
+
+  float acc[MI][NI][4];
+  int gather[MI];          // stage 1: each m16 tile's h1 row of this lane's pixel, or -1
+  int slot = 0;            // the ring slot of the consumer's slice
+  uint32_t b_off[NI / 2];  // this lane's B rows in a ring slot, the first k16 step
+#pragma unroll
+  for (int jp = 0; jp < NI / 2; ++jp)
+    b_off[jp] = ROW * BM + swz(wn * 64 + 16 * jp + (lane & 7) + ((lane >> 4) << 3),
+                               (lane >> 3) & 1, ROW);
+
+#pragma unroll 1
+  for (int i = 0; i < stages - 1; ++i) {
+    if (prod.valid(sh)) {
+      load(i);
+      prod.advance(sh);
+    }
+    cp_async_commit();
+  }
+
+#pragma unroll 1
+  while (cons.valid(sh)) {   // a chunk: its slices, then its epilogue
+    const int mrows = cons.chunk_rows();
+    const int ncols = cons.out_cols(sh) - cons.nc * BN;
+    // this warp's m16 tiles and n16 pairs that hold output (warp-uniform)
+    const int m_tiles = min(MI, max(0, (mrows - wm * 64 + 15) / 16));
+    const int n_pairs = min(NI / 2, max(0, (ncols - wn * 64 + 15) / 16));
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+    if (cons.stage == 1) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int p = cons.mc * BM + wm * 64 + 16 * i + (lane & 15);
+        const int pi = p / W;
+        gather[i] = p < cons.M2 ? pi * WP + (p - pi * W) : -1;
+      }
+    }
+    const int nsl = cons.slices(sh), kch = (Cm + BK - 1) / BK;
+#pragma unroll 1
+    for (int s = 0; s < nsl; ++s) {
+      wait_ring();
+      __syncthreads();
+      // the producer's next slice, into the slot the last slice was read from: issued
+      // once the first k16 step's MMAs are in the tensor pipe
+      const int feed_slot = slot == 0 ? stages - 1 : slot - 1;
+      auto feed = [&]() {
+        if (prod.valid(sh)) {
+          load(feed_slot);
+          prod.advance(sh);
         }
+        cp_async_commit();
       };
-      load_x(0);
-      zero(acc);
-      warp_gemm(acc, Cin / 16, [&](int s) { return xs + 16 * (s % (KS1 / 16)); }, XLD,
-                [&](int s) { return w1 + (size_t)n0 * Cin + 16 * s; }, Cin, [&](int s) {
-                  if (s % (KS1 / 16)) return;
-                  __syncwarp();        // the last chunk's fragments are loaded
+      const uint32_t ring_s = smem_addr(ring + slot * SLOT);   // the slice's slot
+      slot = slot + 1 == stages ? 0 : slot + 1;
+      if (m_tiles == 0 || n_pairs == 0) {
+        feed();
+        continue;
+      }
+      // A rows of this lane for the slice's first k16 step, as an offset in the slot
+      // (stage 0) or an address (h1, h2); step kk is the swizzled chunk 2 * kk on (offset
+      // bits 5-6) or 32 * kk bytes on
+      uint32_t a_addr[MI];
+      if (cons.stage == 0) {
 #pragma unroll
-                  for (int v = 0; v < XV; ++v) {
-                    const int e = lane + 32 * v;
-                    *reinterpret_cast<uint4*>(xs + e / (KS1 / 8) * XLD + e % (KS1 / 8) * 8) = xr[v];
-                  }
-                  __syncwarp();
-                  if (16 * s + KS1 < Cin) load_x(16 * s + KS1);
-                });
-      __syncwarp();
-      load8(bias, b + n0 + c8);
-      epilogue(acc, ep, lane, [&](int r, const float (&v)[8]) {
-        const int p = m0 + r;
-        if (p < M1) {
-          const int hr = lo + p / W - (r0 - 1), hc = p % W + 1;
-          *reinterpret_cast<uint4*>(h1 + (size_t)(hr * WP + hc) * LD + n0 + c8) =
-              relu_pack(v, bias);
+        for (int i = 0; i < MI; ++i)
+          a_addr[i] = swz(wm * 64 + 16 * i + (lane & 15), lane >> 4, ROW);
+      } else {
+        int k0 = s * BK, tap_off = 0;
+        if (cons.stage == 1) {
+          const int tap = s / kch;
+          k0 = (s - tap * kch) * BK;
+          tap_off = tap / 3 * WP + tap % 3;
         }
-      });
-    }
-  }
-  __syncthreads();
-
-  // stage 2: h2 = relu(sum over 9 taps of shifted h1 . w2[tap] + b2), q = i * WP + j
-  {
-    const int ksteps = Cm / 16;
-    const int mtiles = (M2 + TM - 1) / TM, items = mtiles * (Cm / TN);
-    for (int item = warp; item < items; item += WARPS) {
-      const int m0 = item % mtiles * TM, n0 = item / mtiles * TN;
-      zero(acc);
-      // step s: tap s / ksteps, channels 16 * (s % ksteps); w2 is (9, Cm out, Cm in)
-      warp_gemm(acc, 9 * ksteps, [&](int s) {
-        const int tap = s / ksteps, k0 = 16 * (s % ksteps);
-        return h1 + (size_t)(m0 + tap / 3 * WP + tap % 3) * LD + k0;
-      }, LD, [&](int s) {
-        const int tap = s / ksteps, k0 = 16 * (s % ksteps);
-        return w2 + ((size_t)tap * Cm + n0) * Cm + k0;
-      }, Cm, [](int) {});
-      load8(bias, b + Cin + n0 + c8);
-      epilogue(acc, ep, lane, [&](int r, const float (&v)[8]) {
-        const int q = m0 + r;
-        const int i = q / WP, j = q - i * WP;
-        if (q < M2 && j < W)
-          *reinterpret_cast<uint4*>(h2 + (size_t)(i * W + j) * LD + n0 + c8) =
-              relu_pack(v, bias);
-      });
-    }
-  }
-  __syncthreads();
-
-  // stage 3: out = relu(h2 . w3 + b3 + x) for the band's pixels
-  {
-    const long long g0 = img + (long long)r0 * W;    // first output pixel of the band
-    const int mtiles = (M3 + TM - 1) / TM, items = mtiles * (Cin / TN);
-    for (int item = warp; item < items; item += WARPS) {
-      const int m0 = item % mtiles * TM, n0 = item / mtiles * TN;
-      zero(acc);
-      warp_gemm(acc, Cm / 16, [&](int s) { return h2 + (size_t)m0 * LD + 16 * s; }, LD,
-                [&](int s) { return w3 + (size_t)n0 * Cm + 16 * s; }, Cm, [](int) {});
-      load8(bias, b + 2 * Cin + n0 + c8);
-      epilogue(acc, ep, lane, [&](int r, const float (&v)[8]) {
-        const int p = m0 + r;
-        if (p < M3) {
-          const size_t idx = (size_t)(g0 + p) * Cin + n0 + c8;
-          const uint4 res = *reinterpret_cast<const uint4*>(x + idx);
-          const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&res);
-          uint4 y;
-          __nv_bfloat162* yh = reinterpret_cast<__nv_bfloat162*>(&y);
+        const uint32_t base = smem_addr(cons.stage == 1 ? h1 : h2) + (k0 + 8 * (lane >> 4)) * 2;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float2 f = __bfloat1622float2(rh[k]);
-            yh[k] = __floats2bfloat162_rn(fmaxf(v[2 * k] + bias[2 * k] + f.x, 0.f),
-                                          fmaxf(v[2 * k + 1] + bias[2 * k + 1] + f.y, 0.f));
+        for (int i = 0; i < MI; ++i) {
+          const int r = cons.stage == 2 ? wm * 64 + 16 * i + (lane & 15)
+                                        : (gather[i] < 0 ? 0 : gather[i] + tap_off);
+          a_addr[i] = base + r * P;
+        }
+      }
+      const bool ring_a = cons.stage == 0;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t af[MI][4], bfr[NI][2];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+          ldmatrix_x4(af[i], ring_a ? ring_s + (a_addr[i] ^ (32u * kk)) : a_addr[i] + 32u * kk);
+#pragma unroll
+        for (int jp = 0; jp < NI / 2; ++jp) {
+          uint32_t v[4];
+          ldmatrix_x4(v, ring_s + (b_off[jp] ^ (32u * kk)));
+          bfr[2 * jp][0] = v[0];
+          bfr[2 * jp][1] = v[1];
+          bfr[2 * jp + 1][0] = v[2];
+          bfr[2 * jp + 1][1] = v[3];
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NI; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+        if (kk == 0) feed();
+      }
+    }
+
+    {  // the chunk's epilogue
+      if (cons.stage == 0 && cons.mc == 0 && cons.nc == 0) {
+        // a unit's first h1 rows: the rows outside the image (above the first band, below
+        // the last) were another unit's, and where h2 shares the buffer all of it was
+        const int vecs = WP * P / 16;
+        for (int hr = 0; hr < sh.R + 2; ++hr) {
+          if (!alias && !(hr == 0 && cons.r0 == 0) &&
+              !(hr == cons.rows + 1 && cons.r0 + cons.rows == sh.H))
+            continue;
+          uint4* p = reinterpret_cast<uint4*>(h1 + (size_t)hr * WP * P);
+          for (int i = tid; i < vecs; i += THREADS) p[i] = make_uint4(0u, 0u, 0u, 0u);
+        }
+        if (alias) __syncthreads();
+      }
+      // h2 over h1: every warp has read h1 for the last time before any writes h2
+      if (alias && cons.stage == 1) __syncthreads();
+      // each of this lane's rows (m16 tile i, half h): its h1 row (stage 0), h2 row
+      // (stage 1) or pixel (stage 2), or -1 where it holds no output
+      int at[MI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 64 + 16 * i + g + 8 * h;
+          const int m = cons.mc * BM + r;
+          int v = r;
+          if (cons.stage == 0) {
+            const int ih = m / W;
+            v = (cons.lo + ih - cons.r0 + 1) * WP + (m - ih * W) + 1;
+          } else if (cons.stage == 2) {
+            v = (cons.img * sh.H + cons.r0) * W + m;
           }
-          *reinterpret_cast<uint4*>(out + idx) = y;
+          at[i][h] = i < m_tiles && r < mrows ? v : -1;
         }
-      });
+      const float* bias = b + cons.stage * Cin + cons.nc * BN + wn * 64;
+      if (cons.stage == 2) {
+        // out: the 4 lanes of a quad trade fragments by shuffles so that each holds 8
+        // consecutive channels of a row, read as one 16-byte residual word and written
+        // as one 16-byte store (a 4-byte store leaves most of each sector to another
+        // instruction); the residual is loaded a row ahead, so its latency overlaps
+#pragma unroll
+        for (int jg = 0; jg < NI / 4; ++jg) {
+          if (2 * jg >= n_pairs) break;            // 32 channels: 2 n16 pairs
+          const int n = cons.nc * BN + wn * 64 + 32 * jg + 8 * q;   // this lane's 8
+          const float4 b_lo = *reinterpret_cast<const float4*>(bias + 32 * jg + 8 * q);
+          const float4 b_hi = *reinterpret_cast<const float4*>(bias + 32 * jg + 8 * q + 4);
+          const float bb[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w, b_hi.x, b_hi.y, b_hi.z, b_hi.w};
+          auto residual = [&](int ih) {
+            const int row = at[ih >> 1][ih & 1];
+            return row < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                           : *reinterpret_cast<const uint4*>(x + (long long)row * Cin + n);
+          };
+          uint4 res_next = residual(0);
+#pragma unroll
+          for (int ih = 0; ih < 2 * MI; ++ih) {
+            const int i = ih >> 1, h = ih & 1;
+            const uint4 res = res_next;
+            if (ih + 1 < 2 * MI) res_next = residual(ih + 1);
+            // step t: send the pair of tile 4 jg + (q ^ t), get the partner's pair of
+            // tile 4 jg + q, which is that tile's channels 2 (q ^ t) and 2 (q ^ t) + 1
+            float got[4][2];
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                got[t][e] = __shfl_xor_sync(
+                    0xffffffffu,
+                    pick4(acc[i][4 * jg][2 * h + e], acc[i][4 * jg + 1][2 * h + e],
+                          acc[i][4 * jg + 2][2 * h + e], acc[i][4 * jg + 3][2 * h + e], q ^ t),
+                    t);
+            if (at[i][h] < 0) continue;
+            const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&res);
+            uint4 y;
+            __nv_bfloat162* yh = reinterpret_cast<__nv_bfloat162*>(&y);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {        // channels 2c, 2c + 1: step q ^ c's pair
+              const int t = q ^ c;
+              const float v0 = pick4(got[0][0], got[1][0], got[2][0], got[3][0], t);
+              const float v1 = pick4(got[0][1], got[1][1], got[2][1], got[3][1], t);
+              const float2 r = __bfloat1622float2(rh[c]);
+              yh[c] = __floats2bfloat162_rn(fmaxf(v0 + bb[2 * c] + r.x, 0.f),
+                                            fmaxf(v1 + bb[2 * c + 1] + r.y, 0.f));
+            }
+            *reinterpret_cast<uint4*>(out + (long long)at[i][h] * Cin + n) = y;
+          }
+        }
+      } else {
+        // h1 or h2: bias and ReLU, 2 channels a lane a row
+        unsigned char* dst = cons.stage == 0 ? h1 : h2;
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          if (j >= 2 * n_pairs) break;
+          const int n = cons.nc * BN + wn * 64 + 8 * j + 2 * q;
+          const float2 bv = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * q);
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (at[i][h] < 0) continue;
+              *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)at[i][h] * P + 2 * n) =
+                  __floats2bfloat162_rn(fmaxf(acc[i][j][2 * h] + bv.x, 0.f),
+                                        fmaxf(acc[i][j][2 * h + 1] + bv.y, 0.f));
+            }
+        }
+      }
     }
+    cons.next_chunk(sh);
   }
+  cp_async_wait<0>();
+}
+
+// above 48 KB of dynamic shared memory only after this, once a device and layout: the
+// card's whole opt-in limit, so that any plan that fits may launch
+template <int WM>
+cudaError_t allow_smem(int device, int limit) {
+  static bool done[64];
+  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(fused_bottleneck_kernel<WM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
+  return err;
+}
+
+// the card's opt-in shared memory a block, read once a device
+int smem_limit(int device) {
+  static int limit[64];
+  if (device < 0 || device >= 64) return 0;
+  if (limit[device] == 0 &&
+      cudaDeviceGetAttribute(&limit[device], cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    limit[device] = 0;
+  return limit[device];
+}
+
+template <int WM>
+cudaError_t launch(int grid, const void* x, const void* w1, const void* w2, const void* w3,
+                   const float* b, void* out, Shape sh, int stages, size_t bytes, int device,
+                   cudaStream_t s) {
+  cudaError_t err = allow_smem<WM>(device, smem_limit(device));
+  if (err != cudaSuccess) return err;
+  fused_bottleneck_kernel<WM><<<grid, THREADS, bytes, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
+      static_cast<const bf16*>(w3), b, static_cast<bf16*>(out), sh, stages);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  x and out: (N, H, W, Cin) bf16; w1 (Cm, Cin),
-// w2 (9, Cm, Cm), w3 (Cin, Cm) bf16, (out, in); b (3, Cin) fp32; all contiguous on `device`, every
-// pointer 32-byte aligned (wmma), Cin and Cm multiples of 32.  Picks the band height: the
-// tallest band whose buffers fit the card's shared memory for one block, then evened out
-// over the image (R = ceil(H / bands)).  Launches one kernel of (bands, N) blocks on
-// `stream` and returns cudaGetLastError() after it (0 on success); info[0] gets R and
-// info[1] the dynamic shared memory in bytes.
+// w2 (9, Cm, Cm), w3 (Cin, Cm) bf16, (out, in); b (3, Cin) fp32; all contiguous on
+// `device` and 16-byte aligned, Cin and Cm multiples of 32.  The plan (wm warps along a
+// chunk's rows: 1, 2, 4 or 8; the band height R; the ring's depth, 2 to 4 slices; the
+// persistent grid, at most N * ceil(H / R) CTAs) comes from the host; a plan whose buffers
+// do not fit the card's shared memory, or any other value out of range, returns
+// cudaErrorInvalidValue.  Launches one kernel on `stream` and returns cudaGetLastError()
+// after it (0 on success); info[0] gets the dynamic shared memory in bytes.
 extern "C" int mxtt_fused_bottleneck(const void* x, const void* w1, const void* w2,
                                      const void* w3, const float* b, void* out, int N,
-                                     int H, int W, int Cin, int Cm, int device, void* stream,
-                                     int* info) {
-  info[0] = info[1] = 0;
+                                     int H, int W, int Cin, int Cm, int wm, int R, int stages,
+                                     int grid, int device, void* stream, int* info) {
+  info[0] = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (N < 1 || H < 1 || W < 1 || Cin < TN || Cm < TN || Cin % TN || Cm % TN || N > 65535)
+  if (N < 1 || H < 1 || W < 1 || Cin < CH || Cm < CH || Cin % CH || Cm % CH || R < 1 ||
+      R > H || stages < 2 || stages > 4 || (wm != 1 && wm != 2 && wm != 4 && wm != 8))
     return (int)cudaErrorInvalidValue;
-  int limit = 0;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  int R = 0;
-  while (R < H && smem_bytes(R + 1, W, Cm) <= (size_t)limit) ++R;
-  if (R == 0) return (int)cudaErrorInvalidValue;
   const int bands = (H + R - 1) / R;
-  R = (H + bands - 1) / bands;
-  const size_t bytes = smem_bytes(R, W, Cm);
-  err = cudaFuncSetAttribute(fused_bottleneck_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  fused_bottleneck_kernel<<<dim3((unsigned)bands, (unsigned)N), THREADS, bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(w3), b, static_cast<bf16*>(out), H, W, Cin, Cm, R);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) {
-    info[0] = R;
-    info[1] = (int)bytes;
+  if ((long long)N * bands >= (1LL << 31) || grid < 1 || grid > N * bands)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(w1) || !aligned16(w2) || !aligned16(w3) || !aligned16(b) ||
+      !aligned16(out))
+    return (int)cudaErrorMisalignedAddress;
+  const long long bytes = smem_bytes(wm, R, W, Cm, stages);
+  if (bytes > smem_limit(device)) return (int)cudaErrorInvalidValue;
+  const Shape sh{H, W, Cin, Cm, R, bands, N * bands};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (wm) {
+    case 1: err = launch<1>(grid, x, w1, w2, w3, b, out, sh, stages, bytes, device, s); break;
+    case 2: err = launch<2>(grid, x, w1, w2, w3, b, out, sh, stages, bytes, device, s); break;
+    case 4: err = launch<4>(grid, x, w1, w2, w3, b, out, sh, stages, bytes, device, s); break;
+    default: err = launch<8>(grid, x, w1, w2, w3, b, out, sh, stages, bytes, device, s);
   }
+  if (err == cudaSuccess) info[0] = (int)bytes;
   return (int)err;
+}
+
+// Blocks of the wm layout that one SM holds at the plan's shared memory, into *blocks: one
+// (what the plan assumes), read on the card.  Returns a CUDA error code.
+extern "C" int mxtt_fused_bottleneck_occupancy(int wm, int bytes, int device, int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int limit = smem_limit(device);
+  switch (wm) {
+    case 1: err = allow_smem<1>(device, limit); break;
+    case 2: err = allow_smem<2>(device, limit); break;
+    case 4: err = allow_smem<4>(device, limit); break;
+    case 8: err = allow_smem<8>(device, limit); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const void* k = wm == 1   ? (const void*)fused_bottleneck_kernel<1>
+                  : wm == 2 ? (const void*)fused_bottleneck_kernel<2>
+                  : wm == 4 ? (const void*)fused_bottleneck_kernel<4>
+                            : (const void*)fused_bottleneck_kernel<8>;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, THREADS, bytes);
 }

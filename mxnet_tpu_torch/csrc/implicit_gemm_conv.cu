@@ -1,206 +1,355 @@
-// Implicit-GEMM stride-1 convolution over NHWC activations, for Hopper (sm_90a).
+// Implicit-GEMM convolution over NHWC fp32 activations at stride 1 or 2, for Hopper
+// (sm_90a): the fp32 arm of TPU kernel 1.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_conv.py:_taps_kernel, launched by
-// _conv_s1 (pallas_conv.py:152-207).  It computes the same function:
+// _conv_s1 (pallas_conv.py:152-207).  It computes the same function, with a stride:
 //
 //   y[n, ho, wo, o] = sum_{dh < KH, dw < KW, c < C}
-//                     xpad[n, ho + dh, wo + dw, c] * taps[dh * KW + dw, c, o]
+//                     xpad[n, S * ho + dh, S * wo + dw, c] * taps[dh * KW + dw, c, o]
 //
-// where xpad is x padded by (pad_top, pad_bottom) rows and (pad_left, pad_right)
-// columns of zeros, so Ho = H + pad_top + pad_bottom - KH + 1 and likewise Wo.
-// The 3x3 / stride-1 / pad-1 convolutions of ResNet-50 run it with 3x3 taps; the
-// 3x3 / stride-2 / pad-1 ones run it with 2x2 taps on 4C channels after the exact
-// space-to-depth rewrite done by the Python wrapper (mxnet_tpu_torch/ops/hopper_conv.py).
+// where xpad is x padded by pad_top rows and pad_left columns of zeros (and as many
+// at the far edges as the output needs), S the stride (1 or 2), x (N, H, W, C), taps
+// (KH*KW, C, O) and y (N, Ho, Wo, O).  ResNet-50's 3x3 / pad-1 convolutions run it
+// with 3x3 taps at stride 1 and, natively, at stride 2 (the TPU kernel takes stride 2
+// as a 2x2 conv over 4C channels after a space-to-depth copy, which does 16/9 of the
+// MACs; here the stride-2 rows gather their pixels straight from x), and the data
+// gradient of the stride-1 ones with flipped, io-swapped taps (ops/hopper_conv.py).
 //
-// Numerics: fp32 in and out, every product and sum in fp32 FMA on the CUDA
-// cores (no TF32, no tensor cores).  bf16 inputs take taps_conv_bf16.cu (the
-// tensor cores) instead.
-// Against the plain PyTorch version (a per-tap loop of fp32 matmuls) only the
-// order of the sums differs; at unit-scale data the two agree to 1e-4 absolute
-// and relative, the tolerance the tests and chip_smoke.py state.
+// Numerics: fp32 in and out, every product and sum in fp32 FMA on the CUDA cores (no
+// TF32, no tensor cores).  bf16 inputs take taps_conv_bf16.cu (the tensor cores)
+// instead.  Against the plain PyTorch version (a per-tap loop of fp32 matmuls) only the
+// order of the sums differs; at unit-scale data the two agree to 1e-4 absolute and
+// relative, the tolerance the tests and chip_smoke.py state.
 //
-// Design.  The TPU kernel stacked NB images per grid step to fill VMEM, laid the
-// images on an 8-aligned frame stride and fetched overlapping element-indexed
-// slabs; all three are TPU artifacts and none is kept.  Here the output is a GEMM
-// of M = N*Ho*Wo pixel rows by O channel columns with a reduction of KH*KW*C.
-// Each block owns a BM x BN output tile and walks the reduction in stages of BK
-// channels of one tap; a stage's input rows are gathered straight from x with the
-// padding and the ragged tile edge masked to zero (no padded copy, no im2col in
-// device memory), staged through shared memory, and multiplied by a BK x BN slice
-// of the taps.  The next stage's global loads are issued into registers before
-// the current stage's FMAs, so the loads overlap the arithmetic.  Each thread
-// keeps an 8 x 4 fp32 accumulator in registers.  The kernel allocates nothing and
-// runs on the stream it is given.
+// Bound at the main path's shapes (batch 32): each 3x3 is 3.7-7.4 GFLOP on 4-51 MB, so
+// every one is bound by operations (0.110 ms a 7.4-GFLOP conv at 67 TFLOP/s fp32), not
+// bytes.  What holds an FMA kernel back from that rate is everything that is not an FMA:
+// shared-memory loads, barriers, address arithmetic, and SMs left idle by the grid.  The
+// design is taps_wgrad.cu's (kernel 2 fp32), turned to the forward GEMM of M = N*Ho*Wo
+// pixel rows by O channel columns with a reduction of KH*KW*C:
 //
-// Bound at the slice's shapes (ResNet-50 forward, batch N, fp32):
-//   stride 1:  64->64 at 56x56 (x3), 128->128 at 28x28 (x3), 256->256 at 14x14 (x5),
-//              512->512 at 7x7 (x2)
-//   stride 2:  128->128 56->28, 256->256 28->14, 512->512 14->7 (each as 2x2 taps on
-//              4C channels after space-to-depth, which does 16/9 of the MACs)
-// At batch 32 each instance does 2*N*Ho*Wo*O*9*C = 3.7-7.4 GFLOP on 4-51 MB of
-// input and output, about 150-1000 FLOP per byte, so in fp32 on the CUDA cores
-// (67 TFLOP/s against 3.35 TB/s) every instance is bound by operations, not bytes.
-// Tensor cores (TF32 wgmma), TMA and a pipelined shared-memory ring are the later
-// steps towards that bound.
+//   - Register-tiled outer products: 256 threads, 16 x 16 over the block's BM x BN
+//     output tile, each thread 4-wide sub-tiles 64 apart both ways (8 x 4 accumulators at
+//     128 x 64, 4 x 4 at 64 x 64).  The input rows are staged pixel-
+//     major (their channels contiguous, as cp.async copies them) and read as float4s of 4
+//     channels: within a quarter warp all lanes read one row (a broadcast), and the taps
+//     as float4s of 4 consecutive output channels (8 lanes, 128 consecutive bytes): no
+//     bank conflicts, 10.7 FMAs a 16-byte shared load at 128 x 64.
+//   - A 4-stage shared-memory ring of 16-channel stages filled by cp.async: 16-byte copies
+//     (cp.async.cg, 4 channels) where C and O are multiples of 4 and x, taps and y are
+//     16-byte aligned, else 4-byte copies (cp.async.ca) in the same kernel (template VEC
+//     = false).  The padding, the ragged channel edges and the rows past M are zero-filled
+//     by a source size of 0, so there is no padded copy of x and no im2col.  One barrier
+//     a stage.
+//   - Each thread works out its rows' input pixel once; the stage's tap and channel block
+//     are carried from stage to stage, so the loop divides nothing.
+//   - A host plan (ops/hopper_conv.py conv_fp32_plan) picks the tile and a split of the
+//     reduction over whole waves of the SMs: at 7 and 14 px the output tiles alone leave
+//     most of the card idle.  Each split writes its partial output to a workspace
+//     (splits, M, O) that the wrapper allocates, and split_sum.cuh's pass sums them in a
+//     fixed order, so the same inputs give the same bits on every run; with one split
+//     the kernel writes y itself.
 
-#include <cuda_runtime.h>
+#include "cp_async.cuh"
+#include "split_sum.cuh"
 
 namespace {
 
-constexpr int BM = 128;                   // output pixels per block
-constexpr int BN = 64;                    // output channels per block
-constexpr int BK = 16;                    // reduction channels per stage
-constexpr int THREADS = 256;
-constexpr int TM = 8;                     // pixels per thread
-constexpr int TN = 4;                     // channels per thread
-constexpr int A_ROWS = THREADS / BK;      // pixel rows one pass of the block loads
-constexpr int A_LOADS = BM / A_ROWS;      // A elements loaded per thread per stage
-constexpr int B_ROWS = THREADS / BN;
-constexpr int B_LOADS = BK / B_ROWS;      // B elements loaded per thread per stage
-constexpr int A_PAD = 4;                  // keeps rows 16-byte aligned, eases bank conflicts
+struct fp32_3x3_conv;                  // names this library's split sum in a trace
 
-static_assert((BM / TM) * (BN / TN) == THREADS, "thread tile must cover the block tile");
-static_assert(BM % A_ROWS == 0 && BK % B_ROWS == 0, "loads must cover the stage");
+constexpr int BK = 16;                 // input channels a stage
+constexpr int STAGES = 4;              // shared-memory ring depth
+constexpr int THREADS = 256;           // 16 x 16 over the output tile
+constexpr int A_PITCH = BK + 4;        // floats of a staged input row (16-byte aligned)
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+template <int BM, int BN>
+struct Tile {
+  static constexpr int SA = BM / 64;                   // a thread's 4-row sub-tiles
+  static constexpr int SB = BN / 64;                   // ... and 4-column ones
+  static constexpr int A_FLOATS = BM * A_PITCH;
+  static constexpr int STAGE_FLOATS = A_FLOATS + BK * BN;
+  static constexpr int SMEM = STAGES * STAGE_FLOATS * (int)sizeof(float);
+  static constexpr int A_COPIES = BM * (BK / 4) / THREADS;   // 16-byte chunks a thread
+  static constexpr int B_CPR = BN / 4;                       // chunks of a taps row
+  static constexpr int B_RPP = THREADS / B_CPR;              // taps rows a pass copies
+  static constexpr int B_COPIES = BK / B_RPP;
+  // blocks an SM holds: what __launch_bounds__ asks and the host plan assumes
+  static constexpr int PER_SM = BM * BN >= 128 * 64 ? 2 : 4;
+  static_assert(SA >= 1 && SB >= 1 && SA * 64 == BM && SB * 64 == BN, "64-wide sub-tiles");
+  static_assert(A_COPIES * THREADS == BM * (BK / 4), "A copies must cover the stage");
+  static_assert(B_COPIES * B_RPP == BK, "B copies must cover the stage");
+};
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-taps_conv_kernel(const T* __restrict__ x, const T* __restrict__ taps, T* __restrict__ y,
-                 int N, int H, int W, int C, int O, int KH, int KW,
-                 int pad_top, int pad_left, int Ho, int Wo) {
-  __shared__ __align__(16) float As[BK][BM + A_PAD];
-  __shared__ __align__(16) float Bs[BK][BN];
-
+template <int BM, int BN, bool VEC>
+__global__ void __launch_bounds__(THREADS, Tile<BM, BN>::PER_SM)
+taps_conv_kernel(const float* __restrict__ x, const float* __restrict__ taps,
+                 float* __restrict__ out, int N, int H, int W, int C, int O, int KH, int KW,
+                 int stride, int pad_top, int pad_left, int Ho, int Wo, int kper) {
+  using T = Tile<BM, BN>;
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
-  const long long M = (long long)N * Ho * Wo;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int o0 = blockIdx.y * BN;
+  const int hw = Ho * Wo;
+  const int M = N * hw;
+  const int m0 = blockIdx.x * BM, o0 = blockIdx.y * BN, split = blockIdx.z;
+  const int cblocks = (C + BK - 1) / BK;
+  const int kbeg = split * kper;
+  const int kend = min(kbeg + kper, KH * KW * cblocks);
+  const int ksteps = max(kend - kbeg, 0);
 
-  // A (input rows): this thread loads channel a_k of pixels a_m + i * A_ROWS.
-  const int a_k = tid % BK;
-  const int a_m = tid / BK;
-  int a_n[A_LOADS], a_h[A_LOADS], a_w[A_LOADS];
+  // input copies: this thread copies chunk a_ch of rows a_row + 64 * i; per row the
+  // input pixel of tap (0, 0) as (n*H*W + h*W + w, h, w), h far out of range past M
+  const int a_ch = tid % 4, a_row = tid / 4;
+  int a_pix[T::A_COPIES], a_h[T::A_COPIES], a_w[T::A_COPIES];
 #pragma unroll
-  for (int i = 0; i < A_LOADS; ++i) {
-    const long long m = m0 + a_m + i * A_ROWS;
+  for (int i = 0; i < T::A_COPIES; ++i) {
+    const int m = m0 + a_row + 64 * i;
     if (m < M) {
-      const long long hw = (long long)Ho * Wo;
-      const int rem = (int)(m % hw);
-      a_n[i] = (int)(m / hw);
-      a_h[i] = rem / Wo - pad_top;
-      a_w[i] = rem % Wo - pad_left;
+      const int n = m / hw, rem = m - n * hw;
+      const int ho = rem / Wo;
+      a_h[i] = ho * stride - pad_top;
+      a_w[i] = (rem - ho * Wo) * stride - pad_left;
+      a_pix[i] = (n * H + a_h[i]) * W + a_w[i];
     } else {
-      a_n[i] = -1;
-      a_h[i] = 0;
+      a_h[i] = -(1 << 28);
       a_w[i] = 0;
+      a_pix[i] = 0;
     }
   }
-  // B (taps): this thread loads column b_o of reduction rows b_k + j * B_ROWS.
-  const int b_o = tid % BN;
-  const int b_k = tid / BN;
+  // taps copies: chunk b_ch of reduction rows b_row + B_RPP * j
+  const int b_ch = tid % T::B_CPR, b_row = tid / T::B_CPR;
+  const int b_o = o0 + 4 * b_ch;
 
-  const int cblocks = (C + BK - 1) / BK;
-  const int stages = KH * KW * cblocks;
+  // the next stage to load, as (tap row, tap column, channel block), carried from load
+  // to load
+  int l_dh = kbeg / cblocks, l_cb = kbeg - l_dh * cblocks;
+  int l_dw = l_dh % KW;
+  l_dh /= KW;
 
-  float a_reg[A_LOADS], b_reg[B_LOADS];
-  auto load_stage = [&](int s) {
-    const int tap = s / cblocks;
-    const int c0 = (s % cblocks) * BK;
-    const int dh = tap / KW, dw = tap % KW;
-    const int c = c0 + a_k;
+  auto load_stage = [&](int buf) {
+    float* as = smem + buf * T::STAGE_FLOATS;
+    float* bs = as + T::A_FLOATS;
+    const int c0 = l_cb * BK;
+    const int c = c0 + 4 * a_ch;
 #pragma unroll
-    for (int i = 0; i < A_LOADS; ++i) {
-      const int hi = a_h[i] + dh, wi = a_w[i] + dw;
-      float v = 0.f;
-      if (a_n[i] >= 0 && c < C && hi >= 0 && hi < H && wi >= 0 && wi < W)
-        v = to_f32(x[(((long long)a_n[i] * H + hi) * W + wi) * C + c]);
-      a_reg[i] = v;
+    for (int i = 0; i < T::A_COPIES; ++i) {
+      const int hi = a_h[i] + l_dh, wi = a_w[i] + l_dw;
+      const bool pix = (unsigned)hi < (unsigned)H && (unsigned)wi < (unsigned)W;
+      const float* src = x + ((long long)a_pix[i] + l_dh * W + l_dw) * C + c;
+      const uint32_t dst = smem_addr(as + (a_row + 64 * i) * A_PITCH + 4 * a_ch);
+      if (VEC) {
+        cp_async16(dst, pix && c < C ? src : x, pix && c < C);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cp_async4(dst + 4 * e, pix && c + e < C ? src + e : x, pix && c + e < C);
+      }
     }
-    const T* t = taps + (long long)tap * C * O;
-    const int o = o0 + b_o;
+    const float* t = taps + (long long)(l_dh * KW + l_dw) * C * O;
 #pragma unroll
-    for (int j = 0; j < B_LOADS; ++j) {
-      const int cc = c0 + b_k + j * B_ROWS;
-      b_reg[j] = (cc < C && o < O) ? to_f32(t[(long long)cc * O + o]) : 0.f;
+    for (int j = 0; j < T::B_COPIES; ++j) {
+      const int r = b_row + T::B_RPP * j;
+      const int cc = c0 + r;
+      const float* src = t + (long long)cc * O + b_o;
+      const uint32_t dst = smem_addr(bs + r * BN + 4 * b_ch);
+      if (VEC) {
+        cp_async16(dst, cc < C && b_o < O ? src : taps, cc < C && b_o < O);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cp_async4(dst + 4 * e, cc < C && b_o + e < O ? src + e : taps,
+                    cc < C && b_o + e < O);
+      }
+    }
+    if (++l_cb == cblocks) {             // the next stage: a channel block on
+      l_cb = 0;
+      if (++l_dw == KW) {
+        l_dw = 0;
+        ++l_dh;
+      }
     }
   };
 
-  const int tx = tid % (BN / TN);         // channel group of this thread
-  const int ty = tid / (BN / TN);         // pixel group of this thread
-  float acc[TM][TN];
+  const int tx = tid % 16;               // output-channel group of this thread
+  const int ty = tid / 16;               // pixel group of this thread
+  float acc[T::SA * 4][T::SB * 4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < T::SA * 4; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < T::SB * 4; ++j) acc[i][j] = 0.f;
 
-  if (stages > 0) load_stage(0);
-  for (int s = 0; s < stages; ++s) {
 #pragma unroll
-    for (int i = 0; i < A_LOADS; ++i) As[a_k][a_m + i * A_ROWS] = a_reg[i];
-#pragma unroll
-    for (int j = 0; j < B_LOADS; ++j) Bs[b_k + j * B_ROWS][b_o] = b_reg[j];
-    __syncthreads();
-    if (s + 1 < stages) load_stage(s + 1);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a_lo = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
-      const float4 a_hi = *reinterpret_cast<const float4*>(&As[k][ty * TM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
-      const float a[TM] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float b[TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ksteps) load_stage(s);
+    cp_async_commit();
   }
+  for (int ks = 0; ks < ksteps; ++ks) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (ks + STAGES - 1 < ksteps) load_stage((ks + STAGES - 1) % STAGES);
+    cp_async_commit();
 
-  // NHWC output: row m of the GEMM is pixel (n, ho, wo) flattened, so y[m * O + o].
+    const float* as = smem + (ks % STAGES) * T::STAGE_FLOATS;
+    const float* bs = as + T::A_FLOATS;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
-    if (m >= M) continue;
-    T* row = y + m * O;
+    for (int kq = 0; kq < BK / 4; ++kq) {
+      float4 a[T::SA * 4];               // 4 channels of each of this thread's rows
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int o = o0 + tx * TN + j;
-      if (o < O) store_as(row + o, acc[i][j]);
+      for (int s = 0; s < T::SA; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[4 * s + i] =
+              *reinterpret_cast<const float4*>(as + (s * 64 + ty * 4 + i) * A_PITCH + 4 * kq);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float b[T::SB * 4];
+#pragma unroll
+        for (int s = 0; s < T::SB; ++s) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(bs + (4 * kq + k) * BN + s * 64 + tx * 4);
+          b[4 * s] = v.x;
+          b[4 * s + 1] = v.y;
+          b[4 * s + 2] = v.z;
+          b[4 * s + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < T::SA * 4; ++i) {
+          const float av = k == 0 ? a[i].x : k == 1 ? a[i].y : k == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int j = 0; j < T::SB * 4; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+  allow_split_sum();
+
+  // out is y (one split) or the workspace (splits, M, O): rows m are NHWC pixels, so
+  // out[m * O + o]; 16-byte stores where O is a multiple of 4 (out is 16-byte aligned)
+  float* dst = out + (long long)split * M * O;
+#pragma unroll
+  for (int s = 0; s < T::SA; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + s * 64 + ty * 4 + i;
+      if (m >= M) continue;
+      float* row = dst + (long long)m * O;
+      const float* v = acc[4 * s + i];
+#pragma unroll
+      for (int sb = 0; sb < T::SB; ++sb) {
+        const int o = o0 + sb * 64 + tx * 4;
+        if ((O & 3) == 0) {
+          if (o < O)
+            *reinterpret_cast<float4*>(row + o) =
+                make_float4(v[4 * sb], v[4 * sb + 1], v[4 * sb + 2], v[4 * sb + 3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (o + j < O) row[o + j] = v[4 * sb + j];
+        }
+      }
+    }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* taps, void* y, int N, int H, int W, int C,
-                   int O, int KH, int KW, int pad_top, int pad_left, int Ho, int Wo,
-                   cudaStream_t stream) {
-  const long long M = (long long)N * Ho * Wo;
-  if (M == 0 || O == 0) return cudaSuccess;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((O + BN - 1) / BN));
-  taps_conv_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(taps), static_cast<T*>(y),
-      N, H, W, C, O, KH, KW, pad_top, pad_left, Ho, Wo);
+// above 48 KB of dynamic shared memory only after this, once a device and instantiation
+template <int BM, int BN, bool VEC>
+cudaError_t allow_smem(int device) {
+  static bool done[64];
+  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(taps_conv_kernel<BM, BN, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tile<BM, BN>::SMEM);
+  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
+  return err;
+}
+
+template <int BM, int BN, bool VEC>
+cudaError_t launch_conv(dim3 grid, const void* x, const void* taps, float* dst, int N,
+                        int H, int W, int C, int O, int KH, int KW, int stride, int pad_top,
+                        int pad_left, int Ho, int Wo, int kper, int device, cudaStream_t s) {
+  cudaError_t err = allow_smem<BM, BN, VEC>(device);
+  if (err != cudaSuccess) return err;
+  taps_conv_kernel<BM, BN, VEC><<<grid, THREADS, Tile<BM, BN>::SMEM, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(taps), dst, N, H, W, C, O, KH,
+      KW, stride, pad_top, pad_left, Ho, Wo, kper);
   return cudaGetLastError();
+}
+
+template <int BM, int BN, bool VEC>
+cudaError_t occupancy(int* blocks, int device) {
+  cudaError_t err = allow_smem<BM, BN, VEC>(device);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, taps_conv_kernel<BM, BN, VEC>,
+                                                       THREADS, Tile<BM, BN>::SMEM);
+}
+
+bool known_tile(int bm, int bn) {
+  return (bm == 128 && bn == 64) || (bm == 64 && bn == 64);
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  dtype: 0 = float32 (any other code is
-// cudaErrorInvalidValue: bf16 has its own library, taps_conv_bf16.cu).
-// x: (N, H, W, C), taps: (KH*KW, C, O), y: (N, Ho, Wo, O), all contiguous on
-// `device`.  Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int mxtt_taps_conv(const void* x, const void* taps, void* y, int dtype,
-                              int N, int H, int W, int C, int O, int KH, int KW,
-                              int pad_top, int pad_left, int Ho, int Wo, int device,
-                              void* stream) {
+// Plain C entry point, bound with ctypes.  x: (N, H, W, C), taps: (KH*KW, C, O), y:
+// (N, Ho, Wo, O), all fp32 and contiguous on `device`; workspace: (splits, N*Ho*Wo, O)
+// fp32 when splits > 1 (else unused).  The tile (bm x bn: 128 x 64 or 64 x 64), the split of the reduction (split s walks stages [s * kper, (s + 1) * kper)
+// of the KH*KW*ceil(C/16) stages of 16 channels) and vec (1: C and O multiples of 4 and
+// x, taps and y 16-byte aligned, the 16-byte copy path; 0: 4-byte copies) come from the
+// host plan; stride is 1 or 2.  Another tile or stride, splits that do not cover the
+// stages, or an index range past 32 bits return cudaErrorInvalidValue, vec = 1 on
+// operands that do not allow it cudaErrorMisalignedAddress.  Launches the convolution
+// and, when splits > 1, the split sum on `stream`, counts each launch in launched[0]
+// (convolutions) and launched[1] (split sums), which it zeroes first, and returns
+// cudaGetLastError() after them (0 on success).
+extern "C" int mxtt_taps_conv(const void* x, const void* taps, float* y, float* workspace,
+                              int N, int H, int W, int C, int O, int KH, int KW, int stride,
+                              int pad_top, int pad_left, int Ho, int Wo, int bm, int bn,
+                              int splits, int kper, int vec, int device, void* stream,
+                              int* launched) {
+  launched[0] = launched[1] = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const long long M = (long long)N * Ho * Wo;
+  if (!known_tile(bm, bn) || (stride != 1 && stride != 2) || N < 0 || C < 1 || O < 1 ||
+      KH < 1 || KW < 1 || Ho < 0 || Wo < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long ktotal = (long long)KH * KW * ((C + BK - 1) / BK);
+  if (splits < 1 || splits > 65535 || kper < 1 || (long long)splits * kper < ktotal ||
+      (splits > 1 && workspace == nullptr) || (long long)N * H * W >= (1LL << 31) ||
+      M >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (vec && (C % 4 || O % 4 || !aligned16(x) || !aligned16(taps) || !aligned16(y)))
+    return (int)cudaErrorMisalignedAddress;
+  if (M == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    err = launch<float>(x, taps, y, N, H, W, C, O, KH, KW, pad_top, pad_left, Ho, Wo, s);
+  const dim3 grid((unsigned)((M + bm - 1) / bm), (unsigned)((O + bn - 1) / bn),
+                  (unsigned)splits);
+  float* dst = splits > 1 ? workspace : y;
+#define MXTT_CONV(BM_, BN_, V)                                                            \
+  launch_conv<BM_, BN_, V>(grid, x, taps, dst, N, H, W, C, O, KH, KW, stride, pad_top,    \
+                           pad_left, Ho, Wo, kper, device, s)
+  if (bm == 128)
+    err = vec ? MXTT_CONV(128, 64, true) : MXTT_CONV(128, 64, false);
   else
-    err = cudaErrorInvalidValue;
+    err = vec ? MXTT_CONV(64, 64, true) : MXTT_CONV(64, 64, false);
+#undef MXTT_CONV
+  if (err != cudaSuccess) return (int)err;
+  launched[0] = 1;
+  if (splits == 1) return (int)cudaSuccess;
+  err = launch_split_sum<fp32_3x3_conv>(workspace, y, M * O, splits, s);
+  if (err == cudaSuccess) launched[1] = 1;
+  return (int)err;
+}
+
+// Blocks of the (bm x bn, vec) instantiation that one SM holds at once, into *blocks:
+// what the host plan assumes, read on the card.  Returns a CUDA error code.
+extern "C" int mxtt_taps_conv_occupancy(int bm, int bn, int vec, int device, int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!known_tile(bm, bn)) return (int)cudaErrorInvalidValue;
+  if (bm == 128)
+    err = vec ? occupancy<128, 64, true>(blocks, device)
+              : occupancy<128, 64, false>(blocks, device);
+  else
+    err = vec ? occupancy<64, 64, true>(blocks, device)
+              : occupancy<64, 64, false>(blocks, device);
   return (int)err;
 }

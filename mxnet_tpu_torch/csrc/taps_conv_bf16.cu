@@ -1,18 +1,17 @@
-// Implicit-GEMM stride-1 convolution over NHWC bf16 activations on Hopper's tensor cores
-// (sm_90a): the bf16 arm of TPU kernel 1.
+// Implicit-GEMM convolution at stride 1 or 2 over NHWC bf16 activations on Hopper's
+// tensor cores (sm_90a): the bf16 arm of TPU kernel 1.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_conv.py:_taps_kernel, launched by _conv_s1
 // (pallas_conv.py:152-207), for bf16 inputs.  It computes the same function:
 //
 //   y[n, ho, wo, o] = sum_{dh < KH, dw < KW, c < C}
-//                     xpad[n, ho + dh, wo + dw, c] * taps[dh * KW + dw, c, o]
+//                     xpad[n, S * ho + dh, S * wo + dw, c] * taps[dh * KW + dw, c, o]
 //
 // with xpad x padded by (pad_top, pad_bottom) rows and (pad_left, pad_right) columns of
-// zeros, x (N, H, W, C), taps (KH*KW, C, O) and y (N, Ho, Wo, O), all bf16.  ResNet-50's
-// 3x3 / stride-1 / pad-1 convolutions run it with 3x3 taps, its 3x3 / stride-2 ones with
-// 2x2 taps on 4C channels after the space-to-depth rewrite of ops/hopper_conv.py, and the
-// data gradient of the stride-1 ones with flipped, io-swapped taps.  The fp32 arm stays
-// in implicit_gemm_conv.cu.
+// zeros, S the stride (1 or 2), x (N, H, W, C), taps (KH*KW, C, O) and y (N, Ho, Wo, O),
+// all bf16.  ResNet-50's 3x3 / pad-1 convolutions run it with 3x3 taps at stride 1 or 2
+// (each output row gathers its input pixels at the stride), and the data gradient of the
+// stride-1 ones with flipped, io-swapped taps.  The fp32 arm is implicit_gemm_conv.cu.
 //
 // Numerics: bf16 x bf16 products are exact in fp32 and the tensor cores (mma.sync
 // m16n8k16, bf16 in, fp32 accumulate) sum them in fp32, as the reference's dot_general
@@ -85,7 +84,7 @@ template <int BN, bool VEC>
 __global__ void __launch_bounds__(Cfg<BN>::THREADS, Cfg<BN>::MIN_BLOCKS)
 taps_conv_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
                       bf16* __restrict__ y, int N, int H, int W, int C, int O, int KH,
-                      int KW, int pad_top, int pad_left, int Ho, int Wo) {
+                      int KW, int stride, int pad_top, int pad_left, int Ho, int Wo) {
   using K = Cfg<BN>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
@@ -106,8 +105,8 @@ taps_conv_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
     if (m < M) {
       const int hw = Ho * Wo;
       const int n = (int)(m / hw), rem = (int)(m % hw);
-      a_h[i] = rem / Wo - pad_top;
-      a_w[i] = rem % Wo - pad_left;
+      a_h[i] = rem / Wo * stride - pad_top;
+      a_w[i] = rem % Wo * stride - pad_left;
       a_pix[i] = (n * H + a_h[i]) * W + a_w[i];
     } else {
       a_h[i] = -(1 << 28);
@@ -242,8 +241,8 @@ taps_conv_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
 
 template <int BN, bool VEC>
 cudaError_t launch(const void* x, const void* taps, void* y, int N, int H, int W, int C,
-                   int O, int KH, int KW, int pad_top, int pad_left, int Ho, int Wo,
-                   cudaStream_t stream) {
+                   int O, int KH, int KW, int stride, int pad_top, int pad_left, int Ho,
+                   int Wo, cudaStream_t stream) {
   using K = Cfg<BN>;
   // above 48 KB of dynamic shared memory only after this (per device, so on every call)
   cudaError_t err = cudaFuncSetAttribute(taps_conv_bf16_kernel<BN, VEC>,
@@ -253,16 +252,16 @@ cudaError_t launch(const void* x, const void* taps, void* y, int N, int H, int W
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((O + BN - 1) / BN));
   taps_conv_bf16_kernel<BN, VEC><<<grid, K::THREADS, K::SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(taps), static_cast<bf16*>(y), N, H,
-      W, C, O, KH, KW, pad_top, pad_left, Ho, Wo);
+      W, C, O, KH, KW, stride, pad_top, pad_left, Ho, Wo);
   return cudaGetLastError();
 }
 
 template <int BN>
 cudaError_t launch_bn(bool vec, const void* x, const void* taps, void* y, int N, int H,
-                      int W, int C, int O, int KH, int KW, int pt, int pl, int Ho, int Wo,
-                      cudaStream_t s) {
-  return vec ? launch<BN, true>(x, taps, y, N, H, W, C, O, KH, KW, pt, pl, Ho, Wo, s)
-             : launch<BN, false>(x, taps, y, N, H, W, C, O, KH, KW, pt, pl, Ho, Wo, s);
+                      int W, int C, int O, int KH, int KW, int st, int pt, int pl, int Ho,
+                      int Wo, cudaStream_t s) {
+  return vec ? launch<BN, true>(x, taps, y, N, H, W, C, O, KH, KW, st, pt, pl, Ho, Wo, s)
+             : launch<BN, false>(x, taps, y, N, H, W, C, O, KH, KW, st, pt, pl, Ho, Wo, s);
 }
 
 }  // namespace
@@ -270,16 +269,18 @@ cudaError_t launch_bn(bool vec, const void* x, const void* taps, void* y, int N,
 // Plain C entry point, bound with ctypes.  x: (N, H, W, C), taps: (KH*KW, C, O), y:
 // (N, Ho, Wo, O), all bf16 and contiguous on `device`.  bn (64 or 128) and vec (1: C and O
 // multiples of 8 and x, taps, y 16-byte aligned, so the 16-byte copy path; 0: the
-// element path) come from the host plan; vec = 1 on operands that do not allow it returns
-// cudaErrorMisalignedAddress, an index range past 32 bits cudaErrorInvalidValue.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// element path) come from the host plan; stride is 1 or 2.  vec = 1 on operands that do
+// not allow it returns cudaErrorMisalignedAddress, another stride or an index range past
+// 32 bits cudaErrorInvalidValue.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int mxtt_taps_conv_bf16(const void* x, const void* taps, void* y, int N, int H,
                                    int W, int C, int O, int KH, int KW, int pad_top,
-                                   int pad_left, int Ho, int Wo, int bn, int vec, int device,
-                                   void* stream) {
+                                   int pad_left, int Ho, int Wo, int bn, int vec, int stride,
+                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if ((bn != 64 && bn != 128) || N < 0 || C < 1 || O < 1 || KH < 1 || KW < 1)
+  if ((bn != 64 && bn != 128) || (stride != 1 && stride != 2) || N < 0 || C < 1 || O < 1 ||
+      KH < 1 || KW < 1)
     return (int)cudaErrorInvalidValue;
   if ((long long)N * H * W >= (1LL << 31) || (long long)N * Ho * Wo >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -288,10 +289,10 @@ extern "C" int mxtt_taps_conv_bf16(const void* x, const void* taps, void* y, int
   if ((long long)N * Ho * Wo == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = bn == 64
-            ? launch_bn<64>(vec != 0, x, taps, y, N, H, W, C, O, KH, KW, pad_top, pad_left, Ho,
-                            Wo, s)
-            : launch_bn<128>(vec != 0, x, taps, y, N, H, W, C, O, KH, KW, pad_top, pad_left,
-                             Ho, Wo, s);
+            ? launch_bn<64>(vec != 0, x, taps, y, N, H, W, C, O, KH, KW, stride, pad_top,
+                            pad_left, Ho, Wo, s)
+            : launch_bn<128>(vec != 0, x, taps, y, N, H, W, C, O, KH, KW, stride, pad_top,
+                             pad_left, Ho, Wo, s);
   return (int)err;
 }
 

@@ -3,16 +3,14 @@ kernels (counterpart of ``mxnet_tpu/ops/pallas_conv.py``).
 
 ``conv3x3_same`` (3x3 / stride 1 / pad 1) and ``conv3x3_s2`` (3x3 /
 stride 2 / pad 1) take NCHW data and OIHW weights, as in the reference
-package.  Both reduce to one stride-1 convolution with ``KH x KW`` taps over
-NHWC activations, :func:`taps_conv`, the function the TPU kernel
-``_taps_kernel`` computes:
-
-- stride 1: the OIHW weight becomes 9 taps of (C, O)
-  (``pallas_conv.py:299``) and the pads are ((1, 1), (1, 1));
-- stride 2: the exact space-to-depth(2) rewrite (``pallas_conv.py:327-355``)
-  turns the input into (N, H/2, W/2, 4C) in parity-major (p, q, c) channel
-  order and the weight into 2x2 taps on 4C channels, with pads
-  ((1, 0), (1, 0)).
+package.  Both are one convolution with ``KH x KW`` taps over NHWC
+activations, :func:`taps_conv`, the function the TPU kernel
+``_taps_kernel`` computes, with a stride: the OIHW weight becomes 9 taps of
+(C, O) (``pallas_conv.py:299``) and the pads are ((1, 1), (1, 1)).  The
+reference runs stride 2 as a stride-1 2x2 conv over 4C channels after a
+space-to-depth rewrite (``pallas_conv.py:327-355``); the port's kernels take
+the stride natively, which is the same function with 9/16 of the products
+and no copy of the input.
 
 Both are ``torch.autograd.Function``s, as the reference's are
 ``custom_vjp``s.  The stride-1 backward runs on kernels too
@@ -36,12 +34,14 @@ dtypes), ``launches_bf16`` those of the bf16 one; ``wgrad_launches`` and
 the partial sums and, when the rows are split, their reduction, as the
 CUDA entry points report them, and ``wgrad_launches_bf16`` and
 ``wgrad_reduce_launches_bf16`` those of the bf16 kernel.  The kernels' host
-plans (:func:`conv_bf16_plan`, :func:`wgrad_bf16_plan`,
-:func:`wgrad_fp32_plan`, :func:`conv1x1_wgrad_plan`: tile, split, workspace
-and load path) are pure Python.
+plans (:func:`conv_fp32_plan`, :func:`conv_bf16_plan`,
+:func:`wgrad_bf16_plan`, :func:`wgrad_fp32_plan`,
+:func:`conv1x1_wgrad_plan`: tile, split, workspace and load path) are pure
+Python.  ``conv_reduce_launches`` counts the fp32 convolution's split
+sums.
 
-The layout work around the kernels (NHWC views, the tap and space-to-depth
-rewrites) is plain PyTorch shared by both arms, so the CPU tests reach it.
+The layout work around the kernels (NHWC views, the tap rewrite) is plain
+PyTorch shared by both arms, so the CPU tests reach it.
 The NHWC view of a channels-last tensor is free, and the kernel's output is
 returned as an NCHW view of NHWC memory, so consecutive kernels hand each
 other channels-last tensors without a copy.  A cotangent that reaches the
@@ -78,15 +78,19 @@ from ..base import MXNetError
 __all__ = ["conv3x3_same", "conv3x3_same_plain", "conv3x3_s2",
            "conv3x3_s2_plain", "taps_conv", "taps_conv_plain", "taps_wgrad",
            "taps_wgrad_plain", "dgrad_taps", "conv1x1", "conv1x1_wgrad",
-           "conv1x1_wgrad_plain", "conv_bf16_plan", "wgrad_bf16_plan",
-           "wgrad_fp32_plan", "conv1x1_wgrad_plan", "bf16_vec_path", "fp32_vec_path", "launches", "launches_bf16",
-           "wgrad_launches", "wgrad_reduce_launches", "wgrad_launches_bf16",
-           "wgrad_reduce_launches_bf16", "conv1x1_wgrad_launches",
-           "conv1x1_wgrad_reduce_launches"]
+           "conv1x1_wgrad_plain", "conv_fp32_plan", "conv_bf16_plan",
+           "wgrad_bf16_plan", "wgrad_fp32_plan", "conv1x1_wgrad_plan",
+           "bf16_vec_path", "fp32_vec_path", "launches", "launches_bf16",
+           "conv_reduce_launches", "wgrad_launches", "wgrad_reduce_launches",
+           "wgrad_launches_bf16", "wgrad_reduce_launches_bf16",
+           "conv1x1_wgrad_launches", "conv1x1_wgrad_reduce_launches"]
 
 #: convolution kernel launches so far (CUDA arm of :func:`taps_conv`, both
-#: dtypes)
+#: dtypes; the fp32 kernel's split sums not included)
 launches = 0
+#: split-sum launches of the fp32 convolution (calls whose plan splits the
+#: reduction)
+conv_reduce_launches = 0
 #: launches of the bf16 convolution kernel (``taps_conv_bf16.cu``) so far
 launches_bf16 = 0
 #: wgrad partial-pass launches so far (CUDA arm of :func:`taps_wgrad`, both
@@ -106,6 +110,8 @@ _count_lock = threading.Lock()
 
 _Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 S1_PADS: _Pads = ((1, 1), (1, 1))
+#: the pads of the reference's stride-2 form, a 2x2 conv after space-to-depth
+#: (``pallas_conv._S2_PADS``); the tests hold kernel 2 at 2x2 taps with them
 S2_PADS: _Pads = ((1, 0), (1, 0))
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -116,25 +122,28 @@ _wgrad_bf16_fn = None
 _w1x1_fn = None
 
 
-def _out_hw(H, W, KH, KW, pads: _Pads):
+def _out_hw(H, W, KH, KW, pads: _Pads, stride: int = 1):
     (pt, pb), (pl, pr) = pads
-    return H + pt + pb - KH + 1, W + pl + pr - KW + 1
+    return ((H + pt + pb - KH) // stride + 1,
+            (W + pl + pr - KW) // stride + 1)
 
 
-def taps_conv_plain(x, taps, pads: _Pads, KH: int, KW: int):
-    """Reference stride-1 conv: x (N, H, W, C), taps (KH*KW, C, O) ->
-    (N, Ho, Wo, O) in x.dtype; one fp32 (rows, C) @ (C, O) product per
-    tap, summed in fp32 (what ``_taps_kernel`` computes)."""
+def taps_conv_plain(x, taps, pads: _Pads, KH: int, KW: int, stride: int = 1):
+    """Reference conv: x (N, H, W, C), taps (KH*KW, C, O) -> (N, Ho, Wo, O)
+    in x.dtype at ``stride``; one fp32 (rows, C) @ (C, O) product per tap,
+    summed in fp32 (what ``_taps_kernel`` computes at stride 1)."""
     N, H, W, C = x.shape
     O = taps.shape[-1]
     (pt, pb), (pl, pr) = pads
-    Ho, Wo = _out_hw(H, W, KH, KW, pads)
+    Ho, Wo = _out_hw(H, W, KH, KW, pads, stride)
     xp = F.pad(x, (0, 0, pl, pr, pt, pb)).float()
     t32 = taps.float()
     acc = None
     for dh in range(KH):
         for dw in range(KW):
-            xs = xp[:, dh:dh + Ho, dw:dw + Wo, :].reshape(N * Ho * Wo, C)
+            xs = xp[:, dh:dh + stride * (Ho - 1) + 1:stride,
+                    dw:dw + stride * (Wo - 1) + 1:stride, :]
+            xs = xs.reshape(N * Ho * Wo, C)
             p = xs @ t32[dh * KW + dw]
             acc = p if acc is None else acc + p
     return acc.reshape(N, Ho, Wo, O).to(x.dtype)
@@ -145,8 +154,8 @@ def _kernel():
     if _fn is None:
         from .. import _build
         fn = _build.load("implicit_gemm_conv").mxtt_taps_conv
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 18
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -157,7 +166,7 @@ def _conv_bf16_kernel():
     if _conv_bf16_fn is None:
         from .. import _build
         fn = _build.load("taps_conv_bf16").mxtt_taps_conv_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _conv_bf16_fn = fn
@@ -235,12 +244,116 @@ def conv_bf16_plan(M: int, C: int, O: int, sms: int,
     return ConvBf16Plan(bn, bf16_vec_path(C, O, *ptrs), grid)
 
 
-def _taps_conv_cuda(x, taps, pads: _Pads, KH: int, KW: int,
-                    bn: Optional[int] = None):
+#: input channels a stage of the fp32 convolution kernel (BK in
+#: implicit_gemm_conv.cu)
+_CONV_FP32_BK = 16
+#: its tiles (BM, BN), the blocks an SM holds of each (``__launch_bounds__``
+#: and 4 stages of shared memory; chip_smoke.py's phase 2 reads it back from
+#: the card) and an SM's FMA rate at each relative to the 128 x 64 tile's, as
+#: phase 2 measured them where the grids give every SM the same work
+_CONV_FP32_TILES = ((128, 64, 2, 1.0), (64, 64, 4, 0.89))
+#: the fewest stages a split of the fp32 convolution walks
+_CONV_FP32_MIN_STAGES = 8
+#: the most splits the plan considers
+_CONV_FP32_MAX_SPLITS = 16
+#: stages of a block's ring fill and epilogue, in the plan's cost model
+_CONV_FP32_FILL = 3
+#: how much slower an SM runs when it holds fewer blocks than it can (a lone
+#: block's warps hide less latency), in the plan's cost model
+_CONV_FP32_UNDERFILL = 1.2
+
+
+class ConvFp32Plan(NamedTuple):
+    """Launch of ``implicit_gemm_conv.cu``: the (BM, BN) output tile; split
+    ``s`` walks stages ``[s * kper, (s + 1) * kper)`` of the reduction's
+    ``KH * KW * ceil(C / 16)``; the grid; the fp32 workspace of the partial
+    outputs (None with one split, which writes y itself); the load path."""
+    tile: Tuple[int, int]
+    splits: int
+    kper: int
+    grid: Tuple[int, int, int]
+    workspace: Optional[Tuple[int, int, int]]
+    vec: bool
+
+
+def _conv_fp32_cost(M, O, ks, tile, splits, sms):
+    """The fp32 convolution's cost in SM clocks at ``tile`` (one of
+    ``_CONV_FP32_TILES``) and ``splits``, and the stages a split walks: the
+    busiest SM's blocks (the grid dealt evenly over the SMs), each its
+    stages plus the ring's fill at the tile's rate, slower where an SM holds
+    fewer blocks than it can, plus the split sum's bytes and launch."""
+    bm, bn, per_sm, rate = tile
+    kper = _cdiv(ks, splits)
+    blocks = _cdiv(M, bm) * _cdiv(O, bn) * _cdiv(ks, kper)
+    busiest = _cdiv(blocks, sms)
+    stage_clk = _CONV_FP32_BK * bm * bn / _FMA_PER_SM_CLK
+    cost = busiest * (kper + _CONV_FP32_FILL) * stage_clk / rate
+    if busiest < per_sm:
+        cost *= _CONV_FP32_UNDERFILL
+    if splits > 1:
+        cost += ((2 * splits + 1) * 4.0 * M * O / _SUM_BYTES_PER_CLK
+                 + _SUM_LAUNCH_CLK)
+    return cost, kper
+
+
+@functools.lru_cache(maxsize=256)
+def _conv_fp32_split(M: int, C: int, O: int, KH: int, KW: int, sms: int):
+    """(tile, splits, kper) of :func:`conv_fp32_plan`."""
+    ks = KH * KW * _cdiv(C, _CONV_FP32_BK)
+    most = max(1, min(ks // _CONV_FP32_MIN_STAGES, _CONV_FP32_MAX_SPLITS))
+    best = None
+    for tile in _CONV_FP32_TILES:
+        for splits in range(1, most + 1):
+            cost, kper = _conv_fp32_cost(M, O, ks, tile, splits, sms)
+            if _cdiv(ks, kper) != splits:
+                continue
+            if best is None or cost < best[0]:
+                best = (cost, tile[:2], splits, kper)
+    return best[1:]
+
+
+def conv_fp32_plan(M: int, C: int, O: int, KH: int, KW: int, sms: int,
+                   ptrs: Tuple[int, ...] = (),
+                   tile: Optional[Tuple[int, int]] = None,
+                   splits: Optional[int] = None) -> ConvFp32Plan:
+    """The fp32 convolution kernel's launch for ``M`` output pixels, ``C``
+    input and ``O`` output channels and ``KH x KW`` taps on ``sms`` SMs.  Of
+    the tiles 128 x 64 and 64 x 64 and the splits of the
+    reduction that leave every split at least 8 stages of 16 channels (up
+    to 16 splits), it takes the pair whose launch costs least in SM clocks
+    (:func:`_conv_fp32_cost`); the first tile and the fewest splits on a
+    tie.  ``tile`` and ``splits`` set either in place of the plan's (to
+    check and time each on the card).  ``ptrs`` are the operands'
+    addresses, for the load path (:func:`fp32_vec_path`)."""
+    ks = KH * KW * _cdiv(C, _CONV_FP32_BK)
+    if tile is None and splits is None:
+        tile, splits, kper = _conv_fp32_split(M, C, O, KH, KW, sms)
+    else:
+        tiles = {t[:2]: t for t in _CONV_FP32_TILES}
+        tile = tuple(tile) if tile is not None else _conv_fp32_split(
+            M, C, O, KH, KW, sms)[0]
+        if tile not in tiles:
+            raise MXNetError("conv_fp32_plan: tile %s; the kernel has %s"
+                             % (tile, sorted(tiles)))
+        splits = splits or 1
+        kper = _cdiv(ks, splits)
+        if not 1 <= splits <= ks or _cdiv(ks, kper) != splits:
+            raise MXNetError("conv_fp32_plan: %d splits of %d stages leave "
+                             "one empty" % (splits, ks))
+    grid = (_cdiv(M, tile[0]), _cdiv(O, tile[1]), splits)
+    return ConvFp32Plan(tile, splits, kper, grid,
+                        (splits, M, O) if splits > 1 else None,
+                        fp32_vec_path(C, O, *ptrs))
+
+
+def _taps_conv_cuda(x, taps, pads: _Pads, KH: int, KW: int, stride: int = 1,
+                    bn: Optional[int] = None,
+                    plan: Optional[ConvFp32Plan] = None):
     """The CUDA arm of :func:`taps_conv`.  ``bn`` (64 or 128) sets the
-    bf16 kernel's column tile in place of the plan's, to time and check
-    both tiles on one shape."""
-    global launches, launches_bf16
+    bf16 kernel's column tile in place of the plan's, and ``plan`` the fp32
+    kernel's launch (a :func:`conv_fp32_plan` with its ``tile`` and
+    ``splits`` set), to time and check each on one shape."""
+    global launches, launches_bf16, conv_reduce_launches
     if x.dtype not in _DTYPE_CODE:
         raise MXNetError("taps_conv: dtype %s is not supported on CUDA "
                          "(float32, bfloat16)" % x.dtype)
@@ -250,11 +363,14 @@ def _taps_conv_cuda(x, taps, pads: _Pads, KH: int, KW: int,
             or taps.shape[1] != x.shape[3]:
         raise MXNetError("taps_conv: x %s and taps %s do not form a %dx%d "
                          "conv" % (tuple(x.shape), tuple(taps.shape), KH, KW))
+    if stride not in (1, 2):
+        raise MXNetError("taps_conv: stride %s; the kernels take 1 and 2"
+                         % (stride,))
     if not (x.is_contiguous() and taps.is_contiguous()):
         raise MXNetError("taps_conv: x and taps must be contiguous")
     N, H, W, C = x.shape
     O = taps.shape[2]
-    Ho, Wo = _out_hw(H, W, KH, KW, pads)
+    Ho, Wo = _out_hw(H, W, KH, KW, pads, stride)
     if Ho < 1 or Wo < 1:
         raise MXNetError("taps_conv: empty output for input %s"
                          % (tuple(x.shape),))
@@ -262,36 +378,54 @@ def _taps_conv_cuda(x, taps, pads: _Pads, KH: int, KW: int,
     if bn is not None and (not bf16 or bn not in (64, 128)):
         raise MXNetError("taps_conv: a column tile of %s for %s; the bf16 "
                          "kernel has 64 and 128" % (bn, x.dtype))
+    if plan is not None and bf16:
+        raise MXNetError("taps_conv: an fp32 plan for a bf16 convolution")
     y = torch.empty((N, Ho, Wo, O), dtype=x.dtype, device=x.device)
+    dev = x.device
     if bf16:
-        plan = conv_bf16_plan(N * Ho * Wo, C, O, _sm_count(x.device),
-                              (x.data_ptr(), taps.data_ptr(), y.data_ptr()))
+        bplan = conv_bf16_plan(N * Ho * Wo, C, O, _sm_count(dev),
+                               (x.data_ptr(), taps.data_ptr(), y.data_ptr()))
         err = _conv_bf16_kernel()(
             x.data_ptr(), taps.data_ptr(), y.data_ptr(), N, H, W, C, O, KH,
-            KW, pads[0][0], pads[1][0], Ho, Wo, bn or plan.bn, int(plan.vec),
-            x.device.index, _stream(x.device))
+            KW, pads[0][0], pads[1][0], Ho, Wo, bn or bplan.bn,
+            int(bplan.vec), stride, dev.index, _stream(dev))
+        launched = (1, 0)
     else:
+        if plan is None:
+            plan = conv_fp32_plan(N * Ho * Wo, C, O, KH, KW, _sm_count(dev),
+                                  (x.data_ptr(), taps.data_ptr(),
+                                   y.data_ptr()))
+        ws = (torch.empty(plan.workspace, dtype=torch.float32, device=dev)
+              if plan.workspace else None)
+        counts = (ctypes.c_int * 2)()
         err = _kernel()(
-            x.data_ptr(), taps.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype],
-            N, H, W, C, O, KH, KW, pads[0][0], pads[1][0], Ho, Wo,
-            x.device.index, _stream(x.device))
+            x.data_ptr(), taps.data_ptr(), y.data_ptr(),
+            ws.data_ptr() if ws is not None else None, N, H, W, C, O, KH, KW,
+            stride, pads[0][0], pads[1][0], Ho, Wo, plan.tile[0],
+            plan.tile[1], plan.splits, plan.kper, int(plan.vec), dev.index,
+            _stream(dev), counts)
+        launched = (counts[0], counts[1])
+    with _count_lock:
+        if bf16:
+            launches += err == 0
+            launches_bf16 += err == 0
+        else:
+            launches += launched[0]
+            conv_reduce_launches += launched[1]
     if err != 0:
         raise MXNetError("%s launch failed: CUDA error %d" % (
             "taps_conv_bf16" if bf16 else "implicit_gemm_conv", err))
-    with _count_lock:
-        launches += 1
-        launches_bf16 += bf16
     return y
 
 
-def taps_conv(x, taps, pads: _Pads, KH: int, KW: int):
-    """Stride-1 conv, x (N, H, W, C) NHWC, taps (KH*KW, C, O) ->
-    (N, Ho, Wo, O) in x.dtype: the CUDA kernel for a tensor on the card,
+def taps_conv(x, taps, pads: _Pads, KH: int, KW: int, stride: int = 1):
+    """Conv at ``stride`` (1 or 2), x (N, H, W, C) NHWC, taps (KH*KW, C, O)
+    -> (N, Ho, Wo, O) in x.dtype: the CUDA kernel for a tensor on the card,
     the plain version for one on the CPU or ``meta``."""
     if x.device.type == "cuda":
-        return _taps_conv_cuda(x, taps, pads, KH, KW)
+        return _taps_conv_cuda(x, taps, pads, KH, KW, stride)
     if x.device.type in ("cpu", "meta"):
-        return taps_conv_plain(x, taps, pads, KH, KW)
+        return taps_conv_plain(x, taps, pads, KH, KW, stride)
     raise MXNetError("taps_conv: no arm for device %s" % x.device)
 
 
@@ -596,39 +730,18 @@ def _same(data, weight, conv):
                       S1_PADS, 3, 3))
 
 
-def s2d_nhwc(x):
-    """(N, H, W, C) -> (N, H/2, W/2, 4C), channel index p*2C + q*C + c for
-    the input pixel (2i + p, 2j + q): the parity-major layout of
-    ``pallas_conv._s2d_data``, computed in NHWC."""
-    N, H, W, C = x.shape
-    xs = x.reshape(N, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 2, 4, 5)
-    return xs.reshape(N, H // 2, W // 2, 4 * C)
-
-
-def s2d_taps(weight):
-    """(O, C, 3, 3) stride-2 pad-1 weight -> (4, 4C, O) taps of the
-    stride-1 2x2 conv on the s2d input with pads ((1, 0), (1, 0))
-    (``pallas_conv._s2d_weight`` followed by the taps transform)."""
-    O, C = weight.shape[:2]
-    wp = F.pad(weight, (1, 0, 1, 0))                   # (O, C, 4, 4)
-    w4 = wp.reshape(O, C, 2, 2, 2, 2).permute(0, 3, 5, 1, 2, 4)
-    w4 = w4.reshape(O, 4 * C, 2, 2)
-    return w4.permute(2, 3, 1, 0).reshape(4, 4 * C, O)
-
-
 def _s2(data, weight, conv):
     N, C, H, W = data.shape
     if H % 2 or W % 2:
         raise MXNetError("conv3x3_s2 needs even H and W, got %dx%d" % (H, W))
-    taps = s2d_taps(weight).to(data.dtype).contiguous()
-    x = s2d_nhwc(data.permute(0, 2, 3, 1)).contiguous()
-    return _nchw(conv(x, taps, S2_PADS, 2, 2))
+    return _nchw(conv(_nhwc(data), _s1_taps(weight, data.dtype), S1_PADS,
+                      3, 3, 2))
 
 
 class _Conv3x3S2(torch.autograd.Function):
-    """3x3 / stride-2 / pad-1 conv: forward on the kernel through the
-    space-to-depth rewrite, backward in plain PyTorch, as the reference's
-    ``_c3s2_bwd`` leaves it to XLA's transposed convolution."""
+    """3x3 / stride-2 / pad-1 conv: forward on the kernel at stride 2,
+    backward in plain PyTorch, as the reference's ``_c3s2_bwd`` leaves it
+    to XLA's transposed convolution."""
 
     @staticmethod
     def forward(ctx, data, weight):
@@ -662,8 +775,9 @@ def conv3x3_same_plain(data, weight):
 
 
 def conv3x3_s2(data, weight):
-    """3x3 / stride-2 / pad-1 / ungrouped conv on even H, W through the
-    exact space-to-depth rewrite, NCHW data, OIHW weight; differentiable."""
+    """3x3 / stride-2 / pad-1 / ungrouped conv on even H, W (the
+    reference's space-to-depth form needs them), NCHW data, OIHW weight;
+    differentiable."""
     return _Conv3x3S2.apply(data, weight)
 
 

@@ -16,6 +16,7 @@ import ast
 import json
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
@@ -234,19 +235,20 @@ class Symbol:
         return arg_shapes, out_shapes, aux_shapes
 
     def infer_type(self, *args, **kwargs):
-        """(arg_types, out_types, aux_types) as torch dtypes: the given
-        argument dtypes (a torch or numpy dtype, or a name), float32 for the
-        rest, as the reference's default-everything-float32 pass; auxiliary
-        states and outputs are float32."""
-        from ..ndarray.ndarray import torch_dtype
+        """(arg_types, out_types, aux_types) as the reference gives them
+        (``mxnet_tpu/symbol/symbol.py:346``): ``np.dtype`` of each given
+        argument dtype (a numpy or torch dtype, or a name), ``np.float32``
+        for the rest, the auxiliary states and the outputs.  bfloat16,
+        which numpy lacks, is ``torch.bfloat16``, as ``NDArray.dtype``
+        gives it."""
         arg_names = self.list_arguments()
-        known = {n: torch_dtype(t) for n, t in zip(arg_names, args)
+        known = {n: _np_type(t) for n, t in zip(arg_names, args)
                  if t is not None}
-        known.update({k: torch_dtype(v) for k, v in kwargs.items()
+        known.update({k: _np_type(v) for k, v in kwargs.items()
                       if v is not None})
-        arg_types = [known.get(n, torch.float32) for n in arg_names]
-        out_types = [torch.float32] * len(self._outputs)
-        aux_types = [torch.float32] * len(self.list_auxiliary_states())
+        arg_types = [known.get(n, np.float32) for n in arg_names]
+        out_types = [np.float32] * len(self._outputs)
+        aux_types = [np.float32] * len(self.list_auxiliary_states())
         return arg_types, out_types, aux_types
 
     # ---- serialization --------------------------------------------------
@@ -308,7 +310,9 @@ class Symbol:
         from ..ndarray import ndarray as nd
         ctx = ctx or current_context()
         arg_shapes, _, aux_shapes = self.infer_shape(**shapes)
-        arg_types, _, aux_types = self.infer_type(**(type_dict or {}))
+        arg_types, _, aux_types = (
+            [nd.torch_dtype(t) for t in ts]
+            for ts in self.infer_type(**(type_dict or {})))
         arg_names = self.list_arguments()
         req = _norm_grad_req(grad_req, arg_names)
         args = {n: nd.zeros(s, ctx=ctx, dtype=t)
@@ -319,6 +323,19 @@ class Symbol:
                  for n, s, t in zip(arg_names, arg_shapes, arg_types)
                  if req.get(n, "null") != "null"}
         return Executor(self, ctx, args, auxs, grads, req)
+
+
+def _np_type(dtype):
+    """A dtype as the reference's ``infer_type`` gives it: ``np.dtype``,
+    or ``torch.bfloat16`` for bfloat16, which numpy lacks."""
+    if str(dtype) in ("bfloat16", "torch.bfloat16"):
+        return torch.bfloat16
+    if isinstance(dtype, torch.dtype):
+        from ..ndarray.ndarray import _NP_DTYPES
+        if dtype not in _NP_DTYPES:
+            raise MXNetError("unsupported dtype %r" % (dtype,))
+        return _NP_DTYPES[dtype]
+    return np.dtype(dtype)
 
 
 def _norm_grad_req(grad_req, arg_names):

@@ -137,18 +137,27 @@ def test_conv3x3_s2_matches_pallas(N, C, H, W, O):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("H,W", [(4, 6), (6, 10)])
-def test_s2d_layout_matches_reference(H, W):
-    """The NHWC space-to-depth and the 2x2 tap rewrite are exactly the
-    reference's parity-major (p, q, c) transforms."""
-    x, w = _case(2, 3, H, W, 5, seed=2)
-    want_x = np.asarray(pc._s2d_data(jnp.asarray(x))).transpose(0, 2, 3, 1)
-    got_x = hc.s2d_nhwc(torch.from_numpy(x).permute(0, 2, 3, 1))
-    np.testing.assert_array_equal(got_x.numpy(), want_x)
-    w4 = np.asarray(pc._s2d_weight(jnp.asarray(w)))
-    want_t = w4.transpose(2, 3, 1, 0).reshape(4, w4.shape[1], w4.shape[0])
-    np.testing.assert_array_equal(hc.s2d_taps(torch.from_numpy(w)).numpy(),
-                                  want_t)
+# the served net's stride-2 3x3 shapes at batch 1 and narrow widths, and a
+# ragged one: (N, C, H, W, O)
+@pytest.mark.parametrize("N,C,H,W,O", [
+    (1, 8, 56, 56, 8),
+    (1, 16, 28, 28, 16),
+    (1, 32, 14, 14, 32),
+    (3, 5, 10, 6, 7),
+])
+def test_native_s2_plain_matches_reference_s2d_form(N, C, H, W, O):
+    """The port's stride-2 arm (a 3x3 at stride 2 straight from the input:
+    ``taps_conv_plain`` with ``stride=2``, as the kernels run it) against the
+    reference's ``conv3x3_s2`` (space-to-depth, then a 2x2 conv over 4C
+    channels, its Pallas kernel body run per grid step) on the same seeded
+    inputs: fp32 sums in another order, rtol = atol = 1e-4."""
+    x, w = _case(N, C, H, W, O, seed=2)
+    want = np.asarray(_pallas_conv3x3_s2(jnp.asarray(x), jnp.asarray(w)))
+    xt = torch.from_numpy(x).permute(0, 2, 3, 1)
+    taps = torch.from_numpy(w).permute(2, 3, 1, 0).reshape(9, C, O)
+    got = hc.taps_conv_plain(xt, taps, hc.S1_PADS, 3, 3, 2).permute(0, 3, 1, 2)
+    assert got.shape == want.shape == (N, O, H // 2, W // 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 def test_conv3x3_s2_rejects_odd_spatial():
@@ -205,6 +214,51 @@ def test_kernel_matches_plain_on_card(kind, dtype, tol):
             assert (hc.launches, hc.launches_bf16) == \
                 (before[0] + 1, before[1] + bf16)
             torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_fp32_kernel_each_tile_and_split_on_card(stride):
+    """Kernel 1 fp32 at each tile of ``_CONV_FP32_TILES`` and at 1, 2 and
+    the plan's own splits, on aligned x (16-byte copies) and on x at
+    storage offset 1 (4 bytes off: the 4-byte copy path), at a ragged
+    shape and at a 14-px one whose plan splits: within 1e-4 of the plain
+    version, bit-equal on a rerun, one convolution launch a call and one
+    split-sum launch a call when split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for N, H, W, C, O in [(3, 9, 11, 36, 72), (8, 14, 14, 256, 256)]:
+        r = np.random.default_rng(5)
+        x = torch.from_numpy(
+            r.standard_normal((N, H, W, C)).astype(np.float32)).cuda()
+        taps = torch.from_numpy(
+            (r.standard_normal((9, C, O)) * 0.1).astype(np.float32)).cuda()
+        Ho, Wo = hc._out_hw(H, W, 3, 3, hc.S1_PADS, stride)
+        M, ks = N * Ho * Wo, _conv_fp32_stages(C)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        own = hc.conv_fp32_plan(M, C, O, 3, 3, sms).splits
+        want = hc.taps_conv_plain(x, taps, hc.S1_PADS, 3, 3, stride)
+        for data in (x, _at_offset_1(x)):
+            ptrs = (data.data_ptr(), taps.data_ptr(), 0)
+            for bm, bn, _, _ in hc._CONV_FP32_TILES:
+                for splits in sorted({1, 2, own}):
+                    if -(-ks // -(-ks // splits)) != splits:
+                        continue
+                    plan = hc.conv_fp32_plan(M, C, O, 3, 3, sms, ptrs,
+                                             tile=(bm, bn), splits=splits)
+                    assert plan.vec == (data is x)
+                    before = (hc.launches, hc.conv_reduce_launches)
+                    got = hc._taps_conv_cuda(data, taps, hc.S1_PADS, 3, 3,
+                                             stride, plan=plan)
+                    again = hc._taps_conv_cuda(data, taps, hc.S1_PADS, 3, 3,
+                                               stride, plan=plan)
+                    torch.cuda.synchronize()
+                    assert (hc.launches - before[0],
+                            hc.conv_reduce_launches - before[1]) == \
+                        (2, 2 * (splits > 1))
+                    torch.testing.assert_close(got, want, rtol=RTOL,
+                                               atol=ATOL)
+                    assert torch.equal(got, again)
 
 
 def _at_offset_1(t):
@@ -926,11 +980,14 @@ class _FakeKernel:
 
     #: the positions of ``splits`` and of the splits summed on chip (none:
     #: one) in each wgrad entry point's arguments
-    SPLITS_ARG = {"mxtt_taps_wgrad": (16, None),
+    SPLITS_ARG = {"mxtt_taps_conv": (18, None),
+                  "mxtt_taps_wgrad": (16, None),
                   "mxtt_taps_wgrad_bf16": (15, None),
                   "mxtt_conv1x1_wgrad": (14, 16)}
 
     def __call__(self, *args):
+        # the wrapper's ctypes signature must take what it passes
+        assert len(args) == len(getattr(self, "argtypes", args)), self.name
         self.calls.append((self.name, args))
         if self.name in self.SPLITS_ARG:
             at, cluster_at = self.SPLITS_ARG[self.name]
@@ -968,7 +1025,8 @@ def fake_kernels(monkeypatch):
         monkeypatch.setattr(hc, attr, None)
     monkeypatch.setattr(hc, "_stream", lambda device: 0)
     monkeypatch.setattr(hc, "_sm_count", lambda device: H100_SMS)
-    for attr in ("launches", "launches_bf16", "wgrad_launches",
+    for attr in ("launches", "launches_bf16", "conv_reduce_launches",
+                 "wgrad_launches",
                  "wgrad_reduce_launches", "wgrad_launches_bf16",
                  "wgrad_reduce_launches_bf16", "conv1x1_wgrad_launches",
                  "conv1x1_wgrad_reduce_launches"):
@@ -978,9 +1036,9 @@ def fake_kernels(monkeypatch):
 
 def test_cuda_arms_pick_the_library_by_dtype(fake_kernels):
     """bf16 goes to taps_conv_bf16 / taps_wgrad_bf16 with the host plan's
-    tile, split and load path; fp32 to implicit_gemm_conv (dtype code 0) /
-    taps_wgrad with its plan's tile, split, rows and load path; the bf16
-    counters count only the bf16 launches."""
+    tile, split and load path; fp32 to implicit_gemm_conv / taps_wgrad with
+    their plans' tile, split, rows and load path (the convolution's split
+    sum counted apart); the bf16 counters count only the bf16 launches."""
     calls, loaded = fake_kernels
     N, H, C, O = 128, 14, 256, 256
     for dtype in (torch.bfloat16, torch.float32):
@@ -997,17 +1055,21 @@ def test_cuda_arms_pick_the_library_by_dtype(fake_kernels):
                      "mxtt_taps_conv", "mxtt_taps_wgrad"]
     conv16, wgrad16, conv32, wgrad32 = (c[1] for c in calls)
     plan = hc.conv_bf16_plan(N * H * H, C, O, H100_SMS)
-    assert conv16[3:16] == (N, H, H, C, O, 3, 3, 1, 1, H, H, plan.bn, 1)
+    assert conv16[3:17] == (N, H, H, C, O, 3, 3, 1, 1, H, H, plan.bn, 1, 1)
     wplan = hc.wgrad_bf16_plan(N * H * H, C, O, 3, 3, H100_SMS)
     assert wgrad16[4:18] == (N, H, H, C, O, 3, 3, 1, 1, H, H, wplan.splits,
                              wplan.rows, 1)
     assert wgrad16[3] is not None      # the workspace of the 8 splits
-    assert conv32[3] == 0              # dtype code: float32
+    cplan = hc.conv_fp32_plan(N * H * H, C, O, 3, 3, H100_SMS)
+    assert conv32[4:21] == (N, H, H, C, O, 3, 3, 1, 1, 1, H, H) \
+        + cplan.tile + (cplan.splits, cplan.kper, 1)
+    assert (conv32[3] is not None) == (cplan.splits > 1)
     fplan = hc.wgrad_fp32_plan(N * H * H, C, O, 3, 3, H100_SMS)
     assert wgrad32[4:19] == (N, H, H, C, O, 3, 3, 1, 1, H, H, 128,
                              fplan.splits, fplan.rows, 1)
     assert fplan.splits > 1 and wgrad32[3] is not None
-    assert (hc.launches, hc.launches_bf16) == (2, 1)
+    assert (hc.launches, hc.launches_bf16, hc.conv_reduce_launches) == \
+        (2, 1, int(cplan.splits > 1))
     assert (hc.wgrad_launches, hc.wgrad_launches_bf16) == (2, 1)
     assert (hc.wgrad_reduce_launches, hc.wgrad_reduce_launches_bf16) == (2, 1)
 
@@ -1091,3 +1153,166 @@ def test_conv1x1_wgrad_cuda_arm_follows_the_plan(fake_kernels):
     assert small[4:12] == (2, 7, 9, 16, 24, 4, 5, 2) and small[17] == 0
     assert (hc.conv1x1_wgrad_launches,
             hc.conv1x1_wgrad_reduce_launches) == (2, 1)
+
+
+# --------------------------------------------------------------------------
+# kernel 1 in fp32 (implicit_gemm_conv.cu): its host plan, a plain walk of
+# the plan (tiles, reduction splits, the stride) against the plain version,
+# and the stride-2 arm's launch
+# --------------------------------------------------------------------------
+# the 3x3 forwards of a served ResNet-50 at batch 32 (class, C = O, input
+# H = W) and the Gluon step's 3x3 shapes (forward and dgrad, stride 1)
+SERVED_3X3 = [("s1", 64, 56), ("s1", 128, 28), ("s1", 256, 14),
+              ("s1", 512, 7), ("s2", 128, 56), ("s2", 256, 28),
+              ("s2", 512, 14)]
+
+
+# each one's (tile, splits) at batch 32 on an H100: the fastest of the
+# kernel's tiles and splits that chip_smoke.py's phase 2 timed at the shape
+SERVED_3X3_PLANS = {("s1", 64, 56): ((128, 64), 1),
+                    ("s1", 128, 28): ((128, 64), 1),
+                    ("s1", 256, 14): ((128, 64), 2),
+                    ("s1", 512, 7): ((128, 64), 5),
+                    ("s2", 128, 56): ((128, 64), 1),
+                    ("s2", 256, 28): ((128, 64), 2),
+                    ("s2", 512, 14): ((128, 64), 5)}
+
+
+def _conv_fp32_stages(C, KH=3, KW=3):
+    return KH * KW * -(-C // 16)
+
+
+@pytest.mark.parametrize("kind,C,H", SERVED_3X3 + [
+    ("s1", C, H) for C, H in GLUON_3X3])
+@pytest.mark.parametrize("batch", [32, 128])
+def test_fp32_conv_plan_at_the_main_path_shapes(kind, C, H, batch):
+    """At the served and Gluon 3x3 shapes: a tile of the kernel's (at batch
+    32 the one the card ran fastest), every split of the reduction
+    non-empty and at least 8 stages (or one split), the grid and the
+    workspace (only when split) that follow, at least a block for every SM,
+    and no tile or split that the cost model prices lower."""
+    Ho = H if kind == "s1" else H // 2
+    M, ks = batch * Ho * Ho, _conv_fp32_stages(C)
+    plan = hc.conv_fp32_plan(M, C, C, 3, 3, H100_SMS, (0, 16, 32))
+    if batch == 32:
+        assert (plan.tile, plan.splits) == SERVED_3X3_PLANS[(kind, C, H)]
+    assert plan.tile in [t[:2] for t in hc._CONV_FP32_TILES] and plan.vec
+    assert plan.splits * plan.kper >= ks > (plan.splits - 1) * plan.kper
+    assert plan.splits == 1 or plan.kper >= hc._CONV_FP32_MIN_STAGES
+    assert plan.grid == (-(-M // plan.tile[0]), -(-C // plan.tile[1]),
+                         plan.splits)
+    assert plan.workspace == ((plan.splits, M, C) if plan.splits > 1
+                              else None)
+    assert plan.grid[0] * plan.grid[1] * plan.splits >= H100_SMS
+    tile = next(t for t in hc._CONV_FP32_TILES if t[:2] == plan.tile)
+    cost = hc._conv_fp32_cost(M, C, ks, tile, plan.splits, H100_SMS)[0]
+    for other in hc._CONV_FP32_TILES:
+        for splits in range(1, hc._CONV_FP32_MAX_SPLITS + 1):
+            c, kper = hc._conv_fp32_cost(M, C, ks, other, splits, H100_SMS)
+            if -(-ks // kper) == splits and (splits == 1 or kper >= 8):
+                assert cost <= c
+
+
+@pytest.mark.parametrize("N,H,W,C,O", [(3, 7, 9, 20, 70), (1, 1, 1, 3, 5),
+                                       (5, 11, 13, 33, 129),
+                                       (2, 10, 6, 36, 130)])
+def test_fp32_conv_plan_at_ragged_shapes_and_forced_launches(N, H, W, C, O):
+    """Ragged shapes: every output tile in the grid, 16-byte copies only
+    for C and O multiples of 4 on aligned operands; a tile and a split set
+    in place of the plan's are taken, and a split that would be empty or a
+    tile the kernel lacks raises."""
+    M, ks = N * H * W, _conv_fp32_stages(C)
+    plan = hc.conv_fp32_plan(M, C, O, 3, 3, H100_SMS)
+    assert plan.grid[0] * plan.tile[0] >= M > (plan.grid[0] - 1) * plan.tile[0]
+    assert plan.grid[1] * plan.tile[1] >= O > (plan.grid[1] - 1) * plan.tile[1]
+    assert plan.vec == (C % 4 == 0 and O % 4 == 0)
+    assert not hc.conv_fp32_plan(M, C, O, 3, 3, H100_SMS, (4, 0, 0)).vec
+    forced = hc.conv_fp32_plan(M, C, O, 3, 3, H100_SMS, tile=(64, 64),
+                               splits=min(3, ks))
+    assert forced.tile == (64, 64) and forced.splits == min(3, ks)
+    assert forced.splits * forced.kper >= ks
+    with pytest.raises(MXNetError):
+        hc.conv_fp32_plan(M, C, O, 3, 3, H100_SMS, tile=(32, 32))
+    with pytest.raises(MXNetError):
+        hc.conv_fp32_plan(M, C, O, 3, 3, H100_SMS, splits=ks + 1)
+
+
+def _walk_conv_fp32_plan(x, taps, pads, KH, KW, stride, plan):
+    """Kernel 1 fp32's arithmetic in plain PyTorch, block by block of the
+    plan's grid: each block's output rows gather their input pixels at the
+    stride, its split walks its range of (tap, 16-channel block) stages in
+    the kernel's order, each output element is written once per split, and
+    the splits are summed in split_sum.cuh's order."""
+    N, H, W, C = x.shape
+    O = taps.shape[2]
+    Ho, Wo = hc._out_hw(H, W, KH, KW, pads, stride)
+    M = N * Ho * Wo
+    bm, bn = plan.tile
+    cblocks = -(-C // 16)
+    xp = torch.nn.functional.pad(x, (0, 0, pads[1][0], KW, pads[0][0], KH))
+    parts = torch.full((plan.splits, M, O), float("nan"))
+    for bx in range(plan.grid[0]):
+        m = torch.arange(bx * bm, min((bx + 1) * bm, M))
+        n, ho, wo = m // (Ho * Wo), m % (Ho * Wo) // Wo, m % Wo
+        for by in range(plan.grid[1]):
+            o0, o1 = by * bn, min((by + 1) * bn, O)
+            for z in range(plan.splits):
+                acc = torch.zeros((len(m), o1 - o0))
+                for k in range(z * plan.kper,
+                               min((z + 1) * plan.kper, KH * KW * cblocks)):
+                    tap, cb = divmod(k, cblocks)
+                    dh, dw = divmod(tap, KW)
+                    c0, c1 = cb * 16, min(cb * 16 + 16, C)
+                    rows = xp[n, stride * ho + dh, stride * wo + dw, c0:c1]
+                    acc += rows @ taps[tap, c0:c1, o0:o1]
+                assert parts[z, m[0]:m[-1] + 1, o0:o1].isnan().all()
+                parts[z, m[0]:m[-1] + 1, o0:o1] = acc
+    assert not parts.isnan().any()
+    return _split_sum(parts).reshape(N, Ho, Wo, O)
+
+
+@pytest.mark.parametrize("N,H,W,C,O,stride,tile,splits", [
+    (2, 7, 9, 20, 70, 1, (64, 64), 3),      # ragged tiles, a ragged split
+    (3, 10, 6, 36, 130, 2, (128, 64), 2),   # stride 2, O off the tile
+    (2, 14, 14, 32, 16, 2, (64, 64), 1),    # stride 2, one split
+])
+def test_fp32_conv_plan_walk_matches_plain(N, H, W, C, O, stride, tile,
+                                           splits):
+    """The plain walk of the fp32 kernel's launch (tiles, stages, stride,
+    splits, split sum) against ``taps_conv_plain`` on the same fp32 inputs,
+    rtol = atol = 1e-4."""
+    r = np.random.default_rng(21)
+    x = torch.from_numpy(r.standard_normal((N, H, W, C)).astype(np.float32))
+    taps = torch.from_numpy(
+        (r.standard_normal((9, C, O)) * 0.1).astype(np.float32))
+    Ho, Wo = hc._out_hw(H, W, 3, 3, hc.S1_PADS, stride)
+    plan = hc.conv_fp32_plan(N * Ho * Wo, C, O, 3, 3, H100_SMS, tile=tile,
+                             splits=splits)
+    want = hc.taps_conv_plain(x, taps, hc.S1_PADS, 3, 3, stride)
+    got = _walk_conv_fp32_plan(x, taps, hc.S1_PADS, 3, 3, stride, plan)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_fp32_stride_2_takes_one_kernel_launch_on_the_input(fake_kernels,
+                                                            monkeypatch):
+    """``conv3x3_s2`` on fp32 reaches implicit_gemm_conv once, at stride 2
+    on the input's own C channels and 3x3 taps (no space-to-depth copy),
+    with the plan's tile and splits; the split sum is counted apart; a
+    stride the kernels lack raises."""
+    calls, loaded = fake_kernels
+    monkeypatch.setattr(hc, "taps_conv", hc._taps_conv_cuda)
+    N, C, H, O = 32, 256, 28, 256
+    data = torch.zeros((N, C, H, H))
+    y = hc.conv3x3_s2(data, torch.zeros((O, C, 3, 3)))
+    assert y.shape == (N, O, H // 2, H // 2)
+    assert loaded == ["implicit_gemm_conv"] and len(calls) == 1
+    args = calls[0][1]
+    plan = hc.conv_fp32_plan(N * 14 * 14, C, O, 3, 3, H100_SMS)
+    assert args[4:21] == (N, H, H, C, O, 3, 3, 2, 1, 1, 14, 14) + plan.tile \
+        + (plan.splits, plan.kper, 1)
+    assert (hc.launches, hc.conv_reduce_launches) == \
+        (1, int(plan.splits > 1))
+    with pytest.raises(MXNetError):
+        hc._taps_conv_cuda(torch.zeros((1, 4, 4, 8)), torch.zeros((9, 8, 8)),
+                           hc.S1_PADS, 3, 3, 3)

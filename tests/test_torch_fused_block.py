@@ -360,3 +360,214 @@ def test_module_bf16_predict_and_score_match_reference(monkeypatch):
     np.testing.assert_array_equal(after, fresh)
     assert _rel(after, q32) <= BAND_FACTOR * _rel(q16, q32) + BF16_STEP
     assert _rel(after, got) > 10 * BAND_FACTOR * band
+
+
+# --------------------------------------------------------------------------
+# kernel 13's host plan, and a plain walk of it against the plain version
+# --------------------------------------------------------------------------
+H100_SMS = 132
+# ResNet-50 v1's identity bottlenecks at batch 128, (H = W, Cin, Cm), and
+# each one's plan on an H100: (warps along a chunk's rows, band rows, ring
+# depth)
+RESNET50_IDENTITY_PLANS = [((56, 256, 64), (8, 7, 2)),
+                           ((28, 512, 128), (4, 7, 3)),
+                           ((14, 1024, 256), (2, 7, 3)),
+                           ((7, 2048, 512), (1, 7, 2))]
+
+
+@pytest.mark.parametrize("shape,want", RESNET50_IDENTITY_PLANS)
+def test_plan_at_the_resnet50_blocks(shape, want):
+    """At the 4 identity-bottleneck shapes of a batch-128 ResNet-50: the
+    layout, band and ring depth, buffers within the H100's shared memory,
+    a chunk's columns no wider than the stages' own (no idle warps), one
+    chunk of rows per stage (no weight slice read twice by a CTA), at
+    least a CTA for every SM, and no layout or band the cost model prices
+    lower."""
+    H, Cin, Cm = shape
+    plan = hb.fused_bottleneck_plan(128, H, H, Cin, Cm, H100_SMS)
+    assert (plan.wm, plan.rows, plan.stages) == want
+    assert plan.smem == hb._smem_bytes(plan.wm, plan.rows, H, Cm,
+                                       plan.stages) <= hb.SMEM_LIMIT
+    assert plan.bands == -(-H // plan.rows)
+    bm, bn = 64 * plan.wm, 512 // plan.wm
+    assert bn <= Cm and Cm % bn == 0
+    assert (min(plan.rows + 1, H) + (plan.rows < H)) * H <= bm
+    assert plan.grid == min(H100_SMS, 128 * plan.bands) >= 128
+    for wm in hb._LAYOUTS:
+        for R in range(1, H + 1):
+            if hb._smem_bytes(wm, R, H, Cm, 2) <= hb.SMEM_LIMIT:
+                other = hb._plan_for(128, H, H, Cin, Cm, H100_SMS, wm, R, 2)
+                assert plan.slices <= other.slices
+
+
+def test_plan_raises_where_nothing_fits_and_is_cached():
+    with pytest.raises(MXNetError):
+        hb.fused_bottleneck_plan(1, 4, 4000, 64, 512, H100_SMS)
+    assert hb.fused_bottleneck_plan(2, 9, 9, 64, 32, H100_SMS) is \
+        hb.fused_bottleneck_plan(2, 9, 9, 64, 32, H100_SMS)
+
+
+def _walk_fused_plan(x, w1, w2, w3, b, plan):
+    """Kernel 13's arithmetic in plain PyTorch as its plan lays it out: each
+    CTA of the persistent grid keeps one h1 buffer ((R + 2) x (W + 2) rows,
+    zero pad columns) and one h2 tile across its units (image, band); per
+    unit it zeroes the h1 rows outside the image, computes h1 over the
+    band's rows and its halo rows inside the image in chunks of 64 * wm
+    rows by 512 / wm columns, then per chunk of the band's rows h2 (each
+    output pixel gathering its 9 h1 rows) and out; fp32 sums, bf16 after
+    each ReLU, the residual added in fp32."""
+    N, H, W, C = x.shape
+    Cm = w1.shape[0]
+    bm, bn = 64 * plan.wm, 512 // plan.wm
+    R, WP = plan.rows, W + 2
+    f32, bf = torch.float32, torch.bfloat16
+    xs, b = x.reshape(N, H * W, C).to(f32), b.to(f32)
+    out = torch.full((N, H * W, C), float("nan"))
+    units = N * plan.bands
+    for k in range(plan.grid):
+        h1 = torch.zeros(((R + 2) * WP, Cm))
+        h2 = torch.zeros((bm, Cm))
+        for u in range(k, units, plan.grid):
+            img, band = divmod(u, plan.bands)
+            r0 = band * R
+            rows = min(R, H - r0)
+            lo, hi = max(r0 - 1, 0), min(r0 + rows, H - 1)
+            m1, m2 = (hi - lo + 1) * W, rows * W
+            if r0 == 0:
+                h1[:WP] = 0
+            if r0 + rows == H:
+                h1[(rows + 1) * WP:(rows + 2) * WP] = 0
+            for mc in range(-(-m1 // bm)):
+                m = torch.arange(mc * bm, min(mc * bm + bm, m1))
+                for n0 in range(0, Cm, bn):
+                    n1 = min(n0 + bn, Cm)
+                    acc = xs[img, lo * W + m] @ w1[n0:n1].to(f32).t()
+                    hrow = (lo + m // W - r0 + 1) * WP + m % W + 1
+                    h1[hrow, n0:n1] = torch.relu(acc + b[0, n0:n1]) \
+                        .to(bf).to(f32)
+            for mc in range(-(-m2 // bm)):
+                p = torch.arange(mc * bm, min(mc * bm + bm, m2))
+                base = p // W * WP + p % W
+                for n0 in range(0, Cm, bn):
+                    n1 = min(n0 + bn, Cm)
+                    acc = torch.zeros((len(p), n1 - n0))
+                    for tap in range(9):
+                        rows_h1 = base + tap // 3 * WP + tap % 3
+                        acc += h1[rows_h1] @ w2[tap, n0:n1].to(f32).t()
+                    h2[:len(p), n0:n1] = torch.relu(acc + b[1, n0:n1]) \
+                        .to(bf).to(f32)
+                for n0 in range(0, C, bn):
+                    n1 = min(n0 + bn, C)
+                    pix = r0 * W + p
+                    acc = h2[:len(p)] @ w3[n0:n1].to(f32).t()
+                    out[img, pix, n0:n1] = torch.relu(
+                        acc + b[2, n0:n1] + xs[img, pix, n0:n1])
+    assert not out.isnan().any()
+    return out.to(bf).reshape(N, H, W, C)
+
+
+def _seeded_block(N, H, W, Cin, Cm, seed):
+    r = np.random.default_rng(seed)
+    bf = torch.bfloat16
+
+    def t(shape, scale):
+        return torch.from_numpy((r.standard_normal(shape) * scale)
+                                .astype(np.float32))
+    x = torch.relu(t((N, H, W, Cin), 1.0)).to(bf)
+    w1 = t((Cm, Cin), np.sqrt(2.0 / Cin)).to(bf)
+    w2 = t((9, Cm, Cm), np.sqrt(2.0 / (9 * Cm))).to(bf)
+    w3 = t((Cin, Cm), 0.2 * np.sqrt(2.0 / Cm)).to(bf)
+    return x, w1, w2, w3, t((3, Cin), 0.1)
+
+
+# (N, H, W, Cin, Cm, wm, band rows, grid): every layout, bands that leave a
+# ragged last one, several chunks of rows a stage, columns off the chunk,
+# fewer CTAs than units
+@pytest.mark.parametrize("N,H,W,Cin,Cm,wm,R,grid", [
+    (3, 7, 5, 64, 32, 8, 7, 2),      # whole images, Cm off the 64 columns
+    (2, 9, 11, 128, 64, 1, 4, 3),    # 3 bands of 4, 4, 1 rows; 2 chunks
+    (2, 6, 10, 64, 64, 2, 5, 2),     # a 1-row last band
+    (1, 11, 9, 96, 32, 4, 3, 2),     # Cin off the 128 columns
+])
+def test_plan_walk_matches_plain(N, H, W, Cin, Cm, wm, R, grid):
+    """The plain walk of kernel 13's launch (bands, halo rows, the gathered
+    3x3, chunks, a persistent grid) against ``fused_bottleneck_plain``, in
+    the tolerance chip_smoke.py holds the kernel to."""
+    args = _seeded_block(N, H, W, Cin, Cm, 41)
+    plan = hb._plan_for(N, H, W, Cin, Cm, grid, wm, R, 2)
+    assert plan.grid == grid and plan.bands == -(-H // R)
+    got = _walk_fused_plan(*args, plan)
+    want = hb.fused_bottleneck_plain(*args)
+    _assert_block_close(got.reshape(-1, Cin), want.float().reshape(-1, Cin))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    """Kernel 13 against ``fused_bottleneck_plain`` on the same bf16 card
+    tensors: the plan's own launch at ragged shapes, then each layout, band
+    and ring depth forced at one shape, each call one launch, within one
+    bf16 step plus 1e-3 of the largest |out|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [((1, 9, 11, 256, 64), None), ((3, 15, 17, 128, 32), None),
+             ((2, 7, 7, 512, 128), None), ((4, 14, 14, 256, 64), None)]
+    # every layout, h2 in h1's buffer and apart, several bands and chunks,
+    # every ring depth (chip_smoke.py's FB_FORCED)
+    cases += [((3, 9, 11, 128, 64), forced) for forced in (
+        (1, 9, 2), (1, 3, 3), (2, 9, 4), (2, 2, 3), (4, 4, 3), (4, 9, 2),
+        (8, 2, 2), (8, 1, 2))]
+    for (N, H, W, Cin, Cm), forced in cases:
+        args = [a.cuda() for a in _seeded_block(N, H, W, Cin, Cm, 42)]
+        plan = (hb._plan_for(N, H, W, Cin, Cm, min(sms, 5), *forced)
+                if forced else None)
+        before = hb.launches
+        got = hb._fused_bottleneck_cuda(*args, plan=plan)
+        want = hb.fused_bottleneck_plain(*args)
+        torch.cuda.synchronize()
+        assert hb.launches == before + 1
+        _assert_block_close(got.cpu().reshape(-1, Cin),
+                            want.float().cpu().reshape(-1, Cin))
+
+
+def test_cuda_arm_passes_the_plan(monkeypatch):
+    """The CUDA arm on CPU tensors with the library, stream and SM count
+    faked: the plan's layout, band, ring depth and grid reach the entry
+    point, which takes as many arguments as its ctypes signature says and
+    reports the plan's shared memory, and the launch counts; an operand off
+    a 16-byte boundary or a channel count off 32 raises before any
+    launch."""
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    calls = []
+
+    class Entry:
+        def __call__(self, *args):
+            assert len(args) == len(self.argtypes)
+            calls.append(args)
+            W, (Cm, wm, R, stages) = args[8], args[10:14]
+            args[-1][0] = hb._smem_bytes(wm, R, W, Cm, stages)
+            return 0
+
+    class Lib:
+        mxtt_fused_bottleneck = Entry()
+
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    monkeypatch.setattr(hb, "_fn", None)
+    monkeypatch.setattr(hb, "launches", 0)
+    monkeypatch.setattr(hc, "_stream", lambda device: 0)
+    monkeypatch.setattr(hc, "_sm_count", lambda device: H100_SMS)
+    args = _seeded_block(128, 14, 14, 1024, 256, 43)
+    out = hb._fused_bottleneck_cuda(*args)
+    assert out.shape == args[0].shape and hb.launches == 1
+    plan = hb.fused_bottleneck_plan(128, 14, 14, 1024, 256, H100_SMS)
+    assert calls[0][6:15] == (128, 14, 14, 1024, 256, plan.wm, plan.rows,
+                              plan.stages, plan.grid)
+    buf = torch.zeros(args[0].numel() + 1, dtype=torch.bfloat16)
+    misaligned = buf[1:].view(args[0].shape)
+    with pytest.raises(MXNetError):
+        hb._fused_bottleneck_cuda(misaligned, *args[1:])
+    x, w1, w2, w3, b = _seeded_block(1, 5, 5, 48, 32, 44)
+    with pytest.raises(MXNetError):
+        hb._fused_bottleneck_cuda(x, w1, w2, w3, b)
+    assert len(calls) == 1 and hb.launches == 1

@@ -152,7 +152,8 @@ def test_pallas_module_points_at_cuda_module():
 def test_user_kernels_on_the_card():
     """add-one, the row scale over a grid of 4, a missing export, axpy and
     a bf16 scale, each against its PyTorch expression (fp32 exact, bf16
-    within one ulp); ``launches`` counts each launch."""
+    within one ulp), compiled with ``--fmad=false``; ``launches`` counts
+    each launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py phase 2f runs the "
                     "same kernels on the H100")
@@ -172,7 +173,11 @@ def test_user_kernels_on_the_card():
       int i = blockIdx.x * blockDim.x + threadIdx.x;
       if (i < n) y[i] = T(float(x[i]) * s);
     }'''
-    mod = rtc.CudaModule(src, exports=["scale<__nv_bfloat16>"])
+    # without FMA contraction, axpy rounds its product and its sum apart,
+    # as PyTorch's y0 + a * x does (chip_smoke.py phase 2f compiles the same
+    # way)
+    mod = rtc.CudaModule(src, options=("--fmad=false",),
+                         exports=["scale<__nv_bfloat16>"])
     ctx, dev = tmx.gpu(0), torch.device("cuda", 0)
     x = torch.randn(1000, device=dev)
     y = torch.empty_like(x)

@@ -10,6 +10,7 @@ import importlib.util
 import os
 
 import numpy as np
+import pytest
 
 import mxnet_tpu as mx
 import mxnet_tpu_torch as tmx
@@ -97,3 +98,36 @@ def test_resnet50_matches_example_symbol():
     assert 25_000_000 < n_params < 26_000_000
     assert sum(1 for n in port.list_arguments()
                if n.endswith("_conv2_weight")) == 16
+
+
+@pytest.mark.parametrize("given", [{}, {"data": "float16"},
+                                   {"data": np.int32}])
+def test_infer_type_gives_the_references_numpy_types(given):
+    """``infer_type`` gives what the reference gives: ``np.dtype`` for a
+    given argument, ``np.float32`` for the rest, so code written against
+    the reference can build numpy arrays from ``arg_types``."""
+    def types(sym):
+        s = sym.BatchNorm(sym.FullyConnected(sym.var("data"), num_hidden=2,
+                                             name="fc"), name="bn")
+        return s.infer_type(**given), s.infer_shape(data=(3, 4))[0]
+    (port_args, port_outs, port_auxs), shapes = types(tmx.sym)
+    ref_args, ref_outs, ref_auxs = types(mx.sym)[0]
+    assert port_args == ref_args and port_outs == ref_outs \
+        and port_auxs == ref_auxs
+    assert [type(t) for t in port_args + port_outs + port_auxs] == \
+        [type(t) for t in ref_args + ref_outs + ref_auxs]
+    assert [np.zeros(s, t).dtype for s, t in zip(shapes, port_args)] == \
+        [np.dtype(t) for t in ref_args]
+
+
+def test_infer_type_bfloat16_is_ndarrays_dtype_and_binds():
+    """bfloat16, which numpy lacks, is what ``NDArray.dtype`` gives
+    (``torch.bfloat16``), and ``simple_bind`` binds the given types."""
+    import torch
+    s = tmx.sym.FullyConnected(tmx.sym.var("data"), num_hidden=2, name="fc")
+    args, _, _ = s.infer_type(data="bfloat16")
+    ex = s.simple_bind(ctx=tmx.cpu(), data=(3, 4),
+                       type_dict={"data": "bfloat16", "fc_weight": "float16"})
+    assert args[0] == ex.arg_dict["data"].dtype == torch.bfloat16
+    assert ex.arg_dict["fc_weight"].dtype == np.dtype("float16")
+    assert ex.arg_dict["fc_bias"].dtype == np.dtype("float32")
