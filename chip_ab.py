@@ -11,7 +11,9 @@ directory; each is measured in a process of its own, in the order given
     python3 chip_ab.py served TREE...  # the batch-32 fp32 served forward
     python3 chip_ab.py infer16 TREE... # the batch-128 bf16 inference forward
     python3 chip_ab.py w1x1 TREE...    # kernel 12 at a bf16 step's 15 shapes
+    python3 chip_ab.py tfm TREE...     # gpt2-small training steps
     python3 chip_ab.py stream          # host cost of a stream handle
+    python3 chip_ab.py ablate          # what limits the fused attention backward
 
 ``steps`` trains each checkout's Gluon ``resnet50_v1`` with
 ``FusedTrainer`` (SGD lr 0.1, momentum 0.9, ``chip_smoke.gluon_resnet50``'s
@@ -29,12 +31,28 @@ forward at batch 128 (phase 16's, every identity bottleneck on kernel 13):
 images/s, busy time, idle share and kernel 13's share.  ``w1x1`` times
 kernel 12 (``hopper_conv.conv1x1_wgrad``) at the 15 shapes of
 ``chip_smoke.RESNET50_1X1`` at batch 128, each checked against its plain
-version.  Each checkout prints one line ``AB {json}``.  ``stream`` prints
+version.  ``tfm`` trains ``chip_smoke.tfm_module``'s gpt2-small (``bench.py
+--transformer``'s Module: batch 16, T 1,024, fp32, SGD) through the fused
+step, as phase 9 does: train tokens/s from the median timed step, and two
+profiled steps the busy time, the idle share and the attention backward's
+ms and share of the busy time (the fused backward and its dq sum, or the
+two kernels it replaced, whichever the checkout has).  Each checkout
+prints one line ``AB {json}``.  ``stream`` prints
 the host microseconds a call of the CUDA build's raw stream accessor and of
 ``torch.cuda.current_stream(...).cuda_stream`` take, as ``STREAM {json}``.
+``ablate`` builds variants of this checkout's ``csrc/flash_attn_bwd.cu``,
+each with one change made by text substitution (``VARIANTS``: one phase's
+loop emptied, so that its time against the source's is what the phase
+costs; other unroll factors; 512 threads at 4 x 4 register tiles), checks
+the correct ones against ``flash_bwd_plain`` and times all of them in turns
+at gpt2-small's call and the ring's two per-shard calls (D 64), one line
+``ABLATION {json}`` a shape; it builds under ``mxnet_tpu_torch/build/
+ablation``.
 """
+import ctypes
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -176,6 +194,38 @@ def w1x1(tree):
     return {"card": cs.card_line(), "ms": shapes, "step_ms": total}
 
 
+#: kernel names of the attention backward in either checkout: the fused
+#: kernel and its dq sum, or the dq and dk/dv kernels they replaced
+_ATTN_BWD_KERNELS = ("flash_bwd_kernel", "dq_sum_kernel", "flash_dq_kernel",
+                     "flash_dkv_kernel")
+
+
+def tfm(tree):
+    import numpy as np
+    import torch
+    cs = _smoke(tree)
+    from mxnet_tpu_torch import gpu
+    torch.cuda.empty_cache()
+    cfg, mod, it = cs.tfm_module(gpu(0), cs.TFM["batch"])
+
+    def step():
+        mod.forward_backward(cs._next_batch(it))
+        mod.update()
+        mod.get_outputs()[0].wait_to_read()
+    step()
+    times = cs.timed_steps(step)
+    step_ms = float(np.median(times)) * 1e3
+    tokens = cs.TFM["batch"] * cfg.seq_len
+    out = {"card": cs.card_line(), "step_ms": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "steps_ms": [round(t * 1e3, 2) for t in times]}
+    out.update(_forward_profile(cs, step, step_ms, _ATTN_BWD_KERNELS))
+    out["attn_bwd_ms"] = out.pop("kernel_ms")
+    out["attn_bwd_share"] = out["attn_bwd_ms"] / out["busy_ms"]
+    torch.cuda.synchronize()
+    return out
+
+
 def stream():
     import torch
     raw = torch._C._cuda_getCurrentRawStream
@@ -194,9 +244,142 @@ def stream():
     return out
 
 
+# the fused attention backward's variants for ``ablate``
+S_LOOP = "    for (int d = 0; d < D; d += 4) {"
+ACC_LOOP = "    for (int qq = 0; qq < BQ; ++qq) {"
+DQ_LOOP = "    for (int kk = 0; kk < BK; kk += 4) {"
+
+# name -> (substitutions (old, new, count), correct)
+VARIANTS = {
+    "base": ((), True),
+    "no_s_dp": (((S_LOOP, S_LOOP.replace("d < D", "d < 0"), 1),), False),
+    "no_dv_dk": (((ACC_LOOP, ACC_LOOP.replace("qq < BQ", "qq < 0"), 1),),
+                 False),
+    "no_dq": (((DQ_LOOP, DQ_LOOP.replace("kk < BK", "kk < 0"), 1),), False),
+    "only_s_dp": (((ACC_LOOP, ACC_LOOP.replace("qq < BQ", "qq < 0"), 1),
+                   (DQ_LOOP, DQ_LOOP.replace("kk < BK", "kk < 0"), 1)), False),
+    "s_unroll_full": ((("#pragma unroll 2\n" + S_LOOP,
+                        "#pragma unroll\n" + S_LOOP, 1),), True),
+    "s_unroll_1": ((("#pragma unroll 2\n" + S_LOOP,
+                     "#pragma unroll 1\n" + S_LOOP, 1),), True),
+    "acc_unroll_8": ((("#pragma unroll 4\n" + ACC_LOOP,
+                       "#pragma unroll 8\n" + ACC_LOOP, 1),
+                      ("#pragma unroll 2\n" + DQ_LOOP,
+                       "#pragma unroll 4\n" + DQ_LOOP, 1)), True),
+    "acc_unroll_2": ((("#pragma unroll 4\n" + ACC_LOOP,
+                       "#pragma unroll 2\n" + ACC_LOOP, 1),
+                      ("#pragma unroll 2\n" + DQ_LOOP,
+                       "#pragma unroll 1\n" + DQ_LOOP, 1)), True),
+    "threads_512": ((("64 * (a >> 2)", "128 * (a >> 2)", 3),
+                     ("64 * s", "128 * s", 3), ("s < SK;", "s < SK / 2;", 2),
+                     ("KEYS = 4 * SK;", "KEYS = 2 * SK;", 1),
+                     ("RQ = BQ / 16;", "RQ = BQ / 32;", 1),
+                     ("constexpr int NT = 256;", "constexpr int NT = 512;",
+                      1)), True),
+}
+
+
+def _sources(csrc, out_dir):
+    """Write each variant's source; raises if a substitution does not match
+    the committed source as many times as it expects."""
+    with open(os.path.join(csrc, "flash_attn_bwd.cu")) as f:
+        base = f.read()
+    paths = {}
+    for name, (subs, _) in VARIANTS.items():
+        src = base
+        for old, new, count in subs:
+            if src.count(old) != count:
+                raise RuntimeError("variant %s: %r found %d times, expected %d"
+                                   % (name, old, src.count(old), count))
+            src = src.replace(old, new)
+        paths[name] = os.path.join(out_dir, name + ".cu")
+        with open(paths[name], "w") as f:
+            f.write(src)
+    return paths
+
+
+def _build_variants(paths, csrc, out_dir, nvcc, flags, bind):
+    procs = {}
+    for name, src in paths.items():
+        lib = os.path.join(out_dir, "lib%s.so" % name)
+        procs[name] = (lib, subprocess.Popen(
+            [nvcc, *flags, "-I", csrc, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for %s:\n%s" % (name, log))
+        fns[name] = bind(ctypes.CDLL(lib))
+    return fns
+
+
+def ablate():
+    import torch
+    cs = _smoke(HERE)
+    from mxnet_tpu_torch import _build as build
+    from mxnet_tpu_torch.ops import hopper_attention as ha
+    out_dir = os.path.join(str(build.BUILD_DIR), "ablation")
+    os.makedirs(out_dir, exist_ok=True)
+    csrc = str(build.CSRC)
+    fns = _build_variants(_sources(csrc, out_dir), csrc, out_dir,
+                          build._nvcc(), build.FLAGS, ha._bind_bwd)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    for shape in [cs.ATTN_SHAPES[0]] + cs.RING_STATS_SHAPES[:2]:
+        B, H, Tq, Tk, D, causal = shape
+        r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa
+        q, k, v, do = r(B, H, Tq, D), r(B, H, Tk, D), r(B, H, Tk, D), \
+            r(B, H, Tq, D)
+        sc = 1.0 / math.sqrt(D)
+        out, lse = ha.flash_fwd_lse(q, k, v, causal, sc)
+        delta = (do * out).sum(-1)
+        plan = ha.flash_bwd_plan(Tq, Tk, D, causal)
+        want = ha.flash_bwd_plain(q, k, v, do, lse, delta, causal, sc)
+        ws = torch.empty((B * H, plan.ws_rows, D), device=dev)
+        launched = (ctypes.c_int * 2)()
+        runs, errs, kept = {}, {}, []
+        for name, fn in fns.items():
+            outs = (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v))
+            kept.append(outs)           # alive while the launches write them
+            ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs,
+                                           ws)]
+
+            def run(fn=fn, ptrs=ptrs):
+                rc = fn(*ptrs, B * H, Tq, Tk, D, sc, int(causal), plan.bk,
+                        plan.ws_rows, 0, torch.cuda.current_stream()
+                        .cuda_stream, launched)
+                if rc != 0:
+                    raise RuntimeError("launch failed: CUDA error %d" % rc)
+            run()
+            torch.cuda.synchronize()
+            runs[name] = run
+            if VARIANTS[name][1]:
+                errs[name] = max(((g - w).abs().max() / w.abs().max()).item()
+                                 for g, w in zip(outs, want))
+                if errs[name] > cs.ATTN_BWD_TOL:
+                    raise RuntimeError("variant %s disagrees with plain at "
+                                       "%s: %g" % (name, shape, errs[name]))
+        times = {name: [] for name in runs}
+        for _ in range(3):                    # in turns
+            for name, run in runs.items():
+                times[name].append(cs.time_ms(run, iters=10, warmup=2))
+        flops = 10.0 * cs._visible_pairs(Tq, Tk, causal) * B * H * D
+        print("ABLATION " + json.dumps({
+            "shape": shape, "gflop": flops / 1e9,
+            "ms": {n: min(t) for n, t in times.items()},
+            "ms_runs": times, "max_rel_err": errs,
+            "tflops": {n: flops / min(t) / 1e9 for n, t in times.items()}}),
+            flush=True)
+        del q, k, v, do, out, lse, delta, want, ws, runs, kept
+        torch.cuda.empty_cache()
+    print(cs.card_line())
+
+
 def main(argv):
     modes = {"steps": steps, "served": served, "infer16": infer16,
-             "w1x1": w1x1}
+             "w1x1": w1x1, "tfm": tfm}
     if len(argv) == 4 and argv[1] == "--one":
         tree = os.path.abspath(argv[3])
         print("AB " + json.dumps(dict(modes[argv[2]](tree), tree=argv[3])),
@@ -204,6 +387,9 @@ def main(argv):
         return 0
     if len(argv) == 2 and argv[1] == "stream":
         print("STREAM " + json.dumps(stream()), flush=True)
+        return 0
+    if len(argv) == 2 and argv[1] == "ablate":
+        ablate()
         return 0
     if len(argv) < 3 or argv[1] not in modes:
         print(__doc__, file=sys.stderr)

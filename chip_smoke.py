@@ -102,21 +102,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and elementwise, optimizer, memcpy), the ten longest kernels, and the
    idle share.
 2d. attention kernels (run after 2c): kernels 3 and 5
-   (``flash_attn_fwd.cu``) and 6 and 7 (``flash_attn_bwd.cu``) against
-   their plain versions (``hopper_attention.flash_fwd_plain`` /
-   ``flash_bwd_plain``) at the main path's shape (B=16, H=12, T=1024,
-   D=64, causal) and five ragged or odd ones (Tq > Tk, Tk > Tq, T off the
-   tile, D = 16, 32, 128): out and lse within 1e-5, dq, dk and dv within
-   1e-4 of their largest |value|; at the main shape each kernel's time,
-   TFLOP/s and bound beside the plain version's and the yardstick's
-   (``F.scaled_dot_product_attention``, forward and backward).
+   (``flash_attn_fwd.cu``) and 6 and 7, fused into one kernel and its
+   fixed-order dq sum (``flash_attn_bwd.cu``), against their plain
+   versions (``hopper_attention.flash_fwd_plain`` / ``flash_bwd_plain``) at
+   the main path's shape (B=16, H=12, T=1024, D=64, causal) and five ragged
+   or odd ones (Tq > Tk, Tk > Tq, T off the tile, D = 16, 32, 128): out and
+   lse within 1e-5, dq, dk and dv within 1e-4 of their largest |value| and
+   bit-equal on a rerun; the fused kernel's occupancy; at the main shape
+   each kernel's time, TFLOP/s and bound (the backward's at five products)
+   beside the plain version's and the yardstick's
+   (``F.scaled_dot_product_attention``, forward and backward), the
+   backward's split between its kernel and its dq sum, and the time of the
+   two kernels it replaced (``BEFORE_K67_MS``).
 9. transformer training: ``bench.py --transformer``'s model,
    ``transformer_lm(gpt2-small)`` (vocab 50257, 12 layers, d_model 768,
    12 heads, d_ff 3072, seq_len 1024, fp32), bound through the port's
    ``Module`` at batch 16, ``Xavier(gaussian, 2)`` after ``random.seed(7)``,
    SGD lr 0.05 momentum 0.9, fed by ``SyntheticLMIter(seed=0)``, trained by
-   the fused step: every step must launch kernels 5, 6 and 7 12 times each
-   and kernel 3 never, the losses must be finite; train tokens/s from the
+   the fused step: every step must launch kernel 5, the fused backward and
+   its dq sum 12 times each and kernel 3 never, the losses must be finite; train tokens/s from the
    median of 10 timed steps after 2 warm-up steps, and MFU
    (``flops_per_token`` x tokens/s over 67 TFLOP/s).  Then one eval forward
    of the same Module must launch kernel 3 12 times and kernel 5 never.
@@ -125,8 +129,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CPU from the same weights: loss within rtol 1e-4, every parameter's
    update within 1% of its norm.
 10. transformer profile: one step under torch.profiler, device time and
-   launches by group (cuBLAS, kernels 3, 5, 6 and 7, LayerNorm, gelu and
-   elementwise, cross-entropy, embedding, optimizer, memcpy), the attention
+   launches by group (cuBLAS, kernels 3, 5, the fused 6 and 7 and its dq
+   sum, LayerNorm, gelu and elementwise, cross-entropy, embedding, optimizer, memcpy), the attention
    kernels' launches read from the trace, and the idle share.
 2e. ring kernels (run after 2d): kernel 4, the stats mode of
    ``flash_attn_fwd.cu``, against ``hopper_attention.flash_stats_plain`` at
@@ -136,15 +140,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    zeros over a NaN buffer of (8, 128).  Times beside the plain versions',
    the fp32 bound and the yardsticks (PyTorch's memory-efficient attention
    with log-sum-exp, the nearest call and not the same outputs;
-   ``Tensor.zero_``).
+   ``Tensor.zero_``).  The fused backward at the same two shapes (the
+   ring's backward calls): its time, launches and bound beside the plain
+   version's and SDPA's memory-efficient backward.
 11. long context: ``models.long_context_attention`` at gpt2-small's
    attention geometry (H=12, D=64, fp32), B=1, T=32,768, causal, on
    ``make_mesh({"sp": 8}, [cuda:0] * 8)``, forward and backward of
    ``sum(out * g)``: the counters, zeroed just before, must read 36
    launches of kernel 4 (28 full steps, 8 diagonal ones), 36 each of
-   kernels 6 and 7, none of 3 or 5, and the one probe of kernel 10.  out,
-   dq, dk and dv against one un-sharded ``flash_attention`` (kernels 5, 6,
-   7; out within 2e-5, gradients within 1e-4 of their largest |value|), the
+   the fused backward and its dq sum, none of 3 or 5, and the one probe of
+   kernel 10.  out, dq, dk and dv against one un-sharded
+   ``flash_attention`` (kernel 5 and the fused backward; out within 2e-5, gradients within 1e-4 of their largest |value|), the
    forward against the scan arm on the card; a non-causal ring at sp=4 (16
    launches) and ``ulysses_attention`` at sp=4 against the same reference.
    Forward and forward+backward times, tokens/s and TFLOP/s of the ring,
@@ -1909,7 +1915,7 @@ def phase_lm_profile(card, trainer, step_ms):
 
 # --------------------------------------------------------------------------
 ATTN_FWD_TOL = 1e-5     # max |kernel 3 or 5 - plain|, out and lse
-ATTN_BWD_TOL = 1e-4     # max |kernel 6 or 7 - plain| / max |plain|
+ATTN_BWD_TOL = 1e-4     # max |fused backward - plain| / max |plain|
 # (B, H, Tq, Tk, D, causal): the main path's first, then ragged ones
 ATTN_SHAPES = [(16, 12, 1024, 1024, 64, True), (2, 4, 128, 128, 16, True),
                (1, 3, 1000, 1000, 64, True), (2, 2, 77, 77, 32, False),
@@ -1929,9 +1935,10 @@ def _visible_pairs(Tq, Tk, causal):
 
 
 def _attn_costs(B, H, Tq, Tk, D, causal):
-    """FLOPs and bytes of kernels 3/5, 6 and 7 at one shape: 2 FLOP per
-    multiply-add over the visible pairs (2, 3 and 4 products of D terms),
-    each fp32 input read once and each output written once."""
+    """FLOPs and bytes of kernels 3/5 and of the backward at one shape: 2
+    FLOP per multiply-add over the visible pairs (2 products of D terms
+    forward; 5 backward, S, dP, dV, dK and dQ, whichever kernels compute
+    them), each fp32 input read once and each output written once."""
     BH, pairs, f4 = B * H, _visible_pairs(Tq, Tk, causal), 4.0
     q_bytes, kv_bytes, row_bytes = f4 * BH * Tq * D, f4 * BH * Tk * D, \
         f4 * BH * Tq
@@ -1939,15 +1946,14 @@ def _attn_costs(B, H, Tq, Tk, D, causal):
         "flash_fwd": (4.0 * pairs * D * BH, 2 * q_bytes + 2 * kv_bytes),
         "flash_fwd_lse": (4.0 * pairs * D * BH,
                           2 * q_bytes + 2 * kv_bytes + row_bytes),
-        "flash_dq": (6.0 * pairs * D * BH,
-                     3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
-        "flash_dkv": (8.0 * pairs * D * BH,
-                      2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)}
+        "flash_bwd": (10.0 * pairs * D * BH,
+                      3 * q_bytes + 4 * kv_bytes + 2 * row_bytes)}
 
 
 def _attn_check(ha, shape, gen, dev):
-    """Kernels 3, 5, 6 and 7 against their plain versions at one shape;
-    returns (errors, inputs)."""
+    """Kernels 3 and 5 and the fused backward against their plain versions
+    at one shape, the backward bit-equal on a rerun; returns (errors,
+    inputs)."""
     B, H, Tq, Tk, D, causal = shape
     r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
     q, k, v, do = r(B, H, Tq, D), r(B, H, Tk, D), r(B, H, Tk, D), \
@@ -1959,8 +1965,11 @@ def _attn_check(ha, shape, gen, dev):
     delta = (do * out).sum(-1)
     bargs = (q, k, v, do, lse, delta, causal, sc)
     dq, dk, dv = ha.flash_bwd(*bargs)
+    again = ha.flash_bwd(*bargs)
     want = ha.flash_bwd_plain(*bargs)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+          "the fused backward is not bit-equal on a rerun at %s" % (shape,))
     rel = lambda g, w: ((g - w).abs().max() / w.abs().max()).item()  # noqa
     err = {"flash_fwd": (out3 - out).abs().max().item(),
            "flash_fwd_lse": max((out5 - out).abs().max().item(),
@@ -1968,8 +1977,8 @@ def _attn_check(ha, shape, gen, dev):
            "flash_dq": rel(dq, want[0]),
            "flash_dkv": max(rel(dk, want[1]), rel(dv, want[2]))}
     print("[attn-kernels] B=%d H=%d Tq=%d Tk=%d D=%d %s: kernel 3 %.3g, "
-          "kernel 5 %.3g (out and lse, abs, tol %g); kernel 6 %.3g, kernel 7 "
-          "%.3g (of max |value|, tol %g)"
+          "kernel 5 %.3g (out and lse, abs, tol %g); fused backward dq %.3g, "
+          "dk and dv %.3g (of max |value|, tol %g), bit-equal on a rerun"
           % (B, H, Tq, Tk, D, "causal" if causal else "non-causal",
              err["flash_fwd"], err["flash_fwd_lse"], ATTN_FWD_TOL,
              err["flash_dq"], err["flash_dkv"], ATTN_BWD_TOL))
@@ -1983,14 +1992,56 @@ def _attn_check(ha, shape, gen, dev):
     return err, bargs
 
 
+# kernels 6 and 7 before they were fused (two kernels that each recomputed
+# s and dp), ms over a gpt2-small step's 12 calls on an H100 SXM at 700 W
+# (PERF.md section 6): quoted beside the fused kernel, read by a print only
+BEFORE_K67_MS = {"flash_dq": 16.53, "flash_dkv": 20.56}
+# the fused backward's counter behind each ``kernels`` entry it serves
+_COUNTER_OF = {"flash_dq": "flash_bwd", "flash_dkv": "flash_bwd"}
+
+
+def _bwd_occupancy(D):
+    """Blocks of the fused backward an SM holds at head dim ``D``."""
+    import ctypes
+    from mxnet_tpu_torch import _build
+    fn = _build.load("flash_attn_bwd").mxtt_flash_attn_bwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    blocks = ctypes.c_int(0)
+    check(fn(D, 0, ctypes.byref(blocks)) == 0, "occupancy query failed")
+    return blocks.value
+
+
+def _bwd_split(ha, args, n=5):
+    """ms a call of the fused backward's kernel and of its dq sum, from
+    ``n`` profiled calls; and the launches of one call, counted."""
+    kernels, _ = profiled_kernels(lambda: ha.flash_bwd(*args), n)
+    split = {"kernel_ms": 0.0, "dq_sum_ms": 0.0}
+    for e in kernels:
+        key = ("dq_sum_ms" if "dq_sum_kernel" in e.name else "kernel_ms"
+               if "flash_bwd_kernel" in e.name else None)
+        if key:
+            split[key] += e.time_range.elapsed_us() / n / 1e3
+    before = (ha.flash_bwd_launches, ha.flash_dq_sum_launches)
+    ha.flash_bwd(*args)
+    split["launches_a_call"] = (ha.flash_bwd_launches - before[0],
+                                ha.flash_dq_sum_launches - before[1])
+    check(split["launches_a_call"] == (1, 1), "one flash_bwd call launched "
+          "%s (fused kernel, dq sum), expected (1, 1)"
+          % (split["launches_a_call"],))
+    return split
+
+
 def phase_attn_kernels(card):
-    """Kernels 3, 5, 6 and 7 against their plain versions at the six shapes
-    of ``ATTN_SHAPES``, then, at the main path's (B=16, H=12, T=1024, D=64,
-    causal, fp32), each kernel's time, TFLOP/s and bound beside its plain
-    version's and the yardstick's: ``F.scaled_dot_product_attention``
-    (is_causal, fp32, TF32 off) forward, and its backward (dq, dk and dv
-    together) for kernels 6 and 7.  Returns the four ``kernels`` entries
-    (without ``launches``)."""
+    """Kernels 3 and 5 and the fused backward against their plain versions
+    at the six shapes of ``ATTN_SHAPES`` and the fused kernel's occupancy,
+    then, at the main path's (B=16, H=12, T=1024, D=64, causal, fp32), each
+    kernel's time, TFLOP/s and bound beside its plain version's and the
+    yardstick's: ``F.scaled_dot_product_attention`` (is_causal, fp32, TF32
+    off) forward, and its backward (dq, dk and dv together) for the fused
+    backward, whose time is split between its kernel and its dq sum.
+    Returns the four ``kernels`` entries (without ``launches``): those of
+    TPU kernels 6 (``flash_dq``) and 7 (``flash_dkv``) both name the fused
+    backward."""
     from mxnet_tpu_torch.ops import hopper_attention as ha
     fp32_exact()
     dev = torch.device("cuda", 0)
@@ -2000,29 +2051,23 @@ def phase_attn_kernels(card):
         err, bargs = _attn_check(ha, shape, gen, dev)
         for k, e in err.items():
             errs[k] = max(errs.get(k, 0.0), e)
+    occupancy = {D: _bwd_occupancy(D) for D in ha.SUPPORTED_D}
+    print("[attn-kernels] fused backward: blocks an SM holds by head dim %s "
+          "(the design assumes 1)" % occupancy)
+    check(all(b >= 1 for b in occupancy.values()), "the fused backward does "
+          "not fit an SM: %s" % occupancy)
     q, k, v, do, lse, delta, causal, sc = bargs
     B, H, Tq, Tk, D, _ = ATTN_SHAPES[0]
     costs = _attn_costs(*ATTN_SHAPES[0])
     ms = {"flash_fwd": time_ms(lambda: ha.flash_fwd(q, k, v, causal, sc)),
           "flash_fwd_lse": time_ms(lambda: ha.flash_fwd_lse(q, k, v, causal,
-                                                           sc))}
-    # kernels 6 and 7 apart: each of the backward's two launches alone
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    for name, entry, n_ptrs, ptrs in (
-            ("flash_dq", "mxtt_flash_attn_bwd_dq", 7,
-             (q, k, v, do, lse, delta, dq)),
-            ("flash_dkv", "mxtt_flash_attn_bwd_dkv", 8,
-             (q, k, v, do, lse, delta, dk, dv))):
-        fn = ha._kernel("flash_attn_bwd", entry, n_ptrs)
-        launch = lambda: ha._call(fn, ptrs, B, H, Tq, Tk, D, sc,  # noqa
-                                  (int(causal),), dev)
-        check(launch() == (0, 1), "%s failed to launch" % name)
-        ms[name] = time_ms(launch)
+                                                           sc)),
+          "flash_bwd": time_ms(lambda: ha.flash_bwd(*bargs))}
+    split = _bwd_split(ha, bargs)
     plain_fwd = time_ms(lambda: ha.flash_fwd_plain(q, k, v, causal, sc))
-    plain_bwd = time_ms(lambda: ha.flash_bwd_plain(q, k, v, do, lse, delta,
-                                                   causal, sc))
+    plain_bwd = time_ms(lambda: ha.flash_bwd_plain(*bargs))
     plain = {"flash_fwd": plain_fwd, "flash_fwd_lse": plain_fwd,
-             "flash_dq": plain_bwd, "flash_dkv": plain_bwd}
+             "flash_bwd": plain_bwd}
     # the yardstick: PyTorch's fused attention, never called by the port
     sdpa = lambda a, b, c: F.scaled_dot_product_attention(  # noqa: E731
         a, b, c, is_causal=True)
@@ -2036,7 +2081,9 @@ def phase_attn_kernels(card):
     lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
                                                   retain_graph=True))
     library = {"flash_fwd": lib_fwd, "flash_fwd_lse": lib_train_fwd,
-               "flash_dq": lib_bwd, "flash_dkv": lib_bwd}
+               "flash_bwd": lib_bwd}
+    bwd_lib = ("backward of F.scaled_dot_product_attention: dq, dk and dv "
+               "together")
     meta = {
         "flash_fwd": ("mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
                       "mxnet_tpu/ops/pallas_attention.py:113", "kernel 3",
@@ -2046,26 +2093,24 @@ def phase_attn_kernels(card):
                           "F.scaled_dot_product_attention forward of "
                           "inputs that need grad (saves its logsumexp)"),
         "flash_dq": ("mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
-                     "mxnet_tpu/ops/pallas_attention.py:276", "kernel 6",
-                     "backward of F.scaled_dot_product_attention: dq, dk "
-                     "and dv together (kernels 6 + 7)"),
+                     "mxnet_tpu/ops/pallas_attention.py:276",
+                     "kernel 6 (fused with 7)", bwd_lib),
         "flash_dkv": ("mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
-                      "mxnet_tpu/ops/pallas_attention.py:315", "kernel 7",
-                      "backward of F.scaled_dot_product_attention: dq, dk "
-                      "and dv together (kernels 6 + 7)")}
+                      "mxnet_tpu/ops/pallas_attention.py:315",
+                      "kernel 7 (fused with 6)", bwd_lib)}
     entries = []
     for name, (source, replaces, label, lib_what) in meta.items():
-        flops, nbytes = costs[name]
+        key = _COUNTER_OF.get(name, name)
+        flops, nbytes = costs[key]
         bound, by = _bound(flops, nbytes)
-        call_ms = ms[name]
+        call_ms = ms[key]
         print("[attn-kernels] %s (%s) at B=%d H=%d T=%d D=%d causal fp32: "
               "%.4f ms (%.2f TFLOP/s), bound %.4f ms (%s), plain %.4f ms, "
               "library %.4f ms (%s)" % (label, name, B, H, Tq, D, call_ms,
                                         flops / call_ms / 1e9, bound, by,
-                                        plain[name], library[name],
-                                        lib_what))
+                                        plain[key], library[key], lib_what))
         calls = TFM_LAYERS
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": errs[name],
             "max_err_is": ("absolute, out and lse" if name.startswith(
@@ -2074,16 +2119,33 @@ def phase_attn_kernels(card):
             "calls_per_step": calls,
             "per_step_is": ("an eval forward" if name == "flash_fwd"
                             else "a training step"),
-            "call_ms": call_ms, "call_plain_ms": plain[name],
-            "call_bound_ms": bound, "call_library_ms": library[name],
-            "ms": call_ms * calls, "plain_ms": plain[name] * calls,
+            "call_ms": call_ms, "call_plain_ms": plain[key],
+            "call_bound_ms": bound, "call_library_ms": library[key],
+            "ms": call_ms * calls, "plain_ms": plain[key] * calls,
             "bound_ms": bound * calls, "bound_by": by,
-            "library_ms": library[name] * calls, "library": lib_what,
-            "tflops": flops / call_ms / 1e9, "gflop_per_call": flops / 1e9})
+            "library_ms": library[key] * calls, "library": lib_what,
+            "tflops": flops / call_ms / 1e9, "gflop_per_call": flops / 1e9}
+        if key == "flash_bwd":
+            entry.update(fused="one launch computes dq, dk and dv for both "
+                         "TPU kernels 6 and 7, then a fixed-order dq sum",
+                         kernel_ms=split["kernel_ms"] * calls,
+                         dq_sum_ms=split["dq_sum_ms"] * calls,
+                         occupancy=occupancy)
+        entries.append(entry)
+    print("[attn-kernels] fused backward over a step's %d calls: %.3f ms "
+          "(kernel %.3f, dq sum %.3f; %s launches a call), bound %.3f ms at "
+          "five products (%.1f GFLOP a call), SDPA backward %.3f ms; "
+          "kernels 6 + 7 before the fusion %.2f + %.2f ms (PERF.md, quoted)"
+          % (TFM_LAYERS, ms["flash_bwd"] * TFM_LAYERS,
+             split["kernel_ms"] * TFM_LAYERS, split["dq_sum_ms"] * TFM_LAYERS,
+             split["launches_a_call"], _bound(*costs["flash_bwd"])[0]
+             * TFM_LAYERS, costs["flash_bwd"][0] / 1e9,
+             lib_bwd * TFM_LAYERS, BEFORE_K67_MS["flash_dq"],
+             BEFORE_K67_MS["flash_dkv"]))
     print("[attn-kernels] SDPA (fp32, TF32 off) forward %.4f ms, with grad "
           "%.4f ms, backward %.4f ms; its output within %.3g of kernel 3's "
           "on %s" % (lib_fwd, lib_train_fwd, lib_bwd, lib_err, card))
-    del q, k, v, do, lse, delta, qg, kg, vg, out, dq, dk, dv
+    del q, k, v, do, lse, delta, qg, kg, vg, out
     return entries
 
 
@@ -2128,13 +2190,13 @@ def _next_batch(it):
 def _attn_counts(ha):
     return {"flash_fwd": ha.flash_fwd_launches,
             "flash_fwd_lse": ha.flash_fwd_lse_launches,
-            "flash_dq": ha.flash_dq_launches,
-            "flash_dkv": ha.flash_dkv_launches}
+            "flash_bwd": ha.flash_bwd_launches,
+            "flash_dq_sum": ha.flash_dq_sum_launches}
 
 
 def _zero_attn_counts(ha):
     ha.flash_fwd_launches = ha.flash_fwd_lse_launches = 0
-    ha.flash_dq_launches = ha.flash_dkv_launches = 0
+    ha.flash_bwd_launches = ha.flash_dq_sum_launches = 0
 
 
 def phase_tfm_training(card):
@@ -2159,7 +2221,7 @@ def phase_tfm_training(card):
              time.perf_counter() - t0))
     tokens = TFM["batch"] * cfg.seq_len
     want = {"flash_fwd": 0, "flash_fwd_lse": cfg.n_layers,
-            "flash_dq": cfg.n_layers, "flash_dkv": cfg.n_layers}
+            "flash_bwd": cfg.n_layers, "flash_dq_sum": cfg.n_layers}
 
     # the main path: counts zeroed just before the first step, read after
     # each step and after the last
@@ -2208,7 +2270,7 @@ def phase_tfm_training(card):
     eval_loss = float(mod.get_outputs()[0].asnumpy().ravel()[0])
     eval_launches = _attn_counts(ha)
     want_eval = {"flash_fwd": cfg.n_layers, "flash_fwd_lse": 0,
-                 "flash_dq": 0, "flash_dkv": 0}
+                 "flash_bwd": 0, "flash_dq_sum": 0}
     print("[tfm-training] eval forward: loss %.4f, launches %s (expected %s)"
           % (eval_loss, eval_launches, want_eval))
     check(eval_launches == want_eval, "the eval forward launched %s, "
@@ -2282,6 +2344,8 @@ def phase_tfm_vs_cpu(card):
 _FWD_MODE = re.compile(r"flash_fwd_kernel(?:<\d+, (\d)>|ILi\d+ELi(\d)E)")
 _FWD_GROUPS = {"0": "kernel 3 (flash_fwd)", "1": "kernel 5 (flash_fwd_lse)",
                "2": "kernel 4 (flash_attention_stats)"}
+BWD_GROUP = "kernels 6+7 (flash_bwd_kernel, fused)"
+DQ_SUM_GROUP = "kernels 6+7 dq sum (dq_sum_kernel)"
 
 
 def _tfm_group(name: str) -> str:
@@ -2291,10 +2355,10 @@ def _tfm_group(name: str) -> str:
         mode = _FWD_MODE.search(name)
         check(mode is not None, "unknown flash forward kernel %s" % name)
         return _FWD_GROUPS[mode.group(1) or mode.group(2)]
-    if "flash_dq_kernel" in name:
-        return "kernel 6 (flash_dq)"
-    if "flash_dkv_kernel" in name:
-        return "kernel 7 (flash_dkv)"
+    if "flash_bwd_kernel" in name:
+        return BWD_GROUP
+    if "dq_sum_kernel" in name:
+        return DQ_SUM_GROUP
     if "Memcpy" in name or "Memset" in name:
         return "memcpy/memset"
     if "multi_tensor_apply" in lname or "foreach" in lname:
@@ -2340,10 +2404,11 @@ def phase_tfm_profile(card, trained, step_ms):
     device_ms = sum(groups.values()) / 1e3
     check(device_ms > 0, "the profiler recorded no device time")
     traced = tuple(counts.get(g, 0) for g in (
-        "kernel 3 (flash_fwd)", "kernel 5 (flash_fwd_lse)",
-        "kernel 6 (flash_dq)", "kernel 7 (flash_dkv)"))
+        "kernel 3 (flash_fwd)", "kernel 5 (flash_fwd_lse)", BWD_GROUP,
+        DQ_SUM_GROUP))
     check(traced == (0, TFM_LAYERS, TFM_LAYERS, TFM_LAYERS), "profile saw "
-          "kernels 3, 5, 6 and 7 launched %s times in one step" % (traced,))
+          "kernels 3, 5, the fused backward and its dq sum launched %s times "
+          "in one step" % (traced,))
     idle = max(0.0, 1 - device_ms / step_ms)
     print("[tfm-profile] one step: %.2f ms device busy, %.2f ms wall "
           "unprofiled (%.1f%% idle), %.2f ms wall profiled; %d launches on "
@@ -3097,20 +3162,37 @@ def _sdpa_lse(q, k, v, causal, scale):
         q, k, v, None, True, 0.0, causal, scale=scale)
 
 
+def _sdpa_bwd(q, k, v, do, causal, scale):
+    """The yardstick of the fused backward at the ring's shapes: a call of
+    the backward of PyTorch's memory-efficient attention (dq, dk and dv
+    together) on the same inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                             scale=scale)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                       retain_graph=True)
+
+
 def phase_ring_kernels(card):
     """Kernel 4 (the stats mode of ``flash_attn_fwd.cu``) against
     ``flash_stats_plain`` at ``RING_STATS_SHAPES``, and kernel 10
     (``zero_fill.cu``) against zeros over a NaN buffer; their times beside
-    the plain versions', the bound and the yardsticks.  Returns the two
+    the plain versions', the bound and the yardsticks.  At the ring's two
+    per-shard shapes (a full step, a diagonal one) also the fused backward
+    (kernels 6 and 7) with the ``lse`` of kernel 4's stats: its time, its
+    kernel and dq sum apart, the launches of a call, beside its plain
+    version and SDPA's memory-efficient backward.  Returns the two
     ``kernels`` entries (``launches`` and the per-path sums come from phase
-    11)."""
+    11) and the backward's times by step mode."""
     from mxnet_tpu_torch.ops import hopper_attention as ha
     from mxnet_tpu_torch.parallel import _compat
     fp32_exact()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     worst = [0.0, 0.0, 0.0]
-    timed = {}
+    timed, bwd = {}, {}
     for shape in RING_STATS_SHAPES[2:] + RING_STATS_SHAPES[:2]:
         B, H, Tq, Tk, D, causal = shape
         r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa
@@ -3138,6 +3220,20 @@ def phase_ring_kernels(card):
                 "library_ms": time_ms(lambda: _sdpa_lse(q, k, v, causal,
                                                         sc)),
                 "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9}
+            # the ring's backward call at this shape: lse from the stats
+            do = r(B, H, Tq, D)
+            acc, m, l = got
+            delta = (do * acc / l.clamp_min(1e-37).unsqueeze(-1)).sum(-1)
+            args = (q, k, v, do, ha.lse_of(m, l), delta, causal, sc)
+            bflops, bbytes = _attn_costs(*shape)["flash_bwd"]
+            bbound, bby = _bound(bflops, bbytes)
+            bwd["diag" if causal else "full"] = dict(
+                ms=time_ms(lambda: ha.flash_bwd(*args)),
+                plain_ms=time_ms(lambda: ha.flash_bwd_plain(*args)),
+                library_ms=time_ms(_sdpa_bwd(q, k, v, do, causal, sc)),
+                bound_ms=bbound, bound_by=bby, gflop=bflops / 1e9,
+                **_bwd_split(ha, args))
+            del do, acc, m, l, delta, args
         del q, k, v, got, want
     for mode, t in timed.items():
         print("[ring-kernels] kernel 4 at B=1 H=12 T_loc=4096 D=64 %s: %.4f"
@@ -3145,6 +3241,15 @@ def phase_ring_kernels(card):
               "library %.4f ms (SDPA efficient attention with log-sum-exp:"
               " nearest call, not the same outputs)"
               % (mode, t["ms"], t["gflop"] / t["ms"], t["bound_ms"],
+                 t["bound_by"], t["plain_ms"], t["library_ms"]))
+    for mode, t in bwd.items():
+        print("[ring-kernels] fused backward (kernels 6 and 7) at B=1 H=12 "
+              "T_loc=4096 D=64 %s: %.4f ms (%.2f TFLOP/s at five products; "
+              "kernel %.4f, dq sum %.4f; %s launches a call), bound %.4f ms "
+              "(%s), plain %.4f ms, library %.4f ms (SDPA memory-efficient "
+              "backward, dq, dk and dv)"
+              % (mode, t["ms"], t["gflop"] / t["ms"], t["kernel_ms"],
+                 t["dq_sum_ms"], t["launches_a_call"], t["bound_ms"],
                  t["bound_by"], t["plain_ms"], t["library_ms"]))
     # kernel 10 over a NaN buffer of the probe's shape
     buf = torch.full((8, 128), math.nan, device=dev)
@@ -3173,15 +3278,15 @@ def phase_ring_kernels(card):
            "source": "mxnet_tpu_torch/csrc/zero_fill.cu",
            "replaces": "mxnet_tpu/parallel/_compat.py:45",
            "max_abs_err": zf_err, "library": "Tensor.zero_", **zf}
-    return k4, k10
+    return k4, k10, bwd
 
 
 def _ring_counts(ha, compat):
     return {"flash_attention_stats": ha.flash_stats_launches,
             "flash_fwd": ha.flash_fwd_launches,
             "flash_fwd_lse": ha.flash_fwd_lse_launches,
-            "flash_dq": ha.flash_dq_launches,
-            "flash_dkv": ha.flash_dkv_launches,
+            "flash_bwd": ha.flash_bwd_launches,
+            "flash_dq_sum": ha.flash_dq_sum_launches,
             "zero_fill": compat.zero_fill_launches}
 
 
@@ -3198,10 +3303,10 @@ def _rel(got, want):
 def _ring_group(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return _tfm_group(name)
-    if "flash_dq_kernel" in name:
-        return "kernel 6 (flash_dq)"
-    if "flash_dkv_kernel" in name:
-        return "kernel 7 (flash_dkv)"
+    if "flash_bwd_kernel" in name:
+        return BWD_GROUP
+    if "dq_sum_kernel" in name:
+        return DQ_SUM_GROUP
     if "zero_fill" in name:
         return "kernel 10 (zero_fill)"
     if "Memcpy" in name or "Memset" in name:
@@ -3216,15 +3321,17 @@ def _max_err(pairs):
 
 
 def _long_context_kernel_checks(ha, q, k, v, g, sp, sp_ulysses):
-    """Kernels 5, 6 and 7 against their plain versions at the shapes and
-    with the inputs the long-context path gives them.  The ring's backward:
-    kernels 6 and 7 at the per-shard shape for the last Q shard (which sees
-    every K/V shard), fed the combined full-sequence ``lse`` and ``delta``
-    of that shard (taken here in dense fp32 over the keys it sees), for a
-    full step (K/V of shard 0) and the diagonal one.  Ulysses: kernels 5, 6
-    and 7 at one device's shape (``H / sp_ulysses`` heads over the whole
-    sequence), the plain versions taken head by head.  Returns each
-    kernel's worst error: out and lse absolute, gradients of max |value|."""
+    """Kernel 5 and the fused backward (kernels 6 and 7) against their
+    plain versions at the shapes and with the inputs the long-context path
+    gives them.  The ring's backward: the fused kernel at the per-shard
+    shape for the last Q shard (which sees every K/V shard), fed the
+    combined full-sequence ``lse`` and ``delta`` of that shard (taken here
+    in dense fp32 over the keys it sees), for a full step (K/V of shard 0)
+    and the diagonal one, each call also timed and its launches counted.
+    Ulysses: kernel 5 and the fused backward at one device's shape (``H /
+    sp_ulysses`` heads over the whole sequence), the plain versions taken
+    head by head.  Returns each kernel's worst error (out and lse absolute,
+    gradients of max |value|) and the ring calls' times."""
     B, H, T, D = q.shape
     L, idx, sc = T // sp, sp - 1, 1.0 / math.sqrt(D)
     part = lambda t, i: t[:, :, i * L:(i + 1) * L].contiguous()  # noqa
@@ -3242,7 +3349,7 @@ def _long_context_kernel_checks(ha, q, k, v, g, sp, sp_ulysses):
                              v[:, h, :seen])
         delta[:, h] = (gi[:, h] * out_h).sum(-1)
         del s, out_h
-    errs = {"flash_dq": 0.0, "flash_dkv": 0.0}
+    errs, times = {"flash_dq": 0.0, "flash_dkv": 0.0}, {}
     for mode, src in (("full", 0), ("diag", idx)):
         ks, vs, diag = part(k, src), part(v, src), mode == "diag"
         own = ha.flash_fwd_plain(qi, ks, vs, diag, sc)[1]
@@ -3251,16 +3358,25 @@ def _long_context_kernel_checks(ha, q, k, v, g, sp, sp_ulysses):
         got, want = ha.flash_bwd(*args), ha.flash_bwd_plain(*args)
         torch.cuda.synchronize()
         err = [_rel(a, b) for a, b in zip(got, want)]
+        call_ms = time_ms(lambda: ha.flash_bwd(*args), iters=5, warmup=1)
+        before = (ha.flash_bwd_launches, ha.flash_dq_sum_launches)
+        ha.flash_bwd(*args)
+        launched = (ha.flash_bwd_launches - before[0],
+                    ha.flash_dq_sum_launches - before[1])
+        check(launched == (1, 1), "one ring backward call launched %s "
+              "(fused kernel, dq sum), expected (1, 1)" % (launched,))
+        times[mode] = {"ms": call_ms, "launches_a_call": launched}
         print("[long-context] ring backward, Q shard %d, K/V shard %d (%s): "
-              "kernels 6 and 7 at B=%d H=%d T_loc=%d D=%d with the combined "
-              "lse (%.3g to %.3g above the step's own) vs plain: dq %.3g, dk "
-              "%.3g, dv %.3g (of max |value|, tol %g)"
+              "the fused backward at B=%d H=%d T_loc=%d D=%d with the "
+              "combined lse (%.3g to %.3g above the step's own) vs plain: dq "
+              "%.3g, dk %.3g, dv %.3g (of max |value|, tol %g); %.4f ms a "
+              "call, %s launches (fused kernel, dq sum)"
               % (idx, src, mode, B, H, L, D, gap.min().item(),
-                 gap.max().item(), *err, RING_GRAD_TOL))
+                 gap.max().item(), *err, RING_GRAD_TOL, call_ms, launched))
         check(gap.min().item() > 0, "the combined lse is not above the "
               "step's own: the check would not test an outside lse")
-        check(max(err) <= RING_GRAD_TOL, "kernels 6/7 disagree with plain "
-              "on the ring's %s step: %s" % (mode, err))
+        check(max(err) <= RING_GRAD_TOL, "the fused backward disagrees with "
+              "plain on the ring's %s step: %s" % (mode, err))
         errs["flash_dq"] = max(errs["flash_dq"], err[0])
         errs["flash_dkv"] = max(errs["flash_dkv"], *err[1:])
         del got, want, own, gap
@@ -3289,19 +3405,19 @@ def _long_context_kernel_checks(ha, q, k, v, g, sp, sp_ulysses):
     bwd_err = [max(d for d, _ in acc) / max(w for _, w in acc)
                for acc in bwd_pairs]
     print("[long-context] Ulysses device: kernel 5 at B=%d H=%d T=%d D=%d "
-          "causal vs plain %.3g (out and lse, abs, tol %g); kernels 6 and 7 "
+          "causal vs plain %.3g (out and lse, abs, tol %g); fused backward "
           "dq %.3g, dk %.3g, dv %.3g (of max |value|, tol %g)"
           % (B, Hu, T, D, fwd_err, RING_FWD_TOL, *bwd_err, RING_GRAD_TOL))
     check(fwd_err <= RING_FWD_TOL, "kernel 5 disagrees with plain at "
           "Ulysses' shape: %g" % fwd_err)
-    check(max(bwd_err) <= RING_GRAD_TOL, "kernels 6/7 disagree with plain at"
-          " Ulysses' shape: %s" % bwd_err)
+    check(max(bwd_err) <= RING_GRAD_TOL, "the fused backward disagrees with "
+          "plain at Ulysses' shape: %s" % bwd_err)
     errs["flash_fwd_lse"] = fwd_err
     errs["flash_dq"] = max(errs["flash_dq"], bwd_err[0])
     errs["flash_dkv"] = max(errs["flash_dkv"], *bwd_err[1:])
     del qu, ku, vu, gu, out5, lse5, delta5, grads
     torch.cuda.empty_cache()
-    return errs
+    return errs, times
 
 
 def phase_long_context(card):
@@ -3339,7 +3455,8 @@ def phase_long_context(card):
     first_s = time.perf_counter() - t0
     launches = _ring_counts(ha, _compat)
     want = {"flash_attention_stats": n_pairs, "flash_fwd": 0,
-            "flash_fwd_lse": 0, "flash_dq": n_pairs, "flash_dkv": n_pairs,
+            "flash_fwd_lse": 0, "flash_bwd": n_pairs,
+            "flash_dq_sum": n_pairs,
             "zero_fill": 1}
     print("[long-context] B=%d H=%d T=%d D=%d causal fp32 over sp=%d (one "
           "card): forward and backward ran %s launches (expected %s), "
@@ -3405,8 +3522,8 @@ def phase_long_context(card):
     torch.cuda.empty_cache()
 
     # kernels 5, 6 and 7 against plain at this path's shapes and inputs
-    kernel_errs = _long_context_kernel_checks(ha, q, k, v, g, sp,
-                                              LONG["sp_ulysses"])
+    kernel_errs, bwd_calls = _long_context_kernel_checks(
+        ha, q, k, v, g, sp, LONG["sp_ulysses"])
 
     # times: the ring, one un-sharded flash attention, SDPA (yardstick)
     pairs = _visible_pairs(T, T, True)
@@ -3479,6 +3596,7 @@ def phase_long_context(card):
                "full_ring_launches": full_launches, "full_err": full_err,
                "ulysses_err": [uly_err, uly_grad_err],
                "kernel_checks": kernel_errs, "times": times,
+               "backward_calls": bwd_calls,
                "profile_ms": groups, "profile_launches": counts,
                "merge_share": merge / device_ms}
     del q, k, v, g
@@ -4770,6 +4888,20 @@ def _ring_entries(k4, k10, launches):
     return [k4, k10]
 
 
+def _ring_bwd_sums(per_call, launches):
+    """The fused backward on the ring's path: its per-call times at the
+    full and diagonal steps, summed over a causal ring backward at sp 8 (28
+    full steps, 8 diagonal), with the path's launches from phase 11."""
+    n = LONG["sp"]
+    steps = {"full": n * (n - 1) // 2, "diag": n}
+    out = {"per_call": per_call, "calls_per_backward": steps,
+           "launches": launches["flash_bwd"],
+           "dq_sum_launches": launches["flash_dq_sum"]}
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        out[key] = sum(per_call[m][key] * c for m, c in steps.items())
+    return out
+
+
 def _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches):
     """The ``kernels`` line: times summed over one training step's calls
     at batch 32 (kernel 1: the 16 forwards and 16 dgrads; kernel 2: the 16
@@ -4913,7 +5045,7 @@ def main() -> int:
     wgrad, wgrad128, dgrad, wgrad_ragged = phase_backward_kernels()
     lstm = phase_lstm_kernels()
     attn = phase_attn_kernels(card)
-    k4, k10 = phase_ring_kernels(card)
+    k4, k10, ring_bwd = phase_ring_kernels(card)
     k11 = phase_rtc(card)
     bf16_kernels = phase_bf16_kernels()
     block_kernels, block_forced = phase_fused_block_kernels()
@@ -4939,13 +5071,18 @@ def main() -> int:
     tfm["cpu_check"] = phase_tfm_vs_cpu(card)
     print("[tfm-training] summary " + json.dumps(dict(tfm, card=card)))
     for k in attn:
-        k["launches"] = tfm_launches[k["name"]]
+        k["launches"] = tfm_launches[_COUNTER_OF.get(k["name"], k["name"])]
+        if k["name"] in _COUNTER_OF:
+            k["dq_sum_launches"] = tfm_launches["flash_dq_sum"]
     ring_launches, ring = phase_long_context(card)
     for k in attn:
         if k["name"] in ring["kernel_checks"]:
             k["long_context_err"] = ring["kernel_checks"][k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], k["long_context_err"])
     print("[long-context] summary " + json.dumps(dict(ring, card=card)))
+    for k in attn:
+        if k["name"] in _COUNTER_OF:
+            k["ring"] = _ring_bwd_sums(ring_bwd, ring_launches)
     composed = phase_compositions(card)
     print("[compositions] summary " + json.dumps(dict(composed, card=card)))
     mod_launches, moduled = phase_module(card)

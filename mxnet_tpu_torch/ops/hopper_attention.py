@@ -10,8 +10,9 @@ of the same name (``pallas_attention.py:419-443``):
   the function of ``_flash_fwd_lse``), saving ``(q, k, v, out, lse)``; its
   backward takes ``delta = rowsum(dO · out)`` in one PyTorch expression, as
   the reference takes it in XLA outside its kernels, then calls
-  :func:`flash_bwd`: kernel 6 (``_dq_kernel``) for dq and kernel 7
-  (``_dkv_kernel``) for dk and dv, in fp32, cast to the inputs' dtype;
+  :func:`flash_bwd`: one fused kernel in place of kernels 6 (``_dq_kernel``,
+  dq) and 7 (``_dkv_kernel``, dk and dv), then a fixed-order sum of its dq
+  partials, in fp32, cast to the inputs' dtype;
 - otherwise it calls :func:`flash_fwd` (kernel 3, ``_flash_fwd``), which
   writes no ``lse``.
 
@@ -24,7 +25,8 @@ the backward.
 
 The choice is made before ``apply``: inside ``Function.forward`` grad mode
 is off.  The kernels live in ``csrc/flash_attn_fwd.cu`` (3, 4 and 5, one
-template with three epilogues) and ``csrc/flash_attn_bwd.cu`` (6 and 7).  For CUDA tensors the
+template with three epilogues) and ``csrc/flash_attn_bwd.cu`` (6 and 7, fused;
+its launch comes from :func:`flash_bwd_plan`).  For CUDA tensors the
 wrappers launch them and raise if they cannot (fp32 only, ``D`` in
 :data:`SUPPORTED_D`); for tensors on the CPU, or ``meta`` tensors during
 shape inference, they run :func:`flash_fwd_plain`, :func:`flash_stats_plain`
@@ -38,24 +40,29 @@ are ``m`` and ``l``, ``(B, H, Tq)`` here where the reference replicates them
 over 128 lanes.
 
 ``flash_fwd_launches``, ``flash_stats_launches``, ``flash_fwd_lse_launches``,
-``flash_dq_launches`` and ``flash_dkv_launches`` count kernel launches
-(kernels 3, 4, 5, 6 and 7), as the CUDA entry points report them.
+``flash_bwd_launches`` and ``flash_dq_sum_launches`` count kernel launches
+(kernels 3, 4, 5, the fused 6 and 7, and its dq sum), as the CUDA entry
+points report them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ..base import MXNetError
+from .hopper_conv import _stream
 
 __all__ = ["flash_attention", "flash_fwd", "flash_fwd_lse", "flash_bwd",
            "flash_attention_stats", "lse_of", "flash_fwd_plain",
            "flash_stats_plain", "flash_bwd_plain", "flash_fwd_launches",
            "flash_stats_launches", "flash_fwd_lse_launches",
-           "flash_dq_launches", "flash_dkv_launches", "SUPPORTED_D"]
+           "flash_bwd_launches", "flash_dq_sum_launches", "flash_bwd_plan",
+           "FlashBwdPlan", "SUPPORTED_D"]
 
 #: kernel 3 launches so far (CUDA arm of :func:`flash_fwd` only)
 flash_fwd_launches = 0
@@ -63,10 +70,11 @@ flash_fwd_launches = 0
 flash_stats_launches = 0
 #: kernel 5 launches so far (CUDA arm of :func:`flash_fwd_lse` only)
 flash_fwd_lse_launches = 0
-#: kernel 6 launches so far (dq, CUDA arm of :func:`flash_bwd` only)
-flash_dq_launches = 0
-#: kernel 7 launches so far (dk and dv, CUDA arm of :func:`flash_bwd` only)
-flash_dkv_launches = 0
+#: launches of the fused backward (kernels 6 and 7 as one; CUDA arm of
+#: :func:`flash_bwd` only)
+flash_bwd_launches = 0
+#: launches of its fixed-order dq sum (CUDA arm of :func:`flash_bwd` only)
+flash_dq_sum_launches = 0
 _count_lock = threading.Lock()
 
 #: head dims the kernels are built for
@@ -74,6 +82,12 @@ SUPPORTED_D = (16, 32, 64, 128)
 
 # the forward kernel's epilogues (MODE_* in csrc/flash_attn_fwd.cu)
 _OUT, _OUT_LSE, _STATS = 0, 1, 2
+
+#: the fused backward's tile of each head dim: (keys of a CTA, queries of a
+#: ring stage), the instantiations of csrc/flash_attn_bwd.cu
+_BWD_TILE = {16: (128, 64), 32: (128, 64), 64: (128, 64), 128: (64, 32)}
+#: its Q/dO ring depth (STAGES there)
+_BWD_STAGES = 2
 
 _fns = {}
 
@@ -118,8 +132,9 @@ def flash_fwd_plain(q, k, v, causal, scale):
 
 
 def flash_bwd_plain(q, k, v, do, lse, delta, causal, scale):
-    """Dense reference of kernels 6 and 7: ``p = exp(s - lse)`` (0 where
-    masked), ``ds = p (dO vᵀ - delta) scale`` -> (dq, dk, dv), all fp32."""
+    """Dense reference of kernels 6 and 7 (fused on the card): ``p = exp(s
+    - lse)`` (0 where masked), ``ds = p (dO vᵀ - delta) scale`` -> (dq, dk,
+    dv), all fp32."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse.unsqueeze(-1))
@@ -131,22 +146,65 @@ def flash_bwd_plain(q, k, v, do, lse, delta, causal, scale):
             torch.matmul(p.transpose(-1, -2), dof))
 
 
+class FlashBwdPlan(NamedTuple):
+    """The fused backward's launch at one shape (``csrc/flash_attn_bwd.cu``).
+
+    One CTA per (head, key tile): block ``b`` of ``BH * n_kt`` takes key tile
+    ``b // BH`` of head ``b % BH`` (:meth:`block`), so under the causal mask,
+    where the first key tiles see the most queries, the heaviest CTAs come
+    first.  Key tile ``kt`` visits q tiles ``first_qt[kt]`` to ``n_qt - 1``
+    and writes its dQ partial for rows ``first_qt[kt] * bq`` to ``Tq - 1``
+    into rows ``ws_off[kt]`` on of its head's workspace (``ws_off[-1]`` rows a
+    head); the dq sum adds, for each query row, the partials of the key tiles
+    that hold it in key-tile order."""
+    bk: int                     # keys of a CTA
+    bq: int                     # queries of a ring stage
+    n_kt: int
+    n_qt: int
+    first_qt: Tuple[int, ...]   # per key tile
+    ws_off: Tuple[int, ...]     # per key tile, and the head's rows last
+    smem: int                   # dynamic shared memory of a CTA, bytes
+
+    @property
+    def ws_rows(self) -> int:
+        return self.ws_off[-1]
+
+    def block(self, b: int, BH: int) -> Tuple[int, int]:
+        """(head, key tile) of block ``b``."""
+        return b % BH, b // BH
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bwd_plan(Tq: int, Tk: int, D: int, causal: bool) -> FlashBwdPlan:
+    """The fused backward's tile, grid order and dQ workspace at one shape
+    (pure Python; the kernel recomputes the same offsets and the entry point
+    refuses another workspace size)."""
+    bk, bq = _BWD_TILE[D]
+    n_kt, n_qt = -(-Tk // bk), -(-Tq // bq)
+    first = tuple(kt * bk // bq if causal else 0 for kt in range(n_kt))
+    off = [0]
+    for f in first:
+        off.append(off[-1] + max(0, Tq - f * bq))
+    smem = 4 * (2 * bk * (D + 4) + _BWD_STAGES * (2 * bq * (D + 4) + 2 * bq)
+                + 2 * bq * (bk + 4))
+    return FlashBwdPlan(bk, bq, n_kt, n_qt, first, tuple(off), smem)
+
+
 # --------------------------------------------------------------------------
 # the CUDA arms
 # --------------------------------------------------------------------------
-def _kernel(lib, name, n_ptrs):
-    fn = _fns.get(name)
+def _fwd_fn():
+    fn = _fns.get("mxtt_flash_attn_fwd")
     if fn is None:
         from .. import _build
-        fn = getattr(_build.load(lib), name)
-        # pointers, BH, Tq, Tk, D, scale, causal, [mode,] device, stream,
+        fn = _build.load("flash_attn_fwd").mxtt_flash_attn_fwd
+        # pointers, BH, Tq, Tk, D, scale, causal, mode, device, stream,
         # launched
-        ints = 7 if name == "mxtt_flash_attn_fwd" else 6
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
-                       + [ctypes.c_float] + [ctypes.c_int] * (ints - 4)
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns["mxtt_flash_attn_fwd"] = fn
     return fn
 
 
@@ -180,8 +238,7 @@ def _call(fn, ptrs, B, H, Tq, Tk, D, scale, flags, dev):
     launched = ctypes.c_int(0)
     err = fn(*[t.data_ptr() if t is not None else None for t in ptrs],
              B * H, Tq, Tk, D, float(scale), *flags, dev.index,
-             torch.cuda.current_stream(dev).cuda_stream,
-             ctypes.byref(launched))
+             _stream(dev), ctypes.byref(launched))
     return err, launched.value
 
 
@@ -203,8 +260,7 @@ def _fwd_cuda(q, k, v, causal, scale, mode):
         outs += (torch.empty((B, H, Tq), **rows),
                  torch.empty((B, H, Tq), **rows))
     ptrs = outs + (None,) * (3 - len(outs))
-    err, n = _call(_kernel("flash_attn_fwd", "mxtt_flash_attn_fwd", 6),
-                   (q, k, v) + ptrs, B, H, Tq, Tk, D, scale,
+    err, n = _call(_fwd_fn(), (q, k, v) + ptrs, B, H, Tq, Tk, D, scale,
                    (int(bool(causal)), mode), q.device)
     with _count_lock:
         if mode == _OUT:
@@ -218,8 +274,33 @@ def _fwd_cuda(q, k, v, causal, scale, mode):
     return outs
 
 
+def _bind_bwd(lib):
+    """``mxtt_flash_attn_bwd`` of a library built from
+    ``csrc/flash_attn_bwd.cu``, typed."""
+    fn = lib.mxtt_flash_attn_bwd
+    # pointers, BH, Tq, Tk, D, scale, causal, bk, ws_rows, device, stream,
+    # launched[2]
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.POINTER(ctypes.c_int)])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    fn = _fns.get("mxtt_flash_attn_bwd")
+    if fn is None:
+        from .. import _build
+        fn = _fns["mxtt_flash_attn_bwd"] = _bind_bwd(
+            _build.load("flash_attn_bwd"))
+    return fn
+
+
 def _bwd_cuda(q, k, v, do, lse, delta, causal, scale):
-    global flash_dq_launches, flash_dkv_launches
+    """The fused backward and its dq sum: two launches, dq bit-equal on
+    reruns."""
+    global flash_bwd_launches, flash_dq_sum_launches
     B, H, Tq, Tk, D = _check_cuda("flash_bwd", q, k, (q, k, v, do, lse, delta))
     if tuple(do.shape) != tuple(q.shape) or tuple(lse.shape) != (B, H, Tq) \
             or tuple(delta.shape) != (B, H, Tq) \
@@ -227,25 +308,23 @@ def _bwd_cuda(q, k, v, do, lse, delta, causal, scale):
         raise MXNetError("flash_bwd: shapes q %s k %s v %s dO %s lse %s delta "
                          "%s do not match" % tuple(tuple(t.shape) for t in
                                                    (q, k, v, do, lse, delta)))
+    plan = flash_bwd_plan(Tq, Tk, D, bool(causal))
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty((B, H, Tq, D), **f32)
     dk = torch.empty((B, H, Tk, D), **f32)
     dv = torch.empty((B, H, Tk, D), **f32)
-    flags = (int(bool(causal)),)
-    err, n = _call(_kernel("flash_attn_bwd", "mxtt_flash_attn_bwd_dq", 7),
-                   (q, k, v, do, lse, delta, dq), B, H, Tq, Tk, D, scale,
-                   flags, q.device)
+    ws = torch.empty((B * H, plan.ws_rows, D), **f32)
+    launched = (ctypes.c_int * 2)()
+    dev = q.device
+    err = _bwd_fn()(*[t.data_ptr() for t in (q, k, v, do, lse, delta, dq, dk,
+                                             dv, ws)],
+                    B * H, Tq, Tk, D, float(scale), int(bool(causal)),
+                    plan.bk, plan.ws_rows, dev.index, _stream(dev), launched)
     with _count_lock:
-        flash_dq_launches += n
+        flash_bwd_launches += launched[0]
+        flash_dq_sum_launches += launched[1]
     if err != 0:
-        raise MXNetError("flash_bwd dq launch failed: CUDA error %d" % err)
-    err, n = _call(_kernel("flash_attn_bwd", "mxtt_flash_attn_bwd_dkv", 8),
-                   (q, k, v, do, lse, delta, dk, dv), B, H, Tq, Tk, D, scale,
-                   flags, q.device)
-    with _count_lock:
-        flash_dkv_launches += n
-    if err != 0:
-        raise MXNetError("flash_bwd dk/dv launch failed: CUDA error %d" % err)
+        raise MXNetError("flash_bwd launch failed: CUDA error %d" % err)
     return dq, dk, dv
 
 
@@ -289,15 +368,16 @@ def flash_attention_stats(q, k, v, causal, scale, block_q=512, block_k=512):
 
 
 def flash_bwd(q, k, v, do, lse, delta, causal, scale):
-    """(dq, dk, dv) in fp32 (kernels 6 and 7 for tensors on the card, the
-    plain version on the CPU or ``meta``)."""
+    """(dq, dk, dv) in fp32 (the fused kernel 6 and 7 and its dq sum for
+    tensors on the card, the plain version on the CPU or ``meta``)."""
     if _plain_device(q, "flash_bwd"):
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale)
     return _bwd_cuda(q, k, v, do, lse, delta, causal, scale)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """(q, k, v) -> out with the saved ``lse``; backward on kernels 6, 7."""
+    """(q, k, v) -> out with the saved ``lse``; backward on the fused
+    kernels 6 and 7."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):

@@ -42,6 +42,7 @@ import threading
 import torch
 
 from ..base import MXNetError
+from .hopper_conv import _stream
 
 __all__ = ["lstm_recurrence", "lstm_fwd", "lstm_bwd", "lstm_fwd_plain",
            "lstm_bwd_plain", "lstm_fwd_launches", "lstm_bwd_launches",
@@ -159,8 +160,7 @@ def _check_cuda(name, tensors, B, H):
 def _launch(name, args, dev, T, B, H):
     launched = ctypes.c_int(0)
     err = _kernel(name)(*[a.data_ptr() for a in args], T, B, H, dev.index,
-                        torch.cuda.current_stream(dev).cuda_stream,
-                        ctypes.byref(launched))
+                        _stream(dev), ctypes.byref(launched))
     return err, launched.value
 
 

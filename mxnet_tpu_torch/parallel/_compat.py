@@ -31,6 +31,7 @@ import threading
 import torch
 
 from ..base import MXNetError
+from ..ops.hopper_conv import _stream
 
 __all__ = ["platform_dependent", "zero_fill", "zero_fill_plain",
            "zero_fill_launches"]
@@ -62,8 +63,7 @@ def _zero_fill_cuda(out: torch.Tensor) -> torch.Tensor:
         _fn = fn
     launched = ctypes.c_int(0)
     err = _fn(out.data_ptr(), out.numel(), out.device.index,
-              torch.cuda.current_stream(out.device).cuda_stream,
-              ctypes.byref(launched))
+              _stream(out.device), ctypes.byref(launched))
     with _lock:
         zero_fill_launches += launched.value
     if err != 0:

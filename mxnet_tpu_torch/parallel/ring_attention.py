@@ -25,14 +25,16 @@ sharded over a mesh axis (counterpart of
     returns ``m = -inf, l = 0``, for which the merge is the identity).  The
     exact merge of ``(m, l, acc)`` runs in PyTorch between steps with the
     reference's ``m_safe`` and ``isfinite`` guards.  Its backward runs
-    kernels 6 and 7 (``flash_bwd``) per (step, shard) in the same modes
+    the fused kernels 6 and 7 (``flash_bwd``, one launch and its dq sum)
+    per (step, shard) in the same modes
     against the forward's combined full-sequence ``lse`` and ``delta =
     rowsum(g out)``; dq accumulates on its shard, and the dk/dv
     accumulators travel with their K/V block, ``n`` shifts in all, so that
     each arrives home after visiting every Q shard.
 
   A causal ring of ``n`` shards launches kernel 4 ``n(n+1)/2`` times a
-  forward and kernels 6 and 7 as often a backward; a non-causal one ``n²``.
+  forward and the fused backward (with its dq sum) as often a backward; a
+  non-causal one ``n²``.
 - :func:`ulysses_attention`: ``all_to_all`` from sequence shards to head
   shards, :func:`blockwise_attention` over the whole sequence for ``H/n``
   heads on each device, and ``all_to_all`` back.

@@ -15,8 +15,16 @@ against the reference (mxnet_tpu), on the CPU.
   the reference, within 1e-6.
 - ``flash_attention`` takes kernel 5's Function only when an input needs a
   gradient, and kernel 3's path otherwise.
-- One ``cuda`` test: kernels 3, 5, 6 and 7 against their plain versions at
-  ragged shapes; it skips without a card and runs on one.
+- The fused backward's host plan (``flash_bwd_plan``): its tile per head
+  dim and shared memory, its grid order (heaviest key tiles first), and its
+  dQ workspace, whose rows are checked in pure Python to hold every visible
+  (query row, key tile) pair exactly once, in the order the dq sum reads
+  them, at chip_smoke.py's attention shapes and the ring's 4096 x 4096
+  calls, under a stated byte cap.
+- One ``cuda`` test: kernels 3 and 5 and the fused backward against their
+  plain versions at every head dim, causal and not, Tq > Tk and Tq < Tk,
+  the backward bit-equal on a rerun; it skips without a card and runs on
+  one.
 
 fp32 throughout; the sums run in another order on each side.
 """
@@ -32,6 +40,7 @@ from mxnet_tpu.ops import pallas_attention as pa
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch.ops import hopper_attention as ha
 from mxnet_tpu_torch.ops import registry as treg
+from mxnet_tpu_torch.ops.hopper_block import SMEM_LIMIT
 
 FWD_TOL = 2e-5
 BWD_TOL = 1e-4      # of the largest |value|
@@ -72,10 +81,8 @@ def test_plain_forward_matches_pallas_kernels(causal, D):
                                    atol=FWD_TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [16, 32])
-def test_plain_backward_matches_pallas_kernels(causal, D):
-    q, k, v, do = _qkv(2, 2, 64, 64, D, seed=10 + D + causal)
+def _check_plain_backward(Tq, Tk, D, causal, seed):
+    q, k, v, do = _qkv(2, 2, Tq, Tk, D, seed=seed)
     scale = 1.0 / math.sqrt(D)
     out, lse = ha.flash_fwd_plain(*_t(q, k, v), causal, scale)
     delta = (torch.from_numpy(do) * out).sum(-1)
@@ -89,6 +96,126 @@ def test_plain_backward_matches_pallas_kernels(causal, D):
         np.testing.assert_allclose(g.numpy(), w, rtol=0,
                                    atol=BWD_TOL * np.abs(w).max(),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [16, 32])
+def test_plain_backward_matches_pallas_kernels(causal, D):
+    _check_plain_backward(64, 64, D, causal, seed=10 + D + causal)
+
+
+# ragged: T off the 32-row block (the reference's picker halves it to 16
+# or 8), Tq > Tk and Tq < Tk
+@pytest.mark.parametrize("Tq,Tk,D,causal", [(48, 48, 16, True),
+                                            (40, 72, 32, True),
+                                            (64, 32, 32, True),
+                                            (32, 96, 16, False)])
+def test_plain_backward_matches_pallas_kernels_ragged(Tq, Tk, D, causal):
+    _check_plain_backward(Tq, Tk, D, causal, seed=Tq + Tk + D)
+
+
+# (B, H, Tq, Tk, D, causal): chip_smoke.py's ATTN_SHAPES and the ring's
+# per-shard calls at T 32,768 over sp 8, full and diagonal
+PLAN_SHAPES = [(16, 12, 1024, 1024, 64, True), (2, 4, 128, 128, 16, True),
+               (1, 3, 1000, 1000, 64, True), (2, 2, 77, 77, 32, False),
+               (1, 2, 128, 384, 128, False), (1, 1, 256, 128, 64, True),
+               (1, 12, 4096, 4096, 64, False), (1, 12, 4096, 4096, 64, True)]
+#: the dQ workspace's cap: at most one partial a (query row, key tile), and
+#: at most 512 MB at these shapes (403 MB at the ring's full call)
+WS_CAP_BYTES = 512 * 2 ** 20
+
+
+@pytest.mark.parametrize("D,tile", [(16, (128, 64)), (32, (128, 64)),
+                                    (64, (128, 64)), (128, (64, 32))])
+def test_bwd_plan_tile_per_head_dim(D, tile):
+    plan = ha.flash_bwd_plan(1000, 700, D, True)
+    assert (plan.bk, plan.bq) == tile
+    # 16 x 16 threads: 4 keys in each of bk / 64 sub-tiles, bq / 16 queries
+    # and dQ rows a thread; a key tile is whole q tiles
+    assert plan.bk in (64, 128) and plan.bq % 16 == 0
+    assert plan.bk % plan.bq == 0
+    assert (plan.n_kt, plan.n_qt) == (-(-700 // plan.bk), -(-1000 // plan.bq))
+    # K and V, a 2-stage Q/dO ring with lse and delta, P and dS; padded rows
+    want = 4 * (2 * plan.bk * (D + 4) + 2 * (2 * plan.bq * (D + 4)
+                                            + 2 * plan.bq)
+                + 2 * plan.bq * (plan.bk + 4))
+    assert plan.smem == want <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_bwd_plan_deals_heaviest_key_tiles_first(shape):
+    B, H, Tq, Tk, D, causal = shape
+    BH = B * H
+    plan = ha.flash_bwd_plan(Tq, Tk, D, causal)
+    blocks = [plan.block(b, BH) for b in range(BH * plan.n_kt)]
+    assert sorted(blocks) == [(h, t) for h in range(BH)
+                              for t in range(plan.n_kt)]
+    work = [plan.n_qt - min(plan.first_qt[t], plan.n_qt) for _, t in blocks]
+    assert all(a >= b for a, b in zip(work, work[1:]))
+    if causal and Tq == Tk and plan.n_kt > 1:
+        assert work[0] > work[-1]
+
+
+def _ws_off_closed(kt, Tq, bk, causal):
+    """ws_off in csrc/flash_attn_bwd.cu: sum over t < kt of rows(t)."""
+    if not causal:
+        return kt * Tq
+    m = min(kt, -(-Tq // bk))
+    return m * Tq - bk * m * (m - 1) // 2
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_bwd_plan_workspace_holds_each_visible_pair_once(shape):
+    B, H, Tq, Tk, D, causal = shape
+    plan = ha.flash_bwd_plan(Tq, Tk, D, causal)
+    bk, bq = plan.bk, plan.bq
+    assert plan.ws_off == tuple(_ws_off_closed(t, Tq, bk, causal)
+                                for t in range(plan.n_kt + 1))
+    # the rows each key tile writes: its q tiles' rows below Tq
+    slot = np.full((Tq, plan.n_kt), -1, np.int64)
+    for kt in range(plan.n_kt):
+        start = plan.first_qt[kt] * bq
+        rows = range(plan.ws_off[kt], plan.ws_off[kt + 1])
+        assert len(rows) == max(0, Tq - start)
+        slot[start:, kt] = np.arange(plan.ws_off[kt], plan.ws_off[kt + 1])
+    held = slot >= 0
+    assert sorted(slot[held].tolist()) == list(range(plan.ws_rows))
+    # a pair is visible when some key of the tile may be seen by the row
+    first_key = np.arange(plan.n_kt) * bk
+    qs = np.arange(Tq)[:, None]
+    visible = first_key[None, :] < Tk
+    if causal:
+        visible = visible & (first_key[None, :] <= qs)
+    assert not (visible & ~held).any()
+    # rows held without a visible key are only those of a causal key tile's
+    # first q tile that lie above its keys (written as zeros)
+    extra = held & ~visible
+    assert (np.where(extra)[0] // bq
+            == np.array(plan.first_qt)[np.where(extra)[1]]).all()
+    # the dq sum's walk (dq_sum_kernel): key tiles 0..last in order, its
+    # offset recurrence over rows(kt) = Tq - lo(kt)
+    for q in range(0, Tq, max(1, Tq // 97)):
+        last = min(plan.n_kt - 1, q // bk) if causal else plan.n_kt - 1
+        off, read = 0, []
+        for kt in range(last + 1):
+            lo = kt * bk if causal else 0
+            read.append(off + q - lo)
+            off += Tq - lo
+        assert read == slot[q, :last + 1].tolist()
+        assert (slot[q, last + 1:] < 0).all() or not causal
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_bwd_workspace_bytes_under_cap(shape):
+    B, H, Tq, Tk, D, causal = shape
+    plan = ha.flash_bwd_plan(Tq, Tk, D, causal)
+    dq_bytes = 4 * B * H * Tq * D
+    ws_bytes = 4 * B * H * plan.ws_rows * D     # the wrapper's torch.empty
+    assert ws_bytes <= plan.n_kt * dq_bytes
+    assert ws_bytes <= WS_CAP_BYTES
+    if causal and Tq == Tk and plan.n_kt > 1:
+        # the causal mask skips the rows above each key tile
+        assert ws_bytes < 0.6 * plan.n_kt * dq_bytes
 
 
 def test_flash_attention_takes_kernel_5_only_for_gradients():
@@ -212,24 +339,32 @@ def test_small_ops_match_reference(name, kw, inputs):
 
 @pytest.mark.cuda
 def test_attention_kernels_match_plain_on_the_card():
-    """Kernels 3, 5, 6 and 7 against their plain versions at ragged shapes
-    (T off the 64-row tile, Tq > Tk), 1e-5 forward, 1e-4 of the largest
-    |value| backward, as chip_smoke.py holds them."""
+    """Kernels 3 and 5 and the fused backward against their plain versions
+    at every head dim, causal and not, Tq > Tk and Tq < Tk, T off the tiles:
+    1e-5 forward, 1e-4 of the largest |value| backward, as chip_smoke.py
+    holds them; the backward bit-equal on a rerun (its dq is summed in a
+    fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs the same check "
                     "on the H100")
-    for B, H, Tq, Tk, D, causal in [(2, 2, 77, 77, 32, False),
-                                    (1, 1, 100, 60, 64, True)]:
-        q, k, v, _ = (torch.from_numpy(a).cuda() for a in
-                      _qkv(B, H, Tq, Tk, D, seed=Tq))
-        do = torch.from_numpy(_qkv(B, H, Tq, Tq, D, seed=1)[3]).cuda()
-        sc = 1.0 / math.sqrt(D)
-        want, lse = ha.flash_fwd_plain(q, k, v, causal, sc)
-        got5, got_lse = ha.flash_fwd_lse(q, k, v, causal, sc)
-        for g in (ha.flash_fwd(q, k, v, causal, sc), got5):
-            assert (g - want).abs().max().item() <= 1e-5
-        assert (got_lse - lse).abs().max().item() <= 1e-5
-        delta = (do * want).sum(-1)
-        args = (q, k, v, do, lse, delta, causal, sc)
-        for g, w in zip(ha.flash_bwd(*args), ha.flash_bwd_plain(*args)):
-            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for D in ha.SUPPORTED_D:
+        for causal in (False, True):
+            for Tq, Tk in ((200, 77), (77, 300)):
+                q, k, v, _ = (torch.from_numpy(a).cuda() for a in
+                              _qkv(2, 3, Tq, Tk, D, seed=Tq + D))
+                do = torch.from_numpy(_qkv(2, 3, Tq, Tq, D, seed=D)[3]).cuda()
+                sc = 1.0 / math.sqrt(D)
+                want, lse = ha.flash_fwd_plain(q, k, v, causal, sc)
+                got5, got_lse = ha.flash_fwd_lse(q, k, v, causal, sc)
+                for g in (ha.flash_fwd(q, k, v, causal, sc), got5):
+                    assert (g - want).abs().max().item() <= 1e-5
+                assert (got_lse - lse).abs().max().item() <= 1e-5
+                delta = (do * want).sum(-1)
+                args = (q, k, v, do, lse, delta, causal, sc)
+                got = ha.flash_bwd(*args)
+                again = ha.flash_bwd(*args)
+                for g, w, g2 in zip(got, ha.flash_bwd_plain(*args), again):
+                    assert (g - w).abs().max().item() \
+                        <= 1e-4 * w.abs().max().item(), (D, causal, Tq, Tk)
+                    assert torch.equal(g, g2), (D, causal, Tq, Tk)
