@@ -101,19 +101,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    group (kernel 8, kernel 9, cuBLAS, cross-entropy, embedding, dropout
    and elementwise, optimizer, memcpy), the ten longest kernels, and the
    idle share.
-2d. attention kernels (run after 2c): kernels 3 and 5
-   (``flash_attn_fwd.cu``) and 6 and 7, fused into one kernel and its
-   fixed-order dq sum (``flash_attn_bwd.cu``), against their plain
-   versions (``hopper_attention.flash_fwd_plain`` / ``flash_bwd_plain``) at
-   the main path's shape (B=16, H=12, T=1024, D=64, causal) and five ragged
-   or odd ones (Tq > Tk, Tk > Tq, T off the tile, D = 16, 32, 128): out and
-   lse within 1e-5, dq, dk and dv within 1e-4 of their largest |value| and
-   bit-equal on a rerun; the fused kernel's occupancy; at the main shape
-   each kernel's time, TFLOP/s and bound (the backward's at five products)
-   beside the plain version's and the yardstick's
-   (``F.scaled_dot_product_attention``, forward and backward), the
-   backward's split between its kernel and its dq sum, and the time of the
-   two kernels it replaced (``BEFORE_K67_MS``).
+2d. attention kernels (run after 2c): kernels 3, 5 and 4
+   (``flash_attn_fwd.cu``, launched by ``flash_fwd_plan``) and 6 and 7,
+   fused into one kernel and its fixed-order dq sum (``flash_attn_bwd.cu``),
+   against their plain versions (``hopper_attention.flash_fwd_plain`` /
+   ``flash_stats_plain`` / ``flash_bwd_plain``) at the main path's shape
+   (B=16, H=12, T=1024, D=64, causal) and five ragged or odd ones (Tq > Tk,
+   Tk > Tq, T off the tile, D = 16, 32, 128): out, lse and m within 1e-5,
+   acc and l within 1e-5 and dq, dk and dv within 1e-4 of their largest
+   |value|, every output bit-equal on a rerun; both kernels' occupancy (CTAs
+   an SM by head dim); at the main shape each kernel's time, TFLOP/s and
+   bound (the backward's at five products) beside the plain version's and
+   the yardstick's (``F.scaled_dot_product_attention``, forward and
+   backward), the backward's split between its kernel and its dq sum, and
+   the times before the redesigns (``BEFORE_K345_MS``, ``BEFORE_K67_MS``).
 9. transformer training: ``bench.py --transformer``'s model,
    ``transformer_lm(gpt2-small)`` (vocab 50257, 12 layers, d_model 768,
    12 heads, d_ff 3072, seq_len 1024, fp32), bound through the port's
@@ -133,14 +134,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sum, LayerNorm, gelu and elementwise, cross-entropy, embedding, optimizer, memcpy), the attention
    kernels' launches read from the trace, and the idle share.
 2e. ring kernels (run after 2d): kernel 4, the stats mode of
-   ``flash_attn_fwd.cu``, against ``hopper_attention.flash_stats_plain`` at
-   the ring's per-shard shape (B=1, H=12, T_loc=4096, D=64, unmasked and
-   causal) and five ragged or odd ones: m within 1e-5, acc and l within
-   1e-5 of their largest |value|; kernel 10 (``zero_fill.cu``) against
-   zeros over a NaN buffer of (8, 128).  Times beside the plain versions',
-   the fp32 bound and the yardsticks (PyTorch's memory-efficient attention
-   with log-sum-exp, the nearest call and not the same outputs;
-   ``Tensor.zero_``).  The fused backward at the same two shapes (the
+   ``flash_attn_fwd.cu``, and with it kernels 3 and 5, against
+   ``hopper_attention.flash_stats_plain`` / ``flash_fwd_plain`` at the
+   ring's per-shard shape (B=1, H=12, T_loc=4096, D=64, unmasked and
+   causal) and five ragged or odd ones: out, lse and m within 1e-5, acc
+   and l within 1e-5 of their largest |value|, bit-equal on a rerun;
+   kernel 10 (``zero_fill.cu``) against zeros over a NaN buffer of (8,
+   128).  Times beside the plain versions', the fp32 bound, the time before
+   the redesign (``BEFORE_K345_MS``) and the yardsticks (PyTorch's
+   memory-efficient attention with log-sum-exp, the nearest call and not
+   the same outputs; ``Tensor.zero_``).  The fused backward at the same two shapes (the
    ring's backward calls): its time, launches and bound beside the plain
    version's and SDPA's memory-efficient backward.
 11. long context: ``models.long_context_attention`` at gpt2-small's
@@ -1950,18 +1953,46 @@ def _attn_costs(B, H, Tq, Tk, D, causal):
                       3 * q_bytes + 4 * kv_bytes + 2 * row_bytes)}
 
 
+def _fwd_check(ha, q, k, v, causal, sc, tag):
+    """Kernels 3, 5 and 4 (the three epilogues of ``flash_attn_fwd.cu``)
+    against ``flash_fwd_plain`` and ``flash_stats_plain`` on the same
+    inputs, each run twice and required bit-equal: out, lse and m within
+    ``ATTN_FWD_TOL`` absolute, acc and l within ``STATS_TOL`` of their
+    largest |value|.  Returns ({kernel: error}, (out, lse) of the plain
+    version, kernel 4's (acc, m, l), its errors (acc, m, l))."""
+    out, lse = ha.flash_fwd_plain(q, k, v, causal, sc)
+    stats = ha.flash_stats_plain(q, k, v, causal, sc)
+    runs = [(ha.flash_fwd(q, k, v, causal, sc),
+             ha.flash_fwd_lse(q, k, v, causal, sc),
+             ha.flash_attention_stats(q, k, v, causal, sc)) for _ in range(2)]
+    torch.cuda.synchronize()
+    (out3, (out5, lse5), got4), again = runs
+    check(torch.equal(out3, again[0]) and all(
+        torch.equal(a, b) for a, b in zip((out5, lse5) + tuple(got4),
+                                          again[1] + tuple(again[2]))),
+        "the forward kernels are not bit-equal on a rerun at %s" % (tag,))
+    stats_err = _stats_err(got4, stats)
+    err = {"flash_fwd": (out3 - out).abs().max().item(),
+           "flash_fwd_lse": max((out5 - out).abs().max().item(),
+                                (lse5 - lse).abs().max().item()),
+           "flash_attention_stats": max(stats_err)}
+    for name, e in err.items():
+        tol = STATS_TOL if name == "flash_attention_stats" else ATTN_FWD_TOL
+        check(e <= tol, "%s disagrees with its plain version at %s: %g > %g"
+              % (name, tag, e, tol))
+    return err, (out, lse), got4, stats_err
+
+
 def _attn_check(ha, shape, gen, dev):
-    """Kernels 3 and 5 and the fused backward against their plain versions
-    at one shape, the backward bit-equal on a rerun; returns (errors,
+    """Kernels 3, 5 and 4 and the fused backward against their plain
+    versions at one shape, each bit-equal on a rerun; returns (errors,
     inputs)."""
     B, H, Tq, Tk, D, causal = shape
     r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
     q, k, v, do = r(B, H, Tq, D), r(B, H, Tk, D), r(B, H, Tk, D), \
         r(B, H, Tq, D)
     sc = 1.0 / math.sqrt(D)
-    out, lse = ha.flash_fwd_plain(q, k, v, causal, sc)
-    out3 = ha.flash_fwd(q, k, v, causal, sc)
-    out5, lse5 = ha.flash_fwd_lse(q, k, v, causal, sc)
+    err, (out, lse), _, _ = _fwd_check(ha, q, k, v, causal, sc, shape)
     delta = (do * out).sum(-1)
     bargs = (q, k, v, do, lse, delta, causal, sc)
     dq, dk, dv = ha.flash_bwd(*bargs)
@@ -1971,20 +2002,16 @@ def _attn_check(ha, shape, gen, dev):
     check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
           "the fused backward is not bit-equal on a rerun at %s" % (shape,))
     rel = lambda g, w: ((g - w).abs().max() / w.abs().max()).item()  # noqa
-    err = {"flash_fwd": (out3 - out).abs().max().item(),
-           "flash_fwd_lse": max((out5 - out).abs().max().item(),
-                                (lse5 - lse).abs().max().item()),
-           "flash_dq": rel(dq, want[0]),
-           "flash_dkv": max(rel(dk, want[1]), rel(dv, want[2]))}
+    err.update(flash_dq=rel(dq, want[0]),
+               flash_dkv=max(rel(dk, want[1]), rel(dv, want[2])))
     print("[attn-kernels] B=%d H=%d Tq=%d Tk=%d D=%d %s: kernel 3 %.3g, "
-          "kernel 5 %.3g (out and lse, abs, tol %g); fused backward dq %.3g, "
-          "dk and dv %.3g (of max |value|, tol %g), bit-equal on a rerun"
+          "kernel 5 %.3g (out and lse, abs, tol %g), kernel 4 %.3g (tol %g);"
+          " fused backward dq %.3g, dk and dv %.3g (of max |value|, tol %g);"
+          " all bit-equal on a rerun"
           % (B, H, Tq, Tk, D, "causal" if causal else "non-causal",
              err["flash_fwd"], err["flash_fwd_lse"], ATTN_FWD_TOL,
+             err["flash_attention_stats"], STATS_TOL,
              err["flash_dq"], err["flash_dkv"], ATTN_BWD_TOL))
-    for name in ("flash_fwd", "flash_fwd_lse"):
-        check(err[name] <= ATTN_FWD_TOL, "%s disagrees with its plain version"
-              " at %s: %g > %g" % (name, shape, err[name], ATTN_FWD_TOL))
     for name in ("flash_dq", "flash_dkv"):
         check(err[name] <= ATTN_BWD_TOL, "%s disagrees with its plain version"
               " at %s: %g > %g of max |value|" % (name, shape, err[name],
@@ -1996,15 +2023,25 @@ def _attn_check(ha, shape, gen, dev):
 # s and dp), ms over a gpt2-small step's 12 calls on an H100 SXM at 700 W
 # (PERF.md section 6): quoted beside the fused kernel, read by a print only
 BEFORE_K67_MS = {"flash_dq": 16.53, "flash_dkv": 20.56}
+# kernels 3, 5 and 4 before the forward's redesign (4 x 4 register tiles,
+# K and V loaded between barriers): the last run of this script before it
+# on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md section 6), ms over an eval
+# forward's / a training step's 12 gpt2-small calls, and a call of the
+# ring's full and diagonal per-shard shapes; quoted beside this run's
+# times, read by prints only
+BEFORE_K345_MS = {"flash_fwd": 12.03, "flash_fwd_lse": 12.10,
+                  "full": 1.7306, "diag": 1.0361}
 # the fused backward's counter behind each ``kernels`` entry it serves
 _COUNTER_OF = {"flash_dq": "flash_bwd", "flash_dkv": "flash_bwd"}
 
 
-def _bwd_occupancy(D):
-    """Blocks of the fused backward an SM holds at head dim ``D``."""
+def _occupancy(lib, D):
+    """CTAs an SM holds at head dim ``D`` of ``csrc/<lib>.cu``'s kernel, by
+    its ``mxtt_<lib>_occupancy`` (the forward's: the least of its three
+    epilogues)."""
     import ctypes
     from mxnet_tpu_torch import _build
-    fn = _build.load("flash_attn_bwd").mxtt_flash_attn_bwd_occupancy
+    fn = getattr(_build.load(lib), "mxtt_%s_occupancy" % lib)
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     blocks = ctypes.c_int(0)
     check(fn(D, 0, ctypes.byref(blocks)) == 0, "occupancy query failed")
@@ -2051,11 +2088,21 @@ def phase_attn_kernels(card):
         err, bargs = _attn_check(ha, shape, gen, dev)
         for k, e in err.items():
             errs[k] = max(errs.get(k, 0.0), e)
-    occupancy = {D: _bwd_occupancy(D) for D in ha.SUPPORTED_D}
+    occupancy = {D: _occupancy("flash_attn_bwd", D) for D in ha.SUPPORTED_D}
     print("[attn-kernels] fused backward: blocks an SM holds by head dim %s "
           "(the design assumes 1)" % occupancy)
     check(all(b >= 1 for b in occupancy.values()), "the fused backward does "
           "not fit an SM: %s" % occupancy)
+    fwd_occupancy = {D: _occupancy("flash_attn_fwd", D)
+                     for D in ha.SUPPORTED_D}
+    plans = {D: ha.flash_fwd_plan(1024, 1024, D, True)
+             for D in ha.SUPPORTED_D}
+    print("[attn-kernels] forward (kernels 3, 4, 5): CTAs an SM holds by "
+          "head dim %s (the design assumes 3 at D 64); plan tile (query rows,"
+          " keys) and shared memory %s" % (fwd_occupancy, {
+              D: (p.bq, p.bk, p.smem) for D, p in plans.items()}))
+    check(all(b >= 1 for b in fwd_occupancy.values()), "the forward does "
+          "not fit an SM: %s" % fwd_occupancy)
     q, k, v, do, lse, delta, causal, sc = bargs
     B, H, Tq, Tk, D, _ = ATTN_SHAPES[0]
     costs = _attn_costs(*ATTN_SHAPES[0])
@@ -2131,6 +2178,13 @@ def phase_attn_kernels(card):
                          kernel_ms=split["kernel_ms"] * calls,
                          dq_sum_ms=split["dq_sum_ms"] * calls,
                          occupancy=occupancy)
+        else:
+            entry.update(occupancy=fwd_occupancy)
+            print("[attn-kernels] %s over %s's %d calls: %.3f ms, SDPA %.3f "
+                  "ms; before the redesign %.2f ms (the last run before it, "
+                  "quoted)" % (label, entry["per_step_is"], calls,
+                               entry["ms"], entry["library_ms"],
+                               BEFORE_K345_MS[name]))
         entries.append(entry)
     print("[attn-kernels] fused backward over a step's %d calls: %.3f ms "
           "(kernel %.3f, dq sum %.3f; %s launches a call), bound %.3f ms at "
@@ -3198,16 +3252,14 @@ def phase_ring_kernels(card):
         r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa
         q, k, v = r(B, H, Tq, D), r(B, H, Tk, D), r(B, H, Tk, D)
         sc = 1.0 / math.sqrt(D)
-        got = ha.flash_attention_stats(q, k, v, causal, sc)
-        want = ha.flash_stats_plain(q, k, v, causal, sc)
-        torch.cuda.synchronize()
-        err = _stats_err(got, want)
+        fwd_err, _, got, err = _fwd_check(ha, q, k, v, causal, sc, shape)
         print("[ring-kernels] kernel 4 B=%d H=%d Tq=%d Tk=%d D=%d %s: acc "
-              "%.3g (of max |acc|), m %.3g (abs), l %.3g (of max l); tol %g"
+              "%.3g (of max |acc|), m %.3g (abs), l %.3g (of max l); tol %g;"
+              " kernels 3 and 5 %.3g and %.3g (abs, tol %g); all bit-equal "
+              "on a rerun"
               % (B, H, Tq, Tk, D, "causal" if causal else "non-causal",
-                 *err, STATS_TOL))
-        check(max(err) <= STATS_TOL, "kernel 4 disagrees with its plain "
-              "version at %s: %s > %g" % (shape, err, STATS_TOL))
+                 *err, STATS_TOL, fwd_err["flash_fwd"],
+                 fwd_err["flash_fwd_lse"], ATTN_FWD_TOL))
         worst = [max(a, b) for a, b in zip(worst, err)]
         if shape in RING_STATS_SHAPES[:2]:
             flops, nbytes = _stats_costs(*shape)
@@ -3234,14 +3286,16 @@ def phase_ring_kernels(card):
                 bound_ms=bbound, bound_by=bby, gflop=bflops / 1e9,
                 **_bwd_split(ha, args))
             del do, acc, m, l, delta, args
-        del q, k, v, got, want
+        del q, k, v, got
     for mode, t in timed.items():
         print("[ring-kernels] kernel 4 at B=1 H=12 T_loc=4096 D=64 %s: %.4f"
               " ms (%.2f TFLOP/s), bound %.4f ms (%s), plain %.4f ms, "
               "library %.4f ms (SDPA efficient attention with log-sum-exp:"
-              " nearest call, not the same outputs)"
+              " nearest call, not the same outputs); before the redesign "
+              "%.4f ms (the last run before it, quoted)"
               % (mode, t["ms"], t["gflop"] / t["ms"], t["bound_ms"],
-                 t["bound_by"], t["plain_ms"], t["library_ms"]))
+                 t["bound_by"], t["plain_ms"], t["library_ms"],
+                 BEFORE_K345_MS[mode]))
     for mode, t in bwd.items():
         print("[ring-kernels] fused backward (kernels 6 and 7) at B=1 H=12 "
               "T_loc=4096 D=64 %s: %.4f ms (%.2f TFLOP/s at five products; "

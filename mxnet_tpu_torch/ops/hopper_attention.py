@@ -25,8 +25,9 @@ the backward.
 
 The choice is made before ``apply``: inside ``Function.forward`` grad mode
 is off.  The kernels live in ``csrc/flash_attn_fwd.cu`` (3, 4 and 5, one
-template with three epilogues) and ``csrc/flash_attn_bwd.cu`` (6 and 7, fused;
-its launch comes from :func:`flash_bwd_plan`).  For CUDA tensors the
+template with three epilogues; its launch comes from :func:`flash_fwd_plan`)
+and ``csrc/flash_attn_bwd.cu`` (6 and 7, fused; its launch comes from
+:func:`flash_bwd_plan`).  For CUDA tensors the
 wrappers launch them and raise if they cannot (fp32 only, ``D`` in
 :data:`SUPPORTED_D`); for tensors on the CPU, or ``meta`` tensors during
 shape inference, they run :func:`flash_fwd_plain`, :func:`flash_stats_plain`
@@ -61,8 +62,8 @@ __all__ = ["flash_attention", "flash_fwd", "flash_fwd_lse", "flash_bwd",
            "flash_attention_stats", "lse_of", "flash_fwd_plain",
            "flash_stats_plain", "flash_bwd_plain", "flash_fwd_launches",
            "flash_stats_launches", "flash_fwd_lse_launches",
-           "flash_bwd_launches", "flash_dq_sum_launches", "flash_bwd_plan",
-           "FlashBwdPlan", "SUPPORTED_D"]
+           "flash_bwd_launches", "flash_dq_sum_launches", "flash_fwd_plan",
+           "FlashFwdPlan", "flash_bwd_plan", "FlashBwdPlan", "SUPPORTED_D"]
 
 #: kernel 3 launches so far (CUDA arm of :func:`flash_fwd` only)
 flash_fwd_launches = 0
@@ -82,6 +83,12 @@ SUPPORTED_D = (16, 32, 64, 128)
 
 # the forward kernel's epilogues (MODE_* in csrc/flash_attn_fwd.cu)
 _OUT, _OUT_LSE, _STATS = 0, 1, 2
+
+#: the forward's tile of each head dim: (query rows of a CTA, keys of a
+#: tile), the instantiations of csrc/flash_attn_fwd.cu (Tile<D>)
+_FWD_TILE = {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (64, 32)}
+#: its warps a CTA and its K/V ring's slots (WARPS and NS there)
+_FWD_WARPS, _FWD_SLOTS = 4, 2
 
 #: the fused backward's tile of each head dim: (keys of a CTA, queries of a
 #: ring stage), the instantiations of csrc/flash_attn_bwd.cu
@@ -146,6 +153,54 @@ def flash_bwd_plain(q, k, v, do, lse, delta, causal, scale):
             torch.matmul(p.transpose(-1, -2), dof))
 
 
+class FlashFwdPlan(NamedTuple):
+    """The forward's launch at one shape (``csrc/flash_attn_fwd.cu``, kernels
+    3, 4 and 5).
+
+    One CTA of ``warps`` warps per (head, query tile of ``bq`` rows); each
+    warp owns ``bq // warps`` consecutive rows.  Block ``b`` of ``BH * n_qt``
+    takes query tile ``n_qt - 1 - b // BH`` of head ``b % BH``
+    (:meth:`block`), so under the causal mask, where the last query tiles see
+    the most keys, the heaviest CTAs come first.  Query rows ``[r0, r0 +
+    rows)`` walk key tiles ``0 .. key_tiles(r0, rows) - 1`` once each, in
+    order (:meth:`key_tiles`): a CTA as far as its last warp, a warp as far
+    as its own last row."""
+    bq: int                     # query rows of a CTA
+    bk: int                     # keys of a K/V tile
+    warps: int
+    n_qt: int
+    n_kt: int
+    Tq: int
+    causal: bool
+    smem: int                   # dynamic shared memory of a CTA, bytes
+
+    def block(self, b: int, BH: int) -> Tuple[int, int]:
+        """(head, query tile) of block ``b``."""
+        return b % BH, self.n_qt - 1 - b // BH
+
+    def key_tiles(self, r0: int, rows: int) -> int:
+        """Key tiles that query rows ``[r0, r0 + rows)`` walk (the kernel's
+        ``key_tiles``): all, or under the causal mask those up to the last
+        row's diagonal; 0 for rows wholly past ``Tq``."""
+        if r0 >= self.Tq:
+            return 0
+        if not self.causal:
+            return self.n_kt
+        return min(self.n_kt, (min(r0 + rows, self.Tq) - 1) // self.bk + 1)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_fwd_plan(Tq: int, Tk: int, D: int, causal: bool) -> FlashFwdPlan:
+    """The forward's tile, shared memory and grid order at one shape (pure
+    Python; the kernel recomputes the same order and the entry point refuses
+    another tile).  Shared memory: the Q tile, the K/V ring's slots and P,
+    rows padded by 4 floats (P's by 8)."""
+    bq, bk = _FWD_TILE[D]
+    smem = 4 * ((bq + _FWD_SLOTS * bk) * (D + 4) + bq * (bk + 8))
+    return FlashFwdPlan(bq, bk, _FWD_WARPS, -(-Tq // bq), -(-Tk // bk), Tq,
+                        bool(causal), smem)
+
+
 class FlashBwdPlan(NamedTuple):
     """The fused backward's launch at one shape (``csrc/flash_attn_bwd.cu``).
 
@@ -198,10 +253,10 @@ def _fwd_fn():
     if fn is None:
         from .. import _build
         fn = _build.load("flash_attn_fwd").mxtt_flash_attn_fwd
-        # pointers, BH, Tq, Tk, D, scale, causal, mode, device, stream,
-        # launched
+        # pointers, BH, Tq, Tk, D, scale, causal, mode, bq, bk, device,
+        # stream, launched
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_float] + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _fns["mxtt_flash_attn_fwd"] = fn
@@ -260,8 +315,9 @@ def _fwd_cuda(q, k, v, causal, scale, mode):
         outs += (torch.empty((B, H, Tq), **rows),
                  torch.empty((B, H, Tq), **rows))
     ptrs = outs + (None,) * (3 - len(outs))
+    plan = flash_fwd_plan(Tq, Tk, D, bool(causal))
     err, n = _call(_fwd_fn(), (q, k, v) + ptrs, B, H, Tq, Tk, D, scale,
-                   (int(bool(causal)), mode), q.device)
+                   (int(bool(causal)), mode, plan.bq, plan.bk), q.device)
     with _count_lock:
         if mode == _OUT:
             flash_fwd_launches += n

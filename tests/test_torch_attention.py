@@ -15,6 +15,14 @@ against the reference (mxnet_tpu), on the CPU.
   the reference, within 1e-6.
 - ``flash_attention`` takes kernel 5's Function only when an input needs a
   gradient, and kernel 3's path otherwise.
+- The forward's host plan (``flash_fwd_plan``, kernels 3, 4 and 5): its
+  tile and shared memory per head dim, its grid order (heaviest query tiles
+  first under the causal mask, a permutation of (head, query tile)), and
+  that each query tile, and each warp's rows in it, walk exactly the key
+  tiles their rows can see, each once, at chip_smoke.py's ``ATTN_SHAPES``
+  and ``RING_STATS_SHAPES`` and at T off the tiles; and that the CUDA arm
+  hands the plan's tile to the entry point and counts the launch by mode
+  (library, stream and counters faked).
 - The fused backward's host plan (``flash_bwd_plan``): its tile per head
   dim and shared memory, its grid order (heaviest key tiles first), and its
   dQ workspace, whose rows are checked in pure Python to hold every visible
@@ -23,7 +31,7 @@ against the reference (mxnet_tpu), on the CPU.
   calls, under a stated byte cap.
 - One ``cuda`` test: kernels 3 and 5 and the fused backward against their
   plain versions at every head dim, causal and not, Tq > Tk and Tq < Tk,
-  the backward bit-equal on a rerun; it skips without a card and runs on
+  all three bit-equal on a rerun; it skips without a card and runs on
   one.
 
 fp32 throughout; the sums run in another order on each side.
@@ -38,6 +46,7 @@ import jax
 import jax.numpy as jnp
 from mxnet_tpu.ops import pallas_attention as pa
 from mxnet_tpu.ops import registry as jreg
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import hopper_attention as ha
 from mxnet_tpu_torch.ops import registry as treg
 from mxnet_tpu_torch.ops.hopper_block import SMEM_LIMIT
@@ -154,6 +163,127 @@ def test_bwd_plan_deals_heaviest_key_tiles_first(shape):
     assert all(a >= b for a, b in zip(work, work[1:]))
     if causal and Tq == Tk and plan.n_kt > 1:
         assert work[0] > work[-1]
+
+
+#: the forward plan's shapes: the above (chip_smoke.py's ATTN_SHAPES and
+#: RING_STATS_SHAPES are among them), then T off the tiles, Tq > Tk and
+#: Tq < Tk, one row
+FWD_PLAN_SHAPES = PLAN_SHAPES + [(1, 1, 129, 65, 64, True),
+                                 (1, 2, 300, 77, 16, True),
+                                 (1, 1, 77, 300, 128, True),
+                                 (2, 1, 65, 33, 128, False),
+                                 (1, 3, 1000, 1000, 32, False),
+                                 (1, 1, 1, 1, 32, True)]
+
+
+@pytest.mark.parametrize("D,tile", [(16, (64, 64)), (32, (64, 64)),
+                                    (64, (64, 64)), (128, (64, 32))])
+def test_fwd_plan_tile_per_head_dim(D, tile):
+    plan = ha.flash_fwd_plan(1000, 700, D, True)
+    assert (plan.bq, plan.bk) == tile
+    # 4 warps of 4 x 8 lanes: 4 rows a lane and a key tile of 8 lanes' keys
+    assert plan.warps == 4 and plan.bq % (plan.warps * 4) == 0
+    assert plan.bk % 8 == 0
+    assert (plan.n_qt, plan.n_kt) == (-(-1000 // plan.bq), -(-700 // plan.bk))
+    # the Q tile, a 2-slot K/V ring and P; rows padded by 4 floats, P's by 8
+    want = 4 * (plan.bq * (D + 4) + 2 * plan.bk * (D + 4)
+                + plan.bq * (plan.bk + 8))
+    assert plan.smem == want <= SMEM_LIMIT
+    # CTAs an SM's 228 KB hold (1 KB reserved a CTA): three at D 64, the
+    # main path's head dim
+    per_sm = (228 * 1024) // (plan.smem + 1024)
+    assert per_sm >= (2 if D == 128 else 3)
+
+
+@pytest.mark.parametrize("shape", FWD_PLAN_SHAPES, ids=str)
+def test_fwd_plan_deals_heaviest_query_tiles_first(shape):
+    B, H, Tq, Tk, D, causal = shape
+    BH = B * H
+    plan = ha.flash_fwd_plan(Tq, Tk, D, causal)
+    blocks = [plan.block(b, BH) for b in range(BH * plan.n_qt)]
+    assert sorted(blocks) == [(h, t) for h in range(BH)
+                              for t in range(plan.n_qt)]
+    work = [plan.key_tiles(t * plan.bq, plan.bq) for _, t in blocks]
+    assert all(a >= b for a, b in zip(work, work[1:]))
+    if causal and Tq == Tk and plan.n_qt > 1 and plan.n_kt > 1:
+        assert work[0] > work[-1]
+
+
+def _visible_key_tiles(vis, rows, bk):
+    """Key tiles (of ``bk`` keys) holding a key that one of ``rows`` sees,
+    from the dense mask ``vis`` (Tq, Tk)."""
+    seen = vis[rows].any(axis=0) if len(rows) else np.zeros(vis.shape[1],
+                                                            bool)
+    return sorted({int(j) // bk for j in np.flatnonzero(seen)})
+
+
+@pytest.mark.parametrize("shape", FWD_PLAN_SHAPES, ids=str)
+def test_fwd_plan_walks_each_visible_key_tile_once(shape):
+    B, H, Tq, Tk, D, causal = shape
+    plan = ha.flash_fwd_plan(Tq, Tk, D, causal)
+    vis = np.ones((Tq, Tk), bool)
+    if causal:
+        vis = np.arange(Tq)[:, None] >= np.arange(Tk)[None, :]
+    wr = plan.bq // plan.warps
+    for qt in range(plan.n_qt):
+        q0 = qt * plan.bq
+        walk = list(range(plan.key_tiles(q0, plan.bq)))
+        rows = np.arange(q0, min(q0 + plan.bq, Tq))
+        assert walk == _visible_key_tiles(vis, rows, plan.bk), qt
+        # each warp stops at its own rows' last tile, within the CTA's walk
+        for w in range(plan.warps):
+            r0 = q0 + w * wr
+            own = list(range(plan.key_tiles(r0, wr)))
+            assert own == _visible_key_tiles(vis, rows[(rows >= r0)
+                                                       & (rows < r0 + wr)],
+                                             plan.bk), (qt, w)
+            assert len(own) <= len(walk)
+
+
+class _FakeFwd:
+    """``mxtt_flash_attn_fwd`` recording its arguments and reporting one
+    launch (or the error ``rc``)."""
+
+    def __init__(self, rc=0):
+        self.calls, self.rc = [], rc
+
+    def __call__(self, *args):
+        self.calls.append(args[:-1])
+        args[-1]._obj.value = int(self.rc == 0)
+        return self.rc
+
+
+@pytest.fixture
+def fake_fwd(monkeypatch):
+    fake = _FakeFwd()
+    monkeypatch.setattr(ha, "_fns", {"mxtt_flash_attn_fwd": fake})
+    monkeypatch.setattr(ha, "_stream", lambda device: 0)
+    for attr in ("flash_fwd_launches", "flash_fwd_lse_launches",
+                 "flash_stats_launches"):
+        monkeypatch.setattr(ha, attr, 0)
+    return fake
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_fwd_cuda_arm_passes_the_plan(fake_fwd, D):
+    q, k, v, _ = _t(*_qkv(2, 3, 200, 77, D, seed=D))
+    plan = ha.flash_fwd_plan(200, 77, D, True)
+    for mode, counter, n_out in ((0, "flash_fwd_launches", 1),
+                                 (1, "flash_fwd_lse_launches", 2),
+                                 (2, "flash_stats_launches", 3)):
+        outs = ha._fwd_cuda(q, k, v, True, 0.125, mode)
+        assert len(outs) == n_out and outs[0].shape == q.shape
+        args = fake_fwd.calls[-1]
+        # pointers (3 in, 3 out; null where the mode writes none), BH, Tq,
+        # Tk, D, scale, causal, mode, bq, bk, device, stream
+        assert args[3:6].count(None) == 3 - n_out
+        assert args[6:] == (6, 200, 77, D, 0.125, 1, mode, plan.bq, plan.bk,
+                            None, 0)
+        assert getattr(ha, counter) == 1
+    fake_fwd.rc = 1
+    with pytest.raises(MXNetError, match="CUDA error 1"):
+        ha._fwd_cuda(q, k, v, True, 0.125, 0)
+    assert ha.flash_fwd_launches == 1
 
 
 def _ws_off_closed(kt, Tq, bk, causal):
@@ -342,8 +472,8 @@ def test_attention_kernels_match_plain_on_the_card():
     """Kernels 3 and 5 and the fused backward against their plain versions
     at every head dim, causal and not, Tq > Tk and Tq < Tk, T off the tiles:
     1e-5 forward, 1e-4 of the largest |value| backward, as chip_smoke.py
-    holds them; the backward bit-equal on a rerun (its dq is summed in a
-    fixed order)."""
+    holds them; all three bit-equal on a rerun (no atomics; the backward's
+    dq is summed in a fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs the same check "
                     "on the H100")
@@ -357,9 +487,14 @@ def test_attention_kernels_match_plain_on_the_card():
                 sc = 1.0 / math.sqrt(D)
                 want, lse = ha.flash_fwd_plain(q, k, v, causal, sc)
                 got5, got_lse = ha.flash_fwd_lse(q, k, v, causal, sc)
-                for g in (ha.flash_fwd(q, k, v, causal, sc), got5):
+                got3 = ha.flash_fwd(q, k, v, causal, sc)
+                for g in (got3, got5):
                     assert (g - want).abs().max().item() <= 1e-5
                 assert (got_lse - lse).abs().max().item() <= 1e-5
+                again5 = ha.flash_fwd_lse(q, k, v, causal, sc)
+                assert torch.equal(ha.flash_fwd(q, k, v, causal, sc), got3)
+                assert torch.equal(again5[0], got5), (D, causal, Tq, Tk)
+                assert torch.equal(again5[1], got_lse), (D, causal, Tq, Tk)
                 delta = (do * want).sum(-1)
                 args = (q, k, v, do, lse, delta, causal, sc)
                 got = ha.flash_bwd(*args)
