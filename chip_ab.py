@@ -13,9 +13,11 @@ directory; each is measured in a process of its own, in the order given
     python3 chip_ab.py w1x1 TREE...    # kernel 12 at a bf16 step's 15 shapes
     python3 chip_ab.py tfm TREE...     # gpt2-small training steps
     python3 chip_ab.py ring TREE...    # the long-context ring's forward+backward
+    python3 chip_ab.py lm TREE...      # the LSTM LM's training steps
     python3 chip_ab.py stream          # host cost of a stream handle
     python3 chip_ab.py ablate          # what limits the flash attention forward
     python3 chip_ab.py ablate bwd      # what limits the fused attention backward
+    python3 chip_ab.py ablate lstm     # what limits kernels 8 and 9 (the LSTM)
 
 ``steps`` trains each checkout's Gluon ``resnet50_v1`` with
 ``FusedTrainer`` (SGD lr 0.1, momentum 0.9, ``chip_smoke.gluon_resnet50``'s
@@ -43,10 +45,15 @@ kernel 5, ``flash_fwd_kernel``).  ``ring`` runs phase 11's main path,
 ``models.long_context_attention`` at ``chip_smoke.LONG`` (T 32,768, causal,
 sp 8 entries of cuda:0), forward and backward of ``sum(out * g)``: the
 median of 5 timed forward+backward calls after 2 warm-ups, and one
-profiled call's busy time and kernel 4's ms.  Each checkout prints one line
-``AB {json}``.  ``stream`` prints the host microseconds a call of the CUDA
-build's raw stream accessor and of
-``torch.cuda.current_stream(...).cuda_stream`` take, as ``STREAM {json}``.
+profiled call's busy time and kernel 4's ms.  ``lm`` trains phase 7's LSTM
+LM (``chip_smoke.gluon_lm``: ``bench.py``'s 2-layer LSTM of 650, vocabulary
+33,278, bptt 35, batch 128, fp32, dropout 0.2) with ``FusedTrainer`` (SGD
+lr 0.5): train tokens/s from the median timed step, and two profiled steps
+the busy time, the idle share, and kernels 8's and 9's ms and shares of
+the busy time.  Each checkout prints one line ``AB {json}``.  ``stream``
+prints the host microseconds a call of the CUDA build's raw stream
+accessor and of ``torch.cuda.current_stream(...).cuda_stream`` take, as
+``STREAM {json}``.
 ``ablate`` builds variants of this checkout's ``csrc/flash_attn_fwd.cu``,
 each with one change made by text substitution (``FWD_VARIANTS``: one
 phase emptied, so that its time against the source's is what the phase
@@ -61,8 +68,19 @@ calls (kernel 4), one line ``ABLATION {json}`` a shape with each variant's
 ms and TFLOP/s and each emptied phase's ms and TFLOP/s.  ``ablate bwd``
 does the same for ``csrc/flash_attn_bwd.cu`` (``BWD_VARIANTS``: one phase's
 loop emptied; other unroll factors; 512 threads at 4 x 4 register tiles)
-against ``flash_bwd_plain``.  Both build under
-``mxnet_tpu_torch/build/ablation``.
+against ``flash_bwd_plain``.  ``ablate lstm`` builds kernels 8 and 9 as
+they stood before their redesign (``ablation/lstm_fwd_before.cu``,
+``lstm_bwd_before.cu``) and variants of each, and the redesigned
+``csrc/lstm_fwd.cu`` and ``lstm_bwd.cu`` (``lstm_common.cuh`` pasted in)
+with their variants: one phase emptied or skipped (the product, the
+barriers or grid sync, the exchange's copies, the stores, the gathers or
+prefetches, the groups' partial sums; a few cumulatively), other splits
+of the product forced on ``hopper_rnn.lstm_plan``, other unrolls, thread
+mappings, launch bounds, fast-math activations.  The correct ones are
+checked against ``lstm_fwd_plain`` / ``lstm_bwd_plain``; all are timed in
+turns at the LM's call (T 35, B 128, H 650), one line ``ABLATION {json}``
+a kernel with each variant's ms, µs a step, and each emptied phase's µs a
+step.  All three build under ``mxnet_tpu_torch/build/ablation``.
 """
 import ctypes
 import importlib.util
@@ -244,6 +262,32 @@ def tfm(tree):
     return out
 
 
+def lm(tree):
+    import numpy as np
+    import torch
+    cs = _smoke(tree)
+    from mxnet_tpu_torch import gpu
+    torch.cuda.empty_cache()
+    net, x, y = cs.gluon_lm(gpu(0), cs.LM["dropout"])
+    ft = cs._lm_trainer(net)
+
+    def step():
+        return ft.step(x, y)
+    step()
+    times = cs.timed_steps(step)
+    step_ms = float(np.median(times)) * 1e3
+    tokens = cs.LM["bptt"] * cs.LM["batch"]
+    out = {"card": cs.card_line(), "step_ms": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "steps_ms": [round(t * 1e3, 2) for t in times]}
+    out.update(_forward_profile(cs, step, step_ms, {
+        "kernel8": ("lstm_fwd_kernel",), "kernel9": ("lstm_bwd_kernel",)}))
+    for key in ("kernel8", "kernel9"):
+        out[key + "_share"] = out[key + "_ms"] / out["busy_ms"]
+    torch.cuda.synchronize()
+    return out
+
+
 def ring(tree):
     import numpy as np
     import torch
@@ -417,9 +461,11 @@ def _sources(csrc, out_dir, source, variants):
     return paths
 
 
-def _build_variants(paths, csrc, out_dir, nvcc, flags, bind):
+def _build_variants(paths, csrc, out_dir, nvcc, flags, bind,
+                    entry_has="ILi64E"):
     """Each variant's library, all ``nvcc`` processes running together,
-    bound by ``bind(name, lib)``; prints each build's register use."""
+    bound by ``bind(name, lib)``; prints the register use of each build's
+    entry functions whose mangled names hold ``entry_has``."""
     procs = {}
     for name, src in paths.items():
         lib = os.path.join(out_dir, "lib%s.so" % name)
@@ -436,8 +482,10 @@ def _build_variants(paths, csrc, out_dir, nvcc, flags, bind):
             if "Compiling entry function" in line:
                 entry = line
             elif ("registers" in line or "spill" in line) and (
-                    "ILi64E" in entry):
-                print("[ablate-build] %s: %s" % (name, line.strip()))
+                    entry_has in entry):
+                at = entry.find("ILb")         # an LSTM kernel's RES argument
+                tmpl = entry[at:at + 5] if at >= 0 else ""
+                print("[ablate-build] %s %s: %s" % (name, tmpl, line.strip()))
         fns[name] = bind(name, ctypes.CDLL(lib))
     return fns
 
@@ -596,9 +644,299 @@ def ablate_bwd():
     print(cs.card_line())
 
 
+# kernels 8 and 9 as they stood before their redesign (ablation/*_before.cu):
+# one phase emptied or skipped a variant, for timing only
+K_LOOP = "for (int kk = kg * KCG; kk < (kg + 1) * KCG; ++kk) {"
+NO_K_LOOP = (K_LOOP, K_LOOP.replace("kk < (kg + 1) * KCG", "kk < kg * KCG"), 1)
+NO_EXCHANGE = ("ok ? 16 : 0);", "0);", 1)
+BEFORE_FWD_STORES = """            gr[u] = ig;
+            gr[H + u] = fg;
+            gr[2 * H + u] = gg;
+            gr[3 * H + u] = og;
+            cs[row * H + u] = c;
+            ys[row * H + u] = h;
+"""
+BEFORE_FWD_GATHERS = "c_prev at 40 + 4 p + j\n      if (kg == 0 && in_tile) {"
+BEFORE_BWD_LOADS = """          v[p][j][0] = gr[u];
+          v[p][j][1] = gr[H + u];
+          v[p][j][2] = gr[2 * H + u];
+          v[p][j][3] = gr[3 * H + u];
+          v[p][j][4] = cs[row * H + u];
+          v[p][j][5] = t > 0 ? cs[(row - B) * H + u] : c0[bu];
+          v[p][j][6] = t == T - 1 ? dhT[bu] : dh0[bu];
+          v[p][j][7] = t == T - 1 ? dcT[bu] : dc0[bu];
+          v[p][j][8] = dys[row * H + u];
+"""
+BEFORE_BWD_STORES = """            dr[k * H + u] = dp[k];
+            dpre_w[(size_t)(k * H + u) * Bp + b] = dp[k];
+"""
+# name -> (substitutions, correct)
+BEFORE_FWD_VARIANTS = {
+    "base": ((), True),
+    "no_product": ((NO_K_LOOP,), False),
+    "no_sync": ((("    grid.sync();\n  }\n}", "  }\n}", 1),), False),
+    "no_stores": (((BEFORE_FWD_STORES, "", 1),), False),
+    "no_gathers": (((BEFORE_FWD_GATHERS, BEFORE_FWD_GATHERS.replace(
+        "kg == 0 && in_tile", "false"), 1),), False),
+    "no_exchange": ((NO_EXCHANGE,), False),
+}
+BEFORE_BWD_VARIANTS = {
+    "base": ((), True),
+    "no_product": ((NO_K_LOOP,), False),
+    "no_sync": ((("    grid.sync();\n", "", 1),), False),
+    "no_stores": (((BEFORE_BWD_STORES, "", 1),), False),
+    "no_loads": (((BEFORE_BWD_LOADS, "".join(
+        "          v[p][j][%d] = 0.5f;\n" % i for i in range(9)), 1),), False),
+    "no_exchange": ((NO_EXCHANGE,), False),
+}
+#: what an emptied variant takes out
+LSTM_PHASES = {"no_product": "the product", "no_sync": "the grid sync",
+               "no_stores": "the epilogue's stores",
+               "no_gathers": "the gate inputs' gathers",
+               "no_loads": "the reserve loads",
+               "no_exchange": "the exchange's copies (zero-filled)"}
+# the redesigned kernels (csrc/lstm_fwd.cu, lstm_bwd.cu with
+# csrc/lstm_common.cuh inlined): a phase emptied or skipped, or another
+# split of the product (kg, sc) forced on the plan
+PRODUCT_LOOP = "for (int kk = 0; kk < SC; ++kk) {"
+NO_PRODUCT = (PRODUCT_LOOP, PRODUCT_LOOP.replace("kk < SC", "kk < 0"), 1)
+NO_BARRIER = ("    } while (v < target);", "    } while (false);", 1)
+NO_STAGE_COPY = ("const bool ok = m0 + kk < K && row0 + r4 < rcap;",
+                 "const bool ok = false;", 1)
+NO_GROUP_SUM = ("v[g] = g < KG ? src[g * step] : 0.f;",
+                "v[g] = g < 1 ? src[g * step] : 0.f;", 1)
+UNROLL = "#pragma unroll 4\n      for (int kk = 0; kk < SC; ++kk) {"
+RELAXED_SIGNAL = ("red.release.gpu.global", "red.relaxed.gpu.global", 1)
+LB640 = ("return fwd ? 512 : 640;", "return 640;", 1)
+CG_FAST = ("const int rg = item % d.NRG, cg = item / d.NRG;",
+           "const int cg = item % d.NCG, rg = item / d.NCG;", 1)
+RG_FAST = (CG_FAST[1], CG_FAST[0], 1)
+SIGMOID = ("__device__ __forceinline__ float sigmoid_f(float x) { "
+           "return 1.f / (1.f + expf(-x)); }")
+FAST_SIGMOID = (SIGMOID, SIGMOID.replace("1.f / (1.f + expf(-x))",
+                                         "__frcp_rn(1.f + __expf(-x))")
+                + "\n__device__ __forceinline__ float tanh_fast(float x) { "
+                "return 1.f - 2.f * __frcp_rn(__expf(2.f * x) + 1.f); }", 1)
+FWD_STORES = ("lstm_for3(6, nbt, nu,", "lstm_for3(0, nbt, nu,", 1)
+FWD_XP = ("lstm_for3(4, nbt, nu,", "lstm_for3(0, nbt, nu,", 1)
+BWD_RESERVE = ("lstm_for3(7, nbc, nuq,", "lstm_for3(0, nbc, nuq,", 1)
+BWD_STORES = ("lstm_for3(4, nbc, nuq,", "lstm_for3(0, nbc, nuq,", 1)
+# name -> (substitutions, correct, lstm_plan's keywords or None for its plan)
+FWD_VARIANTS_LSTM = {
+    "base": ((), True, None),
+
+    "kg5_sc19": ((), True, dict(kg=5, sc=19)),
+    "unroll_2": (((UNROLL, UNROLL.replace("unroll 4", "unroll 2"), 1),), True,
+                 None),
+    "cg_fast": ((CG_FAST,), True, None),
+    "no_product": ((NO_PRODUCT,), False, None),
+    "no_barrier": ((NO_BARRIER,), False, None),
+    "no_exchange": ((NO_STAGE_COPY,), False, None),
+    "no_group_sum": ((NO_GROUP_SUM,), False, None),
+    "no_stores": ((FWD_STORES,), False, None),
+    "no_xp_copy": ((FWD_XP,), False, None),
+    # cumulative: what is left without the product, the copies, the barrier
+    "only_syncs_epilogue": ((NO_PRODUCT, NO_STAGE_COPY, NO_GROUP_SUM, FWD_XP,
+                             FWD_STORES, NO_BARRIER), False, None),
+    "only_exchange": ((NO_PRODUCT, NO_GROUP_SUM, FWD_XP, FWD_STORES), False,
+                      None),
+    "lb640_kg8": ((LB640,), True, dict(kg=8, sc=14)),
+    "kg6_sc14": ((), True, dict(kg=6, sc=14)),
+    "relaxed_signal": ((RELAXED_SIGNAL,), False, None),
+    "fast_math": ((FAST_SIGMOID, ("tanhf(", "tanh_fast(", 2)), True, None),
+}
+BWD_PARTIALS = ("          for (int j = 1; j < 4; ++j) "
+                "dh += __ldcg(part_of(j) + off);")
+BWD_VARIANTS_LSTM = {
+    "base": ((), True, None),
+    "kg7_sc12": ((), True, dict(kg=7, sc=12)),
+    "unroll_2": (((UNROLL, UNROLL.replace("unroll 4", "unroll 2"), 1),), True,
+                 None),
+    "rg_fast": ((RG_FAST,), True, None),
+    "relaxed_signal": ((RELAXED_SIGNAL,), False, None),
+    "fast_math": ((("tanhf(rsv[4 * RSZ + s])", "(1.f - 2.f * __frcp_rn(__expf("
+                    "2.f * rsv[4 * RSZ + s]) + 1.f))", 1),), True, None),
+    "no_product": ((NO_PRODUCT,), False, None),
+    "no_barriers": (((NO_BARRIER[0], NO_BARRIER[1], 1),), False, None),
+    "no_exchange": ((NO_STAGE_COPY,), False, None),
+    "no_group_sum": ((NO_GROUP_SUM,), False, None),
+    "no_partials": (((BWD_PARTIALS, "", 1),), False, None),
+    "no_reserve": ((BWD_RESERVE,), False, None),
+    "no_stores": ((BWD_STORES,), False, None),
+    "only_syncs_epilogue": ((NO_PRODUCT, NO_STAGE_COPY, NO_GROUP_SUM,
+                             (BWD_PARTIALS, "", 1), BWD_RESERVE, BWD_STORES,
+                             NO_BARRIER), False, None),
+}
+LSTM_PHASES.update({
+    "no_barrier": "the half's barrier", "no_barriers": "both barriers",
+    "no_group_sum": "the groups' partial sums (group 0's only)",
+    "no_partials": "the group's partial dh (one of four)",
+    "no_reserve": "the reserve's copies", "no_xp_copy": "xp's copies"})
+#: (kernel, source directory, source, variants, entry style)
+LSTM_ABLATION = [
+    ("fwd", "ablation", "lstm_fwd_before.cu", BEFORE_FWD_VARIANTS, "before"),
+    ("bwd", "ablation", "lstm_bwd_before.cu", BEFORE_BWD_VARIANTS, "before"),
+    ("fwd", "csrc", "lstm_fwd.cu", FWD_VARIANTS_LSTM, "after"),
+    ("bwd", "csrc", "lstm_bwd.cu", BWD_VARIANTS_LSTM, "after"),
+]
+
+
+def _bind_lstm(lib, kind, style):
+    """The entry point of an LSTM build, typed: the kernels before their
+    redesign take 11 tensors, T, B, H, device, stream, launched; after it,
+    the tensors and scratch pointers, T, B, H, the plan, device, stream,
+    launched."""
+    fn = getattr(lib, "mxtt_lstm_" + kind)
+    if style == "before":
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * (12 if kind == "fwd" else 13)
+                       + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_int)])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _inline_common(csrc, out_dir, source):
+    """``csrc/<source>`` with ``lstm_common.cuh`` pasted in, written to
+    ``out_dir`` (so that a variant may edit the shared product too)."""
+    with open(os.path.join(csrc, source)) as f:
+        text = f.read()
+    with open(os.path.join(csrc, "lstm_common.cuh")) as f:
+        common = f.read().replace("#pragma once\n", "")
+    include = '#include "lstm_common.cuh"\n'
+    if text.count(include) != 1:
+        raise RuntimeError("%s does not include lstm_common.cuh once" % source)
+    with open(os.path.join(out_dir, source), "w") as f:
+        f.write(text.replace(include, common))
+
+
+def ablate_lstm():
+    """Kernels 8 and 9 and their variants at the LM's shape, in turns."""
+    import torch
+    cs = _smoke(HERE)
+    from mxnet_tpu_torch import _build as build
+    from mxnet_tpu_torch.ops import hopper_rnn as hr
+    out_dir = os.path.join(str(build.BUILD_DIR), "ablation")
+    os.makedirs(out_dir, exist_ok=True)
+    csrc = str(build.CSRC)
+    variants, paths = {}, {}
+    for kind, where, source, table, style in LSTM_ABLATION:
+        src_dir = os.path.join(HERE, where)
+        if where == "csrc":
+            src_dir = os.path.join(out_dir, "src")
+            os.makedirs(src_dir, exist_ok=True)
+            _inline_common(csrc, src_dir, source)
+        tag = source[:-3]
+        named = {"%s.%s" % (tag, n): v[:2] for n, v in table.items()}
+        paths.update(_sources(src_dir, out_dir, source, named))
+        for n, v in table.items():
+            variants["%s.%s" % (tag, n)] = (kind, style, n, v[1],
+                                            v[2] if len(v) > 2 else None)
+    fns = _build_variants(paths, csrc, out_dir, build._nvcc(), build.FLAGS,
+                          lambda name, lib: _bind_lstm(
+                              lib, variants[name][0], variants[name][1]),
+                          entry_has="lstm")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+    T, B, H = cs.LM["bptt"], cs.LM["batch"], cs.LM["hidden"]
+    c = cs._lstm_inputs(T, B, H, gen, dev)
+    fwd_in = (c["xp"], c["h0"], c["c0"], c["R"], c["bR"])
+    want_f = hr.lstm_fwd_plain(*fwd_in)
+    bwd_in = (want_f[3], want_f[4], c["c0"], c["dys"], c["dhT"], c["dcT"],
+              c["R"])
+    want_b = hr.lstm_bwd_plain(*bwd_in)
+    f32 = dict(dtype=torch.float32, device=dev)
+    Bp = (B + 3) // 4 * 4
+    launched = ctypes.c_int(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    plans = {}
+    for kind in ("fwd", "bwd"):
+        runs, errs, kept = {}, {}, []
+        for name, (k, style, short, correct, split) in variants.items():
+            if k != kind:
+                continue
+            if kind == "fwd":
+                outs = (torch.empty((T, B, H), **f32),
+                        torch.empty((T, B, 4 * H), **f32),
+                        torch.empty((T, B, H), **f32),
+                        torch.empty((B, H), **f32), torch.empty((B, H), **f32))
+                scratch = torch.empty((2, H, Bp), **f32)
+                ptrs = [t.data_ptr() for t in (*fwd_in, *outs, scratch)]
+                order = (0, 3, 4, 1, 2)       # as lstm_fwd_plain returns them
+                want = want_f
+            else:
+                outs = (torch.empty((T, B, 4 * H), **f32),
+                        torch.empty((B, H), **f32), torch.empty((B, H), **f32))
+                scratch = torch.empty((2, 4 * H, Bp), **f32)
+                ptrs = [t.data_ptr() for t in (*bwd_in, *outs, scratch)]
+                order = (0, 1, 2)
+                want = want_b
+            args = ()
+            if style == "after":
+                plan = hr.lstm_plan(kind, B, H, sms, optin, **(split or {}))
+                plans[name] = plan._asdict()
+                extra = torch.zeros(plan.blocks * plan.units * plan.rows
+                                    + 2 * (1 + plan.groups), **f32)
+                kept.append(extra)
+                ptrs += ([extra.data_ptr()] if kind == "fwd" else
+                         [extra.data_ptr(), extra.data_ptr() + 4 * (
+                             plan.blocks * plan.units * plan.rows)])
+                args = (ctypes.addressof(hr._plan_ints(plan)),)
+            kept.append((outs, scratch))
+
+            def run(fn=fns[name], ptrs=ptrs, args=args):
+                rc = fn(*ptrs, T, B, H, *args, 0, stream,
+                        ctypes.byref(launched))
+                if rc != 0:
+                    raise RuntimeError("launch failed: CUDA error %d" % rc)
+            run()
+            torch.cuda.synchronize()
+            runs[name] = run
+            if correct:
+                if kind == "fwd":
+                    errs[name] = max((outs[i] - w).abs().max().item()
+                                     for i, w in zip(order, want))
+                    tol = cs.LSTM_FWD_TOL
+                else:
+                    errs[name] = max(((outs[i] - w).abs().max()
+                                      / w.abs().max()).item()
+                                     for i, w in zip(order, want))
+                    tol = cs.LSTM_BWD_TOL
+                if errs[name] > tol:
+                    raise RuntimeError("variant %s disagrees with plain: %g"
+                                       % (name, errs[name]))
+        times = {name: [] for name in runs}
+        for _ in range(3):                    # in turns
+            for name, run in runs.items():
+                times[name].append(cs.time_ms(run, iters=10, warmup=2))
+        ms = {n: min(t) for n, t in times.items()}
+        phase_ms = {}
+        for name in ms:
+            tag, short = name.split(".", 1)
+            if short in LSTM_PHASES:
+                phase_ms[name] = {"phase": LSTM_PHASES[short],
+                                  "ms": ms[tag + ".base"] - ms[name],
+                                  "us_a_step": (ms[tag + ".base"] - ms[name])
+                                  / T * 1e3}
+        print("ABLATION " + json.dumps({
+            "kernel": 8 if kind == "fwd" else 9, "T": T, "B": B, "H": H,
+            "ms": ms, "us_a_step": {n: t / T * 1e3 for n, t in ms.items()},
+            "ms_runs": times, "max_err": errs, "phases": phase_ms,
+            "plans": {n: p for n, p in plans.items() if n in ms}}),
+            flush=True)
+        del runs, kept
+        torch.cuda.empty_cache()
+    print(cs.card_line())
+
+
 def main(argv):
     modes = {"steps": steps, "served": served, "infer16": infer16,
-             "w1x1": w1x1, "tfm": tfm, "ring": ring}
+             "w1x1": w1x1, "tfm": tfm, "ring": ring, "lm": lm}
     if len(argv) == 4 and argv[1] == "--one":
         tree = os.path.abspath(argv[3])
         print("AB " + json.dumps(dict(modes[argv[2]](tree), tree=argv[3])),
@@ -608,10 +946,12 @@ def main(argv):
         print("STREAM " + json.dumps(stream()), flush=True)
         return 0
     if len(argv) in (2, 3) and argv[1] == "ablate":
-        if argv[2:] not in ([], ["bwd"]):
+        ablation = {(): ablate_fwd, ("bwd",): ablate_bwd,
+                    ("lstm",): ablate_lstm}.get(tuple(argv[2:]))
+        if ablation is None:
             print(__doc__, file=sys.stderr)
             return 2
-        (ablate_bwd if argv[2:] else ablate_fwd)()
+        ablation()
         return 0
     if len(argv) < 3 or argv[1] not in modes:
         print(__doc__, file=sys.stderr)

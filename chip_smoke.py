@@ -46,9 +46,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    envelope (B=1024; H=2048, where R does not stay in shared memory) and
    at the LM's (T=35, B=128, H=650): every forward output within 1e-5,
    every backward output within
-   1e-4 of its largest |value|; kernel, plain and cuDNN times
-   (``torch.nn.LSTM`` of one layer, the yardstick only, with its input
-   projection's matmul timed apart) and the fp32 bound.
+   1e-4 of its largest |value|, and, at the LM's shape and at H=2048,
+   bit-equal on a rerun; each kernel's launch plan
+   (``hopper_rnn.lstm_plan``) beside the blocks an SM the card reports;
+   kernel, plain and cuDNN times (``torch.nn.LSTM`` of one layer, the
+   yardstick only, with its input projection's matmul and dx timed apart,
+   so that cuDNN's recurrence alone is the difference) beside the
+   kernels' times before their redesign (``BEFORE_K89_MS``) and the fp32
+   bound.
 3. serving: serve the full-width ResNet-50 (224 px, 1000 classes, fp32,
    seeded random weights) through ``ModelServer`` on gpu(0) with buckets
    up to 32; answer 8 concurrent requests of 1-8 rows of mixed SLO classes
@@ -1600,30 +1605,64 @@ def _lstm_check(hr, c, T, B, H):
     return max(ferr.values()), max(berr.values()), args
 
 
+# kernels 8 and 9's times a call at the LM's shape in the last run of this
+# script before their redesign ("NVIDIA H100 80GB HBM3, 700.00 W"), ms
+BEFORE_K89_MS = {"lstm_fwd": 1.0994, "lstm_bwd": 1.7761}
+
+
+def _lstm_rerun(hr, c):
+    """Kernels 8 and 9 twice on the same inputs: every output bit-equal."""
+    fwd_in = (c["xp"], c["h0"], c["c0"], c["R"], c["bR"])
+    f1, f2 = hr.lstm_fwd(*fwd_in), hr.lstm_fwd(*fwd_in)
+    bwd_in = (f1[3], f1[4], c["c0"], c["dys"], c["dhT"], c["dcT"], c["R"])
+    b1, b2 = hr.lstm_bwd(*bwd_in), hr.lstm_bwd(*bwd_in)
+    torch.cuda.synchronize()
+    return (all(torch.equal(x, y) for x, y in zip(f1, f2)),
+            all(torch.equal(x, y) for x, y in zip(b1, b2)))
+
+
 def phase_lstm_kernels():
     """Kernels 8 and 9 against their plain versions at two ragged shapes,
     at the edges of their envelope, and at the LM's (T=35, B=128, H=650:
     both layers' recurrences have this shape, since embed = hidden), with
-    times, bounds, and cuDNN's LSTM as the yardstick; returns the two
-    ``kernels`` entries (without ``launches``)."""
+    bit-equal reruns, the plans beside the card's occupancy, times, bounds,
+    and cuDNN's LSTM as the yardstick; returns the two ``kernels`` entries
+    (without ``launches``)."""
     from mxnet_tpu_torch.ops import hopper_rnn as hr
     fp32_exact()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # ragged shapes, then the envelope's edges: B = 1024 (batch tiles) and
     # H = 2048 (R streamed, not resident)
     for T, B, H in [(7, 3, 100), (5, 33, 257), (2, 1024, 40), (3, 64, 2048)]:
-        ferr, berr, _ = _lstm_check(hr, _lstm_inputs(T, B, H, gen, dev),
-                                    T, B, H)
+        c = _lstm_inputs(T, B, H, gen, dev)
+        ferr, berr, _ = _lstm_check(hr, c, T, B, H)
         print("[lstm-kernels] T=%d B=%d H=%d: kernel 8 max abs err %.3g (tol "
               "%g), kernel 9 %.3g of max |value| (tol %g)"
               % (T, B, H, ferr, LSTM_FWD_TOL, berr, LSTM_BWD_TOL))
+        if H == 2048:
+            same = _lstm_rerun(hr, c)
+            print("[lstm-kernels] T=%d B=%d H=%d rerun bit-equal: kernel 8 %s, "
+                  "kernel 9 %s" % (T, B, H, *same))
+            check(all(same), "LSTM kernels not bit-equal on a rerun at H=2048")
     T, B, H = LM["bptt"], LM["batch"], LM["hidden"]
     c = _lstm_inputs(T, B, H, gen, dev)
     ferr, berr, bargs = _lstm_check(hr, c, T, B, H)
+    same = _lstm_rerun(hr, c)
+    print("[lstm-kernels] T=%d B=%d H=%d rerun bit-equal: kernel 8 %s, kernel "
+          "9 %s" % (T, B, H, *same))
+    check(all(same), "LSTM kernels not bit-equal on a rerun at the LM's shape")
+    geometry = {}
     for name in ("lstm_fwd", "lstm_bwd"):
-        print("[lstm-kernels] %s geometry at B=%d H=%d: %s"
-              % (name, B, H, hr.geometry(name, B, H)))
+        geometry[name] = g = hr.geometry(name, B, H)
+        print("[lstm-kernels] %s plan at B=%d H=%d: %s; the card holds %d "
+              "block(s) an SM of it, the plan needs %d blocks on %d SMs"
+              % (name, B, H, {k: v for k, v in g.items()
+                              if k != "blocks_per_sm"},
+                 g["blocks_per_sm"], g["blocks"], sms))
+        check(g["blocks_per_sm"] * sms >= g["blocks"], "%s: %d blocks do not "
+              "fit %d an SM" % (name, g["blocks"], g["blocks_per_sm"]))
     fwd_args = (c["xp"], c["h0"], c["c0"], c["R"], c["bR"])
     ms = time_ms(lambda: hr.lstm_fwd(*fwd_args))
     plain_ms = time_ms(lambda: hr.lstm_fwd_plain(*fwd_args))
@@ -1677,9 +1716,18 @@ def phase_lstm_kernels():
                                     LSTM_FWD_TOL, LSTM_BWD_TOL))
     print("[lstm-kernels] cuDNN LSTM (one layer, TF32 off, same weights): "
           "forward %.4f ms with its input projection (the projection's "
-          "matmul alone %.4f ms), output within %.3g of kernel 8's; data and "
-          "state backward %.4f ms with dx (dxp @ W alone %.4f ms)"
-          % (lib_ms, proj_ms, err_lib, lib_bms, dx_ms))
+          "matmul alone %.4f ms, so the recurrence %.4f ms), output within "
+          "%.3g of kernel 8's; data and state backward %.4f ms with dx (dxp "
+          "@ W alone %.4f ms, so the recurrence %.4f ms)"
+          % (lib_ms, proj_ms, lib_ms - proj_ms, err_lib, lib_bms, dx_ms,
+             lib_bms - dx_ms))
+    for name, now, rec in (("lstm_fwd", ms, lib_ms - proj_ms),
+                           ("lstm_bwd", bms, lib_bms - dx_ms)):
+        print("[lstm-kernels] kernel %d a call: %.4f ms, before the redesign "
+              "%.4f ms (the last run before it, quoted); cuDNN's recurrence "
+              "alone %.4f ms; half the bound %.4f ms"
+              % (8 if name == "lstm_fwd" else 9, now, BEFORE_K89_MS[name],
+                 rec, (fbound if name == "lstm_fwd" else bbound) / 2))
     common = {"route": "cuda", "T": T, "B": B, "H": H,
               "calls_per_step": LM["layers"]}
     k8 = dict(common, name="lstm_fwd", source="mxnet_tpu_torch/csrc/"
@@ -1688,7 +1736,9 @@ def phase_lstm_kernels():
               call_bound_ms=fbound, bound_by=fby, call_library_ms=lib_ms,
               library="torch.nn.LSTM forward (cuDNN), input projection "
                       "included", projection_ms=proj_ms,
-              max_abs_err_vs_cudnn=err_lib, tflops=flops / ms / 1e9)
+              library_recurrence_ms=lib_ms - proj_ms,
+              max_abs_err_vs_cudnn=err_lib, tflops=flops / ms / 1e9,
+              plan=geometry["lstm_fwd"])
     k9 = dict(common, name="lstm_bwd", source="mxnet_tpu_torch/csrc/"
               "lstm_bwd.cu", replaces="mxnet_tpu/ops/pallas_rnn.py:157",
               max_abs_err=berr, max_err_is="of max |value|", call_ms=bms,
@@ -1696,7 +1746,8 @@ def phase_lstm_kernels():
               call_library_ms=lib_bms,
               library="torch.autograd.grad of torch.nn.LSTM (cuDNN) for "
                       "data and states, dx included",
-              dx_ms=dx_ms, tflops=flops / bms / 1e9)
+              dx_ms=dx_ms, library_recurrence_ms=lib_bms - dx_ms,
+              tflops=flops / bms / 1e9, plan=geometry["lstm_bwd"])
     for k in (k8, k9):
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             k[key] = k["call_" + key] * LM["layers"]    # a training step

@@ -17,349 +17,298 @@
 //
 // Numerics: fp32 FMA on the CUDA cores, tanhf for tanh(c_t).  Against the plain PyTorch
 // version (lstm_bwd_plain in ops/hopper_rnn.py) only the order of the sums in d_pre @ R
-// differs; the tolerance chip_smoke.py states is 1e-4 of the largest |value|.
+// differs; the tolerance chip_smoke.py states is 1e-4 of the largest |value|.  Every sum
+// runs in a fixed order, so reruns are bit-equal.
 //
-// Design.  The TPU kernel walks a reversed sequential grid with dh and dc in VMEM.  Here,
-// as in the forward, one persistent cooperative launch covers all T steps, a block owning
-// U hidden units and (from 64 rows up) one half of the batch, a thread two units and 4
-// batch rows.  Each step has two phases with a grid sync between them:
-//   (a) elementwise: each thread turns its (unit, row) pairs into the four d_pre values,
-//       writes them to dxp[t] and, transposed to (4H, Bp), to one of two scratch
-//       buffers (the steps alternate, so that no second grid sync is needed before the
-//       next step writes), and keeps dc;
-//   (b) the product: dh_next for the block's units and rows needs every d_pre column of
-//       those rows, so after the sync each block streams its rows of the (4H, Bp) scratch
-//       (666 KB at B = 128, H = 650) through shared memory in stages of KC rows, four
-//       stages deep, copied with cp.async.cg (through L2, since other blocks wrote it in
-//       this launch), against the block's columns of R, 4H x U, resident in shared memory
-//       for the whole sequence when they fit (2,624 x 10 fp32, 102 KB at H = 650), streamed
-//       from global memory otherwise.  The block's threads form KG groups that split each
-//       stage's rows and add their partial sums through shared memory, as in the forward.
-// The running dh and dc live in the dh0 and dc0 outputs, each element read and written by
-// one thread only, so they need no exchange; their final values are dh0 and dc0.
+// Design.  The TPU kernel walks a reversed sequential grid with dh and dc in VMEM.  Here, as
+// in the forward, one persistent cooperative launch covers all T steps, on the plan
+// hopper_rnn.lstm_plan("bwd", ...) computes.  dh_next needs every one of the 4H columns of
+// d_pre for its rows; had each block (as in the forward) owned 10 units and read all of
+// them, the blocks would read 87 MB a step from L2 at B = 128, H = 650.  Instead the
+// product is split over the four gates, the reduction's four quarters:
+//   - a group of four blocks owns U units of one batch half (U = 41 at the LM's shape: 16
+//     groups a half, 128 blocks); block q of the group keeps gate q's rows of R for those
+//     units, R[q H : q H + H, units] (650 x 41, 112 KB with padding), resident in shared
+//     memory, and multiplies gate q's d_pre (B_half x H, read from a (4H, Bp) exchange
+//     buffer in stages, as the forward reads h) by it: lstm_common.cuh's lstm_product with
+//     8-row x 4-column register tiles, a warp across the tiles' columns, KG = 7 groups of 88
+//     threads (640 threads, 96 registers each); so each block reads 166 KB of d_pre a step,
+//     22 MB over the card, as the forward does;
+//   - its partial dh_next (rows x U) goes to a small global buffer, and after the group's
+//     four blocks have written theirs (a 4-block barrier, lstm_common.cuh), each block adds
+//     the four in gate order for its quarter of the group's units and all the half's rows:
+//     the elementwise phase, which every thread runs (a (unit, row) pair a thread) and
+//     whose inputs, the forward's gates and cell states and dys, were copied to shared
+//     memory with cp.async with the last stage of the previous step's product; dc stays
+//     in a register;
+//   - d_pre goes to dxp and, transposed through shared memory, to the exchange buffer (rows
+//     contiguous); a barrier among the half's blocks then opens the next product.  The
+//     exchange buffer alternates between two copies from step to step, so that a block
+//     still in the previous step's product is never overwritten; the partials' buffer needs
+//     one copy, since the half's barrier lies between its reads and the next writes.
+// So each step has two barriers, a 4-block one and the half's, and no grid sync.
 //
 // Bound at the slice's shape (T = 35, B = 128, H = 650): 15.14 GFLOP a call, 0.226 ms at
-// 67 TFLOP/s fp32, about 128 MB of traffic (37 us), so bound by operations.  Phase (b)'s
-// thread tile is 2 units x 4 rows, so a warp's 8 FMA instructions a row of d_pre need 3
-// to 5 shared-memory wavefronts; every block reads its rows of d_pre from L2 each step (87
-// MB a step over the card); and each step has a grid sync.  It runs well below the
-// bound in this design.
+// 67 TFLOP/s fp32, about 128 MB of traffic (37 us), so bound by operations.  What keeps it
+// above: the product's FMA issue (as in the forward, with the 41 units a block padded to
+// 44 columns and 650 rows to 672), and a serial tail each step: the partials' exchange,
+// the elementwise phase, the exchange of d_pre and two barriers.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
+#include <string.h>
 
-namespace cg = cooperative_groups;
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int MAX_THREADS = 512;
-constexpr int MAX_ITEMS = 256;  // (unit pair, 4-row group) items of a block's tile
-constexpr int MAX_TILE = 128;   // batch rows per tile
-constexpr int KC = 64;          // rows of d_pre (and of R) per shared-memory stage
-constexpr int NSTAGE = 4;       // stages in shared memory
-
-// Asynchronous copies global -> shared, as in lstm_fwd.cu: 16 bytes through L2 only (.cg),
-// or 4 bytes; src_bytes = 0 fills zeros.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-// Wait until at most n (< 4) of this thread's copy groups are still in flight.
-__device__ __forceinline__ void cp_async_wait_pending(int n) {
-  if (n >= 3)
-    cp_async_wait<3>();
-  else if (n == 2)
-    cp_async_wait<2>();
-  else if (n == 1)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<0>();
-}
-
-// Launch geometry, as in lstm_fwd.cu: U units a block (UG pairs), BR batch rows a block,
-// nbg = 2^lnbg 4-row
-// groups a tile, items padded to IP, KG thread groups; the dynamic shared memory holds
-// NSTAGE stages of d_pre^T [KC][BT], the partial sums of groups 1 .. KG-1 [KG-1][8][IP],
-// and the block's columns of R, [Rp][2 UG] when resident (else NSTAGE stages [KC][2 UG]).
-struct Geometry {
-  int blocks, threads, U, BR, lnbg, KG, resident;
-  size_t smem;
-};
-
-int plan(int B, int H, int device, Geometry* g) {
-  int sms = 0, coop = 0, optin = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (!coop || sms < 1) return (int)cudaErrorNotSupported;
-  if (B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  // a batch of 64 rows or more is split in two halves, each with its own blocks, so that a
-  // block reads half of the exchanged state each step
-  const int halves = B >= 64 ? 2 : 1;
-  g->U = (H * halves + sms - 1) / sms;
-  const int UG = (g->U + 1) / 2;
-  if (UG > MAX_ITEMS) return (int)cudaErrorInvalidValue;
-  g->blocks = halves * ((H + g->U - 1) / g->U);
-  g->BR = ((B + halves - 1) / halves + 3) / 4 * 4;
-  int nbg = 1;
-  g->lnbg = 0;
-  while (nbg * 4 < g->BR && nbg * 8 <= MAX_TILE && UG * nbg * 2 <= MAX_ITEMS) {
-    nbg *= 2;
-    ++g->lnbg;
-  }
-  const int IP = (UG * nbg + 31) / 32 * 32;
-  g->KG = IP * 4 <= MAX_THREADS ? 4 : IP * 2 <= MAX_THREADS ? 2 : 1;
-  g->threads = g->KG * IP;
-  const size_t f = sizeof(float);
-  const size_t ds = (size_t)NSTAGE * KC * 4 * nbg * f;
-  const size_t red = (size_t)(g->KG - 1) * 8 * IP * f;
-  const size_t rw = (size_t)2 * UG;
-  const size_t res = ds + red + (size_t)(4 * H + KC - 1) / KC * KC * rw * f;
-  g->resident = res <= (size_t)optin;
-  g->smem = g->resident ? res : ds + red + (size_t)NSTAGE * KC * rw * f;
-  if (g->smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
-// dpreT is (2, 4H, Bp), Bp = B rounded up to 4: step t uses buffer t & 1.  Column ul of
-// the block's R tile is unit u0 + ul (zero past nu).  A thread owns units 2 ug and 2 ug + 1
-// and 4 rows in both phases; group 0 does the elementwise phase and holds the product's
-// sums.
-template <bool R_RESIDENT>
-__global__ void __launch_bounds__(MAX_THREADS)
+template <bool RES>
+__global__ void __launch_bounds__(lstm_max_threads(false), 1)
 lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                 const float* __restrict__ c0, const float* __restrict__ dys,
                 const float* __restrict__ dhT, const float* __restrict__ dcT,
                 const float* __restrict__ R, float* dxp, float* dh0, float* dc0, float* dpreT,
-                int T, int B, int H, int U, int BR, int lnbg, int KG) {
+                float* part, unsigned* ctr, int T, int B, int H, LstmPlan p) {
   extern __shared__ __align__(16) float smem[];
-  cg::grid_group grid = cg::this_grid();
-  const int nbg = 1 << lnbg;
-  const int BT = 4 * nbg;
-  const int H4 = 4 * H;
-  const int UG = (U + 1) / 2;
-  const int RW = 2 * UG;
-  const int IP = (UG * nbg + 31) / 32 * 32;
-  const int KCG = KC / KG;
-  const int Bp = (B + 3) / 4 * 4;
-  const int nst = (H4 + KC - 1) / KC;
-  float* ds = smem;                                  // NSTAGE x [KC][BT]
-  float* red = ds + NSTAGE * KC * BT;                // [KG-1][8][IP]
-  float* rs = red + (KG - 1) * 8 * IP;               // R columns, resident or streamed
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int kg = tid / IP, item = tid % IP;
-  const int ug = item >> lnbg, bg = item & (nbg - 1);
-  const int nut = (H + U - 1) / U;       // blocks per batch slice
-  const int u0 = (blockIdx.x % nut) * U;
-  const int nu = min(U, H - u0);
-  const int b_lo = (blockIdx.x / nut) * BR;            // this block's batch rows
-  const int b_hi = min(B, b_lo + BR);
-  const int b_cap = min(Bp, b_lo + BR);                // ... rounded up to 4
+  const LstmDims d = lstm_dims(p, H, false);
+  const int U = p.units, BT = p.tile, KG = p.kg, RC = p.chunk;
+  const int H4 = 4 * H, Bp = (B + 3) / 4 * 4;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int per_half = p.groups * 4;
+  const int half = blockIdx.x / per_half, grp = (blockIdx.x % per_half) / 4, q = blockIdx.x % 4;
+  const int u0 = grp * U, nu = min(U, H - u0);
+  const int b_lo = half * p.rows, b_hi = min(B, b_lo + p.rows), nb = b_hi - b_lo;
+  const int rcap = min(Bp, b_lo + p.rows);
+  const int ntiles = (nb + BT - 1) / BT;
+  // the elementwise phase: this block's units uq0 .. uq0 + nuq - 1 of the group, all rows
+  const int Uq = (U + 3) / 4, uq0 = q * Uq, nuq = max(0, min(Uq, nu - uq0));
+  const int nchunks = (nb + RC - 1) / RC;
+  const bool one_chunk = nchunks == 1;
+  const int RP = RC + 1, XSP = lstm_odd(Uq), RSZ = Uq * RP;
 
-  if (R_RESIDENT) {
-    const int Rp = nst * KC;
-    for (int idx = tid; idx < Rp * RW; idx += nthr) {
-      const int r = idx / RW, uu = idx % RW;
-      rs[idx] = (r < H4 && uu < nu) ? R[(size_t)r * H + u0 + uu] : 0.f;
+  float* wres = smem;                                  // R[qH + m][u0 + c]: [Kp][NCP]
+  float* as = wres + (RES ? d.Kp * d.NCP : 0);         // the stage region
+  float* wst = as + LSTM_NS * d.KC * BT;
+  float* red = as;
+  float* sdx = as;                                     // [4][RC][XSP]: d_pre for dxp
+  float* sdp = sdx + lstm_r4(4 * RC * XSP);            // [4][Uq][RP]: d_pre for d_pre^T
+  const int region = lstm_max(lstm_max(lstm_stage_floats(p, d), KG * d.NCP * d.BTP),
+                              lstm_r4(4 * RC * XSP) + lstm_r4(4 * Uq * RP));
+  float* rsv = as + region;                            // [7][Uq][RP]: i f g o c_t c_{t-1} dys
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lstm_smem_floats(p, H, false) -
+                                               LSTM_RING_FLOATS);
+
+  const int kg = tid / d.items, item = tid - kg * d.items;
+  const int cg = item % d.NCG, rg = item / d.NCG;     // a warp spans the columns
+  const bool active = kg < KG;
+  unsigned* hctr = ctr + half;                         // the half's barrier
+  unsigned* gctr = ctr + p.halves + half * p.groups + grp;   // the group's
+  // partial dh_next of block (half, grp, j): [U][p.rows], rows contiguous
+  auto part_of = [&](int j) {
+    return part + ((size_t)(half * p.groups + grp) * 4 + j) * U * p.rows;
+  };
+
+  auto load_w = [&](float* dst, int m0) {
+    lstm_for3(1, d.KC, d.NCP, [&](int, int kk, int c) {
+      const bool ok = c < nu && m0 + kk < H;
+      cp_async4(smem_addr(dst + kk * d.NCP + c),
+                ok ? R + (size_t)(q * H + m0 + kk) * H + u0 + c : R, ok);
+    });
+  };
+  if (RES) {
+    for (int idx = tid; idx < d.Kp * d.NCP; idx += nthr) {
+      const int m = idx / d.NCP, c = idx - m * d.NCP;
+      wres[idx] = c < nu && m < H ? R[(size_t)(q * H + m) * H + u0 + c] : 0.f;
     }
-    __syncthreads();
   }
+  if (blockIdx.x == 0)
+    for (int i = tid; i < p.halves * (1 + p.groups); i += nthr) ctr[i] = 0u;
+  // pair e = tid + i * nthr of a chunk of nbc rows is row e % nbc of unit uq0 + e / nbc:
+  // with one chunk, row pb[i] of unit uq0 + pu[i] for the whole sequence
+  float dcr[LSTM_MAXPP];
+  int pb[LSTM_MAXPP], pu[LSTM_MAXPP];
+#pragma unroll
+  for (int i = 0; i < LSTM_MAXPP; ++i) {
+    const int e = tid + i * nthr;
+    pb[i] = e % nb;
+    pu[i] = e / nb;
+    dcr[i] = one_chunk && pu[i] < nuq ? dcT[(size_t)(b_lo + pb[i]) * H + u0 + uq0 + pu[i]] : 0.f;
+  }
+  // the reserve of step t, chunk ch into rsv (a warp reads runs of nuq units)
+  auto fetch_r = [&](int t, int ch) {
+    const int r0 = b_lo + ch * RC, nbc = min(RC, b_hi - r0);
+    lstm_for3(7, nbc, nuq, [&](int v, int b, int ul) {
+      const size_t row = (size_t)t * B + r0 + b;
+      const int u = u0 + uq0 + ul;
+      const float* src = v < 4 ? gates + row * H4 + v * H + u
+                         : v == 4 ? cs + row * H + u
+                         : v == 5 ? (t > 0 ? cs + (row - B) * H + u : c0 + (size_t)(r0 + b) * H + u)
+                                  : dys + row * H + u;
+      cp_async4(smem_addr(rsv + v * RSZ + ul * RP + b), src, true);
+    });
+  };
+  fetch_r(T - 1, 0);
+  cp_async_commit();
+  lstm_ring_init(bars);
+  int issued = 0;                      // stages through the ring so far
+  cooperative_groups::this_grid().sync();
 
   for (int t = T - 1; t >= 0; --t) {
-    // d_pre^T of this step; the other buffer may still be read by a block in phase (b) of
-    // the step before, so each step needs one grid sync only
-    float* dpre_w = dpreT + (size_t)(t & 1) * H4 * Bp;
-    // (a) elementwise: d_pre for this thread's units and rows; every load first, so that
-    // their latencies overlap
-    for (int bt0 = b_lo; bt0 < b_hi; bt0 += BT) {
-      if (kg != 0 || ug >= UG || bt0 + bg * 4 >= b_hi) continue;
-      float v[2][4][9];      // [unit][row]: i, f, g, o, c_t, c_{t-1}, dh_next, dc_next, dys
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int u = min(u0 + 2 * ug + p, u0 + nu - 1);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int b = min(bt0 + bg * 4 + j, b_hi - 1);
-          const size_t row = (size_t)t * B + b;
-          const size_t bu = (size_t)b * H + u;
-          const float* gr = gates + row * H4;
-          v[p][j][0] = gr[u];
-          v[p][j][1] = gr[H + u];
-          v[p][j][2] = gr[2 * H + u];
-          v[p][j][3] = gr[3 * H + u];
-          v[p][j][4] = cs[row * H + u];
-          v[p][j][5] = t > 0 ? cs[(row - B) * H + u] : c0[bu];
-          v[p][j][6] = t == T - 1 ? dhT[bu] : dh0[bu];
-          v[p][j][7] = t == T - 1 ? dcT[bu] : dc0[bu];
-          v[p][j][8] = dys[row * H + u];
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        if (2 * ug + p >= nu) continue;
-        const int u = u0 + 2 * ug + p;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int b = bt0 + bg * 4 + j;
-          if (b >= b_hi) continue;
-          const float* x = v[p][j];
-          const float i = x[0], f = x[1], g = x[2], o = x[3];
-          const float tc = tanhf(x[4]);
-          const float dh = x[6] + x[8];
-          const float dct = dh * o * (1.f - tc * tc) + x[7];
-          const float dp[4] = {(dct * g) * i * (1.f - i), (dct * x[5]) * f * (1.f - f),
-                               (dct * i) * (1.f - g * g), (dh * tc) * o * (1.f - o)};
-          const size_t row = (size_t)t * B + b;
-          float* dr = dxp + row * H4;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            dr[k * H + u] = dp[k];
-            dpre_w[(size_t)(k * H + u) * Bp + b] = dp[k];
-          }
-          dc0[(size_t)b * H + u] = dct * f;
-        }
-      }
-    }
-    grid.sync();
-
-    // (b) dh_next[b, u] = sum_r d_pre[b, r] * R[r, u] for this block's units
-    for (int bt0 = b_lo; bt0 < b_hi; bt0 += BT) {
-      const bool in_tile = ug < UG && bt0 + bg * 4 < b_hi;
-      auto issue = [&](int s) {
-        const int r0 = s * KC;
-        float* dst = ds + (s % NSTAGE) * KC * BT;
-        for (int c = tid; c < KC * nbg; c += nthr) {
-          const int kk = c >> lnbg, b4 = (c & (nbg - 1)) * 4;
-          const bool ok = r0 + kk < H4 && bt0 + b4 < b_cap;
-          cp_async16(dst + kk * BT + b4, ok ? dpre_w + (size_t)(r0 + kk) * Bp + bt0 + b4 : dpre_w,
-                     ok ? 16 : 0);
-        }
-        if (!R_RESIDENT) {
-          float* rdst = rs + (s % NSTAGE) * KC * RW;
-          for (int idx = tid; idx < KC * RW; idx += nthr) {
-            const int kk = idx / RW, uu = idx % RW;
-            const bool ok = r0 + kk < H4 && uu < nu;
-            cp_async4(rdst + idx, ok ? R + (size_t)(r0 + kk) * H + u0 + uu : R, ok ? 4 : 0);
-          }
-        }
+    float* dpw = dpreT + (size_t)(t & 1) * H4 * Bp;
+    // dh_next of step t + 1: the group's four partials
+    if (t < T - 1) lstm_wait(gctr, 4u * (unsigned)(T - 1 - t));
+    for (int ch = 0; ch < nchunks; ++ch) {
+      const int r0 = b_lo + ch * RC, nbc = min(RC, b_hi - r0);
+      if (ch > 0) {
+        fetch_r(t, ch);
         cp_async_commit();
-      };
-      for (int s = 0; s < NSTAGE - 1 && s < nst; ++s) issue(s);
-      float acc[8];          // [unit of the pair][row]
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-      for (int s = 0; s < nst; ++s) {
-        if (s + NSTAGE - 1 < nst) issue(s + NSTAGE - 1);
-        cp_async_wait_pending(min(NSTAGE - 1, nst - 1 - s));
-        __syncthreads();
-        if (in_tile) {
-          const float* db = ds + (s % NSTAGE) * KC * BT + bg * 4;
-          const float* rb = (R_RESIDENT ? rs + (size_t)s * KC * RW : rs + (s % NSTAGE) * KC * RW)
-                            + ug * 2;
-#pragma unroll 4
-          for (int kk = kg * KCG; kk < (kg + 1) * KCG; ++kk) {
-            const float4 dv = *reinterpret_cast<const float4*>(db + kk * BT);
-            const float2 rv = *reinterpret_cast<const float2*>(rb + kk * RW);
-            const float d4[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[j] = fmaf(d4[j], rv.x, acc[j]);
-              acc[4 + j] = fmaf(d4[j], rv.y, acc[4 + j]);
-            }
-          }
-        }
-        __syncthreads();     // buffer s % NSTAGE is refilled by stage s + NSTAGE
       }
-      if (kg > 0) {
-        float* dst = red + (size_t)(kg - 1) * 8 * IP + item;
+      cp_async_wait<0>();
+      __syncthreads();
 #pragma unroll
-        for (int e = 0; e < 8; ++e) dst[e * IP] = acc[e];
+      for (int i = 0; i < LSTM_MAXPP; ++i) {
+        const int e = tid + i * nthr;
+        const int b = one_chunk ? pb[i] : e % nbc, ul = one_chunk ? pu[i] : e / nbc;
+        if (ul >= nuq) continue;
+        const int bb = r0 + b, u = u0 + uq0 + ul, s = ul * RP + b;
+        float dh;
+        if (t == T - 1) {
+          dh = dhT[(size_t)bb * H + u];
+        } else {
+          const size_t off = (size_t)(uq0 + ul) * p.rows + bb - b_lo;
+          dh = __ldcg(part_of(0) + off);
+#pragma unroll
+          for (int j = 1; j < 4; ++j) dh += __ldcg(part_of(j) + off);
+        }
+        dh += rsv[6 * RSZ + s];
+        const float ig = rsv[s], fg = rsv[RSZ + s], gg = rsv[2 * RSZ + s], og = rsv[3 * RSZ + s];
+        const float tc = tanhf(rsv[4 * RSZ + s]);
+        const float dc = one_chunk ? dcr[i] : t == T - 1 ? dcT[(size_t)bb * H + u]
+                                                         : dc0[(size_t)bb * H + u];
+        const float dct = dh * og * (1.f - tc * tc) + dc;
+        const float dp[4] = {(dct * gg) * ig * (1.f - ig),
+                             (dct * rsv[5 * RSZ + s]) * fg * (1.f - fg),
+                             (dct * ig) * (1.f - gg * gg), (dh * tc) * og * (1.f - og)};
+        if (one_chunk)
+          dcr[i] = dct * fg;
+        else
+          dc0[(size_t)bb * H + u] = dct * fg;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sdx[(k * RC + b) * XSP + ul] = dp[k];
+          sdp[(k * Uq + ul) * RP + b] = dp[k];
+        }
       }
       __syncthreads();
-      if (kg == 0 && in_tile) {
-        for (int g2 = 1; g2 < KG; ++g2) {
-          const float* src = red + (size_t)(g2 - 1) * 8 * IP + item;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[e] += src[e * IP];
-        }
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          if (2 * ug + p >= nu) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int b = bt0 + bg * 4 + j;
-            if (b < b_hi) dh0[(size_t)b * H + u0 + 2 * ug + p] = acc[p * 4 + j];
-          }
-        }
-      }
-      __syncthreads();       // red is written again by the next tile
+      // d_pre^T of the chunk, rows contiguous
+      lstm_for3(4, nuq, nbc, [&](int k, int ul, int b) {
+        dpw[(size_t)(k * H + u0 + uq0 + ul) * Bp + r0 + b] = sdp[(k * Uq + ul) * RP + b];
+      });
+      // every chunk's d_pre^T is out: the half's products may start
+      if (ch == nchunks - 1) lstm_signal(hctr);
+      lstm_for3(4, nbc, nuq, [&](int k, int b, int ul) {
+        dxp[((size_t)t * B + r0 + b) * H4 + k * H + u0 + uq0 + ul] = sdx[(k * RC + b) * XSP + ul];
+      });
+      __syncthreads();                 // the staging is free; so is rsv
+    }
+    lstm_wait(hctr, (unsigned)(per_half * (T - t)));     // the half's d_pre of step t
+    const float* A = dpw + (size_t)q * H * Bp;
+    for (int tl = 0; tl < ntiles; ++tl) {
+      const int r0 = b_lo + tl * BT, nbt = min(BT, b_hi - r0);
+      float acc[8][4];
+      // the next step's reserve comes with the last tile's last stage
+      lstm_product<8, 4, RES>(acc, A, Bp, r0, rcap, H, as, wres, wst, d, BT, p.sc, kg, rg, cg,
+                              active, bars, issued, load_w, [] {},
+                              [&] {
+                                if (t > 0 && tl == ntiles - 1) fetch_r(t - 1, 0);
+                              });
+      __syncthreads();
+      if (active) lstm_store_partials<8, 4>(acc, red, d, kg, rg, cg);
+      __syncthreads();
+      float* mine = part_of(q);
+      lstm_for3(1, nu, nbt, [&](int, int ul, int b) {
+        mine[(size_t)ul * p.rows + r0 - b_lo + b] = lstm_sum_partials(red, d, KG, ul, b);
+      });
+      if (tl == ntiles - 1)
+        lstm_signal(gctr);             // the group may add this step's partials
+      else
+        __syncthreads();               // red is the next tile's stage region
     }
   }
+  // dh0 = dh_next after step 0, dc0 = dc_next
+  lstm_wait(gctr, 4u * (unsigned)T);
+  lstm_for3(1, nuq, nb, [&](int, int ul, int b) {
+    const size_t off = (size_t)(uq0 + ul) * p.rows + b;
+    float dh = __ldcg(part_of(0) + off);
+#pragma unroll
+    for (int j = 1; j < 4; ++j) dh += __ldcg(part_of(j) + off);
+    dh0[(size_t)(b_lo + b) * H + u0 + uq0 + ul] = dh;
+  });
+  if (one_chunk) {
+#pragma unroll
+    for (int i = 0; i < LSTM_MAXPP; ++i)
+      if (pu[i] < nuq) dc0[(size_t)(b_lo + pb[i]) * H + u0 + uq0 + pu[i]] = dcr[i];
+  }
+}
+
+// the kernel of the plan's residency, its shared memory attribute set once a device
+template <bool RES>
+cudaError_t ready(int device, int optin, const void** kern) {
+  static bool done[64];
+  *kern = (const void*)lstm_bwd_kernel<RES>;
+  return lstm_allow_smem(*kern, device, done, optin);
+}
+cudaError_t select_kernel(const LstmPlan& p, int device, int optin, const void** kern) {
+  return p.resident ? ready<true>(device, optin, kern) : ready<false>(device, optin, kern);
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  gates (T, B, 4H), cs (T, B, H), c0 (B, H), dys
 // (T, B, H), dhT (B, H), dcT (B, H), R (4H, H); outputs dxp (T, B, 4H), dh0 (B, H), dc0
-// (B, H); scratch dpreT (2, 4H, Bp), Bp = B rounded up to a multiple of 4.  All fp32, contiguous, on `device`.  Launches the kernel
-// once, as a cooperative launch on `stream`, and sets *launched to 1 when it did.  Returns
-// 0 or the CUDA error, as mxtt_lstm_fwd does.
+// (B, H); scratch dpreT (2, 4H, Bp), Bp = B rounded up to a multiple of 4, part (halves *
+// groups * 4 * units * rows of the plan) and ctr (halves * (1 + groups) unsigned counters).
+// All fp32, contiguous, on `device`; `plan` points to the 12 ints of
+// hopper_rnn.lstm_plan("bwd", B, H, ...).  Launches the kernel once, as a cooperative launch
+// on `stream`, and sets *launched to 1 when it did.  Returns 0 or the CUDA error, as
+// mxtt_lstm_fwd does.
 extern "C" int mxtt_lstm_bwd(const float* gates, const float* cs, const float* c0,
                              const float* dys, const float* dhT, const float* dcT,
                              const float* R, float* dxp, float* dh0, float* dc0, float* dpreT,
-                             int T, int B, int H, int device, void* stream, int* launched) {
+                             float* part, unsigned* ctr, int T, int B, int H, const int* plan,
+                             int device, void* stream, int* launched) {
   *launched = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  int sms = 0, optin = 0;
+  if ((err = lstm_card(device, &sms, &optin)) != cudaSuccess) return (int)err;
+  LstmPlan p;
+  memcpy(&p, plan, sizeof(p));
   if (T < 1) return (int)cudaErrorInvalidValue;
-  Geometry g;
-  int rc = plan(B, H, device, &g);
+  int rc = lstm_check_plan(p, B, H, false, sms, optin);
   if (rc != 0) return rc;
-  const void* kern = g.resident ? (const void*)lstm_bwd_kernel<true>
-                                : (const void*)lstm_bwd_kernel<false>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
+  const void* kern = nullptr;
+  err = select_kernel(p, device, optin, &kern);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, g.threads, g.smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm * sms < g.blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {(void*)&gates, (void*)&cs,  (void*)&c0,  (void*)&dys, (void*)&dhT,
-                  (void*)&dcT,   (void*)&R,   (void*)&dxp, (void*)&dh0, (void*)&dc0,
-                  (void*)&dpreT, (void*)&T,   (void*)&B,   (void*)&H,   (void*)&g.U,
-                  (void*)&g.BR,  (void*)&g.lnbg, (void*)&g.KG};
-  err = cudaLaunchCooperativeKernel(kern, dim3(g.blocks), dim3(g.threads), args, g.smem,
-                                    static_cast<cudaStream_t>(stream));
+  void* args[] = {(void*)&gates, (void*)&cs,    (void*)&c0,   (void*)&dys, (void*)&dhT,
+                  (void*)&dcT,   (void*)&R,     (void*)&dxp,  (void*)&dh0, (void*)&dc0,
+                  (void*)&dpreT, (void*)&part,  (void*)&ctr,  (void*)&T,   (void*)&B,
+                  (void*)&H,     (void*)&p};
+  err = cudaLaunchCooperativeKernel(kern, dim3(p.halves * p.groups * 4), dim3(p.threads), args,
+                                    p.smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err == cudaSuccess) *launched = 1;
   return (int)err;
 }
 
-// The launch geometry of mxtt_lstm_bwd at (B, H), as mxtt_lstm_fwd_geometry reports it.
-extern "C" int mxtt_lstm_bwd_geometry(int B, int H, int device, int* out) {
-  Geometry g;
-  int rc = plan(B, H, device, &g);
-  if (rc != 0) return rc;
-  out[0] = g.blocks;
-  out[1] = g.threads;
-  out[2] = g.U;
-  out[3] = g.BR;
-  out[4] = 4 << g.lnbg;
-  out[5] = (int)g.smem;
-  out[6] = g.resident;
-  return 0;
+// Blocks an SM can hold of the kernel the plan selects, as mxtt_lstm_fwd_occupancy reports.
+extern "C" int mxtt_lstm_bwd_occupancy(const int* plan, int device, int* per_sm) {
+  LstmPlan p;
+  memcpy(&p, plan, sizeof(p));
+  int sms = 0, optin = 0;
+  cudaError_t err = lstm_card(device, &sms, &optin);
+  if (err != cudaSuccess) return (int)err;
+  const void* kern = nullptr;
+  err = select_kernel(p, device, optin, &kern);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, p.threads, p.smem);
 }
