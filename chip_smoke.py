@@ -44,10 +44,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    against their plain versions (``hopper_rnn.lstm_fwd_plain`` /
    ``lstm_bwd_plain``) at two ragged shapes, at the edges of their
    envelope (B=1024; H=2048, where R does not stay in shared memory) and
-   at the LM's (T=35, B=128, H=650): every forward output within 1e-5,
-   every backward output within
-   1e-4 of its largest |value|, and, at the LM's shape and at H=2048,
-   bit-equal on a rerun; each kernel's launch plan
+   at the LM's (T=35, B=128, H=650) and at phase 17's shortest and
+   longest buckets (T=10 and 40, B=128, H=650): every forward output
+   within 1e-5, every backward output within
+   1e-4 of its largest |value|, and, at the LM's and the buckets' shapes
+   and at H=2048, bit-equal on a rerun; each kernel's launch plan
    (``hopper_rnn.lstm_plan``) beside the blocks an SM the card reports;
    kernel, plain and cuDNN times (``torch.nn.LSTM`` of one layer, the
    yardstick only, with its input projection's matmul and dx timed apart,
@@ -296,6 +297,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (the folded weights are cached), a profile of the bf16 forward by group
    with its idle share, and the folding's one-off time after a weight
    change.
+
+17. bucketing: ``example/rnn/bucketing/lstm_bucketing.py``'s model at the
+   LM's width (vocab 33,278, embed = hidden = 650, 2 layers, batch 128,
+   fp32, no dropout; 50.06 M parameters) through ``mod.BucketingModule``
+   and ``rnn.BucketSentenceIter`` (buckets 10, 20, 30, 40, the example's
+   synthetic corpus of 2,200 sentences at that vocabulary), the example's
+   ``Mixed``/``FusedRNN`` initializer after ``random.seed(0)``, Adam lr
+   0.001 (the example's 0.01 diverges at this vocabulary),
+   ``Perplexity(ignore_label=0)``: one ``fit`` epoch and a
+   ``score``.  The counters, zeroed just before each and read just after,
+   must read 2 launches of kernel 8 and 2 of kernel 9 a training batch
+   (one per layer) and 2 of kernel 8 a scored one; the four buckets'
+   parameters are one set of tensors (same ``data_ptr``); the last three
+   batches' loss (SoftmaxOutput's cross-entropy, pads included) is below
+   the first batch's, and the score's perplexity below the first batch's;
+   the first T-10 batch's loss (rtol 1e-4) and Adam updates (1% of their
+   norm) match the CPU's (plain versions) from the same weights, Adam
+   states and batch.  Step ms and train tokens/s per bucket, the host time
+   of a bucket switch and of each bucket's first bind, and a two-step
+   profile of a T-40 batch by group with its idle share.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
@@ -1568,6 +1589,9 @@ LSTM_BWD_TOL = 1e-4     # max |kernel 9 - plain| / max |plain|, every output
 LM = dict(vocab=33278, hidden=650, layers=2, bptt=35, batch=128,
           dropout=0.2, lr=0.5)
 LM_UPDATE_TOL = 0.01    # first step on the card vs the CPU, per parameter
+# phase 17's bucket lengths that phase 2c also checks at the LM's B and H
+# (20 and 30 lie between these and the LM's 35)
+BUCKET_KERNEL_T = (10, 40)
 KEEP_TOL = 0.005        # dropout keep rate 0.8 within this
 
 
@@ -1623,10 +1647,11 @@ def _lstm_rerun(hr, c):
 
 def phase_lstm_kernels():
     """Kernels 8 and 9 against their plain versions at two ragged shapes,
-    at the edges of their envelope, and at the LM's (T=35, B=128, H=650:
-    both layers' recurrences have this shape, since embed = hidden), with
-    bit-equal reruns, the plans beside the card's occupancy, times, bounds,
-    and cuDNN's LSTM as the yardstick; returns the two ``kernels`` entries
+    at the edges of their envelope, at phase 17's T-10 and T-40 buckets
+    and at the LM's (T=35, B=128, H=650: both layers' recurrences have
+    this shape, since embed = hidden), with bit-equal reruns, the plans
+    beside the card's occupancy, times, bounds, and cuDNN's LSTM as the
+    yardstick; returns the two ``kernels`` entries
     (without ``launches``)."""
     from mxnet_tpu_torch.ops import hopper_rnn as hr
     fp32_exact()
@@ -1646,7 +1671,33 @@ def phase_lstm_kernels():
             print("[lstm-kernels] T=%d B=%d H=%d rerun bit-equal: kernel 8 %s, "
                   "kernel 9 %s" % (T, B, H, *same))
             check(all(same), "LSTM kernels not bit-equal on a rerun at H=2048")
-    T, B, H = LM["bptt"], LM["batch"], LM["hidden"]
+    # phase 17's buckets at the LM's width: against the plain versions,
+    # bit-equal on a rerun, timed
+    B, H = LM["batch"], LM["hidden"]
+    bucket_calls = []
+    for T in BUCKET_KERNEL_T:
+        c = _lstm_inputs(T, B, H, gen, dev)
+        ferr, berr, bargs = _lstm_check(hr, c, T, B, H)
+        same = _lstm_rerun(hr, c)
+        check(all(same), "LSTM kernels not bit-equal on a rerun at T=%d "
+              "B=%d H=%d" % (T, B, H))
+        fwd_args = (c["xp"], c["h0"], c["c0"], c["R"], c["bR"])
+        rec = {"T": T, "B": B, "H": H, "fwd_err": ferr, "bwd_err": berr,
+               "rerun_bit_equal": True,
+               "fwd_ms": time_ms(lambda: hr.lstm_fwd(*fwd_args)),
+               "fwd_plain_ms": time_ms(lambda: hr.lstm_fwd_plain(*fwd_args)),
+               "bwd_ms": time_ms(lambda: hr.lstm_bwd(*bargs)),
+               "bwd_plain_ms": time_ms(lambda: hr.lstm_bwd_plain(*bargs))}
+        rec["fwd_bound_ms"], rec["bwd_bound_ms"] = (
+            _bound(*_lstm_cost(T, B, H, kind))[0] for kind in ("fwd", "bwd"))
+        bucket_calls.append(rec)
+        print("[lstm-kernels] T=%d B=%d H=%d (a bucket): kernel 8 %.4f ms "
+              "(plain %.4f, bound %.4f), err %.3g; kernel 9 %.4f ms (plain "
+              "%.4f, bound %.4f), err %.3g of max; reruns bit-equal"
+              % (T, B, H, rec["fwd_ms"], rec["fwd_plain_ms"],
+                 rec["fwd_bound_ms"], ferr, rec["bwd_ms"],
+                 rec["bwd_plain_ms"], rec["bwd_bound_ms"], berr))
+    T = LM["bptt"]
     c = _lstm_inputs(T, B, H, gen, dev)
     ferr, berr, bargs = _lstm_check(hr, c, T, B, H)
     same = _lstm_rerun(hr, c)
@@ -1700,13 +1751,9 @@ def phase_lstm_kernels():
         (y, hT, cT), (xg, h0g, c0g), grads, retain_graph=True))
     dx_ms = time_ms(lambda: torch.matmul(bargs[0], W))
 
-    flops = 2.0 * T * B * H * 4 * H
-    f4 = 4.0
-    fbytes = f4 * (T * B * 4 * H * 2 + T * B * H * 2 + 4 * H * H + 4 * H
-                   + 4 * B * H)
-    bbytes = f4 * (T * B * 4 * H * 2 + T * B * H * 2 + 4 * H * H + 5 * B * H)
-    fbound, fby = _bound(flops, fbytes)
-    bbound, bby = _bound(flops, bbytes)
+    flops = _lstm_cost(T, B, H, "fwd")[0]
+    fbound, fby = _bound(*_lstm_cost(T, B, H, "fwd"))
+    bbound, bby = _bound(*_lstm_cost(T, B, H, "bwd"))
     print("[lstm-kernels] T=%d B=%d H=%d fp32: kernel 8 %.4f ms (%.2f TFLOP/s"
           "), plain %.4f ms, bound %.4f ms (%s); kernel 9 %.4f ms (%.2f "
           "TFLOP/s), plain %.4f ms, bound %.4f ms (%s); max err %.3g / %.3g "
@@ -1748,10 +1795,33 @@ def phase_lstm_kernels():
                       "data and states, dx included",
               dx_ms=dx_ms, library_recurrence_ms=lib_bms - dx_ms,
               tflops=flops / bms / 1e9, plan=geometry["lstm_bwd"])
-    for k in (k8, k9):
+    for k, kind in ((k8, "fwd"), (k9, "bwd")):
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             k[key] = k["call_" + key] * LM["layers"]    # a training step
+        # phase 17's bucket lengths at the same B and H
+        k["bucket_calls"] = [{
+            "T": r["T"], "max_abs_err": r[kind + "_err"],
+            "call_ms": r[kind + "_ms"], "call_plain_ms": r[kind + "_plain_ms"],
+            "call_bound_ms": r[kind + "_bound_ms"]} for r in bucket_calls]
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            r["max_abs_err"] for r in k["bucket_calls"]])
     return [k8, k9]
+
+
+def _lstm_cost(T, B, H, kind):
+    """(FLOPs, bytes) of one kernel-8 ("fwd") or kernel-9 ("bwd") call:
+    the recurrent product's 2·T·B·H·4H, and each input read and output
+    written once (kernel 8: xp, R, bR, h0, c0 in, ys, gates, cs, hT, cT
+    out; kernel 9: gates, cs, dys, R, c0, dhT, dcT in, dxp, dh0, dc0
+    out)."""
+    flops = 2.0 * T * B * H * 4 * H
+    if kind == "fwd":
+        nbytes = 4.0 * (T * B * 4 * H * 2 + T * B * H * 2 + 4 * H * H
+                        + 4 * H + 4 * B * H)
+    else:
+        nbytes = 4.0 * (T * B * 4 * H * 2 + T * B * H * 2 + 4 * H * H
+                        + 5 * B * H)
+    return flops, nbytes
 
 
 # --------------------------------------------------------------------------
@@ -4976,6 +5046,385 @@ def phase_bf16_inference(card, mod16):
         "phase_s": time.perf_counter() - t_phase}
 
 
+# --------------------------------------------------------------------------
+# the bucketed LSTM LM (phase 17): example/rnn/bucketing/lstm_bucketing.py's
+# model at the LM's width (bench.py's bench_lstm_lm: vocab 33,278, embed =
+# hidden = 650, 2 layers, batch 128, fp32, no dropout), the example's
+# buckets, Adam and initializer, on its synthetic corpus.  Adam's rate is
+# 0.001, not the example's 0.01 (set for vocab 64): at this vocabulary 0.01
+# took the epoch's per-token perplexity from 33,276 to 166,745 on an H100
+# at 700 W (PERF.md), while 0.001 ends the epoch below its first batch's
+BUCKET = dict(vocab=33278, hidden=650, layers=2, batch=128,
+              buckets=(10, 20, 30, 40), lr=0.001, sentences=2200,
+              corpus_seed=0, timed_steps=5)
+BUCKET_UPDATE_TOL = 0.01   # the first T-10 batch's updates, card vs CPU
+
+
+def bucket_corpus(n, vocab_size, seed=0):
+    """The example's ``synthetic_corpus`` (lstm_bucketing.py:51-62): a
+    Markov 'language', next = (3 * prev + 1) % V with 10% noise, lengths
+    8, 15, 25 and 35 (one bucket each)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ln = int(rng.choice([8, 15, 25, 35]))
+        s = [int(rng.randint(1, vocab_size))]
+        for _ in range(ln - 1):
+            s.append((3 * s[-1] + 1) % vocab_size if rng.rand() < 0.9
+                     else int(rng.randint(1, vocab_size)))
+        out.append(s)
+    return out
+
+
+def bucket_sym_gen(mx):
+    """The example's ``make_sym_gen`` (lstm_bucketing.py:68-92) at
+    ``BUCKET``'s width, through the port's symbols."""
+    sym = mx.sym
+    V, H, L, B = (BUCKET[k] for k in ("vocab", "hidden", "layers", "batch"))
+
+    def sym_gen(seq_len):
+        data = sym.var("data")
+        label = sym.var("softmax_label")
+        embed = sym.Embedding(data, input_dim=V, output_dim=H, name="embed")
+        tnc = sym.transpose(embed, axes=(1, 0, 2))
+        init = sym.zeros(shape=(L, B, H))
+        out = sym.RNN(tnc, sym.var("lstm_parameters"), init, init,
+                      state_size=H, num_layers=L, mode="lstm", name="lstm")
+        out = sym.transpose(out, axes=(1, 0, 2))
+        pred = sym.FullyConnected(sym.Reshape(out, shape=(-1, H)),
+                                  num_hidden=V, name="pred")
+        out = sym.SoftmaxOutput(pred, sym.Reshape(label, shape=(-1,)),
+                                name="softmax", normalization="batch")
+        return out, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def _bucket_initializer(mx):
+    """The example's initializer (lstm_bucketing.py:128-133)."""
+    init = mx.init
+    return init.Mixed(
+        [".*lstm_parameters", ".*"],
+        [init.FusedRNN(init.Xavier(factor_type="in", magnitude=2.34),
+                       BUCKET["hidden"], BUCKET["layers"], "lstm"),
+         init.Xavier(factor_type="in", magnitude=2.34)])
+
+
+def _bucket_ce(probs, label):
+    """Mean -log p(label) over every row of ``probs`` (B·T, V), padding
+    included, as SoftmaxOutput's gradient counts them, in fp64."""
+    lab = label.reshape(-1).long()
+    picked = probs.reshape(-1, probs.shape[-1]).gather(1, lab[:, None])
+    return float(-torch.log(picked.double().clamp_min(1e-30)).mean())
+
+
+def _bucket_cpu_step(mx, snap):
+    """The captured T-10 batch's training step on the CPU (plain versions)
+    from the card's weights and Adam states before it: (loss, updates)."""
+    from mxnet_tpu_torch import cpu
+    B, T = BUCKET["batch"], 10
+    sym, dn, ln = bucket_sym_gen(mx)(T)
+    mod = mx.mod.Module(sym, dn, ln, context=[cpu()])
+    mod.bind([mx.io.DataDesc("data", (B, T))],
+             [mx.io.DataDesc("softmax_label", (B, T))])
+    mod.init_params(arg_params={k: mx.nd.array(v, cpu())
+                                for k, v in snap["before"].items()})
+    mod.init_optimizer(kvstore="local", optimizer="adam",
+                       optimizer_params={"learning_rate": BUCKET["lr"],
+                                         "wd": 0.0})
+    mod._updater.set_states(snap["states"])
+    mod._optimizer._index_update_count = dict(snap["counts"])
+    batch = mx.io.DataBatch([mx.nd.array(snap["data"], cpu())],
+                            [mx.nd.array(snap["label"], cpu())])
+    t0 = time.perf_counter()
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    mod.update()
+    loss = _bucket_ce(mod.get_outputs()[0]._data,
+                    torch.from_numpy(snap["label"]))
+    after = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    return loss, {k: after[k] - snap["before"][k] for k in after}, \
+        time.perf_counter() - t0
+
+
+def _bucket_group(name: str) -> str:
+    g = _lm_group(name)
+    if g == "dropout and elementwise":
+        return "elementwise (Adam, SoftmaxOutput, transposes)"
+    return "optimizer" if g.startswith("optimizer") else g
+
+
+def phase_bucketing(card):
+    """Phase 17: the bucketed LSTM LM at the LM's full width through
+    ``BucketingModule`` and ``BucketSentenceIter`` on gpu(0): one ``fit``
+    epoch with the example's ``Mixed``/``FusedRNN`` initializer, Adam lr
+    0.01 and ``Perplexity(ignore_label=0)``, then ``score``.  The counters,
+    zeroed just before ``fit`` and read just after, must read 2 + 2
+    launches of kernels 8 and 9 a batch, and ``score`` 2 of kernel 8 a
+    batch; every bucket's parameters are the default bucket's tensors
+    (same ``data_ptr``); the last batches' loss is below the first
+    batch's, and the score's perplexity below the first batch's; the
+    first T-10 batch's loss and Adam updates match the CPU's
+    from the same weights, Adam states and batch.  Then step ms and
+    tokens/s per bucket, the time of a bucket switch and of a bucket's
+    first bind, and a two-step profile of a T-40 batch."""
+    import random as pyrandom
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch.ops import hopper_rnn as hr
+    fp32_exact()
+    t_phase = time.perf_counter()
+    B = BUCKET["batch"]
+    sents = bucket_corpus(BUCKET["sentences"], BUCKET["vocab"],
+                          BUCKET["corpus_seed"])
+    np.random.seed(SEED)
+    pyrandom.seed(SEED)
+    mx.random.seed(SEED)
+    it = mx.rnn.BucketSentenceIter(sents, B, buckets=list(BUCKET["buckets"]),
+                                   invalid_label=0, ctx=gpu(0))
+    bmod = mx.mod.BucketingModule(bucket_sym_gen(mx),
+                                  default_bucket_key=it.default_bucket_key,
+                                  context=[gpu(0)])
+
+    # hooks on this instance: the first T-10 training batch (weights and
+    # Adam states before it, its batch, its loss and the weights after
+    # it), each batch's key, each first bind's and switch's host time
+    snap, keys, switches, one_per_bucket, losses = {}, [], [], {}, []
+    forward, update, switch = bmod.forward, bmod.update, bmod.switch_bucket
+
+    def hooked_forward(batch, is_train=None):
+        if is_train:
+            keys.append(batch.bucket_key)
+            one_per_bucket.setdefault(batch.bucket_key, batch)
+            if batch.bucket_key == 10 and not snap:
+                upd = bmod._curr_module._updater
+                snap.update(
+                    before={k: v.asnumpy()
+                            for k, v in bmod.get_params()[0].items()},
+                    states=upd.get_states(dump_optimizer=True),
+                    counts=dict(upd.optimizer._index_update_count),
+                    data=batch.data[0].asnumpy(),
+                    label=batch.label[0].asnumpy(), index=len(keys) - 1)
+        forward(batch, is_train)
+
+    def hooked_update():
+        update()
+        losses.append(_bucket_ce(bmod.get_outputs()[0]._data,
+                               bmod._curr_module._exec_group.execs[0]
+                               .arg_dict["softmax_label"]._data))
+        if snap and "after" not in snap:
+            snap["loss"] = losses[-1]
+            snap["after"] = {k: v.asnumpy()
+                             for k, v in bmod.get_params()[0].items()}
+
+    def hooked_switch(key, *a, **kw):
+        first = key not in bmod._buckets
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        switch(key, *a, **kw)
+        torch.cuda.synchronize()
+        switches.append((key, first, (time.perf_counter() - t0) * 1e3))
+
+    bmod.forward, bmod.update = hooked_forward, hooked_update
+    bmod.switch_bucket = hooked_switch
+
+    # each batch's perplexity from the metric's running sums
+    metric = mx.metric.Perplexity(ignore_label=0)
+    ppls, last = [], [0.0, 0]
+
+    def on_batch(param):
+        m = param.eval_metric
+        ppls.append(math.exp((m.sum_metric - last[0])
+                             / (m.num_inst - last[1])))
+        last[:] = [m.sum_metric, m.num_inst]
+
+    # the main path: counts zeroed just before fit, read just after
+    hr.lstm_fwd_launches = 0
+    hr.lstm_bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bmod.fit(it, eval_metric=metric, optimizer="adam",
+             optimizer_params={"learning_rate": BUCKET["lr"], "wd": 0.0},
+             initializer=_bucket_initializer(mx), num_epoch=1,
+             batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = {"lstm_fwd": hr.lstm_fwd_launches,
+                    "lstm_bwd": hr.lstm_bwd_launches}
+    nb = len(keys)
+    want = BUCKET["layers"]
+    print("[bucketing] fit: %d batches (buckets %s), %.2f s; kernel "
+          "launches %s (expected %d + %d a batch)"
+          % (nb, keys, fit_s, fit_launches, want, want))
+    check(nb >= 12 and set(keys) == set(BUCKET["buckets"]),
+          "fit ran %d batches over buckets %s" % (nb, sorted(set(keys))))
+    check(fit_launches == {"lstm_fwd": want * nb, "lstm_bwd": want * nb},
+          "fit launched %s over %d batches, expected %d + %d a batch"
+          % (fit_launches, nb, want, want))
+    train_ppl = dict(metric.get_name_value())["perplexity"]
+
+    # one set of parameter tensors
+    base = bmod._buckets[it.default_bucket_key]._exec_group.execs[0]
+    ptrs = {k: {n: m._exec_group.execs[0].arg_dict[n]._data.data_ptr()
+                for n in m._param_names} for k, m in bmod._buckets.items()}
+    shared = all(p == {n: base.arg_dict[n]._data.data_ptr() for n in p}
+                 for p in ptrs.values())
+    n_params = sum(int(np.prod(base.arg_dict[n].shape))
+                   for n in bmod._curr_module._param_names)
+    print("[bucketing] %d buckets bound, %d parameters (%.1f MB fp32); the "
+          "parameter tensors' data_ptr()s the same in every bucket: %s"
+          % (len(bmod._buckets), n_params, n_params * 4 / 1e6, shared))
+    check(len(bmod._buckets) == len(BUCKET["buckets"]) and shared,
+          "the buckets do not share one set of parameter tensors: %s" % ptrs)
+
+    # the first T-10 batch against the CPU
+    check("after" in snap, "fit trained no T-10 batch")
+    closs, cupd, cpu_s = _bucket_cpu_step(mx, snap)
+    rel_loss = abs(snap["loss"] - closs) / abs(closs)
+    upd_err = {k: float(np.linalg.norm(snap["after"][k] - snap["before"][k]
+                                       - cupd[k]) / np.linalg.norm(cupd[k]))
+               for k in cupd}
+    worst = max(upd_err, key=upd_err.get)
+    print("[bucketing] the first T-10 batch (batch %d of the epoch) vs the "
+          "CPU (plain versions, %.1f s): loss %.6f vs %.6f (rel %.3g, tol "
+          "%g); Adam updates within %s of their norms (tol %g)"
+          % (snap["index"], cpu_s, snap["loss"], closs, rel_loss, LOSS_RTOL,
+             {k: "%.3g" % v for k, v in upd_err.items()},
+             BUCKET_UPDATE_TOL))
+    check(rel_loss <= LOSS_RTOL, "T-10 loss differs from the CPU's by %g"
+          % rel_loss)
+    check(upd_err[worst] <= BUCKET_UPDATE_TOL, "the update of %s differs "
+          "from the CPU's by %g of its norm" % (worst, upd_err[worst]))
+    del snap["before"], snap["after"], cupd
+
+    # the objective (SoftmaxOutput's cross-entropy, pads included) falls
+    # over the epoch; the per-token perplexity (pads left out) is checked
+    # on the score below: most of the corpus's 33,277 transitions come
+    # once or twice in an epoch, so a batch's rarely falls below uniform
+    tail = float(np.mean(losses[-3:]))
+    print("[bucketing] per-batch train perplexity %s; the epoch's %.2f; "
+          "per-batch loss (pads included) %s"
+          % (["%.1f" % p for p in ppls], train_ppl,
+             ["%.4f" % v for v in losses]))
+    check(all(math.isfinite(v) for v in ppls + losses)
+          and tail < losses[0], "the loss did not fall: first batch %.4f, "
+          "last three %.4f" % (losses[0], tail))
+
+    # score: kernel 8 only, 2 a batch
+    hr.lstm_fwd_launches = 0
+    hr.lstm_bwd_launches = 0
+    score_metric = mx.metric.Perplexity(ignore_label=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score_ppl = dict(bmod.score(it, score_metric))["perplexity"]
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    score_launches = {"lstm_fwd": hr.lstm_fwd_launches,
+                      "lstm_bwd": hr.lstm_bwd_launches}
+    n_score = len(it._plan)
+    print("[bucketing] score: perplexity %.2f over %d batches in %.2f s, "
+          "kernel launches %s" % (score_ppl, n_score, score_s,
+                                  score_launches))
+    check(score_launches == {"lstm_fwd": want * n_score, "lstm_bwd": 0},
+          "score launched %s over %d batches" % (score_launches, n_score))
+    check(math.isfinite(score_ppl) and score_ppl < ppls[0],
+          "the trained model's perplexity %.2f is not below the first "
+          "batch's %.2f" % (score_ppl, ppls[0]))
+
+    # steps per bucket: forward, backward, update, timed on the host
+    bmod.forward, bmod.update, bmod.switch_bucket = forward, update, switch
+
+    def step(batch):
+        bmod.forward(batch, is_train=True)
+        bmod.backward()
+        bmod.update()
+
+    rates = {}
+    for key in sorted(one_per_bucket):
+        batch = one_per_bucket[key]
+        times = []
+        for i in range(1 + BUCKET["timed_steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        rates[key] = {"step_ms": ms, "tokens_per_s": B * key / (ms / 1e3),
+                      "step_ms_min": min(times) * 1e3,
+                      "step_ms_max": max(times) * 1e3}
+        print("[bucketing] T=%d: step %.2f ms (median of %d after 1, min "
+              "%.2f, max %.2f), %.1f train tokens/s on %s"
+              % (key, ms, len(times), min(times) * 1e3, max(times) * 1e3,
+                 rates[key]["tokens_per_s"], card))
+    binds = [ms for _, first, ms in switches if first]
+    later = [ms for _, first, ms in switches if not first]
+    # a switch between two bound buckets, alone
+    alt = []
+    for i in range(20):
+        key = BUCKET["buckets"][i % len(BUCKET["buckets"])]
+        b = one_per_bucket[key]
+        t0 = time.perf_counter()
+        bmod.switch_bucket(key, b.provide_data, b.provide_label)
+        alt.append((time.perf_counter() - t0) * 1e3)
+    switch_ms = float(np.median(alt))
+    print("[bucketing] bucket switch between bound buckets: %.4f ms median "
+          "on the host (%d in fit and score: median %.4f ms); a bucket's "
+          "first bind: %s ms" % (switch_ms, len(later), float(np.median(later))
+                     if later else float("nan"),
+                     ["%.1f" % v for v in binds]))
+
+    # two profiled steps of a T-40 batch
+    from torch.profiler import ProfilerActivity, profile
+    b40 = one_per_bucket[max(BUCKET["buckets"])]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(b40)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups, counts = {}, {}
+    for e in kernels:
+        g = _bucket_group(e.name)
+        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 2e3
+        counts[g] = counts.get(g, 0) + 1
+    busy = sum(groups.values())
+    check(busy > 0, "the profiler recorded no device time")
+    traced = (counts.get("kernel 8 (lstm_fwd)", 0),
+              counts.get("kernel 9 (lstm_bwd)", 0))
+    check(traced == (2 * want, 2 * want), "the T-40 profile saw %d "
+          "kernel-8 and %d kernel-9 launches in two steps" % traced)
+    idle = max(0.0, 1 - busy / rates[40]["step_ms"])
+    print("[bucketing-profile] a T-40 step: %.2f ms device busy in a %.2f "
+          "ms step (%.1f%% idle), %d launches a step on %s"
+          % (busy, rates[40]["step_ms"], 100 * idle, len(kernels) // 2, card))
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print("[bucketing-profile]   %-46s %8.3f ms/step (%.1f%%), %4d "
+              "launches" % (g, ms, 100.0 * ms / busy, counts[g] // 2))
+    launches = {k: fit_launches[k] + score_launches[k] for k in fit_launches}
+    del bmod, it, one_per_bucket, b40
+    torch.cuda.empty_cache()
+    return launches, {
+        "batches": nb, "bucket_order": keys, "fit_s": fit_s,
+        "fit_launches": fit_launches, "score_launches": score_launches,
+        "train_perplexity": train_ppl, "batch_perplexity": ppls,
+        "batch_loss": losses,
+        "score_perplexity": score_ppl, "parameters": n_params,
+        "shared_parameter_tensors": shared, "per_bucket": rates,
+        "switch_ms": switch_ms, "first_bind_ms": binds,
+        "t10_vs_cpu": {"batch_index": snap["index"], "loss": snap["loss"],
+                       "cpu_loss": closs, "loss_rel_err": rel_loss,
+                       "update_rel_err": upd_err, "cpu_step_s": cpu_s},
+        "profile_t40": {"busy_ms": busy, "idle_share": idle,
+                        "device_ms_by_group": groups,
+                        "launches_by_group": {g: c // 2 for g, c in
+                                              counts.items()}},
+        "config": dict(BUCKET, dtype="float32", optimizer="adam"),
+        "phase_s": time.perf_counter() - t_phase}
+
+
 def _ring_entries(k4, k10, launches):
     """Kernel 4's and 10's ``kernels`` entries: kernel 4's times summed over
     the main path's launches (a causal ring forward at sp 8: 28 full steps
@@ -5201,6 +5650,12 @@ def main() -> int:
     infer_launches, inferred = phase_bf16_inference(card, mod16)
     del mod16
     print("[bf16-infer] summary " + json.dumps(dict(inferred, card=card)))
+    bucket_launches, bucketed = phase_bucketing(card)
+    print("[bucketing] summary " + json.dumps(dict(bucketed, card=card)))
+    for k in lstm:
+        k["lm_launches"] = k["launches"]
+        k["bucketing_launches"] = bucket_launches[k["name"]]
+        k["launches"] += bucket_launches[k["name"]]
     print("[done] all phases passed in %.1f s" % (time.perf_counter() - t0))
     k1, k2 = _kernel_entries(fwd, wgrad, dgrad, launches, serving_launches)
     k2["batch128"] = dict(_step_sum(wgrad128), shapes=wgrad128)

@@ -25,7 +25,12 @@ Slice 6 completes the classic Module API on one card: ``Module.fit``,
 (``optimizer``, ``lr_scheduler``), ``metric``, ``callback``, the local
 ``kvstore``, ``io.NDArrayIter``/``PrefetchingIter`` and ``model``
 checkpoints, and ``rtc.CudaModule``: user CUDA C compiled by NVRTC at run
-time, the counterpart of the reference's runtime Pallas kernels.
+time, the counterpart of the reference's runtime Pallas kernels.  Slice 15
+completes the classic Module API: ``mod.BucketingModule`` over
+``rnn.BucketSentenceIter`` (the bucketed LSTM LM, its buckets on one set of
+parameter tensors), ``mod.SequentialModule``, ``mod.PythonLossModule``,
+the file iterators ``io.CSVIter``/``MNISTIter``/``LibSVMIter``, and the
+rest of ``Executor`` and ``Symbol`` (``reshape``, ``infer_shape_partial``).
 """
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -47,6 +52,7 @@ from . import model
 from . import rtc
 from . import train_loop
 from . import module as mod
+from . import rnn
 from . import models
 from . import parallel
 from .fused import FusedTrainer
@@ -56,7 +62,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "nd", "sym", "name", "random", "initializer", "init",
            "gluon", "io", "optimizer", "lr_scheduler", "metric",
            "callback", "kvstore", "kv", "model", "rtc", "train_loop", "mod",
-           "models",
+           "rnn", "models",
            "parallel",
            "FusedTrainer",
            "Predictor"]

@@ -5,13 +5,19 @@ the training steps and ``CachedOp`` share.
 The reference package traces its plan into XLA programs; here the plan is a
 topological walk that calls each op's function eagerly, so every op
 launches its own kernels on the calling thread's current stream.  A forward
-runs under ``torch.inference_mode()`` (or ``no_grad`` when training, which
-also writes BatchNorm's moving statistics back); ``backward`` and
+runs under ``torch.inference_mode()`` (or ``no_grad`` when training an
+executor without gradient arguments; a training forward also writes
+BatchNorm's moving statistics back); ``backward`` and
 ``forward_backward`` run the ``train=True`` plan with autograd on and take
 the gradients of every argument whose ``grad_req`` is not ``"null"`` with
-``torch.autograd.grad``.  ``backward`` runs the forward again (as the
-reference recomputes it inside its fused program), with the generators of
-the last forward, so a step with dropout sees the same masks.
+``torch.autograd.grad``.  A training forward of an executor with gradient
+arguments runs under autograd and keeps its graph, and the ``backward``
+that follows takes the gradients from it, so a ``forward`` then
+``backward`` (the classic Module loop, ``BucketingModule``'s) runs each op
+forward once.  Where the arguments changed in between, or no training
+forward came first, ``backward`` runs the forward again (as the reference
+recomputes it inside its fused program), with the generators of the last
+forward, so a step with dropout sees the same masks.
 
 An inference plan (``train=False``) runs each ResNet v1 identity bottleneck
 it finds as one step (:class:`_FusedBottleneck`): on a bf16 input, its
@@ -316,7 +322,49 @@ class Executor:
                            and n in self.grad_dict]
         self._plans: Dict[bool, _Plan] = {}
         self._last_seeds: Optional[List[int]] = None
+        # the last training forward's live heads and leaves, and the
+        # arguments it read (tensor, version), for the next backward
+        self._kept = None
         self.outputs: List[NDArray] = []
+
+    @property
+    def arg_arrays(self) -> List[NDArray]:
+        """The arguments in ``list_arguments`` order (``executor.py:827``)."""
+        return [self.arg_dict[n] for n in self.arg_names]
+
+    @property
+    def grad_arrays(self) -> List[Optional[NDArray]]:
+        """Each argument's gradient array, None where it has none."""
+        return [self.grad_dict.get(n) for n in self.arg_names]
+
+    @property
+    def aux_arrays(self) -> List[NDArray]:
+        """The auxiliary states in ``list_auxiliary_states`` order."""
+        return [self.aux_dict[n] for n in self.aux_names]
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs) -> "Executor":
+        """An executor of the same symbol for new input shapes
+        (``executor.py:866``): each argument and auxiliary state whose
+        shape is unchanged is the same NDArray, the others are new zeros,
+        and every gradient array is new.  ``partial_shaping`` and
+        ``allow_up_sizing`` are accepted and ignored, as the reference
+        ignores them."""
+        from .ndarray import ndarray as nd
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+
+        def keep(cur, shape):
+            return cur if cur.shape == tuple(shape) else \
+                nd.zeros(shape, ctx=self.ctx, dtype=cur._data.dtype)
+
+        args = {n: keep(self.arg_dict[n], s)
+                for n, s in zip(self.arg_names, arg_shapes)}
+        auxs = {n: keep(self.aux_dict[n], s)
+                for n, s in zip(self.aux_names, aux_shapes)}
+        grads = {n: nd.zeros(a.shape, ctx=self.ctx, dtype=a._data.dtype)
+                 for n, a in args.items() if n in self.grad_dict}
+        return Executor(self._symbol, self.ctx, args, auxs, grads,
+                        self._grad_req)
 
     def _plan(self, train: bool) -> _Plan:
         plan = self._plans.get(train)
@@ -327,7 +375,8 @@ class Executor:
     def _feed(self, kwargs):
         """Bind new input values: an NDArray's tensor is adopted as is when
         its device and dtype match (else converted), anything else is
-        copied in."""
+        copied in; a kept graph is dropped."""
+        self._kept = None
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown input %r" % k)
@@ -362,11 +411,18 @@ class Executor:
         """Run the graph; keyword arguments replace bound inputs first (an
         NDArray is adopted as is when its device and dtype match, anything
         else is copied in).  ``is_train`` runs the training plan (batch
-        statistics, dropout) without gradients and writes the new moving
-        statistics back."""
+        statistics, dropout) and writes the new moving statistics back;
+        with gradient arguments it runs under autograd and keeps the graph
+        for the next :meth:`backward`."""
         self._feed(kwargs)
         plan = self._plan(bool(is_train))
-        if is_train:
+        if is_train and self._grad_args:
+            live, new_aux, leaves = self._forward_graph(
+                self._generators(plan))
+            self._kept = (live, leaves, self._stamp())
+            outs = [o.detach() for o in live]
+            self._writeback_aux(new_aux)
+        elif is_train:
             gens = self._generators(plan)
             with torch.no_grad():
                 outs, new_aux = plan.execute(self._values(), gens)
@@ -393,21 +449,37 @@ class Executor:
             gs.append(g.to(o.device, o.dtype))
         return gs
 
-    def _run_with_grads(self, out_grads, gens):
-        """The training plan under autograd: (outputs, new aux states,
-        {argument: gradient})."""
-        plan = self._plan(True)
+    def _forward_graph(self, gens):
+        """The training plan under autograd: (live heads, new aux states,
+        the gradient arguments' leaves)."""
         values = {n: t.detach() for n, t in self._values().items()}
         leaves = [values[n].requires_grad_() for n in self._grad_args]
         with torch.enable_grad():
-            outs, new_aux = plan.execute(values, gens)
+            outs, new_aux = self._plan(True).execute(values, gens)
+        return outs, new_aux, leaves
+
+    def _grads_of(self, outs, leaves, out_grads):
+        """{argument: gradient} of live heads ``outs`` (their graph is
+        freed)."""
+        with torch.enable_grad():
             heads = [(o, g) for o, g in zip(outs, self._head_grads(
                 outs, out_grads)) if o.requires_grad]
             grads = torch.autograd.grad(
                 [o for o, _ in heads], leaves, [g for _, g in heads],
                 allow_unused=True) if heads and leaves else [None] * len(leaves)
-        return ([o.detach() for o in outs], new_aux,
-                dict(zip(self._grad_args, grads)))
+        return dict(zip(self._grad_args, grads))
+
+    def _stamp(self):
+        """Each argument's tensor and version: a kept graph is valid while
+        they are unchanged."""
+        return [(a._data, a._data._version) for a in self.arg_dict.values()]
+
+    def _run_with_grads(self, out_grads, gens):
+        """The training plan under autograd: (outputs, new aux states,
+        {argument: gradient})."""
+        outs, new_aux, leaves = self._forward_graph(gens)
+        grads = self._grads_of(outs, leaves, out_grads)
+        return [o.detach() for o in outs], new_aux, grads
 
     def _apply_grads(self, grads):
         for n, g in grads.items():
@@ -422,10 +494,17 @@ class Executor:
     def backward(self, out_grads=None):
         """Gradients of the heads (ones unless ``out_grads``) with respect
         to every argument with a gradient request, written into
-        ``grad_dict`` (added for ``"add"``).  The forward is run again with
-        the last forward's generators."""
-        gens = self._generators(self._plan(True), reuse=True)
-        _, _, grads = self._run_with_grads(out_grads, gens)
+        ``grad_dict`` (added for ``"add"``).  They come from the graph of
+        the last training forward while its arguments are unchanged, else
+        from the forward run again with that forward's generators."""
+        kept, self._kept = self._kept, None
+        if kept is not None and all(
+                t is u and v == w
+                for (t, v), (u, w) in zip(kept[2], self._stamp())):
+            grads = self._grads_of(kept[0], kept[1], out_grads)
+        else:
+            gens = self._generators(self._plan(True), reuse=True)
+            _, _, grads = self._run_with_grads(out_grads, gens)
         self._apply_grads(grads)
 
     def forward_backward(self, out_grads=None, **kwargs) -> List[NDArray]:

@@ -3,17 +3,22 @@
 arrays, with the last batch padded, discarded or rolled over),
 ``SyntheticLMIter`` (the deterministic next-token stream the transformer
 LM trains on), ``PrefetchingIter`` (worker threads that fetch and place
-the next batches while the step runs) and ``ResizeIter``.
+the next batches while the step runs), ``ResizeIter`` and the file
+iterators ``CSVIter``, ``MNISTIter`` (idx files, gzipped or not) and
+``LibSVMIter`` (dense batches, as the reference's).
 
 The iterators make their batches from numpy, as the reference's do (the
 same rows in the same batches from the same seed), and place each batch on
-``ctx``, by default the current context (``gpu(0)``).  The file iterators
-(CSV, MNIST, ImageRecord, LibSVM) are not ported yet.
+``ctx``, by default the current context (``gpu(0)``).  ``ImageRecordIter``
+and its decode pool are not ported yet (they stand on ``recordio.py`` and
+``image.py``).
 """
 from __future__ import annotations
 
+import gzip
 import os
 import queue
+import struct
 import threading
 from collections import namedtuple
 from typing import List, Optional
@@ -25,7 +30,8 @@ from .context import Context, current_context
 from .ndarray import ndarray as nd
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
-           "SyntheticLMIter", "PrefetchingIter", "ResizeIter"]
+           "SyntheticLMIter", "PrefetchingIter", "ResizeIter", "CSVIter",
+           "MNISTIter", "LibSVMIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])):
@@ -516,3 +522,117 @@ class ResizeIter(DataIter):
 
     def getpad(self):
         return self.current_batch.pad
+
+
+class _FileIter(DataIter):
+    """An iterator over arrays read from files, served by an inner
+    :class:`NDArrayIter` (the reference's file iterators wrap one the same
+    way)."""
+
+    def __init__(self, inner: NDArrayIter):
+        super().__init__(inner.batch_size)
+        self._inner = inner
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self) -> DataBatch:
+        return self._inner.next()
+
+
+class CSVIter(_FileIter):
+    """Rows of a CSV file as ``data_shape`` samples (``io.py:322``), with
+    labels from ``label_csv`` (a trailing dim of 1 dropped) or zeros, named
+    ``label``; ``round_batch`` pads the last batch from the start, else it
+    is dropped."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=1, round_batch=True,
+                 dtype="float32", ctx: Optional[Context] = None, **kwargs):
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.dtype(dtype),
+                          ndmin=2).reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32,
+                               ndmin=2).reshape((-1,) + tuple(label_shape))
+            if label.shape[-1] == 1:
+                label = label.reshape(label.shape[:-1])
+        else:
+            label = np.zeros((data.shape[0],), np.float32)
+        super().__init__(NDArrayIter(
+            data, label, batch_size,
+            last_batch_handle="pad" if round_batch else "discard",
+            label_name="label", ctx=ctx))
+
+
+def _read_idx(path):
+    """The array in an idx file (MNIST's format, ``io.py:394``), gzipped or
+    not; ``path + ".gz"`` is tried when ``path`` is missing."""
+    if not os.path.exists(path):
+        if not os.path.exists(path + ".gz"):
+            raise MXNetError("MNIST file not found: %s" % path)
+        path = path + ".gz"
+    op = gzip.open if path.endswith(".gz") else open
+    with op(path, "rb") as f:
+        buf = f.read()
+    ndim = struct.unpack(">I", buf[:4])[0] & 0xFF
+    dims = struct.unpack(">" + "I" * ndim, buf[4:4 + 4 * ndim])
+    return np.frombuffer(buf, dtype=np.uint8,
+                         offset=4 + 4 * ndim).reshape(dims)
+
+
+class MNISTIter(_FileIter):
+    """MNIST's idx files (``io.py:356``): images scaled to [0, 1], as
+    (N, 1, H, W), (N, H*W) with ``flat`` or ``input_shape``; the labels as
+    float32; shuffled at every reset by numpy's global generator, the last
+    partial batch dropped."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, silent=False, seed=0,
+                 input_shape=None, ctx: Optional[Context] = None, **kwargs):
+        imgs = _read_idx(image).astype(np.float32) / 255.0
+        labels = _read_idx(label)
+        if flat:
+            imgs = imgs.reshape(imgs.shape[0], -1)
+        else:
+            imgs = imgs.reshape(imgs.shape[0], 1, imgs.shape[1],
+                                imgs.shape[2])
+        if input_shape is not None:
+            imgs = imgs.reshape((imgs.shape[0],) + tuple(input_shape))
+        super().__init__(NDArrayIter(
+            imgs, labels.astype(np.float32), batch_size, shuffle=shuffle,
+            last_batch_handle="discard", ctx=ctx))
+
+
+class LibSVMIter(_FileIter):
+    """A libsvm text file (``io.py:1188``: ``label index:value ...`` a
+    line) as dense ``data_shape`` rows, labels named ``label``, the last
+    batch padded."""
+
+    def __init__(self, data_libsvm, data_shape, batch_size,
+                 label_shape=(1,), ctx: Optional[Context] = None, **kwargs):
+        dim = int(np.prod(data_shape))
+        rows, labels = [], []
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.strip().split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                row = np.zeros(dim, np.float32)
+                for kv in parts[1:]:
+                    k, v = kv.split(":")
+                    row[int(k)] = float(v)
+                rows.append(row)
+        data = np.stack(rows).reshape((-1,) + tuple(data_shape))
+        super().__init__(NDArrayIter(
+            data, np.asarray(labels, np.float32), batch_size,
+            label_name="label", ctx=ctx))

@@ -3,7 +3,9 @@ TopKAccuracy, F1, MCC, Perplexity, MAE, MSE, RMSE, CrossEntropy,
 NegativeLogLikelihood, PearsonCorrelation, Loss, Torch, Caffe,
 CustomMetric, CompositeEvalMetric and ``create``.  A metric reads labels
 and predictions on the host with ``asnumpy()``, one copy per array per
-update, as the reference does; ``fit`` runs the update a few steps behind
+update, as the reference does, except ``Perplexity``, which picks the
+label's probability on the prediction's device and copies only those;
+``fit`` runs the update a few steps behind
 the step that made the arrays (``train_loop.OverlappedLoop``)."""
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import math
 from typing import Any, List, Optional
 
 import numpy as np
+import torch
 
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
@@ -209,8 +212,35 @@ class MCC(EvalMetric):
             self.num_inst = 1
 
 
+def _picked(pred, label):
+    """``pred.reshape(-1, classes)[i, label[i]]`` for every row, as numpy:
+    the label's probability is gathered where ``pred`` lies and only those
+    values are copied to the host (an LM's prediction is rows x vocab)."""
+    if isinstance(pred, NDArray):
+        pred = pred._data
+    if not isinstance(pred, torch.Tensor):
+        pred = np.asarray(pred)
+        pred = pred.reshape(-1, pred.shape[-1])
+        return pred[np.arange(label.shape[0]), label]
+    pred = pred.reshape(-1, pred.shape[-1])
+    n = pred.shape[1]
+    if pred.shape[0] != label.shape[0]:
+        raise MXNetError("Perplexity: %d labels for %d predictions"
+                         % (label.shape[0], pred.shape[0]))
+    if label.size and (label.max() >= n or label.min() < -n):
+        raise IndexError("Perplexity: a label outside [-%d, %d)" % (n, n))
+    # numpy's negative indices count from the end
+    idx = torch.from_numpy(np.where(label < 0, label + n, label)
+                           .astype(np.int64)).to(pred.device)
+    return _as_np(NDArray(pred.gather(1, idx[:, None])[:, 0]))
+
+
 @register
 class Perplexity(EvalMetric):
+    """exp of the mean negative log of the label's probability, positions
+    labelled ``ignore_label`` left out.  The prediction is reshaped to
+    (rows, its last dim) whatever ``axis`` says, as the reference's is."""
+
     def __init__(self, ignore_label=None, axis=-1, name="perplexity", **kwargs):
         super().__init__(name, **kwargs)
         self.ignore_label = ignore_label
@@ -220,10 +250,8 @@ class Perplexity(EvalMetric):
         loss = 0.0
         num = 0
         for label, pred in zip(labels, preds):
-            label, pred = _as_np(label), _as_np(pred)
-            label = label.astype(np.int32).ravel()
-            pred = pred.reshape(-1, pred.shape[-1])
-            probs = pred[np.arange(label.shape[0]), label]
+            label = _as_np(label).astype(np.int32).ravel()
+            probs = _picked(pred, label)
             if self.ignore_label is not None:
                 ignore = (label == self.ignore_label)
                 probs = np.where(ignore, 1.0, probs)

@@ -7,7 +7,11 @@ request or a dict by name).  A context list may repeat one device, as the
 port's meshes do, and every executor is then a replica on that device.
 ``get_params`` averages the replicas' parameters, as the reference does.
 ``type_dict`` gives arguments (and their gradients) their dtypes, as the
-bf16 policy's ``amp.type_dict_for`` makes it.
+bf16 policy's ``amp.type_dict_for`` makes it.  With ``shared_group`` each
+executor binds the parameters, their gradients and the auxiliary states
+of the same context's executor there, where the shapes agree
+(``simple_bind(shared_exec=)``): ``BucketingModule``'s buckets share one
+set of tensors.
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ def _mean(arrays: List[NDArray]) -> NDArray:
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write", type_dict=None):
+                 fixed_param_names=None, grad_req="write", type_dict=None,
+                 shared_group=None):
         self.symbol = symbol
         self.contexts = list(contexts)
         self.workload = list(workload or [1.0] * len(self.contexts))
@@ -75,13 +80,15 @@ class DataParallelExecutorGroup:
                     else grad_req.get(n, "write")
         self.grad_req = req
         self.execs = []
-        for ctx, slc in zip(self.contexts, self.slices):
+        for i, (ctx, slc) in enumerate(zip(self.contexts, self.slices)):
             rows = slc.stop - slc.start
             shapes = {d.name: (rows,) + tuple(d.shape[1:])
                       for d in self.data_shapes + self.label_shapes}
-            self.execs.append(symbol.simple_bind(ctx=ctx, grad_req=req,
-                                                 type_dict=type_dict,
-                                                 **shapes))
+            shared = shared_group.execs[i] if shared_group is not None \
+                else None
+            self.execs.append(symbol.simple_bind(
+                ctx=ctx, grad_req=req, type_dict=type_dict,
+                shared_arg_names=param_names, shared_exec=shared, **shapes))
 
     def set_params(self, arg_params, aux_params, allow_extra=False):
         for ex in self.execs:

@@ -104,13 +104,17 @@ class Module(BaseModule):
 
     # ---- bind / init ----------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
-             inputs_need_grad=False, force_rebind=False, grad_req="write"):
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
         """Bind one executor per context for these input shapes
         (``module.py:110``); ``grad_req`` is one request or a dict by
-        name.  Under ``MXNET_TPU_BF16`` (read now, as the reference reads
-        it at bind) the arrays take ``amp.type_dict_for``'s dtypes: bf16
-        data and weights, fp32 labels, gammas, betas and moving
-        statistics."""
+        name.  With ``shared_module``, a bound Module on the same
+        contexts, the executors bind its parameter, gradient and
+        auxiliary arrays wherever the shapes agree, so the two train one
+        set of tensors (``BucketingModule``'s buckets).  Under
+        ``MXNET_TPU_BF16`` (read now, as the reference reads it at bind)
+        the arrays take ``amp.type_dict_for``'s dtypes: bf16 data and
+        weights, fp32 labels, gammas, betas and moving statistics."""
         if self.binded and not force_rebind:
             return
         self.for_training = for_training
@@ -127,7 +131,9 @@ class Module(BaseModule):
              for d in data_shapes], label_shapes, self._param_names,
             for_training, inputs_need_grad,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            type_dict=type_dict)
+            type_dict=type_dict, shared_group=(
+                shared_module._exec_group if shared_module is not None
+                else None))
         self.binded = True
         if self._arg_params is not None:
             self._exec_group.set_params(self._arg_params, self._aux_params,

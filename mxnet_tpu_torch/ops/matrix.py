@@ -1,5 +1,6 @@
 """Shape and indexing ops (counterpart of ``mxnet_tpu/ops/matrix.py``): what
-the ResNet graphs, the LSTM layer's graph and the transformer LM use."""
+the ResNet graphs, the LSTM layer's graph, the bucketed LSTM LM
+(``transpose``) and the transformer LM use."""
 from __future__ import annotations
 
 import numpy as np
@@ -91,6 +92,14 @@ def _concat(attrs, *xs):
           params={"dim1": param(int, 0), "dim2": param(int, 0)})
 def _swapaxes(attrs, x):
     return x.transpose(attrs["dim1"], attrs["dim2"])
+
+
+@register("transpose", params={"axes": param("shape", ())})
+def _transpose(attrs, x):
+    """``x`` with its axes permuted to ``axes``, or reversed when ``axes``
+    is empty (``matrix.py:75``)."""
+    axes = attrs["axes"] or tuple(range(x.dim() - 1, -1, -1))
+    return x.permute(*axes)
 
 
 @register("expand_dims", params={"axis": param(int, 0, required=True)})

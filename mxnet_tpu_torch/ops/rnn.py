@@ -70,7 +70,26 @@ def dropout(x, p, generator):
                                                         device=x.device))
 
 
+def _rnn_hint(attrs, shapes):
+    """The packed parameters' and the states' shapes from the (T, B, F)
+    data's (``shape_hints.py:95``)."""
+    data = shapes[0]
+    if data is None:
+        return shapes
+    h, L = attrs["state_size"], attrs["num_layers"]
+    bi = attrs["bidirectional"]
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (rnn_param_size(L, h, data[2], bi, attrs["mode"]),)
+    for i in (2, 3):
+        if len(out) > i and out[i] is None:
+            out[i] = (L * (2 if bi else 1), data[1], h)
+    return out
+
+
 @register("RNN", aliases=("rnn",), nout=3, needs_rng=True, train_aware=True,
+          arg_names=("data", "parameters", "state", "state_cell"),
+          shape_hint=_rnn_hint,
           visible=lambda a: (3 if a["mode"] == "lstm" else 2)
           if a["state_outputs"] else 1,
           params={"state_size": param(int, required=True),

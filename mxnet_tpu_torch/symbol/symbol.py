@@ -119,6 +119,13 @@ class Symbol:
                 names.append("%s_output" % node.name)
         return names
 
+    def attr(self, key):
+        """The attribute ``key`` of a single-output symbol's node, as it
+        was given, or None (``symbol.py:160``)."""
+        if len(self._outputs) == 1:
+            return self._outputs[0][0].attrs.get(key)
+        return None
+
     def attr_dict(self) -> Dict[str, Dict[str, str]]:
         """{node name: {attr: string}} of every node with attributes
         (``symbol.py:165``)."""
@@ -171,12 +178,25 @@ class Symbol:
         the rest, -3 merge two, -4 split one)."""
         return _create("Reshape", [self], {"shape": shape, **kw})
 
+    def transpose(self, axes=()):
+        """``transpose``: the axes permuted, reversed when ``axes`` is
+        empty."""
+        return _create("transpose", [self], {"axes": axes})
+
     # ---- inference ------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the given input shapes;
         raises when an argument's shape stays unknown.  Forward-fills by
         running each op on meta tensors, with the ops' shape hints filling
         unknown parameter shapes from the data."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """As :meth:`infer_shape`, but a shape that stays unknown comes back
+        as None instead of raising (``symbol.py:271``)."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         arg_names = self.list_arguments()
         known: Dict[str, tuple] = {}
         for n, s in zip(arg_names, args):
@@ -227,8 +247,8 @@ class Symbol:
         arg_shapes = [var_shapes.get(n) for n in arg_names]
         aux_shapes = [var_shapes.get(n) for n in aux_names]
         out_shapes = [shapes.get((id(n), i)) for n, i in self._outputs]
-        if any(s is None for s in arg_shapes) or \
-                any(s is None for s in out_shapes):
+        if not partial and (any(s is None for s in arg_shapes) or
+                            any(s is None for s in out_shapes)):
             missing = [n for n, s in zip(arg_names, arg_shapes) if s is None]
             raise MXNetError("infer_shape incomplete; unknown args: %s"
                              % missing)
@@ -298,13 +318,19 @@ class Symbol:
                                                               arg_names))
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    **shapes):
+                    shared_arg_names=None, shared_exec=None, **shapes):
         """Infer every shape from the given input shapes, allocate zeros
         for arguments, gradients (where ``grad_req`` is not ``"null"``)
         and auxiliary states on ``ctx``, and bind (``symbol.py:389``).
         Dtypes come from :meth:`infer_type` over ``type_dict``: an
         argument and its gradient take its entry, everything else is
-        float32."""
+        float32.
+
+        With ``shared_exec``, each argument named in ``shared_arg_names``
+        and each auxiliary state that ``shared_exec`` holds at the same
+        shape and dtype is bound to its very NDArray (an argument's
+        gradient too), so that the two executors read and write one
+        tensor; anything else is allocated."""
         from ..context import current_context
         from ..executor import Executor
         from ..ndarray import ndarray as nd
@@ -314,14 +340,29 @@ class Symbol:
             [nd.torch_dtype(t) for t in ts]
             for ts in self.infer_type(**(type_dict or {})))
         arg_names = self.list_arguments()
+        aux_names = self.list_auxiliary_states()
         req = _norm_grad_req(grad_req, arg_names)
-        args = {n: nd.zeros(s, ctx=ctx, dtype=t)
-                for n, s, t in zip(arg_names, arg_shapes, arg_types)}
-        auxs = {n: nd.zeros(s, ctx=ctx, dtype=t) for n, s, t in
-                zip(self.list_auxiliary_states(), aux_shapes, aux_types)}
-        grads = {n: nd.zeros(s, ctx=ctx, dtype=t)
-                 for n, s, t in zip(arg_names, arg_shapes, arg_types)
-                 if req.get(n, "null") != "null"}
+        shared = set(shared_arg_names or ()) if shared_exec is not None \
+            else set()
+
+        def alloc(name, shape, dtype, pool):
+            # the shared executor's array where it fits, else zeros
+            have = pool.get(name) if pool is not None else None
+            if have is not None and have.shape == tuple(shape) and \
+                    have._data.dtype == dtype:
+                return have
+            return nd.zeros(shape, ctx=ctx, dtype=dtype)
+
+        args, grads = {}, {}
+        for n, s, t in zip(arg_names, arg_shapes, arg_types):
+            own = n in shared
+            args[n] = alloc(n, s, t, shared_exec.arg_dict if own else None)
+            if req.get(n, "null") != "null":
+                grads[n] = alloc(n, s, t,
+                                 shared_exec.grad_dict if own else None)
+        auxs = {n: alloc(n, s, t, shared_exec.aux_dict
+                         if shared_exec is not None else None)
+                for n, s, t in zip(aux_names, aux_shapes, aux_types)}
         return Executor(self, ctx, args, auxs, grads, req)
 
 

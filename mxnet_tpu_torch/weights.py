@@ -6,11 +6,13 @@ the checkpoint's ``arg:``/``aux:`` prefixes, and writes them with
 takes either form and places every array on a context, so both packages
 can be fed the same weights.  ``from_jax_block`` carries a reference Gluon
 block's parameters and auxiliary states into a port block of the same
-structure, by name, and ``from_jax_module`` a reference Module's into a port
-Module's, with its optimizer's states (``from_jax_updater``).  ``from_jax_moe_params`` carries a reference ``MoEParams`` into the
-port's, and ``from_jax_stage_params`` a dict of stage-stacked ``(S, ...)``
-block parameters (``pipeline_transformer``'s), so that both packages' parallel
-compositions compute with the same weights.  ``fold_bottleneck`` folds a
+structure, by name, and ``from_jax_module`` a reference Module's (or
+``BucketingModule``'s) into a port Module's, with its optimizer's states
+(``from_jax_updater``).  ``from_jax_moe_params`` carries a reference
+``MoEParams`` into the port's, and ``from_jax_stage_params`` a dict of
+stage-stacked ``(S, ...)`` block parameters (``pipeline_transformer``'s),
+so that both packages' parallel compositions compute with the same
+weights.  ``fold_bottleneck`` folds a
 ResNet v1 identity bottleneck's three convolutions and BatchNorms into the
 layout of kernel 13 (``ops/hopper_block.py``), and ``from_probe_block``
 carries the arrays of ``tools/probe_fused_block.py`` into that layout.
@@ -90,9 +92,17 @@ def from_jax_module(jax_mod, ctx: Optional[Context] = None, mod=None,
     ``optimizer_states`` (and ``mod``'s optimizer initialised) the
     reference Module's updater states and update counts carry over too
     (:func:`from_jax_updater`), masters of a multi-precision updater
-    included.  bf16 values stay bf16, bit for bit."""
+    included.  bf16 values stay bf16, bit for bit.
+
+    Either Module may be a ``BucketingModule``: its current bucket's
+    parameters are carried (every bucket of the port's shares them) and
+    its shared updater's states."""
     ctx = ctx or current_context()
     arg, aux = jax_mod.get_params()
+    jax_mod = getattr(jax_mod, "_curr_module", None) or jax_mod
+    port_mod = mod
+    if mod is not None:
+        mod = getattr(mod, "_curr_module", None) or mod
     out = []
     for kind, src in (("parameter", arg), ("auxiliary state", aux)):
         out.append({k: np.asarray(v.asnumpy() if hasattr(v, "asnumpy")
@@ -122,7 +132,7 @@ def from_jax_module(jax_mod, ctx: Optional[Context] = None, mod=None,
     arg_params = {k: nd.array(v, ctx) for k, v in out[0].items()}
     aux_params = {k: nd.array(v, ctx) for k, v in out[1].items()}
     if mod is not None:
-        mod.set_params(arg_params, aux_params)
+        port_mod.set_params(arg_params, aux_params)
         if optimizer_states:
             from_jax_updater(jax_mod._updater, mod._updater)
     return arg_params, aux_params
