@@ -52,9 +52,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``hopper_rnn.lstm_plan``) beside the blocks an SM the card reports;
    kernel, plain and cuDNN times (``torch.nn.LSTM`` of one layer, the
    yardstick only, with its input projection's matmul and dx timed apart,
-   so that cuDNN's recurrence alone is the difference) beside the
-   kernels' times before their redesign (``BEFORE_K89_MS``) and the fp32
-   bound.
+   so that cuDNN's recurrence alone is the difference; at the LM's shape
+   and at both bucket lengths) beside the kernels' times before their
+   redesign (``BEFORE_K89_MS``) and the fp32 bound.
 3. serving: serve the full-width ResNet-50 (224 px, 1000 classes, fp32,
    seeded random weights) through ``ModelServer`` on gpu(0) with buckets
    up to 32; answer 8 concurrent requests of 1-8 rows of mixed SLO classes
@@ -317,6 +317,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    states and batch.  Step ms and train tokens/s per bucket, the host time
    of a bucket switch and of each bucket's first bind, and a two-step
    profile of a T-40 batch by group with its idle share.
+
+18. ImageRecordIter: ``example/image-classification/train_imagenet.py``'s
+   data path.  The phase writes 1,024 synthetic JPEGs (smooth random fields
+   with a few shapes; short side 256, long side 256-384, quality 95, as
+   im2rec's ``--resize 256`` writes them; labels below 1,000 from a seed)
+   with the port's ``MXIndexedRecordIO`` and ``pack_img``, then reads them
+   through ``io.ImageRecordIter`` (data shape 3 x 224 x 224, batch 32,
+   shuffle, random crop and mirror, ImageNet's mean and std, batches on
+   gpu(0)): the iterator alone for one epoch at the default decode
+   threads and at the host's core count (images/s, the decoder); the
+   labels those written in the shuffled order; the first batch at one
+   thread on gpu(0) bit for bit the ``cpu()`` one; a JPEG round trip of a
+   smooth image above 40 dB PSNR.  Then phase 13's ResNet-50 v1 through
+   ``Module.fit`` for one epoch of 32 batches from the iterator (SGD lr
+   0.1, momentum 0.9, wd 1e-4, accuracy): images/s over batches 3-32
+   beside phase 13's, the share of ``fit`` spent waiting in ``next()``,
+   the batch's copy to the card (CUDA events in the producer; and alone,
+   pageable and pinned), every batch's loss finite, and kernels 1 and 2's
+   launches over the epoch, zeroed just before ``fit`` and read just
+   after: 32 times a step's.  ``close()`` leaves no decode or producer
+   thread.  The same fit at one decode thread and with OpenCV's worker
+   threads off (``cv2.setNumThreads(1)``, restored after), and each
+   stage's host ms on one thread (read, decode, augment, transpose,
+   place), show what sets the pace.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
@@ -1645,6 +1669,46 @@ def _lstm_rerun(hr, c):
             all(torch.equal(x, y) for x, y in zip(b1, b2)))
 
 
+def _cudnn_lstm(hr, c, bargs, gen, dev):
+    """The yardstick: cuDNN's one-layer LSTM (``torch.nn.LSTM``) on the
+    same function as kernels 8 and 9 at ``c``'s shape (its input weights
+    make x @ W^T + bW the projection the kernels are given).  Returns its
+    forward ms with the input projection, the projection's matmul alone,
+    its output's max abs difference from kernel 8's, its data-and-state
+    backward ms with dx, and dx = dxp @ W alone; cuDNN's recurrence alone
+    is each difference."""
+    T, B, H = c["dys"].shape
+    lstm = torch.nn.LSTM(H, H).to(dev)
+    x = torch.randn(T, B, H, device=dev, generator=gen)
+    W = torch.randn(4 * H, H, device=dev, generator=gen) * H ** -0.5
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(W)
+        lstm.bias_ih_l0.zero_()
+        lstm.weight_hh_l0.copy_(c["R"])
+        lstm.bias_hh_l0.copy_(c["bR"])
+    h0, c0 = c["h0"][None], c["c0"][None]
+    xp = torch.matmul(x, W.t()).contiguous()
+    ys = hr.lstm_fwd(xp, c["h0"], c["c0"], c["R"], c["bR"])[0]
+    with torch.no_grad():
+        y_lib = lstm(x, (h0, c0))[0]
+    err_lib = (ys - y_lib).abs().max().item()
+    with torch.no_grad():
+        lib_ms = time_ms(lambda: lstm(x, (h0, c0)))
+    proj_ms = time_ms(lambda: torch.matmul(x, W.t()))
+    # cuDNN's backward of the data and states only (its weights need no
+    # gradient): the recurrence backward plus dx = dxp @ W
+    xg = x.clone().requires_grad_()
+    h0g, c0g = h0.clone().requires_grad_(), c0.clone().requires_grad_()
+    for p in lstm.parameters():
+        p.requires_grad_(False)
+    y, (hT, cT) = lstm(xg, (h0g, c0g))
+    grads = (c["dys"], c["dhT"][None], c["dcT"][None])
+    lib_bms = time_ms(lambda: torch.autograd.grad(
+        (y, hT, cT), (xg, h0g, c0g), grads, retain_graph=True))
+    dx_ms = time_ms(lambda: torch.matmul(bargs[0], W))
+    return lib_ms, proj_ms, err_lib, lib_bms, dx_ms
+
+
 def phase_lstm_kernels():
     """Kernels 8 and 9 against their plain versions at two ragged shapes,
     at the edges of their envelope, at phase 17's T-10 and T-40 buckets
@@ -1690,13 +1754,20 @@ def phase_lstm_kernels():
                "bwd_plain_ms": time_ms(lambda: hr.lstm_bwd_plain(*bargs))}
         rec["fwd_bound_ms"], rec["bwd_bound_ms"] = (
             _bound(*_lstm_cost(T, B, H, kind))[0] for kind in ("fwd", "bwd"))
+        lib_ms, proj_ms, _, lib_bms, dx_ms = _cudnn_lstm(hr, c, bargs, gen,
+                                                         dev)
+        rec["fwd_library_recurrence_ms"] = lib_ms - proj_ms
+        rec["bwd_library_recurrence_ms"] = lib_bms - dx_ms
         bucket_calls.append(rec)
         print("[lstm-kernels] T=%d B=%d H=%d (a bucket): kernel 8 %.4f ms "
-              "(plain %.4f, bound %.4f), err %.3g; kernel 9 %.4f ms (plain "
-              "%.4f, bound %.4f), err %.3g of max; reruns bit-equal"
+              "(plain %.4f, bound %.4f, cuDNN's recurrence alone %.4f: "
+              "%.4f less its projection %.4f), err %.3g; kernel 9 %.4f ms "
+              "(plain %.4f, bound %.4f, cuDNN's recurrence alone %.4f: "
+              "%.4f less dx %.4f), err %.3g of max; reruns bit-equal"
               % (T, B, H, rec["fwd_ms"], rec["fwd_plain_ms"],
-                 rec["fwd_bound_ms"], ferr, rec["bwd_ms"],
-                 rec["bwd_plain_ms"], rec["bwd_bound_ms"], berr))
+                 rec["fwd_bound_ms"], lib_ms - proj_ms, lib_ms, proj_ms,
+                 ferr, rec["bwd_ms"], rec["bwd_plain_ms"],
+                 rec["bwd_bound_ms"], lib_bms - dx_ms, lib_bms, dx_ms, berr))
     T = LM["bptt"]
     c = _lstm_inputs(T, B, H, gen, dev)
     ferr, berr, bargs = _lstm_check(hr, c, T, B, H)
@@ -1720,37 +1791,8 @@ def phase_lstm_kernels():
     bms = time_ms(lambda: hr.lstm_bwd(*bargs))
     bplain_ms = time_ms(lambda: hr.lstm_bwd_plain(*bargs))
 
-    # the yardstick: cuDNN's one-layer LSTM on the same function (its
-    # input weights make x @ W^T + bW the projection the kernels are given)
-    lstm = torch.nn.LSTM(H, H).to(dev)
-    x = torch.randn(T, B, H, device=dev, generator=gen)
-    W = torch.randn(4 * H, H, device=dev, generator=gen) * H ** -0.5
-    with torch.no_grad():
-        lstm.weight_ih_l0.copy_(W)
-        lstm.bias_ih_l0.zero_()
-        lstm.weight_hh_l0.copy_(c["R"])
-        lstm.bias_hh_l0.copy_(c["bR"])
-    h0, c0 = c["h0"][None], c["c0"][None]
-    xp = torch.matmul(x, W.t()).contiguous()
-    ys = hr.lstm_fwd(xp, c["h0"], c["c0"], c["R"], c["bR"])[0]
-    with torch.no_grad():
-        y_lib = lstm(x, (h0, c0))[0]
-    err_lib = (ys - y_lib).abs().max().item()
-    with torch.no_grad():
-        lib_ms = time_ms(lambda: lstm(x, (h0, c0)))
-    proj_ms = time_ms(lambda: torch.matmul(x, W.t()))
-    # cuDNN's backward of the data and states only (its weights need no
-    # gradient): the recurrence backward plus dx = dxp @ W
-    xg = x.clone().requires_grad_()
-    h0g, c0g = h0.clone().requires_grad_(), c0.clone().requires_grad_()
-    for p in lstm.parameters():
-        p.requires_grad_(False)
-    y, (hT, cT) = lstm(xg, (h0g, c0g))
-    grads = (c["dys"], c["dhT"][None], c["dcT"][None])
-    lib_bms = time_ms(lambda: torch.autograd.grad(
-        (y, hT, cT), (xg, h0g, c0g), grads, retain_graph=True))
-    dx_ms = time_ms(lambda: torch.matmul(bargs[0], W))
-
+    lib_ms, proj_ms, err_lib, lib_bms, dx_ms = _cudnn_lstm(hr, c, bargs,
+                                                           gen, dev)
     flops = _lstm_cost(T, B, H, "fwd")[0]
     fbound, fby = _bound(*_lstm_cost(T, B, H, "fwd"))
     bbound, bby = _bound(*_lstm_cost(T, B, H, "bwd"))
@@ -1802,7 +1844,9 @@ def phase_lstm_kernels():
         k["bucket_calls"] = [{
             "T": r["T"], "max_abs_err": r[kind + "_err"],
             "call_ms": r[kind + "_ms"], "call_plain_ms": r[kind + "_plain_ms"],
-            "call_bound_ms": r[kind + "_bound_ms"]} for r in bucket_calls]
+            "call_bound_ms": r[kind + "_bound_ms"],
+            "call_library_recurrence_ms": r[kind + "_library_recurrence_ms"]}
+            for r in bucket_calls]
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             r["max_abs_err"] for r in k["bucket_calls"]])
     return [k8, k9]
@@ -5425,6 +5469,480 @@ def phase_bucketing(card):
         "phase_s": time.perf_counter() - t_phase}
 
 
+# --------------------------------------------------------------------------
+# phase 18: train_imagenet.py's data path (example/image-classification/
+# train_imagenet.py:70-77): ImageRecordIter over a .rec of JPEGs that im2rec
+# would write (short side 256, quality 95), feeding Module.fit
+IMGREC = dict(images=1024, short=256, long=(256, 384), quality=95,
+              classes=1000, batch=32, shape=(3, 224, 224), seed=18,
+              mean=(123.68, 116.779, 103.939), std=(58.393, 57.12, 57.375),
+              lr=0.1, momentum=0.9, wd=1e-4, psnr_min=40.0)
+IMGREC_THREADS = ("imgrec-decode", "imgrec-producer")
+
+
+def imgrec_photo(r, h, w, shapes=True):
+    """A smooth random BGR field (uniform noise grids of 64, 16 and 4 px
+    cells, upsampled bicubically, at falling amplitudes, and a little
+    pixel noise) with a few filled rectangles and discs on it: it
+    compresses like a photograph (about 45 KB at quality 95), where white
+    noise would not.  ``shapes=False`` gives the 64 px octave alone."""
+    import cv2
+    img = np.full((h, w, 3), 128.0, np.float32)
+    for cell, amp in ((64, 1.0), (16, 0.4), (4, 0.3)) if shapes \
+            else ((64, 1.0),):
+        grid = r.uniform(-127, 127, (h // cell + 2, w // cell + 2, 3))
+        img += amp * cv2.resize(grid.astype(np.float32), (w, h),
+                                interpolation=cv2.INTER_CUBIC)
+    if shapes:
+        img += r.normal(0, 4, img.shape).astype(np.float32)
+        for _ in range(3):
+            color = tuple(float(c) for c in r.uniform(0, 255, 3))
+            x0, y0 = int(r.randint(0, w - 40)), int(r.randint(0, h - 40))
+            if r.rand() < 0.5:
+                cv2.rectangle(img, (x0, y0), (x0 + int(r.randint(20, 120)),
+                                              y0 + int(r.randint(20, 120))),
+                              color, -1)
+            else:
+                cv2.circle(img, (x0, y0), int(r.randint(10, 60)), color, -1)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_imgrec(prefix, n, seed):
+    """``n`` images of short side 256 and long side 256-384 (each
+    orientation), labels below 1,000, all from ``RandomState(seed)``,
+    encoded in a thread pool and written in order with the port's
+    ``MXIndexedRecordIO``/``pack_img``; returns (.rec, .idx, labels)."""
+    import concurrent.futures
+    from mxnet_tpu_torch import recordio
+    r = np.random.RandomState(seed)
+    labels = r.randint(0, IMGREC["classes"], n)
+    sizes = []
+    for _ in range(n):
+        long_side = int(r.randint(IMGREC["long"][0], IMGREC["long"][1] + 1))
+        sizes.append((IMGREC["short"], long_side) if r.rand() < 0.5
+                     else (long_side, IMGREC["short"]))
+    seeds = r.randint(0, 2 ** 31 - 1, n)
+
+    def encode(k):
+        img = imgrec_photo(np.random.RandomState(seeds[k]), *sizes[k])
+        return recordio.pack_img(
+            recordio.IRHeader(0, float(labels[k]), k, 0), img,
+            quality=IMGREC["quality"])
+
+    rec, idx = prefix + ".rec", prefix + ".idx"
+    w = recordio.MXIndexedRecordIO(idx, rec, "w")
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        for k, buf in enumerate(pool.map(encode, range(n))):
+            w.write_idx(k, buf)
+    w.close()
+    return rec, idx, labels.astype(np.float32)
+
+
+def _imgrec_threads():
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(IMGREC_THREADS)]
+
+
+def _check_no_imgrec_threads(what):
+    deadline = time.monotonic() + 10.0
+    while _imgrec_threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(not _imgrec_threads(), "%s left threads alive: %s"
+          % (what, _imgrec_threads()))
+
+
+def _imgrec_iter(rec, idx, ctx, **kw):
+    import mxnet_tpu_torch as mx
+    c, h, w = IMGREC["shape"]
+    mean, std = IMGREC["mean"], IMGREC["std"]
+    return mx.io.ImageRecordIter(
+        rec, IMGREC["shape"], IMGREC["batch"], path_imgidx=idx, shuffle=True,
+        rand_crop=True, rand_mirror=True, mean_r=mean[0], mean_g=mean[1],
+        mean_b=mean[2], std_r=std[0], std_g=std[1], std_b=std[2], ctx=ctx,
+        **kw)
+
+
+def _drain_rate(rec, idx, threads):
+    """One epoch of the iterator alone on gpu(0): images/s from the
+    constructor to the last batch on the card, and the labels in order."""
+    from mxnet_tpu_torch import gpu
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = _imgrec_iter(rec, idx, gpu(0), preprocess_threads=threads,
+                      rng=np.random.RandomState(IMGREC["seed"]))
+    try:
+        labels = []
+        for b in it:
+            check(b.data[0]._data.is_cuda and b.label[0]._data.is_cuda,
+                  "an ImageRecordIter batch is not on the card")
+            labels.append(b.label[0]._data)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        it.close()
+    _check_no_imgrec_threads("close() after %d threads" % threads)
+    labels = torch.cat(labels).cpu().numpy()
+    return len(labels) / dt, labels
+
+
+def _imgrec_fit(rec, idx, threads, on_card=True):
+    """One ``Module.fit`` epoch of resnet50_v1 from ``ImageRecordIter`` at
+    ``threads`` decode threads (``Xavier(gaussian, 2)`` after
+    ``random.seed(7)``, SGD lr 0.1 momentum 0.9 wd 1e-4, accuracy): the
+    iterator timed in ``next()``, each batch's copy to the card by CUDA
+    events around the producer's ``_place``, each batch's mean
+    cross-entropy; checks the batch count and finite losses and that
+    ``close()`` ends every thread.  ``on_card=False`` leaves the batches
+    on ``cpu()``, so that the Module copies them in its own thread."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cpu, gpu
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    class CopyTimed(mx.io.ImageRecordIter):
+        def __init__(self, *a, **kw):
+            self.copies = []
+            super().__init__(*a, **kw)
+
+        def _place(self, chw, label):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            placed = super()._place(chw, label)
+            e.record()
+            self.copies.append((s, e))
+            return placed
+
+    class Timed(mx.io.DataIter):
+        def __init__(self, inner):
+            super().__init__(inner.batch_size)
+            self.inner, self.waits, self.starts = inner, [], []
+
+        @property
+        def provide_data(self):
+            return self.inner.provide_data
+
+        @property
+        def provide_label(self):
+            return self.inner.provide_label
+
+        def reset(self):
+            self.inner.reset()
+
+        def __next__(self):
+            t0 = time.perf_counter()
+            self.starts.append(t0)
+            b = next(self.inner)
+            self.waits.append(time.perf_counter() - t0)
+            return b
+
+        next = __next__
+
+    class AccWithLoss(mx.metric.Accuracy):
+        """Accuracy, which also keeps each batch's mean cross-entropy."""
+
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def update(self, labels, preds):
+            super().update(labels, preds)
+            p = preds[0]._data
+            y = labels[0]._data.to(p.device).long()
+            self.losses.append(float(-torch.log(p.gather(
+                1, y[:, None]).clamp_min(1e-30)).mean()))
+
+    mean, std = IMGREC["mean"], IMGREC["std"]
+    inner = CopyTimed(rec, IMGREC["shape"], IMGREC["batch"],
+                      path_imgidx=idx, shuffle=True, rand_crop=True,
+                      rand_mirror=True, mean_r=mean[0], mean_g=mean[1],
+                      mean_b=mean[2], std_r=std[0], std_g=std[1],
+                      std_b=std[2], preprocess_threads=threads,
+                      ctx=gpu(0) if on_card else cpu(),
+                      rng=np.random.RandomState(IMGREC["seed"] + 1))
+    it = Timed(inner)
+    with mx.name.NameManager():
+        sym = mx.sym.SoftmaxOutput(
+            vision.resnet50_v1(classes=IMGREC["classes"])(
+                mx.sym.var("data")),
+            mx.sym.var("softmax_label"), name="softmax")
+    mod = mx.mod.Module(sym, context=[gpu(0)])
+    metric = AccWithLoss()
+    mx.random.seed(R50MOD["init_seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        mod.fit(it, num_epoch=1, eval_metric=metric,
+                initializer=mx.init.Xavier(rnd_type="gaussian",
+                                           magnitude=2.0),
+                optimizer="sgd", optimizer_params={
+                    "learning_rate": IMGREC["lr"],
+                    "momentum": IMGREC["momentum"], "wd": IMGREC["wd"]})
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        inner.close()
+    _check_no_imgrec_threads("close() after fit")
+    batches = IMGREC["images"] // IMGREC["batch"]
+    check(len(it.waits) == batches, "fit ran %d batches, expected %d"
+          % (len(it.waits), batches))   # the last next() raised
+    check(len(metric.losses) == batches
+          and bool(np.isfinite(metric.losses).all()),
+          "fit's losses %s" % metric.losses)
+    copies = [s.elapsed_time(e) for s, e in inner.copies] if on_card \
+        else [float("nan")]
+    steady_s = t_end - it.starts[2]     # batches 3-32, to the card's end
+    return {"fit_images_per_s": (batches - 2) * IMGREC["batch"] / steady_s,
+            "fit_s": t_end - t0, "step_ms": steady_s / (batches - 2) * 1e3,
+            "fit_arm": "fused" if mod._fused_step is not None
+            and mod._fused_step.eligible() else "eager",
+            "wait_s": sum(it.waits), "wait_share": sum(it.waits)
+            / (t_end - t0), "wait_share_steady": sum(it.waits[2:])
+            / steady_s, "copy_ms_median": float(np.median(copies)),
+            "copy_ms_max": float(np.max(copies)), "copies": len(copies),
+            "losses": [metric.losses[0], metric.losses[-1]],
+            "accuracy": float(metric.get()[1]), "threads": threads}
+
+
+def _imgrec_stage_costs(rec, idx, n=64):
+    """Host ms of each pipeline stage on one thread with the card idle:
+    reading a record, decoding it (cv2), augmenting it (crop, mirror,
+    normalise), a batch's HWC -> CHW transposition, its placement on the
+    card (``nd.array``, pageable)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cpu, gpu, recordio
+    it = _imgrec_iter(rec, idx, cpu(), preprocess_threads=1,
+                      rng=np.random.RandomState(0))
+    it.close()
+    r = recordio.MXIndexedRecordIO(idx, rec, "r")
+    try:
+        n = min(n, len(r.keys))
+        t0 = time.perf_counter()
+        raws = [r.read_idx(k) for k in range(n)]
+        read_ms = (time.perf_counter() - t0) / n * 1e3
+    finally:
+        r.close()
+    t0 = time.perf_counter()
+    imgs = [recordio.unpack_img(raw, iscolor=1)[1] for raw in raws]
+    decode_ms = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    outs = [it._augment(img) for img in imgs]
+    augment_ms = (time.perf_counter() - t0) / n * 1e3
+    # the augmentation's steps apart: the crop and mirror views made
+    # contiguous, then cv2's cvtColor, multiply and add, and numpy's arm
+    import cv2
+    c, h, w = IMGREC["shape"]
+    a = it.scale / it.std
+    b = -it.mean * a
+    mul = tuple(float(v) for v in a) + (0.0,)
+    add = tuple(float(v) for v in b) + (0.0,)
+    steps = dict.fromkeys(("crop_ms", "cvtcolor_ms", "multiply_ms",
+                           "add_ms", "numpy_arm_ms"), 0.0)
+    for img in imgs:
+        t = [time.perf_counter()]
+        crop = np.ascontiguousarray(img[:h, :w][:, ::-1])
+        t.append(time.perf_counter())
+        rgb = cv2.cvtColor(crop, cv2.COLOR_BGR2RGB)
+        t.append(time.perf_counter())
+        prod = cv2.multiply(rgb, mul, dtype=cv2.CV_32F)
+        t.append(time.perf_counter())
+        cv2.add(prod, add)
+        t.append(time.perf_counter())
+        crop[..., ::-1].astype(np.float32) * a + b
+        t.append(time.perf_counter())
+        for key, t0, t1 in zip(steps, t, t[1:]):
+            steps[key] += (t1 - t0) / n * 1e3
+    B = IMGREC["batch"]
+    hwc = np.stack(outs[:B])
+    chw = np.empty((B,) + IMGREC["shape"], np.float32)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        np.copyto(chw, hwc.transpose(0, 3, 1, 2))
+    transpose_ms = (time.perf_counter() - t0) / 5 * 1e3
+    mx.nd.array(chw, gpu(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        mx.nd.array(chw, gpu(0))
+    torch.cuda.synchronize()
+    place_ms = (time.perf_counter() - t0) / 5 * 1e3
+    return {"read_ms_image": read_ms, "decode_ms_image": decode_ms,
+            "augment_ms_image": augment_ms, "augment_steps_ms": steps,
+            "transpose_ms_batch": transpose_ms, "place_ms_batch": place_ms,
+            "one_thread_images_per_s": 1e3 / (
+                read_ms + decode_ms + augment_ms
+                + (transpose_ms + place_ms) / B)}
+
+
+def phase_imgrec(card, module_ips):
+    """Phase 18: ResNet-50 v1 trained through ``Module.fit`` from
+    ``ImageRecordIter`` over a synthetic ``.rec`` that the phase writes
+    (1,024 JPEGs, short side 256, quality 95, labels below 1,000): the
+    iterator alone at the default and at the host's thread count; the
+    first batch at one thread on gpu(0) bit for bit the cpu()'s; the
+    labels those written, in the shuffled order; ``fit`` for one epoch
+    (32 batches, SGD lr 0.1 momentum 0.9 wd 1e-4, acc) with the counters
+    zeroed just before and read just after; every batch's loss finite; a
+    round trip above 40 dB PSNR; no thread left after ``close()``.  Then
+    the same fit at one decode thread and with OpenCV's own threads off,
+    each stage's host ms on one thread, and the copy alone."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cpu, gpu, recordio
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    fp32_exact()
+    t_phase = time.perf_counter()
+    os.environ.pop("MXNET_CKPT_DIR", None)
+    try:
+        import cv2  # noqa: F401
+        decoder = "cv2 %s" % cv2.__version__
+    except ImportError:
+        import PIL
+        decoder = "PIL %s" % PIL.__version__
+    cores = len(os.sched_getaffinity(0))
+    default_threads = int(os.environ.get("MXNET_CPU_WORKER_NTHREADS", "4"))
+    out = {"decoder": decoder, "cores": cores,
+           "default_threads": default_threads}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_imgrec_") as tmp:
+        t0 = time.perf_counter()
+        rec, idx, labels = write_imgrec(os.path.join(tmp, "train"),
+                                        IMGREC["images"], IMGREC["seed"])
+        out["write_s"] = time.perf_counter() - t0
+        out["rec_bytes"] = os.path.getsize(rec)
+        print("[imgrec] wrote %d JPEGs (short side %d, long %d-%d, quality "
+              "%d) in %.2f s: %.1f MB, %.1f KB an image; decoder %s; %d "
+              "cores, default preprocess_threads %d"
+              % (IMGREC["images"], IMGREC["short"], *IMGREC["long"],
+                 IMGREC["quality"], out["write_s"], out["rec_bytes"] / 1e6,
+                 out["rec_bytes"] / IMGREC["images"] / 1e3, decoder, cores,
+                 default_threads))
+
+        # the round trip of a known smooth image
+        img = imgrec_photo(np.random.RandomState(IMGREC["seed"]), 256, 320,
+                           shapes=False)
+        _, back = recordio.unpack_img(recordio.pack_img(
+            (0, 0.0, 0, 0), img, quality=IMGREC["quality"]), iscolor=1)
+        mse = float(np.mean((back.astype(np.float64) - img) ** 2))
+        out["psnr_db"] = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+        check(out["psnr_db"] > IMGREC["psnr_min"], "JPEG round trip at %.2f "
+              "dB PSNR" % out["psnr_db"])
+
+        # the first batch at one thread: the card's bit for bit the CPU's
+        first = {}
+        for name, ctx in (("gpu", gpu(0)), ("cpu", cpu())):
+            it = _imgrec_iter(rec, idx, ctx, preprocess_threads=1,
+                              rng=np.random.RandomState(IMGREC["seed"]))
+            try:
+                b = next(it)
+                first[name] = (b.data[0].asnumpy(), b.label[0].asnumpy(),
+                               b.data[0]._data.device.type)
+            finally:
+                it.close()
+        check(first["gpu"][2] == "cuda" and first["cpu"][2] == "cpu",
+              "first batches on %s and %s" % (first["gpu"][2],
+                                              first["cpu"][2]))
+        check(np.array_equal(first["gpu"][0], first["cpu"][0])
+              and np.array_equal(first["gpu"][1], first["cpu"][1]),
+              "the first batch on gpu(0) differs from the cpu() one by %g"
+              % float(np.abs(first["gpu"][0] - first["cpu"][0]).max()))
+        _check_no_imgrec_threads("close()")
+
+        # the iterator alone, at the default and at the host's threads
+        order = list(range(IMGREC["images"]))
+        np.random.RandomState(IMGREC["seed"]).shuffle(order)
+        want = labels[order]
+        rates = {}
+        for threads in sorted({default_threads, cores}):
+            rates[threads], got = _drain_rate(rec, idx, threads)
+            check(np.array_equal(got, want), "labels at %d threads differ "
+                  "from those written, in the shuffled order" % threads)
+        out["iter_images_per_s"] = rates
+        print("[imgrec] iterator alone (decode, crop 224, mirror, normalise, "
+              "batch 32 to gpu(0)), one epoch: %s images/s by decode "
+              "threads; labels equal those written in the shuffled order; "
+              "the first batch at one thread on gpu(0) equals the cpu() "
+              "one bit for bit; round trip %.2f dB PSNR"
+              % ({k: round(v, 1) for k, v in rates.items()},
+                 out["psnr_db"]))
+
+        # train_imagenet.py's fit at the default decode threads, counted;
+        # then, to see what slows the step, at one decode thread and with
+        # OpenCV's own worker threads off (one a call)
+        _zero_conv_counts(hc)
+        fit = _imgrec_fit(rec, idx, default_threads)
+        launches = _conv_counts(hc)
+        batches = IMGREC["images"] // IMGREC["batch"]
+        want_counts = {"implicit_gemm_conv": 32,
+                       "implicit_gemm_conv reduction":
+                           conv_reductions_per_step(),
+                       "taps_wgrad": 16,
+                       "taps_wgrad reduction": wgrad_reductions_per_step()}
+        check(all(launches[k] == want_counts[k] * batches
+                  for k in want_counts)
+              and launches["taps_conv_bf16"] == 0
+              and launches["taps_wgrad_bf16"] == 0,
+              "fit's launches %s over %d batches, expected %s a batch"
+              % (launches, batches, want_counts))
+        out.update(fit, module_images_per_s=module_ips, launches=launches)
+        print("[imgrec] Module.fit of resnet50_v1 (%s arm), 1 epoch of %d "
+              "batches of %d from ImageRecordIter (%d decode threads): %.1f "
+              "images/s over batches 3-%d (%.2f ms a batch), beside phase "
+              "13's Module %.1f images/s from in-memory batches; fit %.2f s, "
+              "%.2f s of it waiting in next() (%.1f%%; %.1f%% over batches "
+              "3-%d); the batch's copy to the card %.4f ms median of %d "
+              "(max %.4f; CUDA events around nd.array in the producer); "
+              "loss %.4f -> %.4f, all finite; launches over the epoch %s "
+              "(%d batches x %s) on %s"
+              % (fit["fit_arm"], batches, IMGREC["batch"], default_threads,
+                 fit["fit_images_per_s"], batches, fit["step_ms"],
+                 module_ips, fit["fit_s"], fit["wait_s"],
+                 100 * fit["wait_share"], 100 * fit["wait_share_steady"],
+                 batches, fit["copy_ms_median"], fit["copies"],
+                 fit["copy_ms_max"], *fit["losses"], launches, batches,
+                 want_counts, card))
+        import cv2
+        cv_threads = cv2.getNumThreads()
+        out["opencv_threads"] = cv_threads
+        variants = out["variants"] = {}
+        for name, threads, on_card, cv_set in (
+                ("one decode thread", 1, True, cv_threads),
+                ("batches left on cpu()", default_threads, False, cv_threads),
+                ("OpenCV's own threads off", default_threads, True, 1)):
+            cv2.setNumThreads(cv_set)
+            try:
+                v = variants[name] = _imgrec_fit(rec, idx, threads, on_card)
+            finally:
+                cv2.setNumThreads(cv_threads)
+            print("[imgrec] the same fit, %s (%d decode threads, OpenCV "
+                  "threads %d): %.1f images/s over batches 3-%d (%.2f ms a "
+                  "batch), waiting in next() %.1f%% (%.1f%% over batches "
+                  "3-%d), copy %.4f ms median"
+                  % (name, threads, cv_set, v["fit_images_per_s"], batches,
+                     v["step_ms"], 100 * v["wait_share"],
+                     100 * v["wait_share_steady"], batches,
+                     v["copy_ms_median"]))
+        out["stages"] = _imgrec_stage_costs(rec, idx)
+        print("[imgrec] stages on one thread, the card idle: %s"
+              % {k: v if isinstance(v, dict) else round(v, 4)
+                 for k, v in out["stages"].items()})
+
+        # the copy alone, on an idle card: the batch's pageable copy as
+        # nd.array makes it, and a pinned one (the yardstick for a pinned
+        # staging buffer; the port has no cpu_pinned() context yet)
+        host = np.random.RandomState(0).standard_normal(
+            (IMGREC["batch"],) + IMGREC["shape"]).astype(np.float32)
+        pinned = torch.from_numpy(host).pin_memory()
+        out["copy_ms_idle"] = time_ms(lambda: mx.nd.array(host, gpu(0)))
+        out["copy_ms_pinned"] = time_ms(
+            lambda: pinned.to("cuda", non_blocking=True))
+        print("[imgrec] a batch's copy (%.1f MB) on an idle card: %.4f ms "
+              "pageable through nd.array, %.4f ms from pinned memory; "
+              "phase %.1f s" % (host.nbytes / 1e6, out["copy_ms_idle"],
+                                out["copy_ms_pinned"],
+                                time.perf_counter() - t_phase))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return launches, out
+
+
 def _ring_entries(k4, k10, launches):
     """Kernel 4's and 10's ``kernels`` entries: kernel 4's times summed over
     the main path's launches (a causal ring forward at sp 8: 28 full steps
@@ -5652,6 +6170,8 @@ def main() -> int:
     print("[bf16-infer] summary " + json.dumps(dict(inferred, card=card)))
     bucket_launches, bucketed = phase_bucketing(card)
     print("[bucketing] summary " + json.dumps(dict(bucketed, card=card)))
+    imgrec_launches, imgrec = phase_imgrec(card, moduled["images_per_s"])
+    print("[imgrec] summary " + json.dumps(dict(imgrec, card=card)))
     for k in lstm:
         k["lm_launches"] = k["launches"]
         k["bucketing_launches"] = bucket_launches[k["name"]]
@@ -5664,6 +6184,10 @@ def main() -> int:
                              + mod_launches["implicit_gemm_conv reduction"])
     k2["module_launches"] = (mod_launches["taps_wgrad"]
                              + mod_launches["taps_wgrad reduction"])
+    k1["imgrec_launches"] = (imgrec_launches["implicit_gemm_conv"]
+                             + imgrec_launches["implicit_gemm_conv reduction"])
+    k2["imgrec_launches"] = (imgrec_launches["taps_wgrad"]
+                             + imgrec_launches["taps_wgrad reduction"])
     k12, k1b, k2b = _bf16_entries(k1, k2, bf16_kernels, bf16_launches)
     k13 = _block_entry(block_kernels, infer_launches)
     k13["forced_arms"] = block_forced

@@ -31,12 +31,21 @@ completes the classic Module API: ``mod.BucketingModule`` over
 parameter tensors), ``mod.SequentialModule``, ``mod.PythonLossModule``,
 the file iterators ``io.CSVIter``/``MNISTIter``/``LibSVMIter``, and the
 rest of ``Executor`` and ``Symbol`` (``reshape``, ``infer_shape_partial``).
+Slice 16 adds the data layer's image path: ``recordio`` (``.rec``/``.idx``
+files byte for byte the reference's), ``image`` (decode, resize, crop, the
+augmenters, ``ImageIter``) and ``io.ImageRecordIter``, whose decode pool
+feeds ``Module.fit`` batches on the card.
 """
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from . import ndarray as nd
+from .ndarray import NDArray
 from . import symbol as sym
+from .symbol import Symbol
+from . import executor
+from .executor import Executor
 from . import name
+from .name import NameManager
 from . import random
 from . import initializer
 from . import initializer as init
@@ -48,15 +57,28 @@ from . import metric
 from . import callback
 from . import kvstore
 from . import kvstore as kv
+from .kvstore import KVStore
 from . import model
+from .model import FeedForward
 from . import rtc
 from . import train_loop
+from .train_loop import OverlappedLoop
+from . import recordio
+from . import image
+from . import image as img
 from . import module as mod
 from . import rnn
 from . import models
 from . import parallel
 from .fused import FusedTrainer
 from .predictor import Predictor
+from . import serving
+
+
+def kvstore_create(name="local"):
+    """``kvstore.create(name)`` (the reference's top-level alias)."""
+    return kvstore.create(name)
+
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "nd", "sym", "name", "random", "initializer", "init",
@@ -65,4 +87,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "rnn", "models",
            "parallel",
            "FusedTrainer",
-           "Predictor"]
+           "Predictor", "NDArray", "Symbol", "executor", "Executor",
+           "NameManager", "KVStore", "kvstore_create", "FeedForward",
+           "OverlappedLoop", "recordio", "image", "img", "serving"]

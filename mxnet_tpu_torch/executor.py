@@ -491,12 +491,13 @@ class Executor:
             else:
                 dst._data = g
 
-    def backward(self, out_grads=None):
+    def backward(self, out_grads=None, is_train=True):
         """Gradients of the heads (ones unless ``out_grads``) with respect
         to every argument with a gradient request, written into
         ``grad_dict`` (added for ``"add"``).  They come from the graph of
         the last training forward while its arguments are unchanged, else
-        from the forward run again with that forward's generators."""
+        from the forward run again with that forward's generators.
+        ``is_train`` is accepted and ignored, as the reference's is."""
         kept, self._kept = self._kept, None
         if kept is not None and all(
                 t is u and v == w

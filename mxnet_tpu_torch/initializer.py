@@ -27,9 +27,9 @@ from .context import cpu
 from .ndarray import ndarray as nd
 from .ndarray import random as _ndrandom
 
-__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
-           "FusedRNN", "Mixed", "Load", "create", "register"]
+__all__ = ["Initializer", "InitDesc", "Zero", "One", "Constant", "Uniform",
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "FusedRNN", "Mixed", "Load", "create", "register"]
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -41,8 +41,21 @@ def register(klass, aliases=()):
     return klass
 
 
+class InitDesc(str):
+    """A parameter's name with its symbol attributes (``initializer.py:26``),
+    as ``Module.init_params`` passes it: an ``__init__`` attribute there
+    overrides the initializer called."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        s = super().__new__(cls, name)
+        s.attrs = attrs or {}
+        s.global_init = global_init
+        return s
+
+
 class Initializer:
-    """Base initializer, called as ``init(name, arr)`` on an NDArray."""
+    """Base initializer, called as ``init(desc, arr)`` on an NDArray, where
+    ``desc`` is a name or an :class:`InitDesc`."""
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
@@ -53,6 +66,14 @@ class Initializer:
         return json.dumps([self.__class__.__name__.lower(), self._kwargs])
 
     def __call__(self, name, arr):
+        init_attr = getattr(name, "attrs", {}).get("__init__", "")
+        if init_attr:
+            # the variable's own initializer, by its dumps() or name, draws
+            # the values whatever the name says (initializer.py:54-61)
+            klass, kwargs = json.loads(init_attr) \
+                if init_attr.startswith("[") else (init_attr, {})
+            create(klass, **kwargs)._init_weight(str(name), arr)
+            return
         name = str(name)
         if name.endswith("weight"):
             self._init_weight(name, arr)

@@ -10,17 +10,20 @@ iterators ``CSVIter``, ``MNISTIter`` (idx files, gzipped or not) and
 The iterators make their batches from numpy, as the reference's do (the
 same rows in the same batches from the same seed), and place each batch on
 ``ctx``, by default the current context (``gpu(0)``).  ``ImageRecordIter``
-and its decode pool are not ported yet (they stand on ``recordio.py`` and
-``image.py``).
+reads a ``.rec`` file (:mod:`.recordio`) and decodes and augments its JPEGs
+in a pool of host threads; only the assembled batch goes to ``ctx``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import gzip
 import os
 import queue
 import struct
 import threading
-from collections import namedtuple
+import warnings
+import weakref
+from collections import deque, namedtuple
 from typing import List, Optional
 
 import numpy as np
@@ -31,7 +34,7 @@ from .ndarray import ndarray as nd
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
            "SyntheticLMIter", "PrefetchingIter", "ResizeIter", "CSVIter",
-           "MNISTIter", "LibSVMIter"]
+           "MNISTIter", "LibSVMIter", "ImageRecordIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])):
@@ -636,3 +639,417 @@ class LibSVMIter(_FileIter):
         super().__init__(NDArrayIter(
             data, np.asarray(labels, np.float32), batch_size,
             label_name="label", ctx=ctx))
+
+
+def _randint(rng, low, high):
+    """An int in [low, high) from a ``Generator``, a ``RandomState`` or
+    numpy's global generator (the same draw as ``np.random.randint``)."""
+    integers = getattr(rng, "integers", None)
+    return integers(low, high) if integers is not None \
+        else rng.randint(low, high)
+
+
+class ImageRecordIter(DataIter):
+    """JPEG records of a ``.rec`` file, decoded and augmented on the host,
+    in batches on ``ctx`` (``io.py:750``; the reference C++ iterator's
+    pipeline, ``iter_image_recordio_2.cc``).
+
+    One reader stage walks the records: through ``path_imgidx``'s index
+    where it exists (shuffled at each ``reset``), else sequentially, or
+    from memory when ``shuffle`` is asked without an index (the whole
+    file is loaded, with a warning).  ``preprocess_threads`` workers
+    (default ``MXNET_CPU_WORKER_NTHREADS``, else 4) decode and augment
+    each image straight into its row of a staging slot; up to
+    ``prefetch_buffer`` batches decode at once, in a ring of
+    ``prefetch_buffer + 1`` reusable HWC slots, and the producer thread
+    finishes them strictly in reader order, transposes each to CHW in one
+    step, and places it on ``ctx``.  A short last batch is padded by
+    repeating its row 0 (``pad`` counts the rows).  ``round_batch`` and
+    ``label_width`` are accepted and ignored, as the reference's are; the
+    label is the record's first.
+
+    Augmentation (``image_aug_default.cc``): ``resize`` the short side,
+    then a ``data_shape`` crop, random with ``rand_crop`` where the image
+    is larger, else centred (resized to fit if it is smaller), a mirror
+    with probability 0.5 under ``rand_mirror``, then BGR to RGB and
+    ``(x - mean) / std * scale``.  The random draws come from ``rng`` (a
+    ``Generator`` or ``RandomState``; by default numpy's global generator,
+    as the reference's) and are made in the decode workers, in the order
+    the workers reach them: with ``preprocess_threads=1`` that is record
+    order, so a seeded run repeats exactly; with more threads the labels
+    and their order repeat, but which image gets which draw follows the
+    threads' timing, as in the reference.
+
+    ``num_parts``/``part_index`` keep one loading host's share (a
+    contiguous block of the index or of the records in memory, every
+    ``num_parts``-th record of a sequential file); they default from
+    :func:`parallel.mesh.host_shard_hint`.  A reader or decode error is
+    raised to the consumer.  The producer holds the iterator only weakly
+    between batches, so an abandoned iterator is collected and its
+    threads end; :meth:`close` ends them at once, and :meth:`reset`
+    restarts a closed iterator."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size, label_width=1,
+                 shuffle=False, rand_crop=False, rand_mirror=False,
+                 resize=-1, mean_r=0.0, mean_g=0.0, mean_b=0.0,
+                 std_r=1.0, std_g=1.0, std_b=1.0, scale=1.0,
+                 preprocess_threads=0, prefetch_buffer=2, path_imgidx=None,
+                 round_batch=True, data_name="data",
+                 label_name="softmax_label", num_parts=None,
+                 part_index=None, ctx: Optional[Context] = None, rng=None,
+                 **kwargs):
+        super().__init__(batch_size)
+        from . import recordio
+        self.data_shape = tuple(data_shape)
+        self.rand_crop = rand_crop
+        self.rand_mirror = rand_mirror
+        self.resize = resize
+        self.mean = np.array([mean_r, mean_g, mean_b], np.float32)
+        self.std = np.array([std_r, std_g, std_b], np.float32)
+        self.scale = scale
+        self.shuffle = shuffle
+        self.data_name = data_name
+        self.label_name = label_name
+        self.ctx = ctx or current_context()
+        self.rng = rng if rng is not None else np.random
+        if preprocess_threads <= 0:
+            preprocess_threads = int(os.environ.get(
+                "MXNET_CPU_WORKER_NTHREADS", "4"))
+        self._nthreads = max(1, preprocess_threads)
+        self._prefetch = max(1, prefetch_buffer)
+        self._pool = None
+        self._queue = None
+        self._producer_thread = None
+        self._stop = threading.Event()
+        self._mem = None
+        self._inflight = deque()
+        self._bufs = None
+        self._chw = None
+        self._closed = False
+        self._reader_done = False
+        self._seq_read = 0
+        if path_imgidx and os.path.exists(path_imgidx):
+            self.rec = recordio.MXIndexedRecordIO(path_imgidx, path_imgrec,
+                                                  "r")
+            self.keys = list(self.rec.keys)
+        else:
+            self.rec = recordio.MXRecordIO(path_imgrec, "r")
+            self.keys = None
+            if shuffle:
+                warnings.warn(
+                    "ImageRecordIter: shuffle=True without path_imgidx "
+                    "loads the whole .rec into memory; provide an .idx "
+                    "file for large datasets")
+                self._mem = []
+                while True:
+                    raw = self.rec.read()
+                    if raw is None:
+                        break
+                    self._mem.append(raw)
+        if num_parts is None and part_index is None:
+            from .parallel.mesh import host_shard_hint
+            part_index, num_parts = host_shard_hint()
+        num_parts = 1 if num_parts is None else int(num_parts)
+        part_index = 0 if part_index is None else int(part_index)
+        if not 0 <= part_index < num_parts:
+            raise MXNetError(
+                "ImageRecordIter: part_index %d out of range for "
+                "num_parts %d" % (part_index, num_parts))
+        self.num_parts, self.part_index = num_parts, part_index
+        if num_parts > 1:
+            if self.keys is not None:
+                n = len(self.keys)
+                self.keys = self.keys[n * part_index // num_parts:
+                                      n * (part_index + 1) // num_parts]
+            elif self._mem is not None:
+                n = len(self._mem)
+                self._mem = self._mem[n * part_index // num_parts:
+                                      n * (part_index + 1) // num_parts]
+        self._order = None
+        self.reset()
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self.data_name,
+                         (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(self.label_name, (self.batch_size,))]
+
+    def reset(self):
+        """Stop the producer, reorder (``shuffle``) and start the epoch
+        again; also brings a closed iterator back."""
+        self._stop_producer()
+        self._closed = False
+        self.rec.reset()
+        if self.keys is not None:
+            self._order = list(self.keys)
+            if self.shuffle:
+                self.rng.shuffle(self._order)
+            self._pos = 0
+        elif self._mem is not None:
+            self._order = self.rng.permutation(len(self._mem)).tolist()
+            self._pos = 0
+        self._seq_read = 0
+        self._done = False
+        self._start_producer()
+
+    def close(self):
+        """End the producer and the decode threads and free the staging
+        buffers; :meth:`reset` restarts the iterator."""
+        self._stop_producer()
+        pool, self._pool = getattr(self, "_pool", None), None
+        if pool is not None:
+            pool.shutdown(wait=not _on_decode_thread())
+        self._bufs = None
+        self._chw = None
+        self._closed = True
+
+    __del__ = close
+
+    def _read_raw(self):
+        """The reader stage: the next record of this host's share."""
+        if self.keys is not None:
+            if self._pos >= len(self._order):
+                return None
+            raw = self.rec.read_idx(self._order[self._pos])
+            self._pos += 1
+            return raw
+        if self._mem is not None:
+            if self._pos >= len(self._order):
+                return None
+            raw = self._mem[self._order[self._pos]]
+            self._pos += 1
+            return raw
+        if self.num_parts > 1:
+            # skipped records are read but never decoded
+            while True:
+                raw = self.rec.read()
+                if raw is None:
+                    return None
+                i = self._seq_read
+                self._seq_read += 1
+                if i % self.num_parts == self.part_index:
+                    return raw
+        return self.rec.read()
+
+    def _decode_into(self, raw, buf, i):
+        """The worker stage: decode and augment into row ``i`` of a
+        staging slot (cv2 and PIL release the interpreter lock)."""
+        from . import recordio
+        header, img = recordio.unpack_img(raw, iscolor=1)
+        if img is None:
+            raise MXNetError("ImageRecordIter: cannot decode record %d of "
+                             "its batch" % i)
+        buf[0][i] = self._augment(img)
+        buf[1][i] = float(np.asarray(header.label).ravel()[0])
+
+    def _start_producer(self):
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                self._nthreads, thread_name_prefix="imgrec-decode")
+        if self._bufs is None:
+            c, h, w = self.data_shape
+            self._bufs = queue.Queue()
+            for _ in range(self._prefetch + 1):
+                self._bufs.put(
+                    (np.empty((self.batch_size, h, w, c), np.float32),
+                     np.empty((self.batch_size,), np.float32)))
+        self._reader_done = False
+        self._queue = queue.Queue(self._prefetch)
+        self._stop.clear()
+        # a weak reference only, so an abandoned iterator is collected
+        self._producer_thread = threading.Thread(
+            target=_imgrec_produce_loop, name="imgrec-producer",
+            args=(weakref.ref(self), self._stop, self._queue), daemon=True)
+        self._producer_thread.start()
+
+    def _stop_producer(self):
+        if getattr(self, "_producer_thread", None) is None:
+            return
+        self._stop.set()
+        try:
+            cur = threading.current_thread()
+        except Exception:   # interpreter teardown: module globals cleared
+            self._producer_thread = None
+            return
+        if self._producer_thread is cur:
+            # collected on the producer thread itself: it cannot join itself
+            self._producer_thread = None
+            return
+        while self._producer_thread.is_alive():
+            try:    # unblock a producer waiting on a full queue
+                self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            self._producer_thread.join(timeout=0.05)
+        self._producer_thread = None
+        # settle the decodes in flight before their slots are reused
+        for futs, _n, buf in self._inflight:
+            for f in futs:
+                if not f.cancel():
+                    try:
+                        f.result()
+                    except Exception:  # noqa: BLE001 - the epoch is dropped
+                        pass
+            if self._bufs is not None:
+                self._bufs.put(buf)
+        self._inflight.clear()
+
+    def _pump(self):
+        """One producer turn: keep up to ``prefetch_buffer`` batches
+        decoding, then finish and assemble the oldest.  Returns
+        ``(items for the queue, done)``."""
+        while (not self._reader_done
+               and len(self._inflight) < self._prefetch):
+            raws = []
+            while len(raws) < self.batch_size:
+                raw = self._read_raw()
+                if raw is None:
+                    self._reader_done = True
+                    break
+                raws.append(raw)
+            if not raws:
+                break
+            buf = self._bufs.get_nowait()   # the ring holds one spare slot
+            futs = [self._pool.submit(self._decode_into, r, buf, i)
+                    for i, r in enumerate(raws)]
+            self._inflight.append((futs, len(raws), buf))
+        if not self._inflight:
+            return [None], True
+        futs, n, buf = self._inflight.popleft()
+        try:
+            for f in futs:
+                f.result()
+            batch = self._assemble_batch(buf, n)
+        finally:
+            # after an error too, no worker may still write into the slot
+            concurrent.futures.wait(futs)
+            self._bufs.put(buf)
+        pad = self.batch_size - n
+        done = bool(pad) or (self._reader_done and not self._inflight)
+        return ([batch, None], True) if done else ([batch], False)
+
+    def _assemble_batch(self, buf, n):
+        """Pad a staging slot, transpose it to CHW, place it on ``ctx``."""
+        data, label = buf
+        c, h, w = self.data_shape
+        if self._chw is None:
+            self._chw = np.empty((self.batch_size, c, h, w), np.float32)
+        pad = self.batch_size - n
+        if pad:
+            data[n:] = data[:1]
+            label[n:] = label[:1]
+        np.copyto(self._chw, data.transpose(0, 3, 1, 2))
+        return DataBatch(*self._place(self._chw, label), pad=pad)
+
+    def _place(self, chw, label):
+        """The batch's copies on ``ctx`` (``nd.array`` copies, so the host
+        buffers are free to reuse when it returns)."""
+        return [nd.array(chw, self.ctx)], [nd.array(label, self.ctx)]
+
+    def _augment(self, img):
+        c, h, w = self.data_shape
+        if self.resize > 0:
+            img = _resize_short(img, self.resize)
+        ih, iw = img.shape[:2]
+        if self.rand_crop and ih > h and iw > w:
+            y = _randint(self.rng, 0, ih - h + 1)
+            x = _randint(self.rng, 0, iw - w + 1)
+        else:
+            y, x = max(0, (ih - h) // 2), max(0, (iw - w) // 2)
+        img = img[y:y + h, x:x + w]
+        if img.shape[0] != h or img.shape[1] != w:
+            img = _resize_exact(img, (w, h))
+        if self.rand_mirror and self.rng.random() < 0.5:
+            img = img[:, ::-1]
+        # BGR -> RGB and (x - mean) / std * scale as x * a + b; cv2's arm
+        # first (it releases the interpreter lock), then numpy's
+        a = self.scale / self.std
+        b = -self.mean * a
+        try:
+            import cv2
+        except ImportError:
+            return img[..., ::-1].astype(np.float32) * a + b
+        rgb = cv2.cvtColor(np.ascontiguousarray(img), cv2.COLOR_BGR2RGB)
+        out = cv2.multiply(rgb, tuple(float(v) for v in a) + (0.0,),
+                           dtype=cv2.CV_32F)
+        return cv2.add(out, tuple(float(v) for v in b) + (0.0,))
+
+    def __next__(self):
+        if self._closed:
+            raise MXNetError("ImageRecordIter: used after close(); call "
+                             "reset() to restart it")
+        if self._done:
+            raise StopIteration
+        batch = self._queue.get()
+        if batch is None:
+            self._done = True
+            raise StopIteration
+        if isinstance(batch, Exception):
+            self._done = True
+            raise batch
+        return batch
+
+    next = __next__
+
+
+def _on_decode_thread():
+    """Whether this is a decode worker (which, dropping the last reference
+    to its iterator, runs ``close`` itself and cannot wait for its own
+    pool), or the interpreter is shutting down."""
+    try:
+        return threading.current_thread().name.startswith("imgrec-decode")
+    except Exception:   # noqa: BLE001 - interpreter teardown
+        return True
+
+
+def _imgrec_produce_loop(ref, stop, q):
+    """The producer thread of :class:`ImageRecordIter`.  It holds the
+    iterator only while a turn runs, and forwards any reader or decode
+    error through the queue."""
+    while not stop.is_set():
+        it = ref()
+        if it is None:
+            return
+        try:
+            items, done = it._pump()
+        except Exception as e:               # noqa: BLE001 - raised there
+            items, done = [e, None], True
+        del it
+        for item in items:
+            placed = False
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    placed = True
+                    break
+                except queue.Full:
+                    if ref() is None:        # the consumer dropped it
+                        return
+            if not placed:
+                return
+        if done:
+            return
+
+
+def _resize_short(img, size):
+    """``img`` with its short side resized to ``size`` (``io.py:1169``)."""
+    h, w = img.shape[:2]
+    if h < w:
+        nh, nw = size, int(w * size / h)
+    else:
+        nh, nw = int(h * size / w), size
+    return _resize_exact(img, (nw, nh))
+
+
+def _resize_exact(img, wh):
+    """``img`` resized to ``wh`` = (width, height) by cv2, else PIL."""
+    try:
+        import cv2
+    except ImportError:
+        from PIL import Image
+        mode = "RGB" if img.ndim == 3 else "L"
+        return np.asarray(Image.fromarray(img, mode).resize(wh))
+    return cv2.resize(img, wh)

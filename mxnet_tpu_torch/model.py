@@ -20,8 +20,11 @@ __all__ = ["save_checkpoint", "load_checkpoint", "load_params",
            "FeedForward", "BatchEndParam"]
 
 
-def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
-    """Write ``prefix-symbol.json`` and ``prefix-%04d.params``."""
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
+                    remove_amp_cast=True):
+    """Write ``prefix-symbol.json`` and ``prefix-%04d.params``
+    (``remove_amp_cast`` is accepted and ignored, as the reference's
+    is)."""
     if symbol is not None:
         symbol.save("%s-symbol.json" % prefix)
     save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}

@@ -39,6 +39,7 @@ from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import Context, cpu, current_context
+from ..initializer import InitDesc
 from ..io import DataDesc
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
@@ -49,7 +50,10 @@ __all__ = ["Module"]
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, work_load_list=None, fixed_param_names=None):
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None, compression_params=None):
+        # state_names and compression_params are accepted and ignored, as
+        # the reference's Module does
         super().__init__(logger)
         if context is None:
             context = [current_context()]
@@ -155,6 +159,7 @@ class Module(BaseModule):
             from .. import initializer as init_mod
             initializer = init_mod.Uniform(0.01)
         ex = self._exec_group.execs[0]
+        attrs = self._symbol.attr_dict()
         self._arg_params = {n: ex.arg_dict[n].copyto(cpu())
                             for n in self._param_names}
         self._aux_params = {n: ex.aux_dict[n].copyto(cpu())
@@ -168,7 +173,7 @@ class Module(BaseModule):
                     raise MXNetError("parameter %r missing from provided "
                                      "params (allow_missing=False)" % name)
                 elif initializer is not None:
-                    initializer(name, arr)
+                    initializer(InitDesc(name, attrs.get(name, {})), arr)
 
         _fill(self._arg_params, arg_params)
         _fill(self._aux_params, aux_params)

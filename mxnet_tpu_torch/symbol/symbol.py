@@ -449,10 +449,25 @@ def _create(op_name: str, sym_inputs: Sequence[Optional[Symbol]],
     return Symbol([(node, i) for i in range(node.num_visible())])
 
 
-def Variable(name: str, attr=None, shape=None, **kwargs) -> Symbol:
+def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, stype=None, **kwargs) -> Symbol:
+    """A free variable (``symbol.py:529``).  ``lr_mult``, ``wd_mult``,
+    ``dtype`` and ``init`` are stored under the reference's attribute names
+    (``__lr_mult__``, ``__wd_mult__``, ``__dtype__``, ``__init__``: the
+    initializer's ``dumps()``, or the string given), which the optimizer
+    and ``Module.init_params`` read; ``stype`` is accepted and ignored, as
+    there."""
     attrs = dict(attr or {})
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
+    if dtype is not None:
+        attrs["__dtype__"] = np.dtype(dtype).name
+    if lr_mult is not None:
+        attrs["__lr_mult__"] = lr_mult
+    if wd_mult is not None:
+        attrs["__wd_mult__"] = wd_mult
+    if init is not None:
+        attrs["__init__"] = init if isinstance(init, str) else init.dumps()
     attrs.update(kwargs)
     return Symbol([(_Node(None, name, attrs, []), 0)])
 

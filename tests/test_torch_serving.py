@@ -225,6 +225,6 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                    "parallel/__init__.py", "parallel/mesh.py",
                    "parallel/_compat.py", "parallel/ring_attention.py",
                    "parallel/tensor_parallel.py", "parallel/moe.py",
-                   "parallel/pipeline.py"):
+                   "parallel/pipeline.py", "recordio.py", "image.py"):
         assert os.path.join("mxnet_tpu_torch", module) in scanned
     assert len(files) > 10 and not bad
