@@ -342,6 +342,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    stage's host ms on one thread (read, decode, augment, transpose,
    place), show what sets the pace.
 
+19. eager: imperative training, ``autograd.record`` / ``backward`` /
+   ``gluon.Trainer.step``.  First ``group2ctx``: the reference's two-group
+   MLP (``AttrScope(ctx_group=)``) bound on cpu(0) with ``dev1`` on cpu(0)
+   and ``dev2`` on gpu(0): its output on the card, its forward and
+   backward within 1e-6 of the ungrouped gpu(0) executor's.  Then phase
+   5's ResNet-50 v1 (the same seeded weights and batch, fp32, batch 32,
+   224 px) trained by ``Trainer("sgd", lr 0.1, momentum 0.9)`` with the
+   net hybridized: its first step against ``FusedTrainer``'s first step
+   on the card from the same state (the mean loss within rtol 1e-4, each
+   of the 16 3x3 weight updates within 5% of its norm); a third copy not
+   hybridized (every op through ``nd``, recorded): its first two losses
+   within 1e-5 of the hybridized arm's, then 10 timed steps.  Kernels 1 and 2's
+   counters, zeroed just before each arm and read just after, must read a
+   step the fused step's launches (32 + its plan's split sums of kernel
+   1, 16 + 16 of kernel 2).  Then bench.py's LM (phase 7's, dropout 0.2)
+   trained by ``Trainer("sgd", lr 0.5)``, hybridized: kernels 8 and 9
+   launched twice a step each, its first step against ``FusedTrainer``'s
+   from the same state and the same dropout generator (``random.seed``
+   before each; the loss within rtol 1e-5, each update within 1e-3 of its
+   norm).  20 timed steps of each (images/s and tokens/s printed beside
+   phases 5 and 7's), and a profile of each eager step: device busy
+   share, launches a step and the Trainer update's share; the host ms to
+   queue each part of a step (forward and loss, backward,
+   ``Trainer.step``) beside ``FusedTrainer``'s, ResNet-50's median step
+   with Python's garbage collector off, and each model's eager step
+   against ``FusedTrainer``'s timed in turns on the card (fused, eager,
+   eager, fused; 10 steps each).
+
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
 cuDNN and for matmuls throughout, so every fp32 comparison is fp32 against
@@ -349,6 +377,7 @@ fp32.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -455,12 +484,12 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def timed_steps(step, on_result=None):
-    """Host-clock seconds of ``TIMED_STEPS`` calls of ``step`` after
+def timed_steps(step, on_result=None, timed=TIMED_STEPS):
+    """Host-clock seconds of ``timed`` calls of ``step`` after
     ``WARMUP_STEPS``, each call between two ``torch.cuda.synchronize()``;
     ``on_result`` gets every call's result, after its time is taken."""
     times = []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
+    for i in range(WARMUP_STEPS + timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = step()
@@ -3051,19 +3080,20 @@ def phase_profile(card):
 
 
 # --------------------------------------------------------------------------
-def gluon_resnet50(ctx, batch):
+def gluon_resnet50(ctx, batch, hybridize=True):
     """Full-width Gluon ResNet-50 v1 on ``ctx`` with the weights that
     ``net.initialize()`` draws after ``random.seed(SEED)`` (Uniform(0.07)
     weights, BatchNorm at gamma 1, beta 0, moving mean 0 and variance 1),
     and one seeded batch: 224 px images from U[0, 1) and class labels as
-    float32, as bench.py makes them."""
+    float32, as bench.py makes them; hybridized unless told."""
     from mxnet_tpu_torch import name, nd, random
     from mxnet_tpu_torch.gluon.model_zoo import vision
     random.seed(SEED)
     with name.NameManager():
         net = vision.resnet50_v1()
     net.initialize(ctx=ctx)
-    net.hybridize()
+    if hybridize:
+        net.hybridize()
     r = np.random.default_rng(SEED + 4)
     x = r.uniform(size=(batch, 3, 224, 224)).astype(np.float32)
     y = r.integers(0, 1000, (batch,)).astype(np.float32)
@@ -5943,6 +5973,434 @@ def phase_imgrec(card, module_ips):
     return launches, out
 
 
+# --------------------------------------------------------------------------
+EAGER_TIMED_STEPS = 20
+EAGER_NOHYB_STEPS = 2
+EAGER_NOHYB_TIMED_STEPS = 10
+EAGER_NOHYB_TOL = 1e-5   # |loss not hybridized - hybridized| / |hybridized|
+EAGER_LM_LOSS_RTOL = 1e-5
+EAGER_LM_UPDATE_TOL = 1e-3
+G2C_TOL = 1e-6           # group2ctx executor vs the ungrouped one, absolute
+
+
+class _EagerStep:
+    """One imperative training step of a Gluon net: the forward and the
+    loss under ``autograd.record``, ``backward``, ``Trainer.step(batch)``.
+    ``step(x, y)`` returns the per-example loss, so the profiling helpers
+    call it as they call a ``FusedTrainer``."""
+
+    def __init__(self, net, batch, learning_rate, momentum=0.0):
+        from mxnet_tpu_torch import gluon
+        opt = {"learning_rate": learning_rate}
+        if momentum:
+            opt["momentum"] = momentum
+        self.net, self.batch = net, batch
+        self.trainer = gluon.Trainer(net.collect_params(), "sgd", opt)
+        self.loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(self, x, y):
+        from mxnet_tpu_torch import autograd
+        with autograd.record():
+            loss = self.loss_fn(self.net(x), y)
+        loss.backward()
+        self.trainer.step(self.batch)
+        return loss
+
+    def host_split(self, x, y, n=5):
+        """Median host ms of each part of a step (the forward and loss
+        under ``record``, ``backward``, ``Trainer.step``: the time to queue
+        its work, no sync between them) and of the wait for the card at
+        its end."""
+        from mxnet_tpu_torch import autograd
+        parts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            with autograd.record():
+                loss = self.loss_fn(self.net(x), y)
+            t.append(time.perf_counter())
+            loss.backward()
+            t.append(time.perf_counter())
+            self.trainer.step(self.batch)
+            t.append(time.perf_counter())
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            parts.append(np.diff(t) * 1e3)
+        med = np.median(np.array(parts), axis=0)
+        return dict(zip(("forward_ms", "backward_ms", "trainer_step_ms",
+                         "wait_ms"), (float(v) for v in med)))
+
+
+def _turns(fused, eager, n=10):
+    """Median host ms a step of ``fused`` and of ``eager``, timed in turns
+    on one card (fused, eager, eager, fused), ``n`` steps a turn after the
+    warm-up: the comparison that the host's drift between phases does not
+    bias."""
+    out = {"fused": [], "eager": []}
+    for name, fn in (("fused", fused), ("eager", eager), ("eager", eager),
+                     ("fused", fused)):
+        out[name].append(float(np.median(timed_steps(fn, timed=n))) * 1e3)
+    return out
+
+
+def _median_ms_gc_off(step, n=10):
+    """Median host ms of ``n`` timed calls of ``step`` with Python's
+    garbage collector off (collected once before)."""
+    gc.collect()
+    gc.disable()
+    try:
+        times = timed_steps(step, timed=n)
+    finally:
+        gc.enable()
+    return float(np.median(times)) * 1e3
+
+
+def _fused_host_ms(ft, x, y, n=5):
+    """Median host ms to queue a ``FusedTrainer`` step, and the wait for
+    the card after it."""
+    parts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ft.step(x, y)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        parts.append((t1 - t0, time.perf_counter() - t1))
+    med = np.median(np.array(parts), axis=0) * 1e3
+    return {"queue_ms": float(med[0]), "wait_ms": float(med[1])}
+
+
+def _mean_loss(loss) -> float:
+    return float(loss.asnumpy().mean())
+
+
+def _two_group_mlp():
+    from mxnet_tpu_torch import AttrScope, sym
+    data = sym.var("data")
+    with AttrScope(ctx_group="dev1"):
+        h = sym.FullyConnected(data, num_hidden=16, name="fc1")
+        h = sym.Activation(h, act_type="relu")
+    with AttrScope(ctx_group="dev2"):
+        h = sym.FullyConnected(h, num_hidden=8, name="fc2")
+        return sym.SoftmaxOutput(h, name="softmax")
+
+
+def _eager_group2ctx():
+    """The two-group MLP bound on cpu(0) with ``dev2`` on the card, against
+    the ungrouped gpu(0) executor: forward and backward."""
+    from mxnet_tpu_torch import cpu, gpu
+    net = _two_group_mlp()
+    ex = net.simple_bind(ctx=cpu(0), group2ctx={"dev1": cpu(0),
+                                                "dev2": gpu(0)},
+                         data=(4, 12))
+    ex1 = net.simple_bind(ctx=gpu(0), data=(4, 12))
+    rng = np.random.default_rng(SEED)
+    for n, a in ex.arg_dict.items():
+        v = rng.uniform(size=a.shape) if n == "data" else \
+            rng.integers(0, 8, a.shape) if n == "softmax_label" else \
+            rng.uniform(-0.1, 0.1, a.shape)
+        ex.arg_dict[n][:] = v
+        ex1.arg_dict[n][:] = v
+    got = []
+    for e in (ex, ex1):
+        out = e.forward(is_train=True)[0]
+        e.backward()
+        got.append((out, {n: g.asnumpy() for n, g in e.grad_dict.items()
+                          if n not in ("data", "softmax_label")}))
+    (out, grads), (out1, grads1) = got
+    err_out = float(np.abs(out.asnumpy() - out1.asnumpy()).max())
+    err_grad = max(float(np.abs(grads[n] - grads1[n]).max())
+                   for n in grads1)
+    placed = {n.name: str(ctx) for n in ex._plan(True).topo
+              if not n.is_var
+              for ctx in [ex._plan(True).placed[id(n)]]}
+    print("[eager] group2ctx: dev1 on cpu(0), dev2 on gpu(0): output on %s "
+          "(%s), placement %s; vs the ungrouped gpu(0) executor: output "
+          "%.3g, gradients %.3g (tol %g)" % (out.context,
+                                             out._data.device, placed,
+                                             err_out, err_grad, G2C_TOL))
+    check(out.context == gpu(0) and out._data.device.type == "cuda",
+          "the dev2 group's output is on %s" % out.context)
+    check(sorted(grads) == ["fc1_bias", "fc1_weight", "fc2_bias",
+                            "fc2_weight"], "gradients %s" % sorted(grads))
+    check(max(err_out, err_grad) <= G2C_TOL, "group2ctx differs from the "
+          "ungrouped executor by %g" % max(err_out, err_grad))
+    return {"output_context": str(out.context), "output_err": err_out,
+            "grad_err": err_grad, "placement": placed}
+
+
+def _fp32_conv_counts(hc):
+    c = _conv_counts(hc)
+    return {k: c[k] for k in ("implicit_gemm_conv",
+                              "implicit_gemm_conv reduction", "taps_wgrad",
+                              "taps_wgrad reduction")}
+
+
+def _update_norm_err(got, want):
+    return max(float(np.linalg.norm(got[k] - want[k])
+                     / np.linalg.norm(want[k])) for k in want)
+
+
+def _eager_resnet(card, fused_ips):
+    """Phase 5's ResNet-50 v1 through ``Trainer``: hybridized (first step vs
+    FusedTrainer's, launches, 20 timed steps, profile), then not
+    hybridized (two steps, launches, losses vs the hybridized arm's)."""
+    from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch.fused import FusedTrainer
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    opt = {"learning_rate": 0.1, "momentum": 0.9}
+    want = {"implicit_gemm_conv": 32,
+            "implicit_gemm_conv reduction": conv_reductions_per_step(),
+            "taps_wgrad": 16,
+            "taps_wgrad reduction": wgrad_reductions_per_step()}
+
+    # FusedTrainer's first step from the state every arm starts from
+    fnet, x, y = gluon_resnet50(gpu(0), BATCH)
+    fnet(x).wait_to_read()
+    convs = sorted(_conv3x3_weights(fnet))
+    w0 = {k: fnet.collect_params()[k].data().asnumpy() for k in convs}
+    ft = FusedTrainer(fnet, "softmax_cross_entropy", "sgd", dict(opt))
+    fused_loss = float(ft.step(x, y).asnumpy())
+    ft.sync_params()
+    fused_upd = {k: fnet.collect_params()[k].data().asnumpy() - w0[k]
+                 for k in convs}
+    fused_host = _fused_host_ms(ft, x, y)
+    fx, fy = x, y
+
+    # eager, hybridized: the first step, then the timed ones
+    net, x, y = gluon_resnet50(gpu(0), BATCH)
+    net(x).wait_to_read()
+    check(all(np.array_equal(net.collect_params()[k].data().asnumpy(),
+                             w0[k]) for k in convs),
+          "the eager arm starts from other weights than FusedTrainer's")
+    eager = _EagerStep(net, BATCH, **opt)
+    _zero_conv_counts(hc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [_mean_loss(eager.step(x, y))]
+    first_s = time.perf_counter() - t0
+    upd = {k: net.collect_params()[k].data().asnumpy() - w0[k]
+           for k in convs}
+    rel_loss = abs(losses[0] - fused_loss) / abs(fused_loss)
+    upd_err = _update_norm_err(upd, fused_upd)
+    print("[eager] resnet50_v1 hybridized, first step vs FusedTrainer's on "
+          "the card from the same state: loss %.6f vs %.6f (rel %.3g, tol "
+          "%g); 16 3x3 updates within %.3g of their norm (tol %g)"
+          % (losses[0], fused_loss, rel_loss, LOSS_RTOL, upd_err,
+             UPDATE_TOL))
+    check(rel_loss <= LOSS_RTOL, "the eager first loss differs from "
+          "FusedTrainer's by %g" % rel_loss)
+    check(upd_err <= UPDATE_TOL, "an eager 3x3 update differs from "
+          "FusedTrainer's by %g of its norm" % upd_err)
+    times = timed_steps(lambda: eager.step(x, y),
+                        lambda loss: losses.append(_mean_loss(loss)),
+                        timed=EAGER_TIMED_STEPS)
+    steps = len(losses)
+    launches = _fp32_conv_counts(hc)
+    print("[eager] hybridized: %d steps ran %s launches (per step %s; "
+          "FusedTrainer's a step %s)" % (steps, launches,
+                                        {k: v / steps for k, v in
+                                         launches.items()}, want))
+    check(all(launches[k] == want[k] * steps for k in want),
+          "eager launch counts %s over %d steps, expected %s a step"
+          % (launches, steps, want))
+    check(all(math.isfinite(v) for v in losses), "non-finite eager loss: %s"
+          % losses)
+    step_ms = float(np.median(times)) * 1e3
+    ips = BATCH / (step_ms / 1e3)
+    print("[eager] hybridized, batch %d: first step %.1f ms, %d timed steps "
+          "median %.2f ms (min %.2f, max %.2f): %.1f images/s against "
+          "FusedTrainer's %.1f (phase 5) on %s"
+          % (BATCH, first_s * 1e3, EAGER_TIMED_STEPS, step_ms,
+             min(times) * 1e3, max(times) * 1e3, ips, fused_ips, card))
+    profile = phase_training_profile(card, lambda: eager.step(x, y), step_ms,
+                                     tag="eager-profile")
+    host = eager.host_split(x, y)
+    host["step_ms_gc_off"] = _median_ms_gc_off(lambda: eager.step(x, y))
+    print("[eager] hybridized, host ms to queue a step: forward and loss "
+          "%.2f, backward %.2f, Trainer.step %.2f, then %.2f waiting for "
+          "the card; FusedTrainer's step: %.2f to queue, %.2f waiting; the "
+          "median step with the garbage collector off %.2f ms"
+          % (host["forward_ms"], host["backward_ms"],
+             host["trainer_step_ms"], host["wait_ms"],
+             fused_host["queue_ms"], fused_host["wait_ms"],
+             host["step_ms_gc_off"]))
+    turns = _turns(lambda: ft.step(fx, fy), lambda: eager.step(x, y))
+    print("[eager] hybridized vs FusedTrainer in turns (fused, eager, eager, "
+          "fused; 10 steps each): median step ms fused %s, eager %s on %s"
+          % (["%.2f" % v for v in turns["fused"]],
+             ["%.2f" % v for v in turns["eager"]], card))
+    hyb_losses = losses[:EAGER_NOHYB_STEPS]
+    del eager, net, x, y, ft, fnet, fx, fy
+
+    # eager, not hybridized: every op through nd, recorded
+    nnet, x, y = gluon_resnet50(gpu(0), BATCH, hybridize=False)
+    nnet(x).wait_to_read()
+    neager = _EagerStep(nnet, BATCH, **opt)
+    _zero_conv_counts(hc)
+    nlosses = []
+    ntimes = []
+    for _ in range(EAGER_NOHYB_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = neager.step(x, y)
+        torch.cuda.synchronize()
+        ntimes.append(time.perf_counter() - t0)
+        nlosses.append(_mean_loss(loss))
+    ntimed = timed_steps(lambda: neager.step(x, y),
+                         timed=EAGER_NOHYB_TIMED_STEPS)
+    nsteps = EAGER_NOHYB_STEPS + WARMUP_STEPS + EAGER_NOHYB_TIMED_STEPS
+    nlaunches = _fp32_conv_counts(hc)
+    check(nnet._cached_op is None, "the not-hybridized net built a CachedOp")
+    nstep_ms = float(np.median(ntimed)) * 1e3
+    nprofile = phase_training_profile(card, lambda: neager.step(x, y),
+                                      nstep_ms, tag="eager-nohyb-profile")
+    nhost = neager.host_split(x, y)
+    print("[eager] not hybridized, %d timed steps median %.2f ms (min %.2f, "
+          "max %.2f): %.1f images/s; host ms to queue a step: forward and "
+          "loss %.2f, backward %.2f, Trainer.step %.2f, then %.2f waiting"
+          % (EAGER_NOHYB_TIMED_STEPS, nstep_ms, min(ntimed) * 1e3,
+             max(ntimed) * 1e3, BATCH / (nstep_ms / 1e3),
+             nhost["forward_ms"], nhost["backward_ms"],
+             nhost["trainer_step_ms"], nhost["wait_ms"]))
+    nerr = max(abs(a - b) / abs(b) for a, b in zip(nlosses, hyb_losses))
+    print("[eager] not hybridized: %d steps ran %s launches (expected %s a "
+          "step); the first %d losses %s vs the hybridized arm's %s (rel "
+          "%.3g, tol %g), those steps %.1f ms and %.1f ms"
+          % (nsteps, nlaunches, want, EAGER_NOHYB_STEPS,
+             ["%.6f" % v for v in nlosses], ["%.6f" % v for v in hyb_losses],
+             nerr, EAGER_NOHYB_TOL, ntimes[0] * 1e3, ntimes[-1] * 1e3))
+    check(all(nlaunches[k] == want[k] * nsteps for k in want),
+          "not-hybridized launch counts %s over %d steps, expected %s a "
+          "step" % (nlaunches, nsteps, want))
+    check(nerr <= EAGER_NOHYB_TOL, "the not-hybridized losses differ from "
+          "the hybridized arm's by %g" % nerr)
+    del neager, nnet, x, y
+    return launches, nlaunches, {
+        "images_per_s": ips, "fused_images_per_s": fused_ips,
+        "step_ms": step_ms, "step_ms_min": min(times) * 1e3,
+        "step_ms_max": max(times) * 1e3, "first_step_ms": first_s * 1e3,
+        "steps": steps, "losses": losses,
+        "vs_fused": {"loss_rel_err": rel_loss, "update_rel_err_max": upd_err},
+        "not_hybridized": {"losses": nlosses, "loss_rel_err": nerr,
+                           "first_step_ms": [t * 1e3 for t in ntimes],
+                           "step_ms": nstep_ms,
+                           "images_per_s": BATCH / (nstep_ms / 1e3),
+                           "launches": nlaunches,
+                           "launches_per_step": {k: v / nsteps for k, v in
+                                                 nlaunches.items()},
+                           "host": nhost, "profile": nprofile},
+        "host": host, "fused_host": fused_host, "turns_ms": turns,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "profile": profile}
+
+
+def _eager_lm(card, fused_tps):
+    """bench.py's LM through ``Trainer``, hybridized: its first step vs
+    FusedTrainer's with the same dropout generator, launches, 20 timed
+    steps, profile."""
+    from mxnet_tpu_torch import gpu, random
+    from mxnet_tpu_torch.ops import hopper_rnn as hr
+    seed = SEED + 11
+    fnet, x, y = gluon_lm(gpu(0), LM["dropout"])
+    w0 = {k: p.data().asnumpy() for k, p in fnet.collect_params().items()}
+    random.seed(seed)
+    ft = _lm_trainer(fnet)
+    fused_loss = float(ft.step(x, y).asnumpy())
+    ft.sync_params()
+    fused_upd = {k: p.data().asnumpy() - w0[k]
+                 for k, p in fnet.collect_params().items()}
+    fused_host = _fused_host_ms(ft, x, y)
+    fx, fy = x, y
+    net, x, y = gluon_lm(gpu(0), LM["dropout"])
+    check(all(np.array_equal(p.data().asnumpy(), w0[k])
+              for k, p in net.collect_params().items()),
+          "the eager LM starts from other weights than FusedTrainer's")
+    # the loss's first axis is time: Trainer.step(bptt) averages as the
+    # FusedTrainer's mean over every token does
+    eager = _EagerStep(net, LM["bptt"], LM["lr"])
+    hr.lstm_fwd_launches = hr.lstm_bwd_launches = 0
+    random.seed(seed)
+    losses = [_mean_loss(eager.step(x, y))]
+    upd = {k: p.data().asnumpy() - w0[k]
+           for k, p in net.collect_params().items()}
+    rel_loss = abs(losses[0] - fused_loss) / abs(fused_loss)
+    upd_err = _update_norm_err(upd, fused_upd)
+    print("[eager] LM, first step vs FusedTrainer's from the same state and "
+          "dropout generator (random.seed(%d) before each): loss %.7f vs "
+          "%.7f (rel %.3g, tol %g); every update within %.3g of its norm "
+          "(tol %g)" % (seed, losses[0], fused_loss, rel_loss,
+                        EAGER_LM_LOSS_RTOL, upd_err, EAGER_LM_UPDATE_TOL))
+    check(rel_loss <= EAGER_LM_LOSS_RTOL, "the eager LM's first loss "
+          "differs from FusedTrainer's by %g" % rel_loss)
+    check(upd_err <= EAGER_LM_UPDATE_TOL, "an eager LM update differs "
+          "from FusedTrainer's by %g of its norm" % upd_err)
+    times = timed_steps(lambda: eager.step(x, y),
+                        lambda loss: losses.append(_mean_loss(loss)),
+                        timed=EAGER_TIMED_STEPS)
+    steps = len(losses)
+    launches = {"lstm_fwd": hr.lstm_fwd_launches,
+                "lstm_bwd": hr.lstm_bwd_launches}
+    print("[eager] LM: %d steps ran %s launches (expected %d each a step)"
+          % (steps, launches, LM["layers"]))
+    check(all(v == LM["layers"] * steps for v in launches.values()),
+          "eager LM launch counts %s over %d steps" % (launches, steps))
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          "the eager LM's loss is not finite and falling: %s" % losses)
+    step_ms = float(np.median(times)) * 1e3
+    tps = LM["bptt"] * LM["batch"] / (step_ms / 1e3)
+    print("[eager] LM: %d timed steps median %.2f ms (min %.2f, max %.2f): "
+          "%.1f train tokens/s against FusedTrainer's %.1f (phase 7) on %s"
+          % (EAGER_TIMED_STEPS, step_ms, min(times) * 1e3, max(times) * 1e3,
+             tps, fused_tps, card))
+    profile = phase_lm_profile(card, (eager, x, y), step_ms)
+    host = eager.host_split(x, y)
+    print("[eager] LM, host ms to queue a step: forward and loss %.2f, "
+          "backward %.2f, Trainer.step %.2f, then %.2f waiting; "
+          "FusedTrainer's: %.2f to queue, %.2f waiting"
+          % (host["forward_ms"], host["backward_ms"],
+             host["trainer_step_ms"], host["wait_ms"],
+             fused_host["queue_ms"], fused_host["wait_ms"]))
+    turns = _turns(lambda: ft.step(fx, fy), lambda: eager.step(x, y))
+    print("[eager] LM vs FusedTrainer in turns (fused, eager, eager, fused; "
+          "10 steps each): median step ms fused %s, eager %s on %s"
+          % (["%.2f" % v for v in turns["fused"]],
+             ["%.2f" % v for v in turns["eager"]], card))
+    del eager, net, ft, fnet
+    return launches, {
+        "tokens_per_s": tps, "fused_tokens_per_s": fused_tps,
+        "step_ms": step_ms, "step_ms_min": min(times) * 1e3,
+        "step_ms_max": max(times) * 1e3, "steps": steps, "losses": losses,
+        "vs_fused": {"loss_rel_err": rel_loss, "update_rel_err_max": upd_err,
+                     "dropout": "same generator (random.seed before each)"},
+        "host": host, "fused_host": fused_host, "turns_ms": turns,
+        "profile": profile}
+
+
+def phase_eager(card, fused_ips, fused_tps):
+    """Phase 19: group2ctx across the CPU and the card, then ResNet-50 v1
+    and the LM trained through ``autograd.record`` and ``gluon.Trainer``."""
+    fp32_exact()
+    g2c = _eager_group2ctx()
+    conv, conv_nohyb, resnet = _eager_resnet(card, fused_ips)
+    lstm, lm = _eager_lm(card, fused_tps)
+    for tag, prof in (("resnet50_v1", resnet["profile"]),
+                      ("resnet50_v1 not hybridized",
+                       resnet["not_hybridized"]["profile"]),
+                      ("LM", lm["profile"])):
+        groups = prof["device_ms_by_group"]
+        upd = sum(v for g, v in groups.items() if g.startswith("optimizer"))
+        prof["trainer_update_share"] = upd / prof["step_device_ms"]
+        print("[eager] %s step: the device busy %.1f%% (%.2f ms a step), "
+              "%d launches a step, the Trainer's update %.3f ms (%.1f%% of "
+              "busy) on %s" % (tag, 100 * (1 - prof["idle_share"]),
+                               prof["step_device_ms"],
+                               prof["launches_per_step"], upd,
+                               100 * prof["trainer_update_share"], card))
+    return conv, conv_nohyb, lstm, {"group2ctx": g2c, "resnet50_v1": resnet,
+                                    "lm": lm}
+
+
 def _ring_entries(k4, k10, launches):
     """Kernel 4's and 10's ``kernels`` entries: kernel 4's times summed over
     the main path's launches (a causal ring forward at sp 8: 28 full steps
@@ -6172,6 +6630,9 @@ def main() -> int:
     print("[bucketing] summary " + json.dumps(dict(bucketed, card=card)))
     imgrec_launches, imgrec = phase_imgrec(card, moduled["images_per_s"])
     print("[imgrec] summary " + json.dumps(dict(imgrec, card=card)))
+    eager_conv, eager_conv_nohyb, eager_lstm, eager = phase_eager(
+        card, fp32_ips, lm["tokens_per_s"])
+    print("[eager] summary " + json.dumps(dict(eager, card=card)))
     for k in lstm:
         k["lm_launches"] = k["launches"]
         k["bucketing_launches"] = bucket_launches[k["name"]]
@@ -6188,6 +6649,13 @@ def main() -> int:
                              + imgrec_launches["implicit_gemm_conv reduction"])
     k2["imgrec_launches"] = (imgrec_launches["taps_wgrad"]
                              + imgrec_launches["taps_wgrad reduction"])
+    for k, pre in ((k1, "implicit_gemm_conv"), (k2, "taps_wgrad")):
+        k["eager_launches"] = (eager_conv[pre]
+                               + eager_conv[pre + " reduction"])
+        k["eager_unhybridized_launches"] = (
+            eager_conv_nohyb[pre] + eager_conv_nohyb[pre + " reduction"])
+    for k in lstm:
+        k["eager_launches"] = eager_lstm[k["name"]]
     k12, k1b, k2b = _bf16_entries(k1, k2, bf16_kernels, bf16_launches)
     k13 = _block_entry(block_kernels, infer_launches)
     k13["forced_arms"] = block_forced

@@ -34,10 +34,18 @@ rest of ``Executor`` and ``Symbol`` (``reshape``, ``infer_shape_partial``).
 Slice 16 adds the data layer's image path: ``recordio`` (``.rec``/``.idx``
 files byte for byte the reference's), ``image`` (decode, resize, crop, the
 augmenters, ``ImageIter``) and ``io.ImageRecordIter``, whose decode pool
-feeds ``Module.fit`` batches on the card.
+feeds ``Module.fit`` batches on the card.  Slice 17 adds imperative
+training: ``autograd`` (``record``, ``backward``, ``grad``, ``Function``)
+over PyTorch's autograd, NDArray arithmetic with the elementwise,
+reduction and matrix ops, Gluon blocks that run op by op until
+hybridized, the Gluon losses and ``gluon.Trainer``, and ``AttrScope`` with
+``group2ctx`` placement across devices.
 """
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
+from . import attribute
+from .attribute import AttrScope
+from . import autograd
 from . import ndarray as nd
 from .ndarray import NDArray
 from . import symbol as sym
@@ -81,6 +89,7 @@ def kvstore_create(name="local"):
 
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "attribute", "AttrScope", "autograd",
            "num_gpus", "nd", "sym", "name", "random", "initializer", "init",
            "gluon", "io", "optimizer", "lr_scheduler", "metric",
            "callback", "kvstore", "kv", "model", "rtc", "train_loop", "mod",

@@ -204,11 +204,12 @@ class _Plan:
     (``executor.py:79-100``): :meth:`execute` hands it the generator of its
     slot, or ``None`` when it is given none.
 
-    With ``train=False`` each identity bottleneck that
+    With ``train=False`` (and ``fuse``) each identity bottleneck that
     :func:`_find_bottlenecks` finds becomes one :class:`_FusedBottleneck`
-    step (``n_fused`` in all) in place of its ten nodes."""
+    step (``n_fused`` in all) in place of its ten nodes; ``fuse=False``
+    keeps the ten, for an inference plan that autograd records."""
 
-    def __init__(self, symbol, train: bool = False):
+    def __init__(self, symbol, train: bool = False, fuse: bool = True):
         self.train = train
         self.topo = symbol._topo()
         self.arg_names = symbol.list_arguments()
@@ -218,7 +219,7 @@ class _Plan:
                    if n.is_var and n.name in set(self.aux_names)}
         ops = [node for node in self.topo if not node.is_var]
         keep = set(self.out_entries)
-        fused = {} if train else _find_bottlenecks(ops, keep)
+        fused = {} if train or not fuse else _find_bottlenecks(ops, keep)
         inside = {id(n) for f in fused.values() for n in f.nodes[:-1]}
         # (out id, input entries, fn, attrs, writeback, rng slot) per step
         units = []
@@ -258,12 +259,27 @@ class _Plan:
         self.steps = [unit[:5] + (release[s], unit[5])
                       for s, unit in enumerate(units)]
 
+    def placements(self, group2ctx, default) -> Optional[Dict[int, Any]]:
+        """{step: Context} of every op step from its node's ``ctx_group``
+        through ``group2ctx``, ``default`` (the bind context) for a node
+        with no group there (``executor.py:356-368``); None without
+        ``group2ctx``."""
+        if not group2ctx:
+            return None
+        groups = {id(n): n.attrs.get("ctx_group") for n in self.topo}
+        return {out_id: group2ctx.get(groups.get(out_id), default)
+                for out_id, *_ in self.steps}
+
     def execute(self, values: Dict[str, torch.Tensor],
-                generators: Optional[Sequence[torch.Generator]] = None
+                generators: Optional[Sequence[torch.Generator]] = None,
+                placements: Optional[Dict[int, Any]] = None
                 ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
         """Run the plan on {variable name: tensor}, arguments and auxiliary
         states alike, with one generator per rng slot (or none); returns
-        (heads, new auxiliary states)."""
+        (heads, new auxiliary states).  With ``placements``
+        (:meth:`placements`) each step runs on its device, its inputs
+        copied there first: a copy that autograd differentiates, so the
+        backward crosses the same boundaries."""
         env: Dict[Tuple[int, int], Any] = {}
         for node in self.topo:
             if node.is_var:
@@ -275,6 +291,9 @@ class _Plan:
         for out_id, inputs, fn, attrs, writeback, release, slot in \
                 self.steps:
             ins = [env[e] for e in inputs]
+            if placements is not None:
+                device = placements[out_id].torch_device
+                ins = [t.to(device) for t in ins]
             if not ins:
                 attrs = dict(attrs, __device__=device)
             if slot is not None:
@@ -301,8 +320,10 @@ class Executor:
     def __init__(self, symbol, ctx: Context, args: Dict[str, NDArray],
                  aux_states: Dict[str, NDArray],
                  args_grad: Optional[Dict[str, NDArray]] = None,
-                 grad_req: Optional[Dict[str, str]] = None):
+                 grad_req: Optional[Dict[str, str]] = None,
+                 group2ctx: Optional[Dict[str, Context]] = None):
         self.ctx = ctx
+        self._group2ctx = dict(group2ctx or {})
         self._symbol = symbol
         self.arg_dict = args
         self.aux_dict = aux_states
@@ -364,13 +385,24 @@ class Executor:
         grads = {n: nd.zeros(a.shape, ctx=self.ctx, dtype=a._data.dtype)
                  for n, a in args.items() if n in self.grad_dict}
         return Executor(self._symbol, self.ctx, args, auxs, grads,
-                        self._grad_req)
+                        self._grad_req, group2ctx=self._group2ctx)
 
     def _plan(self, train: bool) -> _Plan:
         plan = self._plans.get(train)
         if plan is None:
             plan = self._plans[train] = _Plan(self._symbol, train)
+            plan.placed = plan.placements(self._group2ctx, self.ctx)
         return plan
+
+    def _wrap(self, plan, outs) -> List[NDArray]:
+        """The heads as NDArrays, each on the context of the node that made
+        it."""
+        placed = plan.placed or {}
+        return [NDArray(o, placed.get(out_id, self.ctx))
+                for o, (out_id, _) in zip(outs, plan.out_entries)]
+
+    def _execute(self, plan, values, gens=None):
+        return plan.execute(values, gens, plan.placed)
 
     def _feed(self, kwargs):
         """Bind new input values: an NDArray's tensor is adopted as is when
@@ -405,7 +437,8 @@ class Executor:
 
     def _writeback_aux(self, new_aux):
         for n in self.aux_names:
-            self.aux_dict[n]._data = new_aux[n].detach()
+            dst = self.aux_dict[n]
+            dst._data = new_aux[n].detach().to(dst._data.device)
 
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
         """Run the graph; keyword arguments replace bound inputs first (an
@@ -425,12 +458,12 @@ class Executor:
         elif is_train:
             gens = self._generators(plan)
             with torch.no_grad():
-                outs, new_aux = plan.execute(self._values(), gens)
+                outs, new_aux = self._execute(plan, self._values(), gens)
             self._writeback_aux(new_aux)
         else:
             with torch.inference_mode():
-                outs, _ = plan.execute(self._values())
-        self.outputs = [NDArray(o) for o in outs]
+                outs, _ = self._execute(plan, self._values())
+        self.outputs = self._wrap(plan, outs)
         return self.outputs
 
     def _head_grads(self, outs, out_grads):
@@ -455,7 +488,7 @@ class Executor:
         values = {n: t.detach() for n, t in self._values().items()}
         leaves = [values[n].requires_grad_() for n in self._grad_args]
         with torch.enable_grad():
-            outs, new_aux = self._plan(True).execute(values, gens)
+            outs, new_aux = self._execute(self._plan(True), values, gens)
         return outs, new_aux, leaves
 
     def _grads_of(self, outs, leaves, out_grads):
@@ -517,7 +550,7 @@ class Executor:
         outs, new_aux, grads = self._run_with_grads(out_grads, gens)
         self._writeback_aux(new_aux)
         self._apply_grads(grads)
-        self.outputs = [NDArray(o) for o in outs]
+        self.outputs = self._wrap(self._plan(True), outs)
         return self.outputs
 
     def copy_params_from(self, arg_params, aux_params=None,

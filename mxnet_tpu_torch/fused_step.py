@@ -21,8 +21,10 @@ to the eager path, as the reference's does.
 ``MXNET_TPU_FUSED_STEP`` (default on, read as the reference reads it)
 selects this path; with ``0`` the eager path (executor backward, then the
 updater one parameter at a time) trains instead, and is the oracle the
-tests hold this one to.  A Module on several contexts trains on the eager
-path (the reference's mesh arm waits for the port's multi-device layer).
+tests hold this one to.  A Module on several contexts, or with
+``group2ctxs``, trains on the eager path, as the reference's
+(``fused_step.py:276``; its mesh arm waits for the port's multi-device
+layer).
 """
 from __future__ import annotations
 
@@ -91,6 +93,7 @@ class ModuleFusedStep:
             opt_ = self._mod._optimizer
             self._structural_ok = bool(
                 self._pnames and len(self._eg.execs) == 1
+                and not ex._group2ctx
                 and not self._eg.inputs_need_grad
                 and not self._has_add and all(opt_.supports_fused(ex.arg_dict[n])
                         for n in self._pnames))

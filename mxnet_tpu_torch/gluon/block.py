@@ -2,25 +2,30 @@
 ``mxnet_tpu/gluon/block.py``).
 
 A HybridBlock describes its computation once, in ``hybrid_forward(F, x,
-...)``; called on a Symbol it builds the graph, and called on an NDArray it
-runs that graph through :class:`~mxnet_tpu_torch.cached_op.CachedOp`.  The
-port has no per-op imperative layer yet, so an NDArray call takes the
-graph path whether or not ``hybridize()`` was called.  Names follow the
+...)``; called on a Symbol it builds the graph.  Called on NDArrays it
+runs ``hybrid_forward(nd, x, ..., **params)`` op by op on the input's
+context (recorded under ``autograd.record``), or, once ``hybridize()`` was
+called, the whole graph through
+:class:`~mxnet_tpu_torch.cached_op.CachedOp`.  Either way a parameter
+whose shape is still unknown is given it by shape inference over the
+block's graph from the inputs' shapes.  Names follow the
 reference exactly (``_BlockScope``'s per-scope counters and the ``Prefix``
 name scope), so a parameter of a port block has the name of the same
 parameter of a reference block, and weights move across by name.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 from collections import OrderedDict
 
 from ..base import MXNetError
 from .. import name as _name
+from .. import ndarray as _ndarray
 from .. import symbol as _symbol
 from ..ndarray.ndarray import NDArray
 from ..symbol import Symbol
-from .parameter import ParameterDict
+from .parameter import DeferredInitializationError, ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -85,6 +90,8 @@ class Block:
         self._scope = _BlockScope(self)
         self._children = OrderedDict()
         self._reg_params = {}
+        self._forward_pre_hooks = OrderedDict()
+        self._forward_hooks = OrderedDict()
 
     def __setattr__(self, name, value):
         """Registers child Blocks and Parameters set as attributes."""
@@ -144,20 +151,56 @@ class Block:
         for param in self.params.values():
             param.cast(dtype)
 
+    def register_forward_pre_hook(self, hook):
+        """Call ``hook(block, inputs)`` before each forward; returns a
+        handle whose ``detach()`` removes it."""
+        return _HookHandle(self._forward_pre_hooks, hook)
+
+    def register_forward_hook(self, hook):
+        """Call ``hook(block, inputs, outputs)`` after each forward."""
+        return _HookHandle(self._forward_hooks, hook)
+
+    def apply(self, fn):
+        """``fn(block)`` on every child, depth first, then on this block."""
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
+
     def __call__(self, *args):
-        return self.forward(*args)
+        for hook in list(self._forward_pre_hooks.values()):
+            hook(self, args)
+        out = self.forward(*args)
+        for hook in list(self._forward_hooks.values()):
+            hook(self, args, out)
+        return out
 
     def forward(self, *args):
+        """The computation, in user code over ``nd`` (a plain Block)."""
         raise NotImplementedError
 
 
+class _HookHandle:
+    _ids = itertools.count()
+
+    def __init__(self, hooks, hook):
+        self._hooks = hooks
+        self.id = next(_HookHandle._ids)
+        hooks[self.id] = hook
+
+    def detach(self):
+        self._hooks.pop(self.id, None)
+
+
 class HybridBlock(Block):
-    """A Block whose ``hybrid_forward(F, x, **params)`` builds a graph."""
+    """A Block whose ``hybrid_forward(F, x, *args, **params)`` runs on
+    ``nd`` or builds a graph on ``sym``."""
 
     def __init__(self, prefix=None):
         super().__init__(prefix=prefix)
         self._cached_graph = ()
         self._cached_op = None
+        self._active = False
 
     def register_child(self, block, name=None):
         if not isinstance(block, HybridBlock):
@@ -171,6 +214,9 @@ class HybridBlock(Block):
         self._cached_op = None
 
     def hybridize(self, active=True, **kwargs):
+        """Run NDArray calls through the block's graph (``CachedOp``)
+        instead of op by op."""
+        self._active = active
         self._clear_cached_op()
         super().hybridize(active, **kwargs)
 
@@ -178,21 +224,40 @@ class HybridBlock(Block):
         self._clear_cached_op()
         super().cast(dtype)
 
-    def _get_graph(self):
-        """(input variable, output Symbol) of this block on ``data``."""
+    def _get_graph(self, n_inputs=1):
+        """(input variables, output Symbol) of this block: one input is
+        named ``data``, several ``data0``, ``data1``, ..."""
         if not self._cached_graph:
-            data = _symbol.var("data")
+            names = ["data"] if n_inputs == 1 else \
+                ["data%d" % i for i in range(n_inputs)]
+            data = [_symbol.var(n) for n in names]
             params = {k: p.var() for k, p in self._reg_params.items()}
             with self.name_scope():
-                out = self.hybrid_forward(_symbol, data, **params)
+                out = self.hybrid_forward(_symbol, *data, **params)
+            if isinstance(out, (list, tuple)):
+                out = _symbol.Group(list(out))
             if not isinstance(out, Symbol):
-                raise MXNetError("hybrid_forward must return one Symbol")
+                raise MXNetError("hybrid_forward must return Symbols")
             self._cached_graph = data, out
         return self._cached_graph
 
-    def infer_shape(self, x):
-        """Set every Parameter's shape from the input's."""
-        self._infer_out_shape(tuple(x.shape))
+    def infer_shape(self, *args):
+        """Set every Parameter's shape from the inputs'."""
+        if len(args) == 1:
+            self._infer_out_shape(tuple(args[0].shape))
+            return
+        data, out = self._get_graph(len(args))
+        self._set_shapes(out, {d.name: tuple(a.shape)
+                               for d, a in zip(data, args)})
+
+    def _set_shapes(self, out, given):
+        arg_shapes, out_shapes, aux_shapes = out.infer_shape(**given)
+        shapes = dict(zip(out.list_arguments(), arg_shapes))
+        shapes.update(zip(out.list_auxiliary_states(), aux_shapes))
+        for p in self.collect_params().values():
+            if p.name in shapes:
+                p.shape = shapes[p.name]
+        return out_shapes[0]
 
     def _infer_out_shape(self, in_shape):
         """Fill this block's Parameter shapes from its input shape, by shape
@@ -201,46 +266,52 @@ class HybridBlock(Block):
         recurrent layers) resolves it here first, and ``HybridSequential``
         walks its children in order, so that each sees its input shape
         before its graph is built."""
-        data, out = self._get_graph()
-        arg_shapes, out_shapes, aux_shapes = out.infer_shape(
-            **{data.name: in_shape})
-        shapes = dict(zip(out.list_arguments(), arg_shapes))
-        shapes.update(zip(out.list_auxiliary_states(), aux_shapes))
-        for p in self.collect_params().values():
-            if p.name in shapes:
-                p.shape = shapes[p.name]
-        return out_shapes[0]
+        data, out = self._get_graph(1)
+        return self._set_shapes(out, {data[0].name: in_shape})
 
-    def _call_cached_op(self, x):
+    def _finish_deferred(self, args, params):
+        if any(p._deferred_init for p in params):
+            self.infer_shape(*args)
+            for p in params:
+                p._finish_deferred_init()
+
+    def _call_cached_op(self, *args):
         from ..cached_op import CachedOp
         params = self.collect_params()
-        if any(p._deferred_init for p in params.values()):
-            self.infer_shape(x)
-            for p in params.values():
-                p._finish_deferred_init()
-        data, out = self._get_graph()
+        self._finish_deferred(args, params.values())
+        data, out = self._get_graph(len(args))
         if self._cached_op is None:
             self._cached_op = CachedOp(out)
+        given = {d.name: a for d, a in zip(data, args)}
         names = out.list_inputs()
-        unknown = [n for n in names if n != data.name and n not in params]
+        unknown = [n for n in names if n not in given and n not in params]
         if unknown:
             raise MXNetError("unknown inputs to HybridBlock: %s" % unknown)
-        values = [x if n == data.name else params[n].data() for n in names]
-        return self._cached_op(*values)
+        return self._cached_op(*[given[n] if n in given else
+                                 params[n].data(args[0].context)
+                                 for n in names])
 
     def forward(self, x, *args):
-        """On an NDArray: run the graph (``CachedOp``); on a Symbol: build
-        it."""
-        if args:
-            raise MXNetError("the port's HybridBlock takes one input")
+        """On NDArrays: ``hybrid_forward(nd, ...)`` on the input's context,
+        or the graph (``CachedOp``) once hybridized; on Symbols: build the
+        graph."""
         if isinstance(x, NDArray):
-            return self._call_cached_op(x)
+            if self._active:
+                return self._call_cached_op(x, *args)
+            try:
+                params = {k: p.data(x.context)
+                          for k, p in self._reg_params.items()}
+            except DeferredInitializationError:
+                self._finish_deferred((x,) + args, self.params.values())
+                params = {k: p.data(x.context)
+                          for k, p in self._reg_params.items()}
+            return self.hybrid_forward(_ndarray, x, *args, **params)
         if not isinstance(x, Symbol):
-            raise MXNetError("a HybridBlock takes an NDArray or a Symbol, "
-                             "got %s" % type(x).__name__)
+            raise MXNetError("a HybridBlock takes NDArrays or Symbols, got "
+                             "%s" % type(x).__name__)
         params = {k: p.var() for k, p in self._reg_params.items()}
         with self.name_scope():
-            return self.hybrid_forward(_symbol, x, **params)
+            return self.hybrid_forward(_symbol, x, *args, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

@@ -101,11 +101,13 @@ class BatchNorm(HybridBlock):
             "beta", shape=shape, init=beta_initializer,
             allow_deferred_init=True)
         self.running_mean = self.params.get(
-            "running_mean", shape=shape, init=running_mean_initializer,
-            allow_deferred_init=True)
+            "running_mean", grad_req="null", shape=shape,
+            init=running_mean_initializer, allow_deferred_init=True,
+            differentiable=False)
         self.running_var = self.params.get(
-            "running_var", shape=shape, init=running_variance_initializer,
-            allow_deferred_init=True)
+            "running_var", grad_req="null", shape=shape,
+            init=running_variance_initializer, allow_deferred_init=True,
+            differentiable=False)
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         return F.BatchNorm(x, gamma, beta, running_mean, running_var,

@@ -1,12 +1,15 @@
 """Gluon ``Parameter`` and ``ParameterDict`` (counterpart of
 ``mxnet_tpu/gluon/parameter.py``): a named array per context, with
-deferred initialization until the first forward tells the shape.
+deferred initialization until the first forward tells the shape, and,
+unless ``grad_req`` is ``"null"``, a gradient array per context: each data
+array is marked for ``autograd`` with it (``write`` or ``add``), so a
+``backward`` under ``autograd.record`` fills it, and ``gluon.Trainer``
+reads it with ``lr_mult``/``wd_mult``.  ``FusedTrainer`` trains every
+argument of the graph on its own copies and writes the values back with
+``sync_params``.
 
-Gradients are not kept on the Parameter in this port yet: the fused
-trainer holds its own state and writes values back with ``sync_params``.
-It trains every argument of the graph, as the reference's does, so the
-per-parameter knobs that only ``gluon.Trainer`` reads (``grad_req``,
-``lr_mult``, ``wd_mult``) come with that trainer.
+A shape that does not fit the known dims raises ``MXNetError`` (the
+``shape`` setter) where the reference raises ``AssertionError``.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import numpy as np
 
 from ..base import MXNetError
 from ..context import Context, cpu, current_context
+from .. import autograd
 from .. import initializer
 from ..ndarray import ndarray as nd
 
@@ -32,16 +36,65 @@ def _known(shape) -> bool:
 class Parameter:
     """A weight or state of a Block, one NDArray per context."""
 
-    def __init__(self, name, shape=None, dtype=np.float32, init=None,
-                 allow_deferred_init=False):
+    def __init__(self, name, grad_req="write", shape=None, dtype=np.float32,
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
+        self._differentiable = differentiable
         self._var = None
         self._data = None               # OrderedDict: Context -> NDArray
+        self._grad = None               # OrderedDict: Context -> NDArray
         self._deferred_init = ()
+        self._grad_req = None
+        self.grad_req = grad_req if differentiable else "null"
+
+    def __repr__(self):
+        return "Parameter %s (shape=%s, dtype=%s)" % (
+            self.name, self.shape, np.dtype(self.dtype).name
+            if not str(self.dtype).endswith("bfloat16") else "bfloat16")
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        """``write``/``add`` keep a gradient array per context (made now
+        when the data exists); ``null`` drops them."""
+        if req not in ("write", "add", "null"):
+            raise MXNetError("grad_req must be write, add or null, got %r"
+                             % (req,))
+        if not self._differentiable:
+            req = "null"
+        if self._grad_req == req:
+            return
+        self._grad_req = req
+        if req == "null":
+            self._grad = None
+            for arr in (self._data or {}).values():
+                arr._grad, arr._grad_req = None, "null"
+                arr._data = arr._data.detach()
+        elif self._data is not None:
+            self._init_grad()
+
+    def _init_grad(self):
+        """A zero gradient array per context, each data array marked for
+        autograd with it."""
+        if self._grad_req == "null":
+            self._grad = None
+            return
+        self._grad = OrderedDict(
+            (c, nd.zeros(a.shape, ctx=c, dtype=a._data.dtype))
+            for c, a in self._data.items())
+        autograd.mark_variables(list(self._data.values()),
+                                list(self._grad.values()), self._grad_req)
 
     @property
     def shape(self):
@@ -90,22 +143,29 @@ class Parameter:
             raise MXNetError("cannot initialize parameter %s: shape %s is "
                              "not known" % (self.name, self.shape))
         self._deferred_init = ()
+        if isinstance(init, np.ndarray):          # set by set_data
+            self._init_impl(init, ctx)
+            return
         data = nd.zeros(self.shape, ctx=cpu(), dtype=self.dtype)
         initializer.create(init)(self.name, data)
+        self._init_impl(data._data, ctx)
+
+    def _init_impl(self, value, ctx_list):
         self._data = OrderedDict(
-            (c, nd.array(data._data, ctx=c, dtype=self.dtype)) for c in ctx)
+            (c, nd.array(value, ctx=c, dtype=self.dtype)) for c in ctx_list)
+        self._init_grad()
 
     def _load_init(self, value, ctx_list):
         """Make the arrays from ``value`` (numpy) on each context, in place
-        of an initializer's draw; the shape must fit the known dims."""
+        of an initializer's draw; the shape must fit the known dims (else
+        ``MXNetError``, through the ``shape`` setter)."""
         self.shape = tuple(value.shape)
         self._deferred_init = ()
-        self._data = OrderedDict(
-            (c, nd.array(value, ctx=c, dtype=self.dtype)) for c in ctx_list)
+        self._init_impl(value, ctx_list)
 
-    def data(self, ctx=None) -> nd.NDArray:
-        """The array on ``ctx`` (default: the only one, else the current
-        context)."""
+    def _arrays(self, grad=False):
+        """The data (or gradient) arrays by context; raises while the
+        parameter is not made, or has no gradient."""
         if self._data is None:
             if self._deferred_init:
                 raise DeferredInitializationError(
@@ -113,14 +173,84 @@ class Parameter:
                     "comes from the first forward" % self.name)
             raise MXNetError("parameter %s has not been initialized"
                              % self.name)
+        if grad and self._grad is None:
+            raise MXNetError("parameter %s has no gradient: grad_req is "
+                             "'null'" % self.name)
+        return self._grad if grad else self._data
+
+    def _on(self, arrays, ctx):
         if ctx is None:
-            if len(self._data) == 1:
-                return next(iter(self._data.values()))
+            if len(arrays) == 1:
+                return next(iter(arrays.values()))
             ctx = current_context()
-        if ctx not in self._data:
+        if ctx not in arrays:
             raise MXNetError("parameter %s is not initialized on %s (only on "
-                             "%s)" % (self.name, ctx, list(self._data)))
-        return self._data[ctx]
+                             "%s)" % (self.name, ctx, list(arrays)))
+        return arrays[ctx]
+
+    def data(self, ctx=None) -> nd.NDArray:
+        """The array on ``ctx`` (default: the only one, else the current
+        context)."""
+        return self._on(self._arrays(), ctx)
+
+    def list_data(self):
+        """The array on every context, in context order."""
+        return list(self._arrays().values())
+
+    def grad(self, ctx=None) -> nd.NDArray:
+        """The gradient array on ``ctx`` (as :meth:`data`)."""
+        return self._on(self._arrays(grad=True), ctx)
+
+    def list_grad(self):
+        """The gradient array on every context, in context order."""
+        return list(self._arrays(grad=True).values())
+
+    def list_ctx(self):
+        """The contexts the parameter lives on (those it will live on when
+        its initialization is deferred)."""
+        if self._data is None:
+            if self._deferred_init:
+                return list(self._deferred_init[1])
+            raise MXNetError("parameter %s has not been initialized"
+                             % self.name)
+        return list(self._data.keys())
+
+    def zero_grad(self):
+        """Zero every gradient array."""
+        for g in (self._grad or {}).values():
+            g[:] = 0
+
+    def set_data(self, data):
+        """Set the value on every context (deferred to the initialization
+        when that is still to come)."""
+        self.shape = data.shape
+        if self._data is None:
+            if not self._deferred_init:
+                raise MXNetError("parameter %s has not been initialized"
+                                 % self.name)
+            # the value takes the initializer's place
+            self._deferred_init = (np.asarray(
+                data.asnumpy() if isinstance(data, nd.NDArray) else data),
+                self._deferred_init[1])
+            return
+        for arr in self._data.values():
+            arr[:] = data
+
+    def reset_ctx(self, ctx):
+        """Move the parameter to ``ctx`` (a Context or a list), its value
+        taken from its first context; gradients start at zero."""
+        if ctx is None:
+            ctx = [current_context()]
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        if self._data:
+            value = next(iter(self._data.values()))._data.detach().cpu()
+            self._init_impl(value, ctx)
+        elif self._deferred_init:
+            self._deferred_init = (self._deferred_init[0], list(ctx))
+        else:
+            raise MXNetError("cannot reset the context of parameter %s: it "
+                             "has not been initialized" % self.name)
 
     def cast(self, dtype):
         """Cast this Parameter's arrays to ``dtype`` (``parameter.py:331``);
@@ -130,6 +260,7 @@ class Parameter:
             return
         self._data = OrderedDict((c, a.astype(dtype))
                                  for c, a in self._data.items())
+        self._init_grad()
 
     def var(self):
         """The Symbol variable of this parameter."""
@@ -183,6 +314,20 @@ class ParameterDict:
                 raise MXNetError("cannot update: two different parameters "
                                  "are named %r" % k)
             self._params[k] = v
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for p in self.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set an attribute (``grad_req``, ``lr_mult``, ...) on every
+        Parameter."""
+        for p in self.values():
+            setattr(p, name, value)
 
     def initialize(self, init=None, ctx=None, force_reinit=False):
         """Initialize every Parameter; ``init`` is the default for those

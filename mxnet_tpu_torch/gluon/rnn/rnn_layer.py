@@ -105,12 +105,13 @@ class _RNNLayer(HybridBlock):
         states = list(states)
         if isinstance(inputs, Symbol):
             with self.name_scope():
-                return self._forward_kernel(inputs, states)
+                return self._forward_kernel(inputs, states, _symbol, {
+                    k: p.var() for k, p in self._reg_params.items()})
         return self._call_with_states(inputs, states)
 
     def hybrid_forward(self, F, x, **params):
-        """The output alone, zero initial states (the graph of ``layer(x)``)."""
-        return self._forward_kernel(x, [])[0]
+        """The output alone, zero initial states (``layer(x)``)."""
+        return self._forward_kernel(x, [], F, params)[0]
 
     def _call_with_states(self, inputs, states):
         """``layer(x, states)`` on NDArrays: (output, new states) through a
@@ -130,7 +131,8 @@ class _RNNLayer(HybridBlock):
             data = _symbol.var("data")
             svars = [_symbol.var("state%d" % i) for i in range(len(states))]
             with self.name_scope():
-                out, new = self._forward_kernel(data, svars)
+                out, new = self._forward_kernel(data, svars, _symbol, {
+                    k: p.var() for k, p in self._reg_params.items()})
             group = _symbol.Group([out] + new)
             self._state_graph = CachedOp(group), len(new)
         op, n_new = self._state_graph
@@ -140,15 +142,15 @@ class _RNNLayer(HybridBlock):
                     for n in op.input_names])
         return outs[0], list(outs[1:1 + n_new])
 
-    def _forward_kernel(self, inputs, states):
-        """The packed-parameter graph of the fused op (``rnn_layer.py:
-        191-234``) on Symbols: (output, new states)."""
-        F = _symbol
+    def _forward_kernel(self, inputs, states, F, params):
+        """The fused op on its packed parameters (``rnn_layer.py:191-234``),
+        on Symbols (``F`` is ``sym``, ``params`` their variables) or on
+        NDArrays (``nd``, the arrays): (output, new states)."""
         if self._layout == "NTC":
             inputs = F.swapaxes(inputs, 0, 1)
 
         def flat_param(name):
-            return getattr(self, name).var().reshape((-1,))
+            return params[name].reshape((-1,))
 
         ws, bs = [], []
         for i in range(self._num_layers):

@@ -54,6 +54,7 @@ class BucketingModule(BaseModule):
         self._context = context
         self._work_load_list = work_load_list
         self._fixed_param_names = fixed_param_names
+        self._group2ctxs = group2ctxs
         self._buckets = {}
         self._curr_module = None
         self._curr_bucket_key = None
@@ -83,7 +84,8 @@ class BucketingModule(BaseModule):
             sym, data_names, label_names = self._sym_gen(bucket_key)
             self._buckets[bucket_key] = Module(
                 sym, data_names, label_names, self.logger, self._context,
-                self._work_load_list, self._fixed_param_names)
+                self._work_load_list, self._fixed_param_names,
+                group2ctxs=self._group2ctxs)
         return self._buckets[bucket_key]
 
     def _check_shared(self, mod, bucket_key):

@@ -20,6 +20,7 @@ from typing import Dict, List, Sequence
 import torch
 
 from ..io import DataDesc
+from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, concatenate
 
 __all__ = ["DataParallelExecutorGroup", "_split_input_slice"]
@@ -50,7 +51,7 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  fixed_param_names=None, grad_req="write", type_dict=None,
-                 shared_group=None):
+                 shared_group=None, group2ctxs=None):
         self.symbol = symbol
         self.contexts = list(contexts)
         self.workload = list(workload or [1.0] * len(self.contexts))
@@ -79,6 +80,13 @@ class DataParallelExecutorGroup:
                 req[n] = grad_req if isinstance(grad_req, str) \
                     else grad_req.get(n, "write")
         self.grad_req = req
+        # group2ctxs (``executor_group.py:68-81``): a dict places the
+        # groups of every replica, a list gives one dict per context
+        if isinstance(group2ctxs, dict) or group2ctxs is None:
+            group2ctxs = [group2ctxs] * len(self.contexts)
+        if len(group2ctxs) != len(self.contexts):
+            raise MXNetError("group2ctxs must match the number of contexts")
+        self.group2ctxs = group2ctxs
         self.execs = []
         for i, (ctx, slc) in enumerate(zip(self.contexts, self.slices)):
             rows = slc.stop - slc.start
@@ -88,7 +96,8 @@ class DataParallelExecutorGroup:
                 else None
             self.execs.append(symbol.simple_bind(
                 ctx=ctx, grad_req=req, type_dict=type_dict,
-                shared_arg_names=param_names, shared_exec=shared, **shapes))
+                group2ctx=group2ctxs[i], shared_arg_names=param_names,
+                shared_exec=shared, **shapes))
 
     def set_params(self, arg_params, aux_params, allow_extra=False):
         for ex in self.execs:

@@ -51,7 +51,7 @@ class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
                  context=None, work_load_list=None, fixed_param_names=None,
-                 state_names=None, compression_params=None):
+                 state_names=None, group2ctxs=None, compression_params=None):
         # state_names and compression_params are accepted and ignored, as
         # the reference's Module does
         super().__init__(logger)
@@ -61,6 +61,7 @@ class Module(BaseModule):
             context = [context]
         self._context = list(context)
         self._work_load_list = work_load_list
+        self._group2ctxs = group2ctxs
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -135,7 +136,7 @@ class Module(BaseModule):
              for d in data_shapes], label_shapes, self._param_names,
             for_training, inputs_need_grad,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            type_dict=type_dict, shared_group=(
+            type_dict=type_dict, group2ctxs=self._group2ctxs, shared_group=(
                 shared_module._exec_group if shared_module is not None
                 else None))
         self.binded = True

@@ -598,3 +598,38 @@ def _streaming_softmax_ce(attrs, data, label):
 def _softmax_cross_entropy(attrs, data, label):
     """Total cross-entropy over the batch (``nn.py:892-896``)."""
     return torch.sum(streaming_ce(data, label)).to(data.dtype)
+
+
+@register("log_softmax", params={"axis": param(int, -1),
+                                 "temperature": param(float, None)})
+def _log_softmax(attrs, x):
+    """``log(softmax(x / temperature))`` over ``axis`` (``nn.py:736``): the
+    dense-label and ``from_logits`` arms of the Gluon losses."""
+    t = attrs["temperature"]
+    if t is not None and t != 1.0:
+        x = x / t
+    return torch.log_softmax(x, dim=attrs["axis"])
+
+
+@register("Dropout", aliases=("dropout",), needs_rng=True, train_aware=True,
+          nout=2, visible=1,
+          params={"p": param(float, 0.5),
+                  "mode": param(["training", "always"], "training"),
+                  "axes": param("shape", ()),
+                  "cudnn_off": param(bool, False),
+                  "__train__": param(bool, False)})
+def _dropout(attrs, generator, data):
+    """Inverted dropout (``nn.py:959-979``): in training (or with ``mode=
+    "always"``) each element, or each slice along ``axes``, is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``, the mask drawn
+    from ``generator``; otherwise the identity.  Returns (out, mask)."""
+    p = attrs["p"]
+    active = attrs.get("__train__") or attrs["mode"] == "always"
+    if not active or p == 0.0 or data.device.type == "meta":
+        return data, torch.ones_like(data)
+    shape = tuple(1 if i in attrs["axes"] else s
+                  for i, s in enumerate(data.shape))
+    keep = 1.0 - p
+    mask = (torch.rand(shape, generator=generator, device=data.device)
+            < keep).to(data.dtype) / keep
+    return data * mask, mask.expand(data.shape)

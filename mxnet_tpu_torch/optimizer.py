@@ -127,6 +127,14 @@ class Optimizer:
                 and isinstance(state[1], nd.NDArray)
                 and state[1]._data.dtype == torch.float32)
 
+    @property
+    def learning_rate(self):
+        """The current rate: the scheduler's at ``num_update``, else
+        ``lr``."""
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
+        return self.lr
+
     def set_learning_rate(self, lr):
         self.lr = lr
 
@@ -196,13 +204,14 @@ class Optimizer:
     @staticmethod
     def _run(op, attrs, weight, grad, *states):
         """One update op on tensors; the new weight and states replace the
-        NDArrays' tensors."""
+        NDArrays' tensors (a weight marked for autograd, a Gluon
+        parameter's, is written in place: ``NDArray._assign``)."""
         with torch.no_grad():
             res = op(attrs, weight._data, grad._data,
                      *[s._data for s in states])
-        res = res if isinstance(res, tuple) else (res,)
-        for arr, t in zip((weight,) + states, res):
-            arr._data = t
+            res = res if isinstance(res, tuple) else (res,)
+            for arr, t in zip((weight,) + states, res):
+                arr._assign(t)
 
     @staticmethod
     def slot_index(param_idx, num_device=1, device=0):
@@ -244,14 +253,15 @@ class Optimizer:
         weight and state tensors (``states[j]`` is the slot's state as a
         tensor, a tuple of tensors or None; for a multi-precision weight,
         :meth:`fused_mp`, the flat tuple ``(master, *inner_leaves)``);
-        ``grads`` are consumed.  Each slot is counted and its learning rate
+        Each slot is counted and its learning rate
         taken in order, as the eager loop does
         (``fused_step.py:1015-1021``); slots with the same (lr, wd) go
         through one chain of foreach kernels.  A multi-precision slot's
         gradient is widened to fp32, the chain updates its master, and the
         weight is cast again from it (``fused_update_mp``,
         ``optimizer.py:209-222``).  Weight decay is added as ``g + wd * w``
-        in two roundings, as the update ops add it."""
+        in two roundings, as the update ops add it.  ``grads`` are left
+        as they were."""
         groups: Dict[tuple, List[int]] = {}
         for j, i in enumerate(indices):
             self._update_count(i)
@@ -267,8 +277,8 @@ class Optimizer:
             # momentum or None
             inner = [(s[1] if len(s) > 1 else None) if m else s
                      for s, m in zip(states, mp)]
-            if self.rescale_grad != 1.0:
-                torch._foreach_mul_(grads, self.rescale_grad)
+            # out of place: the callers' gradient arrays stay as they are
+            grads = torch._foreach_mul(grads, self.rescale_grad)
             if self.clip_gradient is not None and self.clip_gradient >= 0:
                 torch._foreach_clamp_min_(grads, -self.clip_gradient)
                 torch._foreach_clamp_max_(grads, self.clip_gradient)
@@ -391,12 +401,14 @@ class NAG(Optimizer):
         return weight._data.dtype == torch.float32
 
     def _fused_group(self, lr, w, g, states):
-        """``mom = momentum * mom + g``; ``w -= lr * (g + momentum * mom)``."""
+        """``mom = momentum * mom + g``; ``w -= lr * (g + momentum * mom)``,
+        each product and sum rounded as ``nag_mom_update`` rounds it."""
         if self.momentum != 0.0:
             torch._foreach_mul_(states, self.momentum)
             torch._foreach_add_(states, g)
-            torch._foreach_add_(g, states, alpha=self.momentum)
-        torch._foreach_add_(w, g, alpha=-lr)
+            g = torch._foreach_add(g, torch._foreach_mul(states,
+                                                         self.momentum))
+        torch._foreach_sub_(w, torch._foreach_mul(g, lr))
 
 
 @register
@@ -431,15 +443,21 @@ class Adam(Optimizer):
         return lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
 
     def _fused_group(self, lr, w, g, states):
+        """The moments and the step, each product and sum rounded as
+        ``adam_update`` rounds it (no fused multiply-adds)."""
         mean = [s[0] for s in states]
         var = [s[1] for s in states]
         torch._foreach_mul_(mean, self.beta1)
-        torch._foreach_add_(mean, g, alpha=1 - self.beta1)
+        torch._foreach_add_(mean, torch._foreach_mul(g, 1 - self.beta1))
+        sq = torch._foreach_mul(g, g)
+        torch._foreach_mul_(sq, 1 - self.beta2)
         torch._foreach_mul_(var, self.beta2)
-        torch._foreach_addcmul_(var, g, g, value=1 - self.beta2)
+        torch._foreach_add_(var, sq)
         denom = torch._foreach_sqrt(var)
         torch._foreach_add_(denom, self.epsilon)
-        torch._foreach_addcdiv_(w, mean, denom, value=-lr)
+        step = torch._foreach_mul(mean, lr)
+        torch._foreach_div_(step, denom)
+        torch._foreach_sub_(w, step)
 
 
 @register
@@ -501,25 +519,32 @@ class RMSProp(Optimizer):
         return weight._data.dtype == torch.float32
 
     def _fused_group(self, lr, w, g, states):
+        """``rmsprop_update`` (or ``rmspropalex_update``, centered) over
+        the group, each product and sum rounded as the op rounds it."""
         g1 = self.gamma1
         n = [s[0] for s in states]
+        sq = torch._foreach_mul(g, g)
+        torch._foreach_mul_(sq, 1 - g1)
         torch._foreach_mul_(n, g1)
-        torch._foreach_addcmul_(n, g, g, value=1 - g1)
+        torch._foreach_add_(n, sq)
+        step = torch._foreach_mul(g, lr)
         if self.centered:
             gs = [s[1] for s in states]
             delta = [s[2] for s in states]
             torch._foreach_mul_(gs, g1)
-            torch._foreach_add_(gs, g, alpha=1 - g1)
-            denom = torch._foreach_addcmul(n, gs, gs, value=-1.0)
+            torch._foreach_add_(gs, torch._foreach_mul(g, 1 - g1))
+            denom = torch._foreach_sub(n, torch._foreach_mul(gs, gs))
             torch._foreach_add_(denom, self.epsilon)
             torch._foreach_sqrt_(denom)
+            torch._foreach_div_(step, denom)
             torch._foreach_mul_(delta, self.gamma2)
-            torch._foreach_addcdiv_(delta, g, denom, value=-lr)
+            torch._foreach_sub_(delta, step)
             torch._foreach_add_(w, delta)
         else:
             denom = torch._foreach_add(n, self.epsilon)
             torch._foreach_sqrt_(denom)
-            torch._foreach_addcdiv_(w, g, denom, value=-lr)
+            torch._foreach_div_(step, denom)
+            torch._foreach_sub_(w, step)
         if self.clip_weights:
             torch._foreach_clamp_min_(w, -float(self.clip_weights))
             torch._foreach_clamp_max_(w, float(self.clip_weights))

@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..attribute import current_attrs
 from ..base import MXNetError
 from ..name import current_scope
 from ..ops.registry import Operator, get_op
@@ -157,21 +158,66 @@ class Symbol:
             return Symbol(self._outputs[index])
         return Symbol([self._outputs[index]])
 
-    def __add__(self, other):
+    def _binary(self, other, op, scalar_op, reverse=False):
         if isinstance(other, Symbol):
-            return _create("elemwise_add", [self, other], {})
-        if isinstance(other, (int, float)):
-            return _create("_plus_scalar", [self], {"scalar": float(other)})
+            return _create(op, [other, self] if reverse else [self, other],
+                           {})
+        if isinstance(other, (int, float, np.integer, np.floating)):
+            return _create(scalar_op, [self], {"scalar": float(other)})
         raise TypeError("unsupported operand type %s" % type(other))
+
+    def __add__(self, other):
+        return self._binary(other, "elemwise_add" if isinstance(
+            other, Symbol) else "broadcast_add", "_plus_scalar")
 
     __radd__ = __add__
 
+    def __sub__(self, other):
+        return self._binary(other, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binary(other, "broadcast_sub", "_rminus_scalar", True)
+
     def __mul__(self, other):
-        if isinstance(other, (int, float)):
-            return _create("_mul_scalar", [self], {"scalar": float(other)})
-        raise TypeError("unsupported operand type %s" % type(other))
+        return self._binary(other, "broadcast_mul", "_mul_scalar")
 
     __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "broadcast_div", "_rdiv_scalar", True)
+
+    def __mod__(self, other):
+        return self._binary(other, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, other):
+        return self._binary(other, "broadcast_mod", "_rmod_scalar", True)
+
+    def __pow__(self, other):
+        return self._binary(other, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._binary(other, "broadcast_power", "_rpower_scalar", True)
+
+    def __neg__(self):
+        return _create("negative", [self], {})
+
+    def __gt__(self, other):
+        return self._binary(other, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binary(other, "broadcast_greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binary(other, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binary(other, "broadcast_lesser_equal", "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
 
     def reshape(self, shape, **kw):
         """``Reshape`` with MXNet's special codes (0 keep, -1 infer, -2 copy
@@ -299,10 +345,12 @@ class Symbol:
 
     # ---- binding --------------------------------------------------------
     def bind(self, ctx=None, args=None, aux_states=None, args_grad=None,
-             grad_req="write"):
+             grad_req="write", group2ctx=None, shared_exec=None):
         """An Executor over the given arrays (lists follow
         ``list_arguments``/``list_auxiliary_states`` order); gradients go
-        to ``args_grad`` for the arguments ``grad_req`` asks them for."""
+        to ``args_grad`` for the arguments ``grad_req`` asks them for.
+        ``group2ctx`` maps ``ctx_group`` names (``AttrScope``) to the
+        contexts their nodes run on."""
         from ..context import current_context
         from ..executor import Executor
         ctx = ctx or current_context()
@@ -315,10 +363,12 @@ class Symbol:
             aux_states = dict(zip(self.list_auxiliary_states(), aux_states))
         return Executor(self, ctx, dict(args or {}), dict(aux_states or {}),
                         dict(args_grad or {}), _norm_grad_req(grad_req,
-                                                              arg_names))
+                                                              arg_names),
+                        group2ctx=group2ctx)
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    shared_arg_names=None, shared_exec=None, **shapes):
+                    stype_dict=None, group2ctx=None, shared_arg_names=None,
+                    shared_exec=None, shared_buffer=None, **shapes):
         """Infer every shape from the given input shapes, allocate zeros
         for arguments, gradients (where ``grad_req`` is not ``"null"``)
         and auxiliary states on ``ctx``, and bind (``symbol.py:389``).
@@ -330,7 +380,8 @@ class Symbol:
         and each auxiliary state that ``shared_exec`` holds at the same
         shape and dtype is bound to its very NDArray (an argument's
         gradient too), so that the two executors read and write one
-        tensor; anything else is allocated."""
+        tensor; anything else is allocated.  Every array lives on ``ctx``;
+        ``group2ctx`` places the nodes (:meth:`bind`)."""
         from ..context import current_context
         from ..executor import Executor
         from ..ndarray import ndarray as nd
@@ -363,7 +414,8 @@ class Symbol:
         auxs = {n: alloc(n, s, t, shared_exec.aux_dict
                          if shared_exec is not None else None)
                 for n, s, t in zip(aux_names, aux_shapes, aux_types)}
-        return Executor(self, ctx, args, auxs, grads, req)
+        return Executor(self, ctx, args, auxs, grads, req,
+                        group2ctx=group2ctx)
 
 
 def _np_type(dtype):
@@ -443,7 +495,10 @@ def _create(op_name: str, sym_inputs: Sequence[Optional[Symbol]],
             argname = op.arg_names[len(entries)]
             entries.append((_Node(None, "%s_%s" % (name, argname), {}, []), 0))
 
-    attrs = dict(attr or {})
+    # the scope's attributes (ctx_group, ...), then the explicit attr
+    # dict, then the op's own keywords (``symbol.py:514-523``)
+    attrs = current_attrs()
+    attrs.update(attr or {})
     attrs.update(kwargs)
     node = _Node(op, name, attrs, entries)
     return Symbol([(node, i) for i in range(node.num_visible())])
@@ -456,8 +511,9 @@ def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,
     (``__lr_mult__``, ``__wd_mult__``, ``__dtype__``, ``__init__``: the
     initializer's ``dumps()``, or the string given), which the optimizer
     and ``Module.init_params`` read; ``stype`` is accepted and ignored, as
-    there."""
-    attrs = dict(attr or {})
+    there.  The attributes of the current ``AttrScope`` come first."""
+    attrs = current_attrs()
+    attrs.update(attr or {})
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
     if dtype is not None:
