@@ -283,6 +283,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sequence on the same folded weights (three channels-last ``F.conv2d``
    with bias, ReLU and the residual as elementwise ops; the yardstick
    only).
+2i. FCN-8s's 3x3 shapes (run after 2h): kernel 1 (forward, and dgrad
+   with flipped, io-swapped taps) and kernel 2 (wgrad) in fp32 against
+   their plain versions at the 8 distinct stride-1 3x3 shapes of FCN-8s
+   on VGG-16 at batch 1 and 500 px (C = O = 64 at 698 x 698, 64->128 and
+   128 at 349, 128->256 and 256 at 174, 256->512 and 512 at 87, 512 at
+   43), with the tolerances of phases 2 and 2b, each call twice,
+   bit-equal, launching what its plan says; each timed beside its plain
+   version, cuDNN (the yardstick only) and the bound, and summed over one
+   FCN-8s step's 12 forwards, 12 dgrads and 12 wgrads.
 16. bf16 inference: phase 15's bf16 Module after its steps, the eval pass
    of a bf16 run: ``predict`` over an ``NDArrayIter`` of 2 batches of 128
    from ``RandomState(3)`` and ``score`` with ``Accuracy``, the counters
@@ -369,6 +378,43 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with Python's garbage collector off, and each model's eager step
    against ``FusedTrainer``'s timed in turns on the card (fused, eager,
    eager, fused; 10 steps each).
+
+20. the rest of the op layer: every deterministic op of it
+   (``_linspace``, ``_eye``, ``ops/misc_parity.py``'s, ``Deconvolution``
+   (FCN's 16 x 16 stride 8, and ``target_shape`` with groups), ``Crop``,
+   ``UpSampling`` nearest and bilinear, ``LeakyReLU``'s six kinds,
+   ``InstanceNorm``, ``L2Normalization``'s three modes, ``LRN``,
+   ``SoftmaxActivation``, the three regression outputs, ``Pooling(
+   pool_type='lp')``) once on gpu(0) against the port's own CPU result,
+   outputs and the gradients of a seeded weighted sum, within 1e-5 (1e-4
+   where a value sums many products) of max(1, |cpu|); then each sampler
+   of ``nd.random`` and each ``_sample_*`` op at 10^6 draws on the card:
+   mean within 6 standard errors and variance within 2% of the
+   distribution's, one seed giving the same draws twice, multinomial's
+   frequencies and ``get_prob``'s log(p[draw]), shuffle a seeded
+   permutation.
+21. FCN-8s on VGG-16 at full width (Long, Shelhamer and Darrell, CVPR
+   2015, as upstream MXNet's ``example/fcn-xs/symbol_fcnxs.py``: 21
+   classes, conv1_1 padded by 100, fc6 7 x 7 and fc7 1 x 1 convolutions
+   of 4,096 with Dropout 0.5, scores from fc7, pool4 and pool3, two 4 x 4
+   stride-2 and one 16 x 16 stride-8 ``Deconvolution``, ``Crop`` at (5,
+   5), (9, 9), (31, 31), ``SoftmaxOutput(multi_output, use_ignore,
+   ignore_label=255, normalization='valid')``).  First, at 1 x 3 x 192 x
+   192 and full width, dropout off, the first step through ``Module``'s
+   eager arm on the card against the port on the CPU from the same
+   weights: the loss within rtol 1e-4, the gradients of conv1_2,
+   conv5_3, fc6 and the 16 x 16 deconvolution within 1e-3 in norm.
+   Then ``Module.init_params`` with ``init.Mixed`` (``Bilinear`` for the
+   deconvolutions, ``Xavier`` for the rest) and ``fit`` over an
+   ``NDArrayIter`` of 8 synthetic 1 x 3 x 500 x 500 images (rectangles of
+   the 20 object classes on noise, a band of 255 labels) for 3 epochs,
+   SGD lr 0.001, momentum 0.9, wd 5e-4: kernels 1 and 2's launches
+   counted each step and held to those the plans give (12 forwards and 12
+   dgrads of kernel 1, 12 wgrads of kernel 2, and their split sums), the
+   loss finite and its last epoch's mean below its first's; ``score``
+   with pixel accuracy and ``predict`` (finite probabilities summing to
+   1); step ms, images/s, the device's busy share, its time by group and
+   its top operations.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
@@ -6401,6 +6447,758 @@ def phase_eager(card, fused_ips, fused_tps):
                                     "lm": lm}
 
 
+# --------------------------------------------------------------------------
+# phases 2i, 20 and 21: the rest of the op layer, and FCN-8s on VGG-16 (Long,
+# Shelhamer and Darrell, "Fully Convolutional Networks for Semantic
+# Segmentation", CVPR 2015, as upstream MXNet's example/fcn-xs/
+# symbol_fcnxs.py writes it): VGG-16's 13 convolutions (conv1_1 padded by
+# 100), fc6 and fc7 as convolutions, 21 PASCAL VOC classes, three
+# Deconvolutions and Crops at offsets (5, 5), (9, 9) and (31, 31).  The
+# weights are initialised, not the published ImageNet ones; the images are
+# synthetic.
+FCN = dict(classes=21, widths=(64, 128, 256, 512, 512), fc=4096,
+           dropout=0.5, size=500, images=8, epochs=3, batch=1, lr=1e-3,
+           momentum=0.9, wd=5e-4, band=24, seed=SEED + 18, cpu_size=192)
+FCN_BLOCKS = (2, 2, 3, 3, 3)      # VGG-16's convolutions a block
+FCN_IGNORE = 255
+FCN_LOSS_RTOL = 1e-4    # first step's loss, card vs CPU, relative
+FCN_GRAD_TOL = 1e-3     # its gradients, card vs CPU, in Frobenius norm
+FCN_CPU_GRADS = ("conv1_2_weight", "conv5_3_weight", "fc6_weight",
+                 "bigscore_weight")
+OPS_TOL = 1e-5          # a new op on the card vs the CPU, of max(1, |cpu|)
+OPS_SUM_TOL = 1e-4      # the same where a value sums over many products
+SAMPLES = 10 ** 6
+SAMPLE_MEAN_SE = 6.0    # |mean - mu| within this many standard errors
+SAMPLE_VAR_RTOL = 0.02  # |var / sigma² - 1|
+
+
+def fcn8s_symbol(sym, widths=FCN["widths"], fc=FCN["fc"],
+                 classes=FCN["classes"], dropout=FCN["dropout"]):
+    """FCN-8s on VGG-16 with any package's ``sym``: 2x2 max pools at
+    stride 2 in the default ``valid`` convention, the upsampling
+    Deconvolutions without bias, bilinear at initialisation, and the
+    pixel-wise ``SoftmaxOutput`` that ignores label 255."""
+    data = sym.var("data")
+    x, pools = data, []
+    for b, (n, c) in enumerate(zip(FCN_BLOCKS, widths), 1):
+        for i in range(1, n + 1):
+            x = sym.Convolution(x, kernel=(3, 3), num_filter=c,
+                                pad=(100, 100) if (b, i) == (1, 1)
+                                else (1, 1), name="conv%d_%d" % (b, i))
+            x = sym.Activation(x, act_type="relu", name="relu%d_%d" % (b, i))
+        x = sym.Pooling(x, pool_type="max", kernel=(2, 2), stride=(2, 2),
+                        name="pool%d" % b)
+        pools.append(x)
+    for name, k in (("fc6", 7), ("fc7", 1)):
+        x = sym.Convolution(x, kernel=(k, k), num_filter=fc, name=name)
+        x = sym.Activation(x, act_type="relu", name="relu" + name[2])
+        x = sym.Dropout(x, p=dropout, name="drop" + name[2])
+    score = sym.Convolution(x, kernel=(1, 1), num_filter=classes,
+                            name="score")
+
+    def upsample(s, k, stride, name):
+        return sym.Deconvolution(s, kernel=(k, k), stride=(stride, stride),
+                                 num_filter=classes, no_bias=True, name=name)
+
+    def skip(pool, like, offset, name):
+        s = sym.Convolution(pool, kernel=(1, 1), num_filter=classes,
+                            name="score_" + name)
+        return sym.Crop(s, like, offset=offset, name="score_%sc" % name)
+
+    score2 = upsample(score, 4, 2, "score2")
+    score4 = upsample(score2 + skip(pools[3], score2, (5, 5), "pool4"), 4,
+                      2, "score4")
+    big = upsample(score4 + skip(pools[2], score4, (9, 9), "pool3"), 16, 8,
+                   "bigscore")
+    upscore = sym.Crop(big, data, offset=(31, 31), name="upscore")
+    return sym.SoftmaxOutput(upscore, sym.var("softmax_label"),
+                             multi_output=True, use_ignore=True,
+                             ignore_label=FCN_IGNORE, normalization="valid",
+                             name="softmax")
+
+
+def fcn_initializer(mx):
+    """``init.Mixed``: ``Bilinear`` for the three Deconvolutions on the
+    diagonal (class i to class i, zero elsewhere), as upstream MXNet's
+    example/fcn-xs/init_fcnxs.py sets them (``Bilinear`` alone fills every
+    (in, out) pair, so every class gets the same score and the gradient
+    below the decoder is exactly zero); ``Xavier`` (gaussian, fan-in,
+    magnitude 2) for the rest, zero biases."""
+
+    class DiagonalBilinear(mx.init.Bilinear):
+        def _init_weight(self, name, arr):
+            super()._init_weight(name, arr)
+            w = arr.asnumpy()
+            eye = np.eye(w.shape[0], w.shape[1], dtype=w.dtype)
+            arr[:] = w * eye[:, :, None, None]
+
+    return mx.init.Mixed(
+        [r".*(score2|score4|bigscore)_weight$", ".*"],
+        [DiagonalBilinear(),
+         mx.init.Xavier(rnd_type="gaussian", factor_type="in", magnitude=2)])
+
+
+def fcn_images(n, size, seed, classes=FCN["classes"], band=FCN["band"]):
+    """(images (n, 3, size, size), labels (n, size, size)) from ``seed``:
+    as the repo's example/fcn-xs makes them, rectangles on noise, here of
+    the 20 object classes (each its own colour) on background 0, and a
+    band of ``band`` rows labelled 255 (ignored) in every image."""
+    rng = np.random.RandomState(seed)
+    colors = rng.uniform(-1.5, 1.5, (classes, 3)).astype(np.float32)
+    x = rng.randn(n, 3, size, size).astype(np.float32) * 0.3
+    y = np.zeros((n, size, size), np.float32)
+    for i in range(n):
+        for _ in range(4):
+            c = rng.randint(1, classes)
+            h, w = rng.randint(size // 6, size // 2, size=2)
+            r, q = rng.randint(0, size - h), rng.randint(0, size - w)
+            x[i, :, r:r + h, q:q + w] += colors[c][:, None, None]
+            y[i, r:r + h, q:q + w] = c
+        b = rng.randint(0, size - band)
+        y[i, b:b + band] = FCN_IGNORE
+    return x, y
+
+
+def fcn_3x3_shapes(size=FCN["size"], widths=FCN["widths"]):
+    """(name, C, O, H) of FCN-8s's stride-1 pad-1 3x3 convolutions, the
+    ones kernels 1 and 2 carry (conv1_1, padded by 100, stays on cuDNN):
+    conv1_1 makes ``size + 198`` pixels a side, each pool halves it, odd
+    sides rounded down."""
+    out, c_in, h = [], 3, size + 198
+    for b, (n, c) in enumerate(zip(FCN_BLOCKS, widths), 1):
+        for i in range(1, n + 1):
+            if (b, i) != (1, 1):
+                out.append(("conv%d_%d" % (b, i), c_in, c, h))
+            c_in = c
+        h //= 2
+    return out
+
+
+def fcn_step_launches(hc, sms, size=FCN["size"], batch=FCN["batch"]):
+    """Kernels 1 and 2's launches in one FCN-8s training step, from their
+    plans: a forward and a dgrad of kernel 1 a 3x3 convolution, with a split
+    sum each where its plan splits, and kernel 2's partial pass and its
+    reduction where the plan splits the rows."""
+    want = dict.fromkeys(("implicit_gemm_conv", "implicit_gemm_conv "
+                          "reduction", "taps_wgrad", "taps_wgrad reduction"),
+                         0)
+    for _, C, O, H in fcn_3x3_shapes(size):
+        M = batch * H * H
+        for cin, cout in ((C, O), (O, C)):
+            plan = hc.conv_fp32_plan(M, cin, cout, 3, 3, sms)
+            want["implicit_gemm_conv"] += 1
+            want["implicit_gemm_conv reduction"] += plan.splits > 1
+        want["taps_wgrad"] += 1
+        want["taps_wgrad reduction"] += \
+            hc.wgrad_fp32_plan(M, C, O, 3, 3, sms).splits > 1
+    return want
+
+
+def phase_fcn_kernels():
+    """Kernels 1 and 2 (fp32) against their plain versions at FCN-8s's 8
+    distinct 3x3 shapes at batch 1 (C 64 at 698 px, odd sides 349, 87 and
+    43): the forward and the dgrad on kernel 1, the wgrad on kernel 2, each
+    run twice, bit-equal, with the plan's launches; timed beside the plain
+    version, cuDNN and the bound.  Returns the per-shape records."""
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    fp32_exact()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(FCN["seed"])
+    counts = {}
+    for _, C, O, H in fcn_3x3_shapes():
+        counts[(C, O, H)] = counts.get((C, O, H), 0) + 1
+    records = []
+    for (C, O, H), count in counts.items():
+        N = 1
+        x = torch.randn(N, C, H, H, device=dev, generator=gen) \
+            .contiguous(memory_format=torch.channels_last)
+        w = torch.randn(O, C, 3, 3, device=dev, generator=gen) \
+            / math.sqrt(9 * C)
+        dy = torch.randn(N, H, H, O, device=dev, generator=gen)
+        xh, taps, dtaps = hc._nhwc(x), hc._s1_taps(w, torch.float32), \
+            hc.dgrad_taps(w)
+        dyn = dy.permute(0, 3, 1, 2)
+        label = "C=%d O=%d %dx%d N=1" % (C, O, H, H)
+        _, fplan, ferr = _conv_fp32_call(hc, xh, taps, 1, None,
+                                         "FCN " + label)
+        _, dplan, derr = _conv_fp32_call(hc, dy, dtaps, 1, None,
+                                         "FCN dgrad " + label)
+        _, werr, wscale = _wgrad_fp32_check(hc, xh, dy, hc.S1_PADS, 3, 3,
+                                            "FCN " + label)
+        wplan = hc.wgrad_fp32_plan(N * H * H, C, O, 3, 3, _sms(dev),
+                                   (xh.data_ptr(), dy.data_ptr()))
+        flops = 2.0 * N * H * H * C * O * 9
+        nbytes = 4.0 * (x.numel() + w.numel() + dy.numel())
+        bound_ms, bound_by = _bound(flops, nbytes)
+        calls = {
+            "forward": (lambda: hc.conv3x3_same(x, w),
+                        lambda: hc.conv3x3_same_plain(x, w),
+                        lambda: F.conv2d(x, w, padding=1)),
+            "dgrad": (lambda: hc.taps_conv(dy, hc.dgrad_taps(w), hc.S1_PADS,
+                                           3, 3),
+                      lambda: hc.taps_conv_plain(dy, hc.dgrad_taps(w),
+                                                 hc.S1_PADS, 3, 3),
+                      lambda: torch.nn.grad.conv2d_input(x.shape, w, dyn,
+                                                         padding=1)),
+            "wgrad": (lambda: hc.taps_wgrad(xh, dy, hc.S1_PADS, 3, 3),
+                      lambda: hc.taps_wgrad_plain(xh, dy, hc.S1_PADS, 3, 3),
+                      lambda: torch.nn.grad.conv2d_weight(x, w.shape, dyn,
+                                                          padding=1))}
+        rec = {"C": C, "O": O, "H": H, "W": H, "N": N,
+               "instances_per_step": count, "gflop": flops / 1e9,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "forward": {"tile": list(fplan.tile), "splits": fplan.splits,
+                           "max_abs_err": ferr, "tol": KERNEL_TOL},
+               "dgrad": {"tile": list(dplan.tile), "splits": dplan.splits,
+                         "max_abs_err": derr, "tol": KERNEL_TOL},
+               "wgrad": {"tile": wplan.tile, "splits": wplan.splits,
+                         "rows": wplan.rows, "max_abs_err": werr,
+                         "max_rel_err": werr / wscale, "tol_rel": WGRAD_TOL}}
+        for part, (kern, plain, lib) in calls.items():
+            rec[part].update(ms=time_ms(kern, iters=10),
+                             plain_ms=time_ms(plain, iters=10),
+                             library_ms=time_ms(lib, iters=10),
+                             bit_equal_rerun=True)
+            rec[part]["tflops"] = flops / rec[part]["ms"] / 1e9
+        records.append(rec)
+        print("[fcn-kernels] %s x%d: forward (tile %dx%d, %d splits) err "
+              "%.3g, %.4f ms (%.1f TFLOP/s), plain %.4f, cuDNN %.4f | dgrad "
+              "(tile %dx%d, %d splits) err %.3g, %.4f ms (%.1f TFLOP/s), "
+              "plain %.4f, cuDNN %.4f | wgrad (tile %d, %d splits of %d "
+              "rows) err %.3g of max |dw|, %.4f ms (%.1f TFLOP/s), plain "
+              "%.4f, cuDNN %.4f | bound %.4f ms (%s); reruns bit-equal"
+              % (label, count, fplan.tile[0], fplan.tile[1], fplan.splits,
+                 ferr, rec["forward"]["ms"], rec["forward"]["tflops"],
+                 rec["forward"]["plain_ms"], rec["forward"]["library_ms"],
+                 dplan.tile[0], dplan.tile[1], dplan.splits, derr,
+                 rec["dgrad"]["ms"], rec["dgrad"]["tflops"],
+                 rec["dgrad"]["plain_ms"], rec["dgrad"]["library_ms"],
+                 wplan.tile, wplan.splits, wplan.rows, werr / wscale,
+                 rec["wgrad"]["ms"], rec["wgrad"]["tflops"],
+                 rec["wgrad"]["plain_ms"], rec["wgrad"]["library_ms"],
+                 bound_ms, bound_by))
+        del x, w, dy, xh, taps, dtaps, dyn
+        torch.cuda.empty_cache()
+    sums = fcn_kernel_sums(records)
+    print("[fcn-kernels] over one FCN-8s step (batch 1, 500 px): kernel 1 "
+          "(12 forwards, 12 dgrads) %.3f ms (%.1f TFLOP/s), plain %.3f, "
+          "cuDNN %.3f, bound %.3f | kernel 2 (12 wgrads) %.3f ms (%.1f "
+          "TFLOP/s), plain %.3f, cuDNN %.3f, bound %.3f"
+          % (sums["k1"]["ms"], sums["k1"]["tflops"], sums["k1"]["plain_ms"],
+             sums["k1"]["library_ms"], sums["k1"]["bound_ms"],
+             sums["k2"]["ms"], sums["k2"]["tflops"], sums["k2"]["plain_ms"],
+             sums["k2"]["library_ms"], sums["k2"]["bound_ms"]))
+    return records
+
+
+def fcn_kernel_sums(records):
+    """Kernel 1's (forward and dgrad) and kernel 2's (wgrad) times summed
+    over one FCN-8s step's calls, with their TFLOP/s and the largest
+    error."""
+    out = {}
+    for key, parts in (("k1", ("forward", "dgrad")), ("k2", ("wgrad",))):
+        s = {k: sum(r[p][k] * r["instances_per_step"] for r in records
+                    for p in parts)
+             for k in ("ms", "plain_ms", "library_ms")}
+        s["bound_ms"] = sum(r["bound_ms"] * r["instances_per_step"]
+                            * len(parts) for r in records)
+        s["bound_by"] = "operations" if all(
+            r["bound_by"] == "operations" for r in records) else "bytes"
+        s["tflops"] = sum(r["gflop"] * r["instances_per_step"] * len(parts)
+                          for r in records) / s["ms"]
+        s["max_abs_err"] = max(r[p]["max_abs_err"] for r in records
+                               for p in parts)
+        out[key] = s
+    return out
+
+
+# the deterministic new ops of phase 20: (label, op, input shapes (or
+# arrays), attrs, differentiate, tolerance of max(1, |cpu|))
+def _new_op_cases(rng):
+    f = lambda *s: rng.randn(*s).astype(np.float32)
+    idx = np.stack([rng.randint(0, 6, 50), rng.randint(0, 7, 50)]) \
+        .astype(np.float32)
+    uniq = np.unique(idx.T, axis=0).T
+    return [
+        ("linspace", "_linspace", [], dict(start=-2, stop=3, num=1001), False,
+         OPS_TOL),
+        ("linspace open", "_linspace",
+         [], dict(start=-2, stop=3, num=1000, endpoint=False), False,
+         OPS_TOL),
+        ("eye", "_eye", [], dict(N=64, M=80, k=3), False, OPS_TOL),
+        ("grad_add", "_grad_add", [f(64, 65), f(64, 65)], {}, True, OPS_TOL),
+        ("identity_with_attr_like_rhs", "_identity_with_attr_like_rhs",
+         [f(64, 65), f(64, 65)], {}, True, OPS_TOL),
+        ("histogram", "_histogram", [f(10000)],
+         dict(bin_cnt=16, range=(-2.0, 2.0)), False, OPS_TOL),
+        ("ravel_multi_index", "_ravel_multi_index", [idx], dict(shape=(6, 7)),
+         False, OPS_TOL),
+        ("unravel_index", "_unravel_index",
+         [rng.randint(0, 42, 50).astype(np.float32)], dict(shape=(6, 7)),
+         False, OPS_TOL),
+        ("slice_assign", "_slice_assign", [f(8, 9, 10), f(3, 4, 10)],
+         dict(begin=(1, 8), end=(7, 0), step=(2, -2)), True, OPS_TOL),
+        ("slice_assign_scalar", "_slice_assign_scalar", [f(8, 9)],
+         dict(scalar=2.5, begin=(-5,), end=(8,)), True, OPS_TOL),
+        ("scatter_set_nd", "_scatter_set_nd",
+         [f(6, 7), f(uniq.shape[1]), uniq.astype(np.int64)],
+         dict(shape=(6, 7)), True,
+         OPS_TOL),
+        ("square_sum", "_square_sum", [f(32, 33, 5)], dict(axis=(1,)), True,
+         OPS_SUM_TOL),
+        ("sparse_adagrad_update", "_sparse_adagrad_update",
+         [f(64, 9), f(64, 9), np.abs(f(64, 9))],
+         dict(lr=0.1, clip_gradient=1.0, rescale_grad=0.5), False, OPS_TOL),
+        ("IdentityAttachKLSparseReg", "IdentityAttachKLSparseReg",
+         [1 / (1 + np.exp(-f(16, 32)))], dict(penalty=0.01), True, OPS_TOL),
+        ("cast_storage", "cast_storage", [f(16, 17)], {}, True, OPS_TOL),
+        ("Deconvolution 16x16 s8", "Deconvolution",
+         [f(1, 21, 33, 33), f(21, 21, 16, 16) * 0.1],
+         dict(kernel=(16, 16), stride=(8, 8), num_filter=21, no_bias=True),
+         True, OPS_SUM_TOL),
+        ("Deconvolution target_shape", "Deconvolution",
+         [f(2, 8, 9, 11), f(8, 3, 3, 3) * 0.2, f(6)],
+         dict(kernel=(3, 3), stride=(2, 2), num_filter=6, num_group=2,
+              target_shape=(18, 22)), True, OPS_SUM_TOL),
+        ("Crop offset", "Crop", [f(2, 3, 40, 41), f(2, 3, 31, 29)],
+         dict(offset=(5, 9), num_args=2), True, OPS_TOL),
+        ("Crop center", "Crop", [f(2, 3, 40, 41)],
+         dict(h_w=(17, 20), center_crop=True), True, OPS_TOL),
+        ("UpSampling nearest", "UpSampling", [f(2, 5, 13, 17)],
+         dict(scale=3, sample_type="nearest"), True, OPS_SUM_TOL),
+        ("UpSampling bilinear", "UpSampling", [f(2, 5, 13, 17)],
+         dict(scale=2, sample_type="bilinear"), True, OPS_SUM_TOL),
+    ] + [
+        ("LeakyReLU " + act, "LeakyReLU",
+         [f(4, 6, 9, 9)] + ([f(6)] if act == "prelu" else []),
+         dict(act_type=act), True, OPS_TOL)
+        for act in ("leaky", "elu", "selu", "gelu", "prelu", "rrelu")
+    ] + [
+        ("InstanceNorm", "InstanceNorm", [f(4, 6, 15, 17), f(6), f(6)], {},
+         True, OPS_SUM_TOL),
+        ("LRN", "LRN", [f(4, 12, 15, 17)], dict(nsize=5), True, OPS_TOL),
+        ("SoftmaxActivation instance", "SoftmaxActivation", [f(4, 6, 7)], {},
+         True, OPS_TOL),
+        ("SoftmaxActivation channel", "SoftmaxActivation", [f(4, 6, 7)],
+         dict(mode="channel"), True, OPS_TOL),
+        ("Pooling lp 2", "Pooling", [f(2, 4, 17, 19)],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="lp",
+              p_value=2), True, OPS_TOL),
+        ("Pooling lp 3", "Pooling", [f(2, 4, 17, 19)],
+         dict(kernel=(2, 2), stride=(2, 2), pool_type="lp", p_value=3,
+              pooling_convention="full"), True, OPS_TOL),
+    ] + [
+        ("L2Normalization " + m, "L2Normalization", [f(4, 6, 9, 10)],
+         dict(mode=m), True, OPS_TOL)
+        for m in ("instance", "channel", "spatial")
+    ] + [
+        (name, name, [f(16, 9), f(16, 9)], dict(grad_scale=0.5), True,
+         OPS_TOL)
+        for name in ("LinearRegressionOutput", "LogisticRegressionOutput",
+                     "MAERegressionOutput")
+    ]
+
+
+def _op_results(name, arrays, attrs, device, grad, heads):
+    """The visible outputs of op ``name`` on ``device`` and, with
+    ``grad``, the gradients of ``sum(out * head)`` in each floating
+    input, on the CPU."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    op = get_op(name)
+    a = op.parse_attrs(dict(attrs))
+    if "num_args" in op.params:
+        a["num_args"] = len(arrays)
+    if not arrays:
+        a["__device__"] = device
+    ts = [torch.as_tensor(x, device=device) for x in arrays]
+    if grad:
+        for t in ts:
+            t.requires_grad_(t.is_floating_point())
+    with torch.set_grad_enabled(grad):
+        outs = op.fn(a, *(([None] if op.needs_rng else []) + ts))
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        vis = outs[:op.num_visible_outputs(a)]
+        res = [o.detach().cpu() for o in vis]
+        if grad:
+            leaves = [t for t in ts if t.requires_grad]
+            loss = sum((o.float() * h.to(device)).sum()
+                       for o, h in zip(vis, heads(vis)))
+            res += [g.cpu() if g is not None else torch.zeros(())
+                    for g in torch.autograd.grad(loss, leaves,
+                                                 allow_unused=True)]
+    return res
+
+
+def phase_new_ops(card):
+    """Each deterministic op of the op layer's rest (``_linspace``,
+    ``_eye``, ``misc_parity``'s, ``nn.py``'s 20 and ``Pooling(pool_type=
+    'lp')``) on the card against the port's own CPU result, outputs and
+    gradients; then every sampler at 10^6 draws on the card: mean within
+    SAMPLE_MEAN_SE standard errors and variance within SAMPLE_VAR_RTOL of
+    the distribution's, one seed giving the same draws twice."""
+    import mxnet_tpu_torch as mx
+    fp32_exact()
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(FCN["seed"])
+    errs = {}
+    for label, name, arrays, attrs, grad, tol in _new_op_cases(rng):
+        head_rng = np.random.RandomState(7)
+
+        def heads(vis, _r=head_rng):
+            return [torch.as_tensor(_r.randn(*o.shape).astype(np.float32))
+                    for o in vis]
+
+        want = _op_results(name, arrays, attrs, torch.device("cpu"), grad,
+                           heads)
+        head_rng.seed(7)
+        got = _op_results(name, arrays, attrs, dev, grad, heads)
+        check(len(got) == len(want), "%s: %d results on the card, %d on "
+              "the CPU" % (label, len(got), len(want)))
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype, "%s: %s %s on "
+                  "the card, %s %s on the CPU" % (label, tuple(g.shape),
+                                                  g.dtype, tuple(w.shape),
+                                                  w.dtype))
+            if w.numel():
+                e = (g.double() - w.double()).abs().max().item() / max(
+                    1.0, w.double().abs().max().item())
+                err = max(err, e)
+        check(err <= tol, "%s on the card disagrees with the CPU: %.3g > %g"
+              % (label, err, tol))
+        errs[label] = err
+    print("[new-ops] %d deterministic cases on the card match the port on "
+          "the CPU (outputs and gradients; %g, sums %g, of max(1, |cpu|)): "
+          "%s" % (len(errs), OPS_TOL, OPS_SUM_TOL,
+                  ", ".join("%s %.2g" % kv for kv in errs.items())))
+    gpu = mx.gpu(0)
+    n = SAMPLES
+    cases = [
+        ("uniform", lambda: mx.nd.random.uniform(-1, 3, shape=(n,), ctx=gpu),
+         1.0, 16.0 / 12),
+        ("normal", lambda: mx.nd.random.normal(2, 3, shape=(n,), ctx=gpu),
+         2.0, 9.0),
+        ("gamma", lambda: mx.nd.random.gamma(2.5, 1.5, shape=(n,), ctx=gpu),
+         3.75, 2.5 * 1.5 ** 2),
+        ("exponential", lambda: mx.nd.random.exponential(2.0, shape=(n,),
+                                                         ctx=gpu), 0.5, 0.25),
+        ("poisson", lambda: mx.nd.random.poisson(4.0, shape=(n,), ctx=gpu),
+         4.0, 4.0),
+        ("negative_binomial", lambda: mx.nd.random.negative_binomial(
+            3, 0.4, shape=(n,), ctx=gpu), 4.5, 11.25),
+        ("generalized_negative_binomial",
+         lambda: mx.nd.random.generalized_negative_binomial(
+             2.0, 0.5, shape=(n,), ctx=gpu), 2.0, 4.0),
+        ("randint", lambda: mx.nd.random.randint(-5, 7, shape=(n,), ctx=gpu),
+         0.5, (12 ** 2 - 1) / 12.0),
+        ("sample_normal", lambda: mx.nd.random.normal(
+            mx.nd.array([2.0], ctx=gpu), mx.nd.array([3.0], ctx=gpu),
+            shape=(n,))[0], 2.0, 9.0),
+        ("sample_uniform", lambda: mx.nd.random.uniform(
+            mx.nd.array([-1.0], ctx=gpu), 3.0, shape=(n,))[0], 1.0,
+         16.0 / 12),
+        ("sample_gamma", lambda: mx.nd.random.gamma(
+            mx.nd.array([2.5], ctx=gpu), 1.5, shape=(n,))[0], 3.75,
+         2.5 * 1.5 ** 2),
+        ("sample_exponential", lambda: mx.nd.sample_exponential(
+            mx.nd.array([2.0], ctx=gpu), shape=(n,))[0], 0.5, 0.25),
+        ("sample_poisson", lambda: mx.nd.sample_poisson(
+            mx.nd.array([4.0], ctx=gpu), shape=(n,))[0], 4.0, 4.0),
+        ("sample_negative_binomial", lambda: mx.nd.sample_negative_binomial(
+            mx.nd.array([3.0], ctx=gpu), mx.nd.array([0.4], ctx=gpu),
+            shape=(n,))[0], 4.5, 11.25),
+        ("sample_generalized_negative_binomial",
+         lambda: mx.nd.sample_generalized_negative_binomial(
+             mx.nd.array([2.0], ctx=gpu), mx.nd.array([0.5], ctx=gpu),
+             shape=(n,))[0], 2.0, 4.0),
+    ]
+    moments = {}
+    for name, draw, mu, var in cases:
+        mx.random.seed(FCN["seed"])
+        a = draw()._data
+        mx.random.seed(FCN["seed"])
+        b = draw()._data
+        check(a.device.type == "cuda" and a.numel() == n,
+              "%s drew %d values on %s" % (name, a.numel(), a.device))
+        check(torch.equal(a, b), "%s: one seed gave other draws" % name)
+        x = a.double()
+        m, v = x.mean().item(), x.var().item()
+        check(abs(m - mu) <= SAMPLE_MEAN_SE * math.sqrt(var / n)
+              and abs(v / var - 1) <= SAMPLE_VAR_RTOL,
+              "%s: mean %.5f, var %.5f at %d draws; the distribution's %.5f "
+              "and %.5f" % (name, m, v, n, mu, var))
+        moments[name] = (m, v)
+    p = torch.tensor([0.1, 0.2, 0.3, 0.4])
+    mx.random.seed(FCN["seed"])
+    draws, logp = mx.nd.random.multinomial(mx.nd.array(p.numpy(), ctx=gpu),
+                                           shape=(n,), get_prob=True)
+    freq = torch.bincount(draws._data.long().cpu(), minlength=4).double() / n
+    se = (p.double() * (1 - p.double()) / n).sqrt()
+    check(bool(((freq - p.double()).abs() <= SAMPLE_MEAN_SE * se).all()),
+          "multinomial frequencies %s for %s" % (freq.tolist(), p.tolist()))
+    check(torch.allclose(logp._data.cpu(), p.log()[draws._data.long().cpu()]),
+          "multinomial's log-probabilities are not log(p[draw])")
+    mx.random.seed(FCN["seed"])
+    base = mx.nd.arange(0, n, ctx=gpu)
+    s1 = mx.nd.random.shuffle(base)._data
+    mx.random.seed(FCN["seed"])
+    s2 = mx.nd.random.shuffle(base)._data
+    check(torch.equal(s1, s2) and torch.equal(s1.sort().values, base._data)
+          and not torch.equal(s1, base._data),
+          "shuffle is not a seeded permutation")
+    moments["multinomial"] = freq.tolist()
+    print("[new-ops] %d samplers at %d draws on the card: mean within %g "
+          "standard errors, variance within %g; one seed gives the same "
+          "draws twice; multinomial's frequencies and log(p[draw]); shuffle "
+          "a permutation (%s): %s"
+          % (len(cases) + 2, n, SAMPLE_MEAN_SE, SAMPLE_VAR_RTOL, card,
+             ", ".join("%s %s" % (k, ("mean %.4f var %.4f" % v)
+                                  if isinstance(v, tuple) else v)
+                       for k, v in moments.items())))
+    return {"deterministic_errs": errs, "sampler_moments": moments}
+
+
+def fcn_metrics(mx):
+    """Two metrics computed on the card from the SoftmaxOutput's
+    probabilities: the mean cross-entropy of the valid pixels (every
+    batch's value kept, read once at the end), and the share of valid
+    pixels whose most likely class is the label."""
+
+    def picked(p, lab):
+        return p.gather(1, lab.clamp(0, p.shape[1] - 1).unsqueeze(1)) \
+            .squeeze(1)
+
+    class PixelCE(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("pixel-ce")
+            self.values = []
+
+        def update(self, labels, preds):
+            p, lab = preds[0]._data, labels[0]._data.long()
+            valid = lab != FCN_IGNORE
+            ce = -(picked(p, lab).clamp_min(1e-30).log() * valid).sum() \
+                / valid.sum().clamp_min(1)
+            self.values.append(ce.detach())
+            self.sum_metric += ce.detach()
+            self.num_inst += 1
+
+        def get(self):
+            if not self.num_inst:
+                return self.name, float("nan")
+            return self.name, float(self.sum_metric) / self.num_inst
+
+    class PixelAccuracy(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("pixel-accuracy")
+
+        def update(self, labels, preds):
+            p, lab = preds[0]._data, labels[0]._data.long()
+            valid = lab != FCN_IGNORE
+            self.sum_metric += int(((p.argmax(1) == lab) & valid).sum())
+            self.num_inst += int(valid.sum())
+
+    return PixelCE(), PixelAccuracy()
+
+
+def _fcn_loss(probs, label):
+    p, lab = probs.double(), label.long()
+    valid = lab != FCN_IGNORE
+    picked = p.gather(1, lab.clamp(0, p.shape[1] - 1).unsqueeze(1)).squeeze(1)
+    return float(-(picked.log() * valid).sum() / valid.sum())
+
+
+def _fcn_vs_cpu(mx):
+    """The first training step of FCN-8s at full width on a 1 x 3 x 192 x
+    192 image, on the card and on the CPU from the same initial weights,
+    through ``Module``'s eager arm (forward, backward): the loss within
+    FCN_LOSS_RTOL and the gradients of conv1_2, conv5_3, fc6 and the 16x16
+    deconvolution within FCN_GRAD_TOL of the CPU's in norm.  Dropout is
+    off here (p 0): the card's and the CPU's generators draw other masks."""
+    size = FCN["cpu_size"]
+    x, y = fcn_images(1, size, FCN["seed"] + 1)
+    sym = fcn8s_symbol(mx.sym, dropout=0.0)
+    res = []
+    params = None
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        mod = mx.mod.Module(sym, context=[ctx])
+        mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+        if params is None:
+            mx.random.seed(FCN["seed"])
+            mod.init_params(initializer=fcn_initializer(mx))
+            params = mod.get_params()
+        else:
+            mod.init_params(arg_params=params[0], aux_params=params[1])
+        batch = mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                                [mx.nd.array(y, ctx=ctx)])
+        t0 = time.perf_counter()
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        out = mod.get_outputs()[0]
+        grads = mod._exec_group.execs[0].grad_dict
+        res.append((
+            _fcn_loss(out._data, batch.label[0]._data),
+            {k: grads[k]._data.double().cpu() for k in FCN_CPU_GRADS},
+            time.perf_counter() - t0))
+        del mod, batch, out, grads
+    (lc, gc_, tc), (lg, gg, tg) = res
+    loss_err = abs(lg - lc) / abs(lc)
+    grad_errs = {k: float((gg[k] - gc_[k]).norm() / gc_[k].norm())
+                 for k in FCN_CPU_GRADS}
+    print("[fcn-vs-cpu] first step at full width, 1 x 3 x %d x %d, dropout "
+          "off: loss %.7f on the card, %.7f on the CPU (rel err %.3g, tol "
+          "%g); gradient errors in norm (tol %g): %s; step %.2f s on the CPU"
+          % (size, size, lg, lc, loss_err, FCN_LOSS_RTOL, FCN_GRAD_TOL,
+             ", ".join("%s %.3g" % kv for kv in grad_errs.items()), tc))
+    check(loss_err <= FCN_LOSS_RTOL, "FCN-8s's first loss on the card is "
+          "%.3g from the CPU's (tol %g)" % (loss_err, FCN_LOSS_RTOL))
+    check(all(e <= FCN_GRAD_TOL for e in grad_errs.values()),
+          "FCN-8s's first gradients on the card differ from the CPU's: %s "
+          "(tol %g)" % (grad_errs, FCN_GRAD_TOL))
+    return {"loss_card": lg, "loss_cpu": lc, "loss_rel_err": loss_err,
+            "grad_rel_errs": grad_errs, "size": size}
+
+
+def _fcn_group(name):
+    kind = _k1_kind(name)
+    if kind is not None:
+        return "kernel 1 (fp32)" if kind == "fp32" else "kernel 1 bf16"
+    return _train_group(name)
+
+
+def phase_fcn(card):
+    """FCN-8s on VGG-16 at full width through ``Module.fit`` on the card
+    (see the module docstring, phase 21); returns kernels 1 and 2's
+    launches in ``fit`` and the phase's record."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    fp32_exact()
+    cpu_check = _fcn_vs_cpu(mx)
+    gpu = mx.gpu(0)
+    n, size = FCN["images"], FCN["size"]
+    x, y = fcn_images(n, size, FCN["seed"])
+    it = mx.io.NDArrayIter(x, y, batch_size=FCN["batch"],
+                           label_name="softmax_label", ctx=gpu)
+    sym = fcn8s_symbol(mx.sym)
+    mod = mx.mod.Module(sym, context=[gpu])
+    mod.bind(it.provide_data, it.provide_label)
+    arg_shapes, out_shapes, _ = sym.infer_shape(data=(1, 3, size, size))
+    n_params = sum(int(np.prod(s)) for k, s in zip(sym.list_arguments(),
+                                                   arg_shapes)
+                   if k not in ("data", "softmax_label"))
+    check(out_shapes[0] == (1, FCN["classes"], size, size),
+          "FCN-8s's output is %s" % (out_shapes[0],))
+    t0 = time.perf_counter()
+    mx.random.seed(FCN["seed"])
+    mod.init_params(initializer=fcn_initializer(mx))
+    init_s = time.perf_counter() - t0
+    want = fcn_step_launches(hc, _sms(torch.device("cuda", 0)))
+    loss, accuracy = fcn_metrics(mx)
+    per_step = []
+
+    def on_batch(_param):
+        per_step.append(_conv_counts(hc))
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_conv_counts(hc)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=FCN["epochs"], optimizer="sgd",
+            optimizer_params={"learning_rate": FCN["lr"],
+                              "momentum": FCN["momentum"], "wd": FCN["wd"]},
+            eval_metric=loss, batch_end_callback=on_batch, overlap_depth=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _conv_counts(hc)
+    steps = n * FCN["epochs"] // FCN["batch"]
+    check(len(per_step) == steps, "fit ran %d steps, expected %d"
+          % (len(per_step), steps))
+    prev = dict.fromkeys(want, 0)
+    for i, c in enumerate(per_step):
+        step = {k: c[k] - prev[k] for k in want}
+        check(step == want, "FCN-8s step %d launched %s of kernels 1 and 2, "
+              "the plans say %s" % (i, step, want))
+        check(c["taps_conv_bf16"] == 0 and c["taps_wgrad_bf16"] == 0,
+              "FCN-8s launched the bf16 kernels")
+        prev = c
+    losses = [float(v) for v in loss.values]
+    epochs = [float(np.mean(losses[e * n:(e + 1) * n]))
+              for e in range(FCN["epochs"])]
+    check(all(math.isfinite(v) for v in losses), "FCN-8s's loss is not "
+          "finite: %s" % losses)
+    check(epochs[-1] < epochs[0], "FCN-8s's loss did not fall: epoch means "
+          "%s" % epochs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print("[fcn] FCN-8s (VGG-16, %d classes, %.1f M parameters) through "
+          "Module.fit, 1 x 3 x %d x %d, SGD lr %g momentum %g wd %g, %d "
+          "epochs of %d images (%d steps) in %.2f s (init %.2f s), peak %.2f "
+          "GB on %s" % (FCN["classes"], n_params / 1e6, size, size,
+                        FCN["lr"], FCN["momentum"], FCN["wd"],
+                        FCN["epochs"], n, steps, fit_s, init_s, peak_gb,
+                        card))
+    print("[fcn] loss a step: %s; epoch means %s"
+          % (", ".join("%.4f" % v for v in losses),
+             ", ".join("%.4f" % v for v in epochs)))
+    print("[fcn] kernels 1 and 2 a step (the plans'): %s; in fit: %s"
+          % (want, launches))
+    acc = mod.score(it, accuracy)[0][1]
+    probs = mod.predict(it)
+    check(tuple(probs.shape) == (n, FCN["classes"], size, size)
+          and bool(torch.isfinite(probs._data).all()),
+          "predict gave %s, finite %s" % (tuple(probs.shape),
+                                          bool(torch.isfinite(probs._data)
+                                               .all())))
+    sums = probs._data.sum(1)
+    check(bool(((sums - 1).abs() < 1e-4).all()), "predict's probabilities "
+          "do not sum to 1")
+    print("[fcn] score: pixel accuracy %.4f over %d images; predict %s, "
+          "finite, each pixel's probabilities summing to 1"
+          % (acc, n, tuple(probs.shape)))
+    del probs, sums
+    it.reset()
+    batch = next(iter(it))
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    times = timed_steps(step, timed=5)
+    step_ms = float(np.median(times)) * 1e3
+    kernels, wall_ms = profiled_kernels(step, 2)
+    groups, counts, names = {}, {}, {}
+    for e in kernels:
+        g = _fcn_group(e.name)
+        us = e.time_range.elapsed_us()
+        groups[g] = groups.get(g, 0.0) + us
+        counts[g] = counts.get(g, 0) + 1
+        names[e.name] = names.get(e.name, 0.0) + us
+    device_ms = sum(groups.values()) / 2 / 1e3
+    check(device_ms > 0, "the profiler recorded no device time")
+    busy = min(1.0, device_ms / step_ms)
+    print("[fcn-profile] one FCN-8s step at %d px: %.2f ms (%.2f images/s), "
+          "%.2f ms device busy (%.1f%% busy), %.2f ms wall profiled, %d "
+          "launches a step on %s" % (size, step_ms, 1e3 / step_ms, device_ms,
+                                     100 * busy, wall_ms, len(kernels) // 2,
+                                     card))
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print("[fcn-profile]   %-36s %8.3f ms/step (%.1f%%), %4d launches"
+              % (g, us / 2 / 1e3, 100.0 * us / 2 / 1e3 / device_ms,
+                 counts[g] // 2))
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    for name, us in top:
+        print("[fcn-profile]   top: %8.3f ms/step  %s" % (us / 2 / 1e3,
+                                                         name[:110]))
+    del mod, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {
+        "steps": steps, "step_launches": want, "losses": losses,
+        "epoch_means": epochs, "pixel_accuracy": acc, "fit_s": fit_s,
+        "step_ms": step_ms, "images_per_s": 1e3 / step_ms,
+        "device_ms": device_ms, "busy_share": busy, "peak_gb": peak_gb,
+        "groups_ms": {g: us / 2 / 1e3 for g, us in groups.items()},
+        "top_ops_ms": {k: us / 2 / 1e3 for k, us in top},
+        "params": n_params, "cpu_check": cpu_check}
+
+
 def _ring_entries(k4, k10, launches):
     """Kernel 4's and 10's ``kernels`` entries: kernel 4's times summed over
     the main path's launches (a causal ring forward at sp 8: 28 full steps
@@ -6579,6 +7377,7 @@ def main() -> int:
     k11 = phase_rtc(card)
     bf16_kernels = phase_bf16_kernels()
     block_kernels, block_forced = phase_fused_block_kernels()
+    fcn_kernels = phase_fcn_kernels()
     serving_launches, served = phase_serving(card)
     served["profile"] = phase_profile(card)
     print("[serving] summary " + json.dumps(dict(served, card=card)))
@@ -6633,6 +7432,10 @@ def main() -> int:
     eager_conv, eager_conv_nohyb, eager_lstm, eager = phase_eager(
         card, fp32_ips, lm["tokens_per_s"])
     print("[eager] summary " + json.dumps(dict(eager, card=card)))
+    new_ops = phase_new_ops(card)
+    print("[new-ops] summary " + json.dumps(dict(new_ops, card=card)))
+    fcn_launches, fcn = phase_fcn(card)
+    print("[fcn] summary " + json.dumps(dict(fcn, card=card)))
     for k in lstm:
         k["lm_launches"] = k["launches"]
         k["bucketing_launches"] = bucket_launches[k["name"]]
@@ -6656,6 +7459,16 @@ def main() -> int:
             eager_conv_nohyb[pre] + eager_conv_nohyb[pre + " reduction"])
     for k in lstm:
         k["eager_launches"] = eager_lstm[k["name"]]
+    fcn_sums = fcn_kernel_sums(fcn_kernels)
+    for k, pre, key in ((k1, "implicit_gemm_conv", "k1"),
+                        (k2, "taps_wgrad", "k2")):
+        k["fcn_launches"] = fcn_launches[pre] + fcn_launches[
+            pre + " reduction"]
+        check(fcn_launches[pre] > 0, "%s was not launched on the FCN-8s "
+              "path" % pre)
+        k["fcn"] = dict(fcn_sums[key], launches=k["fcn_launches"],
+                        shapes=fcn_kernels)
+        k["max_abs_err"] = max(k["max_abs_err"], fcn_sums[key]["max_abs_err"])
     k12, k1b, k2b = _bf16_entries(k1, k2, bf16_kernels, bf16_launches)
     k13 = _block_entry(block_kernels, infer_launches)
     k13["forced_arms"] = block_forced

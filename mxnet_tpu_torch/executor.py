@@ -272,14 +272,17 @@ class _Plan:
 
     def execute(self, values: Dict[str, torch.Tensor],
                 generators: Optional[Sequence[torch.Generator]] = None,
-                placements: Optional[Dict[int, Any]] = None
+                placements: Optional[Dict[int, Any]] = None,
+                device: Optional[torch.device] = None
                 ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
         """Run the plan on {variable name: tensor}, arguments and auxiliary
         states alike, with one generator per rng slot (or none); returns
         (heads, new auxiliary states).  With ``placements``
         (:meth:`placements`) each step runs on its device, its inputs
         copied there first: a copy that autograd differentiates, so the
-        backward crosses the same boundaries."""
+        backward crosses the same boundaries.  An op with no inputs runs on
+        the first value's device, else on ``device`` (a graph with no
+        arguments)."""
         env: Dict[Tuple[int, int], Any] = {}
         for node in self.topo:
             if node.is_var:
@@ -287,7 +290,8 @@ class _Plan:
                     raise MXNetError("unbound variable %r" % node.name)
                 env[(id(node), 0)] = values[node.name]
         new_aux = {n: values[n] for n in self.aux_names}
-        device = next(iter(values.values())).device if values else None
+        if values:
+            device = next(iter(values.values())).device
         for out_id, inputs, fn, attrs, writeback, release, slot in \
                 self.steps:
             ins = [env[e] for e in inputs]
@@ -402,7 +406,7 @@ class Executor:
                 for o, (out_id, _) in zip(outs, plan.out_entries)]
 
     def _execute(self, plan, values, gens=None):
-        return plan.execute(values, gens, plan.placed)
+        return plan.execute(values, gens, plan.placed, self.ctx.torch_device)
 
     def _feed(self, kwargs):
         """Bind new input values: an NDArray's tensor is adopted as is when

@@ -3,13 +3,15 @@
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from .ndarray import (NDArray, arange, array, concatenate, empty, full, load,
                       moveaxis, onehot_encode, ones, save, waitall, zeros)
-from . import random
 from . import register as _register
+from . import contrib, image, random, utils
 from .register import invoke
+from .utils import zeros_like_fn
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "save", "load", "concatenate", "moveaxis", "waitall",
-           "onehot_encode", "invoke", "maximum", "minimum", "random"]
+           "onehot_encode", "invoke", "maximum", "minimum", "random",
+           "contrib", "image", "utils", "zeros_like_fn"]
 
 _register.populate(globals())
 

@@ -4,6 +4,7 @@ from . import registry  # noqa: F401
 from . import elemwise  # noqa: F401
 from . import init_random  # noqa: F401
 from . import matrix  # noqa: F401
+from . import misc_parity  # noqa: F401
 from . import nn  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import reduce  # noqa: F401

@@ -1,9 +1,10 @@
-"""Neural-network ops of the serving and training paths (counterpart of
-``mxnet_tpu/ops/nn.py``): Convolution, FullyConnected, Pooling, Activation,
-BatchNorm (inference and training statistics), softmax, SoftmaxOutput
-with the reference's backward, :func:`streaming_ce` and the
-``streaming_softmax_ce`` and ``softmax_cross_entropy`` ops, and the
-transformer's LayerNorm and MultiHeadAttention.
+"""Neural-network ops (counterpart of ``mxnet_tpu/ops/nn.py``, every name
+of it): Convolution, Deconvolution, FullyConnected, Pooling, Activation,
+LeakyReLU, BatchNorm (inference and training statistics), InstanceNorm,
+L2Normalization, LRN, softmax, SoftmaxActivation, SoftmaxOutput and the
+three regression outputs with the reference's backward, :func:`streaming_ce`
+and the ``streaming_softmax_ce`` and ``softmax_cross_entropy`` ops, Dropout,
+UpSampling, Crop, and the transformer's LayerNorm and MultiHeadAttention.
 
 Convolution dispatch mirrors ``_pallas_conv_mode`` (``nn.py:239-268``)
 without its environment flag and lane gate, which were TPU verdicts: the
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from . import hopper_attention, hopper_conv
+from .init_random import _generator
 from .registry import param, register
 
 __all__ = []
@@ -202,7 +204,7 @@ def _fully_connected(attrs, data, weight, *maybe_bias):
 # --------------------------------------------------------------------------
 _POOL_PARAMS = {
     "kernel": param("shape", ()),
-    "pool_type": param(["max", "avg", "sum", "lp"], "max"),   # lp: not ported
+    "pool_type": param(["max", "avg", "sum", "lp"], "max"),
     "global_pool": param(bool, False),
     "kernel_layout": param(str, None),
     "cudnn_off": param(bool, False),
@@ -224,10 +226,12 @@ def _window_sum(x, k, stride):
 @register("Pooling", aliases=("pooling", "Pooling_v1"),
           params=dict(_POOL_PARAMS))
 def _pooling(attrs, data):
-    """Max/avg/sum pooling with the reference's padding conventions:
+    """Max/avg/sum/lp pooling with the reference's padding conventions:
     max pads with -inf, "full" adds the extra right pad of a ceil-mode
     output, avg divides by the window size unless ``count_include_pad``
-    is off."""
+    is off, lp is ``(sum |x|^p_value)^(1/p_value)`` over each window
+    padded with zeros (a global lp pool is the mean, as the reference's
+    falls through to it)."""
     nd = data.dim() - 2
     pt = attrs["pool_type"]
     if attrs["global_pool"]:
@@ -257,7 +261,9 @@ def _pooling(attrs, data):
         maxp = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nd - 1]
         return maxp(xp, k, stride)
     if pt == "lp":
-        raise MXNetError("Pooling: pool_type='lp' is not ported yet")
+        p = attrs["p_value"]
+        sp = _window_sum(F.pad(data.abs() ** p, fpad), k, stride)
+        return (sp ** (1.0 / p)).to(data.dtype)
     ssum = _window_sum(F.pad(data, fpad), k, stride)
     if pt == "sum":
         return ssum.to(data.dtype)
@@ -633,3 +639,295 @@ def _dropout(attrs, generator, data):
     mask = (torch.rand(shape, generator=generator, device=data.device)
             < keep).to(data.dtype) / keep
     return data * mask, mask.expand(data.shape)
+
+
+# --------------------------------------------------------------------------
+# the rest of ``nn.py``: transposed convolution, crop and upsampling, the
+# other activations and normalizations, the regression outputs.  None is a
+# Pallas kernel in the reference (each goes to XLA), so each is PyTorch's
+# own op here (cuDNN's transposed convolution on the card).
+# --------------------------------------------------------------------------
+def _deconv_hint(attrs, shapes):
+    """Deconvolution's weight is (in, out / group, k...)."""
+    data = shapes[0]
+    if data is None:
+        return shapes
+    nf, g = attrs["num_filter"], attrs["num_group"]
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (data[1], nf // g) + tuple(attrs["kernel"])
+    if len(out) > 2 and out[2] is None and not attrs["no_bias"]:
+        out[2] = (nf,)
+    return out
+
+
+def _deconv_pad_adj(attrs, in_sizes):
+    """(pad, adj) of a transposed convolution: the given ones, or with
+    ``target_shape`` those that make the output that size, as upstream
+    MXNet derives them (``deconvolution-inl.h`` ``InferPad``): the total
+    padding ``stride * (in - 1) + dilate * (k - 1) + 1 - target`` split
+    evenly, an odd one taking its extra element from ``adj``."""
+    k = attrs["kernel"]
+    nd = len(k)
+    stride = attrs["stride"] or (1,) * nd
+    dilate = attrs["dilate"] or (1,) * nd
+    target = attrs["target_shape"]
+    if not target or not any(target):
+        return (tuple(attrs["pad"] or (0,) * nd),
+                tuple(attrs["adj"] or (0,) * nd))
+    if len(target) != nd:
+        raise MXNetError("Deconvolution: target_shape %s for a %d-D kernel"
+                         % (target, nd))
+    pad, adj = [], []
+    for i in range(nd):
+        total = stride[i] * (in_sizes[i] - 1) + dilate[i] * (k[i] - 1) + 1 \
+            - target[i]
+        if total < 0:
+            raise MXNetError("Deconvolution: target_shape %s is larger "
+                             "than the kernel can reach" % (target,))
+        adj.append(total % 2)
+        pad.append((total + adj[-1]) // 2)
+    return tuple(pad), tuple(adj)
+
+
+@register("Deconvolution", aliases=("deconvolution",),
+          params={**_CONV_PARAMS, "adj": param("shape", ()),
+                  "target_shape": param("shape", ())},
+          arg_names=("data", "weight", "bias"), shape_hint=_deconv_hint)
+def _deconvolution(attrs, data, weight, *maybe_bias):
+    """Transposed convolution (``nn.py:324-354``), NCHW data, a weight of
+    (in, out / group, k...): the output is ``stride * (in - 1) + dilate *
+    (k - 1) + 1 - 2 * pad + adj`` a dimension, or ``target_shape``.  The
+    bias is added unless ``no_bias``; its default is False, as the
+    reference's (upstream MXNet's is True)."""
+    nd = len(attrs["kernel"])
+    if nd not in (1, 2, 3):
+        raise MXNetError("Deconvolution: %d-D kernels are not supported"
+                         % nd)
+    pad, adj = _deconv_pad_adj(attrs, data.shape[2:])
+    deconv = (F.conv_transpose1d, F.conv_transpose2d,
+              F.conv_transpose3d)[nd - 1]
+    out = deconv(data, weight.to(data.dtype), None,
+                 stride=attrs["stride"] or (1,) * nd, padding=pad,
+                 output_padding=adj, groups=attrs["num_group"],
+                 dilation=attrs["dilate"] or (1,) * nd)
+    if not attrs["no_bias"] and maybe_bias:
+        out = out + maybe_bias[0].reshape((1, -1) + (1,) * nd)
+    return out
+
+
+@register("Crop", aliases=("crop_like",),
+          params={"offset": param("shape", (0, 0)),
+                  "h_w": param("shape", (0, 0)),
+                  "num_args": param(int, 1),
+                  "center_crop": param(bool, False)})
+def _crop(attrs, data, *maybe_like):
+    """The (h, w) window of ``data``'s last two axes, h and w from a second
+    input's shape (``num_args`` 2) or ``h_w``, at ``offset`` or centred
+    (``nn.py:1009-1024``)."""
+    if maybe_like:
+        th, tw = maybe_like[0].shape[2:4]
+    else:
+        th, tw = attrs["h_w"]
+    h, w = data.shape[2:4]
+    if attrs["center_crop"]:
+        oy, ox = (h - th) // 2, (w - tw) // 2
+    else:
+        oy, ox = attrs["offset"]
+    if oy < 0 or ox < 0 or oy + th > h or ox + tw > w:
+        raise MXNetError("Crop: a %dx%d window at (%d, %d) does not fit in "
+                         "%dx%d" % (th, tw, oy, ox, h, w))
+    return data[:, :, oy:oy + th, ox:ox + tw]
+
+
+@register("UpSampling", aliases=("upsampling",),
+          params={"scale": param(int, 1, required=True),
+                  "num_filter": param(int, 0),
+                  "sample_type": param(["nearest", "bilinear"], "nearest"),
+                  "multi_input_mode": param(["concat", "sum"], "concat"),
+                  "num_args": param(int, 1),
+                  "workspace": param(int, 512)})
+def _upsampling(attrs, *inputs):
+    """Each input's last two axes enlarged ``scale`` times (``nn.py:
+    982-1006``): ``nearest`` repeats each pixel; ``bilinear`` interpolates
+    at half-pixel centres with the edge pixels held, which is what the
+    reference's ``jax.image.resize`` does when it enlarges (PyTorch's
+    ``align_corners=False``, not ``True``).  Several inputs are
+    concatenated on the channel axis, or summed."""
+    s = attrs["scale"]
+    outs = []
+    for x in inputs:
+        if attrs["sample_type"] == "nearest":
+            outs.append(x.repeat_interleave(s, dim=2)
+                        .repeat_interleave(s, dim=3))
+        else:
+            outs.append(F.interpolate(x, scale_factor=s, mode="bilinear",
+                                      align_corners=False))
+    if len(outs) == 1:
+        return outs[0]
+    if attrs["multi_input_mode"] == "sum":
+        out = outs[0]
+        for y in outs[1:]:
+            out = out + y
+        return out
+    return torch.cat(outs, dim=1)
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU", aliases=("leakyrelu",), needs_rng=True,
+          train_aware=True, arg_names=("data", "gamma"),
+          shape_hint=_channel_hint(1),
+          params={"act_type": param(["elu", "leaky", "prelu", "rrelu", "selu",
+                                     "gelu"], "leaky"),
+                  "slope": param(float, 0.25),
+                  "lower_bound": param(float, 0.125),
+                  "upper_bound": param(float, 0.334),
+                  "__train__": param(bool, False)})
+def _leaky_relu(attrs, generator, x, *maybe_gamma):
+    """The leaky family (``nn.py:462-495``): ``leaky`` (``slope * x`` below
+    0), ``elu`` (``slope * expm1(x)``), ``selu``, exact ``gelu``, ``prelu``
+    (a learned ``gamma`` a channel, or one for all) and ``rrelu``: a slope
+    drawn from U[lower_bound, upper_bound) an element in training, their
+    mean otherwise."""
+    act = attrs["act_type"]
+    if act == "leaky":
+        return torch.where(x > 0, x, attrs["slope"] * x)
+    if act == "elu":
+        return torch.where(x > 0, x, attrs["slope"] * torch.expm1(x))
+    if act == "selu":
+        return _SELU_SCALE * torch.where(x > 0, x,
+                                         _SELU_ALPHA * torch.expm1(x))
+    if act == "gelu":
+        return F.gelu(x, approximate="none")
+    if act == "prelu":
+        gamma = maybe_gamma[0]
+        shape = [1] * x.dim()
+        if gamma.dim() == 1 and x.dim() > 1 and gamma.shape[0] > 1:
+            shape[1] = gamma.shape[0]
+        return torch.where(x > 0, x, gamma.reshape(shape) * x)
+    lo, hi = attrs["lower_bound"], attrs["upper_bound"]
+    if attrs.get("__train__") and x.device.type != "meta":
+        u = torch.rand(x.shape, generator=_generator(generator, x.device),
+                       device=x.device, dtype=x.dtype)
+        slope = lo + (hi - lo) * u
+    else:
+        slope = (lo + hi) / 2.0
+    return torch.where(x > 0, x, slope * x)
+
+
+@register("InstanceNorm", aliases=("instancenorm",),
+          params={"eps": param(float, 1e-3)},
+          arg_names=("data", "gamma", "beta"), shape_hint=_channel_hint(1))
+def _instance_norm(attrs, data, gamma, beta):
+    """Each (sample, channel) normalized over its spatial axes by its
+    biased variance, then ``* gamma + beta`` a channel (``nn.py:675-683``)."""
+    red = tuple(range(2, data.dim()))
+    var, mean = torch.var_mean(data, dim=red, keepdim=True, correction=0)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return ((data - mean) * torch.rsqrt(var + attrs["eps"])
+            * gamma.reshape(shape) + beta.reshape(shape))
+
+
+@register("L2Normalization",
+          params={"eps": param(float, 1e-10),
+                  "mode": param(["instance", "channel", "spatial"],
+                                "instance")})
+def _l2_normalization(attrs, data):
+    """``data / sqrt(sum(data²) + eps)`` over every axis but the first
+    (``instance``), the channel axis (``channel``) or the spatial axes
+    (``spatial``) (``nn.py:686-699``)."""
+    mode = attrs["mode"]
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, data.dim()))
+    return data / torch.sqrt(data.square().sum(dim=red, keepdim=True)
+                             + attrs["eps"])
+
+
+@register("LRN", aliases=("lrn",), nout=2, visible=1,
+          params={"alpha": param(float, 1e-4), "beta": param(float, 0.75),
+                  "knorm": param(float, 2.0),
+                  "nsize": param(int, 0, required=True)})
+def _lrn(attrs, data):
+    """Local response normalization across channels (``nn.py:702-720``):
+    ``data / (knorm + alpha / nsize * sum of the squares of the nsize
+    channels around)^beta``, and that divisor as a hidden second
+    output."""
+    n = attrs["nsize"]
+    half = n // 2
+    pad = [0, 0] * (data.dim() - 2) + [half, half]
+    ssum = F.pad(data.square(), pad).unfold(1, n, 1).sum(-1)
+    scale = (attrs["knorm"] + attrs["alpha"] * ssum / n) ** attrs["beta"]
+    return data / scale, scale
+
+
+@register("SoftmaxActivation",
+          params={"mode": param(["instance", "channel"], "instance")})
+def _softmax_activation(attrs, x):
+    """Softmax over each sample's flattened values (``instance``) or over
+    the channel axis (``channel``) (``nn.py:745-751``)."""
+    if attrs["mode"] == "channel":
+        return torch.softmax(x, dim=1)
+    if x.dim() > 2:
+        return torch.softmax(x.reshape(x.shape[0], -1), dim=-1) \
+            .reshape(x.shape)
+    return torch.softmax(x, dim=-1)
+
+
+def _label_like_hint(attrs, shapes):
+    """A regression output's label has the data's shape."""
+    data = shapes[0]
+    if data is None:
+        return shapes
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = data
+    return out
+
+
+class _RegressionOutputFn(torch.autograd.Function):
+    """``link(data)`` whose backward is the reference's custom VJP
+    (``nn.py:899-956``): the head gradient is ignored, the data gets
+    ``grad(out, label) * grad_scale`` and the label zeros."""
+
+    @staticmethod
+    def forward(ctx, data, label, link, grad, grad_scale):
+        out = link(data)
+        ctx.grad, ctx.grad_scale = grad, grad_scale
+        ctx.save_for_backward(out, label)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        dd = ctx.grad(out, label.reshape(out.shape)) * ctx.grad_scale
+        dl = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return dd, dl, None, None, None
+
+
+def _regression_output(name, link, grad, doc):
+    def fn(attrs, data, label):
+        return _RegressionOutputFn.apply(data, label, link, grad,
+                                         attrs["grad_scale"])
+    fn.__doc__ = doc
+    register(name, aliases=(name.lower(),), arg_names=("data", "label"),
+             params={"grad_scale": param(float, 1.0)},
+             shape_hint=_label_like_hint)(fn)
+
+
+_regression_output(
+    "LinearRegressionOutput", lambda d: d.clone(), lambda o, l: o - l,
+    "The identity; its gradient is ``(data - label) * grad_scale``.")
+_regression_output(
+    "LogisticRegressionOutput", torch.sigmoid, lambda o, l: o - l,
+    "``sigmoid(data)``; its gradient is ``(sigmoid(data) - label) * "
+    "grad_scale``.")
+_regression_output(
+    "MAERegressionOutput", lambda d: d.clone(),
+    lambda o, l: torch.sign(o - l),
+    "The identity; its gradient is ``sign(data - label) * grad_scale``.")

@@ -26,7 +26,8 @@ class param:
     """One typed op parameter: ``param(type, default)``.
 
     type is one of: int, float, bool, str, 'shape' (tuple of ints),
-    'dtype' (numpy dtype name) or a list of allowed strings (an enum).
+    'floats' (tuple of floats), 'dtype' (numpy dtype name) or a list of
+    allowed strings (an enum).
     Values arriving as strings (what Symbol JSON stores) are coerced.
     """
 
@@ -45,6 +46,12 @@ class param:
             if isinstance(v, (int, np.integer)):
                 return (int(v),)
             return tuple(int(x) for x in v)
+        if t == "floats":
+            if isinstance(v, str):
+                v = ast.literal_eval(v)
+            if isinstance(v, (int, float, np.integer, np.floating)):
+                return (float(v),)
+            return tuple(float(x) for x in v)
         if t == "dtype":
             if v in (None, "None"):
                 return None

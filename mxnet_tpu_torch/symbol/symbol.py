@@ -136,6 +136,11 @@ class Symbol:
                 out[node.name] = {k: str(v) for k, v in node.attrs.items()}
         return out
 
+    @property
+    def outputs(self) -> List[str]:
+        """:meth:`list_outputs` (``symbol.py:134``)."""
+        return self.list_outputs()
+
     def get_internals(self) -> "Symbol":
         outs = []
         for node in self._topo():
@@ -228,6 +233,27 @@ class Symbol:
         """``transpose``: the axes permuted, reversed when ``axes`` is
         empty."""
         return _create("transpose", [self], {"axes": axes})
+
+    def flatten(self):
+        """``Flatten``: (batch, the rest)."""
+        return _create("Flatten", [self], {})
+
+    def sum(self, axis=None, keepdims=False):
+        """``sum`` over ``axis`` (all axes when None)."""
+        return _create("sum", [self], {"axis": axis, "keepdims": keepdims})
+
+    def mean(self, axis=None, keepdims=False):
+        """``mean`` over ``axis`` (all axes when None)."""
+        return _create("mean", [self], {"axis": axis, "keepdims": keepdims})
+
+    def slice_axis(self, axis, begin, end):
+        """``slice_axis``: ``[begin, end)`` along ``axis``."""
+        return _create("slice_axis", [self],
+                       {"axis": axis, "begin": begin, "end": end})
+
+    def astype(self, dtype):
+        """``Cast`` to ``dtype``."""
+        return _create("Cast", [self], {"dtype": np.dtype(dtype).name})
 
     # ---- inference ------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
@@ -366,6 +392,15 @@ class Symbol:
                                                               arg_names),
                         group2ctx=group2ctx)
 
+    def eval(self, ctx=None, **kwargs):
+        """The outputs (NDArrays) of one inference forward with the
+        keyword arrays bound as the arguments (``symbol.py:433``)."""
+        return self.bind(ctx, args=kwargs, grad_req="null").forward()
+
+    def simple_eval(self, ctx=None, **kwargs):
+        """:meth:`eval` (``symbol.py:438``)."""
+        return self.eval(ctx, **kwargs)
+
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     stype_dict=None, group2ctx=None, shared_arg_names=None,
                     shared_exec=None, shared_buffer=None, **shapes):
@@ -488,9 +523,12 @@ def _create(op_name: str, sym_inputs: Sequence[Optional[Symbol]],
     # name='c1') makes c1_weight / c1_bias), as the reference does
     if op.arg_names:
         needed = len(op.arg_names)
-        if op.name in ("Convolution", "FullyConnected") and \
-                op.parse_attrs(dict(kwargs)).get("no_bias"):
+        if op.name in ("Convolution", "Deconvolution", "FullyConnected") \
+                and op.parse_attrs(dict(kwargs)).get("no_bias"):
             needed -= 1
+        if op.name == "LeakyReLU" and op.parse_attrs(dict(kwargs)).get(
+                "act_type") != "prelu":
+            needed -= 1     # gamma exists only for the prelu variant
         while len(entries) < needed:
             argname = op.arg_names[len(entries)]
             entries.append((_Node(None, "%s_%s" % (name, argname), {}, []), 0))
