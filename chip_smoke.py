@@ -415,6 +415,63 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with pixel accuracy and ``predict`` (finite probabilities summing to
    1); step ms, images/s, the device's busy share, its time by group and
    its top operations.
+2j. (run after 2i) kernels 1 and 2 fp32 at DenseNet-121's 3x3 shapes,
+   batch 32, 3x3 / pad 1 at 56, 28, 14 and 7 px: the forward C 128 to O
+   32 (half of the narrowest 64-column tile, so every launch has a ragged
+   column edge), the data gradient C 32 to O 128, the weight gradient taps
+   (9, 128, 32); each against ``taps_conv_plain`` / ``taps_wgrad_plain``
+   (rtol = atol = 1e-4; 1e-4 of the largest |dw|), run twice, bit-equal,
+   with the plan's launches; each tile of kernel 1 forced at one split and
+   at the plan's splits, checked and timed beside the plan's pick; the 14
+   px shape again with an operand at storage offset 1 (the element load
+   paths); kernel and plain times on operands already in the kernels'
+   layout, the wrappers' with their layout rewrites, cuDNN's ``conv2d``,
+   ``conv2d_input`` and ``conv2d_weight`` (TF32 off; the yardstick only),
+   TFLOP/s and the bound at 67 TFLOP/s (CUDA events, 20 calls after 3
+   warm-ups), and the sums over one DenseNet-121 step (58 of each).
+22. DenseNet-121 (Huang et al., 2017; the zoo's ``densenet121``, 1000
+   classes) at full width, hybridized, fp32, batch 32 x 3 x 224 x 224,
+   ``init.Xavier``, trained by ``autograd.record`` and ``gluon.Trainer(
+   "nag", lr 0.0125, momentum 0.9, wd 1e-4)``: the paper's Nesterov SGD
+   (lr 0.1 at batch 256) scaled to batch 32.  First, at batch 2 and full
+   depth, the first step on the card against the port on the CPU from the
+   same weights (``save_parameters`` on the CPU, ``load_parameters`` onto
+   the card): the mean loss within rtol 1e-4, each of the 121 weights'
+   updates within 5% of its norm.  The data: phase 18's writer makes a
+   ``.rec`` of 1,024 synthetic JPEGs (no ImageNet in the repository),
+   read by ``gluon.data.DataLoader(ImageRecordDataset(rec).transform_first(
+   Compose([RandomResizedCrop(224), RandomFlipLeftRight(), ToTensor(),
+   Normalize(mean, std)])), batch_size=32, shuffle=True, num_workers=4,
+   last_batch="discard")``; its first batch (the iterator then dropped,
+   leaving no worker thread) on the card for 1 + 2 warm-up + 10 timed
+   steps (images/s from the median), then one epoch through the loader
+   (32 steps: images/s, the share waiting in ``next()``, a step with and
+   without the loader).  Kernels 1 and 2's counters, zeroed just before
+   and read each step, hold every step to the plans (58 forwards and 58
+   dgrads of kernel 1, 58 wgrads of kernel 2, with their split sums); the
+   7x7 stem and the 1x1s stay on cuDNN.  A profile of two steps (busy and
+   idle share, device ms by group, launches a step, the top operations),
+   peak memory, every loss finite.  Then 5 epochs of a 64-image subset
+   (centred crops): the epoch mean losses fall.  Last, the trained net's
+   logits on 2 images against a fresh ``densenet121`` after
+   ``load_parameters`` of its ``save_parameters`` on the CPU and on the
+   card, and against ``SymbolBlock.imports`` of its ``export`` on the
+   card: each within 1e-5 of the largest |logit|.
+23. the model zoo through ``example/image-classification/
+   benchmark_score.py``'s ``score()`` on the port (hybridized inference
+   on a uniform batch, 3 warm-ups, 10 timed forwards): its default
+   networks (``resnet18_v1``, ``resnet50_v1``, ``mobilenet1_0``,
+   ``squeezenet1_0``) at batch 1 and 32, then ``resnet50_v2``,
+   ``vgg16_bn``, ``alexnet``, ``densenet121``, ``inception_v3`` (299 px)
+   and ``mobilenet_v2_1_0`` at batch 32, each with seeded MSRA-scaled
+   weights: images/s; the batch-1 logits against the port on the CPU from
+   the same weights (``save_parameters``/``load_parameters``) within 1e-4
+   of the largest |logit|, the same top-1; kernel 1's launches over one
+   forward at each batch equal to the net's 3x3 / pad-1 convolutions that
+   the dispatch routes to it (stride 1, or 2 on even sides; one group:
+   MobileNet's depthwise 3x3s stay on cuDNN), with their plans' split
+   sums, and above 0 on resnet18_v1, squeezenet1_0, vgg16_bn, densenet121
+   and inception_v3.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.  TF32 is off for
@@ -547,20 +604,70 @@ def timed_steps(step, on_result=None, timed=TIMED_STEPS):
     return times
 
 
-def profiled_kernels(step, n):
-    """The device's kernels, in start order, of ``n`` calls of ``step``
-    under torch.profiler, and the profiled wall ms a call."""
+PROFILE_TAKES = 3      # traces taken before a lossy one fails the phase
+# A trace loses the device records of its first kernels (the launch calls
+# kept): a few, more as the process ages, and now and then every one of
+# its first milliseconds (tools/probe_profiler_loss.py).  So each trace
+# opens with PROFILE_FILLERS spin kernels, then PROFILE_PAD_S seconds with
+# the device idle, before the traced calls.
+PROFILE_FILLERS = 256
+PROFILE_PAD_S = 0.05
+
+
+def _trace_losses(events, skip=0):
+    """(kernel launch calls in a trace after its first ``skip``, those of
+    them whose kernel has no device record).  A launch call
+    (``cudaLaunchKernel``, ``cuLaunchKernel`` and their ``Ex`` forms) and
+    the kernel it launched share their CUPTI correlation id."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    recorded = {e.id for e in events if e.device_type == cuda}
+    calls = sorted((e for e in events
+                    if e.device_type == cpu and "LaunchKernel" in e.name),
+                   key=lambda e: e.time_range.start)[skip:]
+    return len(calls), sum(1 for e in calls if e.id not in recorded)
+
+
+def _profile_take(step, n, fillers=PROFILE_FILLERS, pad_s=PROFILE_PAD_S):
+    """The events of one trace of ``fillers`` spin kernels, ``pad_s``
+    seconds idle, then ``n`` calls of ``step``; and the wall ms a call of
+    ``step``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(fillers):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
         t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
-    return sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+    return prof.events(), wall_ms
+
+
+def profiled_kernels(step, n, tag="profile"):
+    """The device's kernels, in start order, of ``n`` calls of ``step``
+    under torch.profiler (the fillers left out), and the profiled wall ms
+    a call.  A trace that lost the record of a kernel that ``step``
+    launched is taken again (``n`` more calls of ``step``), at most
+    ``PROFILE_TAKES`` times in all; the phase fails if every take lost
+    one."""
+    for take in range(1, PROFILE_TAKES + 1):
+        events, wall_ms = _profile_take(step, n)
+        calls, lost = _trace_losses(events, PROFILE_FILLERS)
+        if lost == 0:
+            break
+        print("[%s] trace %d of at most %d lost the device records of %d of "
+              "its %d kernel launch calls" % (tag, take, PROFILE_TAKES, lost,
+                                              calls))
+    check(lost == 0, "every one of %d traces lost kernel records"
+          % PROFILE_TAKES)
+    check(calls > 0, "the trace holds no kernel launch call")
+    return sorted((e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin_kernel" not in e.name),
                   key=lambda e: e.time_range.start), wall_ms
 
 
@@ -2113,17 +2220,9 @@ def _lm_group(name: str) -> str:
 def phase_lm_profile(card, trainer, step_ms):
     """One profiled LM step: device time and launches by group, and the
     device's idle share against the unprofiled median step."""
-    from torch.profiler import ProfilerActivity, profile
     ft, x, y = trainer
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ft.step(x, y)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels, wall_ms = profiled_kernels(lambda: ft.step(x, y), 1,
+                                        "lm-profile")
     groups, counts, by_name = {}, {}, {}
     for e in kernels:
         g = _lm_group(e.name)
@@ -2673,20 +2772,15 @@ def phase_tfm_profile(card, trained, step_ms):
     """One profiled training step: device time and launches by group, the
     launches of the four attention kernels read from the trace, and the
     device's idle share against the unprofiled median step."""
-    from torch.profiler import ProfilerActivity, profile
     mod, it = trained
     batch = _next_batch(it)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def step():
         mod.forward_backward(batch)
         mod.update()
         mod.get_outputs()[0].wait_to_read()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    kernels, wall_ms = profiled_kernels(step, 1, "tfm-profile")
     groups, counts, by_name = {}, {}, {}
     for e in kernels:
         g = _tfm_group(e.name)
@@ -3356,7 +3450,7 @@ def phase_training_profile(card, step, step_ms, tag="train-profile",
     says which of kernels 1 and 2's libraries the step must launch (and the
     other never)."""
     n = 2
-    kernels, wall_ms = profiled_kernels(step, n)
+    kernels, wall_ms = profiled_kernels(step, n, tag)
     groups, counts = {}, {}
     taps_seen = {"fp32": 0, "bf16": 0}
     for e in kernels:
@@ -4973,18 +5067,10 @@ def _infer_group(name: str) -> str:
 def _inference_profile(card, forward, fwd_ms, tag="bf16-infer-profile"):
     """Device time by group over 2 forwards (torch.profiler), the idle
     share against the median unprofiled forward."""
-    from torch.profiler import ProfilerActivity, profile
     n = 2
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            forward()
-        torch.cuda.synchronize()
+    kernels, _ = profiled_kernels(forward, n, tag)
     groups, counts = {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in kernels:
         g = _infer_group(e.name)
         groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
         counts[g] = counts.get(g, 0) + 1
@@ -5495,16 +5581,8 @@ def phase_bucketing(card):
                      ["%.1f" % v for v in binds]))
 
     # two profiled steps of a T-40 batch
-    from torch.profiler import ProfilerActivity, profile
     b40 = one_per_bucket[max(BUCKET["buckets"])]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            step(b40)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels, _ = profiled_kernels(lambda: step(b40), 2, "bucketing-profile")
     groups, counts = {}, {}
     for e in kernels:
         g = _bucket_group(e.name)
@@ -6035,13 +6113,16 @@ class _EagerStep:
     ``step(x, y)`` returns the per-example loss, so the profiling helpers
     call it as they call a ``FusedTrainer``."""
 
-    def __init__(self, net, batch, learning_rate, momentum=0.0):
+    def __init__(self, net, batch, learning_rate, momentum=0.0,
+                 optimizer="sgd", wd=0.0):
         from mxnet_tpu_torch import gluon
         opt = {"learning_rate": learning_rate}
         if momentum:
             opt["momentum"] = momentum
+        if wd:
+            opt["wd"] = wd
         self.net, self.batch = net, batch
-        self.trainer = gluon.Trainer(net.collect_params(), "sgd", opt)
+        self.trainer = gluon.Trainer(net.collect_params(), optimizer, opt)
         self.loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
 
     def step(self, x, y):
@@ -6594,112 +6675,138 @@ def fcn_step_launches(hc, sms, size=FCN["size"], batch=FCN["batch"]):
     return want
 
 
+def _fp32_3x3_shape(hc, gen, N, C, O, H, count, name, iters):
+    """Kernels 1 and 2 (fp32) at one 3x3 / pad-1 shape of batch ``N`` on
+    seeded operands: the forward (C to O) and the dgrad (O to C) on kernel
+    1 and the wgrad on kernel 2 against their plain versions, each run
+    twice, bit-equal, with the plan's launches; timed (``iters`` calls after
+    3 warm-ups) beside the plain version, cuDNN and the bound.  ``ms`` is
+    the kernel on operands already in its layout (NHWC, taps), as a step
+    calls it; ``wrapper_ms`` is the forward through ``conv3x3_same`` and the
+    dgrad with its ``dgrad_taps``, the layout rewrites included.  Returns
+    the record and (x NHWC, taps, dy, dgrad taps, forward plan, dgrad
+    plan)."""
+    dev = gen.device
+    x = torch.randn(N, C, H, H, device=dev, generator=gen) \
+        .contiguous(memory_format=torch.channels_last)
+    w = torch.randn(O, C, 3, 3, device=dev, generator=gen) \
+        / math.sqrt(9 * C)
+    dy = torch.randn(N, H, H, O, device=dev, generator=gen)
+    xh, taps, dtaps = hc._nhwc(x), hc._s1_taps(w, torch.float32), \
+        hc.dgrad_taps(w)
+    dyn = dy.permute(0, 3, 1, 2)
+    label = "C=%d O=%d %dx%d N=%d" % (C, O, H, H, N)
+    _, fplan, ferr = _conv_fp32_call(hc, xh, taps, 1, None,
+                                     "%s %s" % (name, label))
+    _, dplan, derr = _conv_fp32_call(hc, dy, dtaps, 1, None,
+                                     "%s dgrad %s" % (name, label))
+    _, werr, wscale = _wgrad_fp32_check(hc, xh, dy, hc.S1_PADS, 3, 3,
+                                        "%s %s" % (name, label))
+    wplan = hc.wgrad_fp32_plan(N * H * H, C, O, 3, 3, _sms(dev),
+                               (xh.data_ptr(), dy.data_ptr()))
+    flops = 2.0 * N * H * H * C * O * 9
+    nbytes = 4.0 * (x.numel() + w.numel() + dy.numel())
+    bound_ms, bound_by = _bound(flops, nbytes)
+    calls = {
+        "forward": (lambda: hc.taps_conv(xh, taps, hc.S1_PADS, 3, 3),
+                    lambda: hc.taps_conv_plain(xh, taps, hc.S1_PADS, 3, 3),
+                    lambda: F.conv2d(x, w, padding=1)),
+        "dgrad": (lambda: hc.taps_conv(dy, dtaps, hc.S1_PADS, 3, 3),
+                  lambda: hc.taps_conv_plain(dy, dtaps, hc.S1_PADS, 3, 3),
+                  lambda: torch.nn.grad.conv2d_input(x.shape, w, dyn,
+                                                     padding=1)),
+        "wgrad": (lambda: hc.taps_wgrad(xh, dy, hc.S1_PADS, 3, 3),
+                  lambda: hc.taps_wgrad_plain(xh, dy, hc.S1_PADS, 3, 3),
+                  lambda: torch.nn.grad.conv2d_weight(x, w.shape, dyn,
+                                                      padding=1))}
+    wrappers = {"forward": lambda: hc.conv3x3_same(x, w),
+                "dgrad": lambda: hc.taps_conv(dy, hc.dgrad_taps(w),
+                                              hc.S1_PADS, 3, 3)}
+    rec = {"C": C, "O": O, "H": H, "W": H, "N": N,
+           "instances_per_step": count, "gflop": flops / 1e9,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "forward": {"tile": list(fplan.tile), "splits": fplan.splits,
+                       "max_abs_err": ferr, "tol": KERNEL_TOL},
+           "dgrad": {"tile": list(dplan.tile), "splits": dplan.splits,
+                     "max_abs_err": derr, "tol": KERNEL_TOL},
+           "wgrad": {"tile": wplan.tile, "splits": wplan.splits,
+                     "rows": wplan.rows, "max_abs_err": werr,
+                     "max_rel_err": werr / wscale, "tol_rel": WGRAD_TOL}}
+    for part, (kern, plain, lib) in calls.items():
+        rec[part].update(ms=time_ms(kern, iters=iters),
+                         plain_ms=time_ms(plain, iters=iters),
+                         library_ms=time_ms(lib, iters=iters),
+                         bit_equal_rerun=True)
+        rec[part]["tflops"] = flops / rec[part]["ms"] / 1e9
+        if part in wrappers:
+            rec[part]["wrapper_ms"] = time_ms(wrappers[part], iters=iters)
+    f, d, g = rec["forward"], rec["dgrad"], rec["wgrad"]
+    print("[%s-kernels] %s x%d: forward (plan tile %dx%d, %d splits) err "
+          "%.3g, %.4f ms (%.1f TFLOP/s), %.4f with the layout rewrites, "
+          "plain %.4f, cuDNN %.4f | dgrad (plan tile %dx%d, %d splits) err "
+          "%.3g, %.4f ms (%.1f TFLOP/s), %.4f with its taps, plain %.4f, "
+          "cuDNN %.4f | wgrad (tile %d, %d splits of %d rows) err %.3g of "
+          "max |dw|, %.4f ms (%.1f TFLOP/s), plain %.4f, cuDNN %.4f | bound "
+          "%.4f ms (%s, at %.0f TFLOP/s); reruns bit-equal"
+          % (name.lower(), label, count, fplan.tile[0], fplan.tile[1],
+             fplan.splits, ferr, f["ms"], f["tflops"], f["wrapper_ms"],
+             f["plain_ms"], f["library_ms"], dplan.tile[0], dplan.tile[1],
+             dplan.splits, derr, d["ms"], d["tflops"], d["wrapper_ms"],
+             d["plain_ms"], d["library_ms"], wplan.tile, wplan.splits,
+             wplan.rows, werr / wscale, g["ms"], g["tflops"], g["plain_ms"],
+             g["library_ms"], bound_ms, bound_by, PEAK_FP32 / 1e12))
+    return rec, (xh, taps, dy, dtaps, fplan, dplan)
+
+
+def _print_kernel_sums(name, sums, what):
+    k1, k2 = sums["k1"], sums["k2"]
+    print("[%s-kernels] over one %s: kernel 1 (%d forwards, %d dgrads) %.3f "
+          "ms (%.1f TFLOP/s), %.3f with the layout rewrites, plain %.3f, "
+          "cuDNN %.3f, bound %.3f | kernel 2 (%d wgrads) %.3f ms (%.1f "
+          "TFLOP/s), plain %.3f, cuDNN %.3f, bound %.3f"
+          % (name.lower(), what, k1["calls"], k1["calls"], k1["ms"],
+             k1["tflops"], k1["wrapper_ms"], k1["plain_ms"],
+             k1["library_ms"], k1["bound_ms"], k2["calls"], k2["ms"],
+             k2["tflops"], k2["plain_ms"], k2["library_ms"],
+             k2["bound_ms"]))
+
+
 def phase_fcn_kernels():
     """Kernels 1 and 2 (fp32) against their plain versions at FCN-8s's 8
     distinct 3x3 shapes at batch 1 (C 64 at 698 px, odd sides 349, 87 and
-    43): the forward and the dgrad on kernel 1, the wgrad on kernel 2, each
-    run twice, bit-equal, with the plan's launches; timed beside the plain
-    version, cuDNN and the bound.  Returns the per-shape records."""
+    43), each checked and timed (10 calls) by ``_fp32_3x3_shape``.
+    Returns the per-shape records."""
     from mxnet_tpu_torch.ops import hopper_conv as hc
     fp32_exact()
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(FCN["seed"])
+    gen = torch.Generator(device=torch.device("cuda", 0)) \
+        .manual_seed(FCN["seed"])
     counts = {}
     for _, C, O, H in fcn_3x3_shapes():
         counts[(C, O, H)] = counts.get((C, O, H), 0) + 1
     records = []
     for (C, O, H), count in counts.items():
-        N = 1
-        x = torch.randn(N, C, H, H, device=dev, generator=gen) \
-            .contiguous(memory_format=torch.channels_last)
-        w = torch.randn(O, C, 3, 3, device=dev, generator=gen) \
-            / math.sqrt(9 * C)
-        dy = torch.randn(N, H, H, O, device=dev, generator=gen)
-        xh, taps, dtaps = hc._nhwc(x), hc._s1_taps(w, torch.float32), \
-            hc.dgrad_taps(w)
-        dyn = dy.permute(0, 3, 1, 2)
-        label = "C=%d O=%d %dx%d N=1" % (C, O, H, H)
-        _, fplan, ferr = _conv_fp32_call(hc, xh, taps, 1, None,
-                                         "FCN " + label)
-        _, dplan, derr = _conv_fp32_call(hc, dy, dtaps, 1, None,
-                                         "FCN dgrad " + label)
-        _, werr, wscale = _wgrad_fp32_check(hc, xh, dy, hc.S1_PADS, 3, 3,
-                                            "FCN " + label)
-        wplan = hc.wgrad_fp32_plan(N * H * H, C, O, 3, 3, _sms(dev),
-                                   (xh.data_ptr(), dy.data_ptr()))
-        flops = 2.0 * N * H * H * C * O * 9
-        nbytes = 4.0 * (x.numel() + w.numel() + dy.numel())
-        bound_ms, bound_by = _bound(flops, nbytes)
-        calls = {
-            "forward": (lambda: hc.conv3x3_same(x, w),
-                        lambda: hc.conv3x3_same_plain(x, w),
-                        lambda: F.conv2d(x, w, padding=1)),
-            "dgrad": (lambda: hc.taps_conv(dy, hc.dgrad_taps(w), hc.S1_PADS,
-                                           3, 3),
-                      lambda: hc.taps_conv_plain(dy, hc.dgrad_taps(w),
-                                                 hc.S1_PADS, 3, 3),
-                      lambda: torch.nn.grad.conv2d_input(x.shape, w, dyn,
-                                                         padding=1)),
-            "wgrad": (lambda: hc.taps_wgrad(xh, dy, hc.S1_PADS, 3, 3),
-                      lambda: hc.taps_wgrad_plain(xh, dy, hc.S1_PADS, 3, 3),
-                      lambda: torch.nn.grad.conv2d_weight(x, w.shape, dyn,
-                                                          padding=1))}
-        rec = {"C": C, "O": O, "H": H, "W": H, "N": N,
-               "instances_per_step": count, "gflop": flops / 1e9,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "forward": {"tile": list(fplan.tile), "splits": fplan.splits,
-                           "max_abs_err": ferr, "tol": KERNEL_TOL},
-               "dgrad": {"tile": list(dplan.tile), "splits": dplan.splits,
-                         "max_abs_err": derr, "tol": KERNEL_TOL},
-               "wgrad": {"tile": wplan.tile, "splits": wplan.splits,
-                         "rows": wplan.rows, "max_abs_err": werr,
-                         "max_rel_err": werr / wscale, "tol_rel": WGRAD_TOL}}
-        for part, (kern, plain, lib) in calls.items():
-            rec[part].update(ms=time_ms(kern, iters=10),
-                             plain_ms=time_ms(plain, iters=10),
-                             library_ms=time_ms(lib, iters=10),
-                             bit_equal_rerun=True)
-            rec[part]["tflops"] = flops / rec[part]["ms"] / 1e9
+        rec, ops = _fp32_3x3_shape(hc, gen, 1, C, O, H, count, "FCN", 10)
         records.append(rec)
-        print("[fcn-kernels] %s x%d: forward (tile %dx%d, %d splits) err "
-              "%.3g, %.4f ms (%.1f TFLOP/s), plain %.4f, cuDNN %.4f | dgrad "
-              "(tile %dx%d, %d splits) err %.3g, %.4f ms (%.1f TFLOP/s), "
-              "plain %.4f, cuDNN %.4f | wgrad (tile %d, %d splits of %d "
-              "rows) err %.3g of max |dw|, %.4f ms (%.1f TFLOP/s), plain "
-              "%.4f, cuDNN %.4f | bound %.4f ms (%s); reruns bit-equal"
-              % (label, count, fplan.tile[0], fplan.tile[1], fplan.splits,
-                 ferr, rec["forward"]["ms"], rec["forward"]["tflops"],
-                 rec["forward"]["plain_ms"], rec["forward"]["library_ms"],
-                 dplan.tile[0], dplan.tile[1], dplan.splits, derr,
-                 rec["dgrad"]["ms"], rec["dgrad"]["tflops"],
-                 rec["dgrad"]["plain_ms"], rec["dgrad"]["library_ms"],
-                 wplan.tile, wplan.splits, wplan.rows, werr / wscale,
-                 rec["wgrad"]["ms"], rec["wgrad"]["tflops"],
-                 rec["wgrad"]["plain_ms"], rec["wgrad"]["library_ms"],
-                 bound_ms, bound_by))
-        del x, w, dy, xh, taps, dtaps, dyn
+        del ops
         torch.cuda.empty_cache()
-    sums = fcn_kernel_sums(records)
-    print("[fcn-kernels] over one FCN-8s step (batch 1, 500 px): kernel 1 "
-          "(12 forwards, 12 dgrads) %.3f ms (%.1f TFLOP/s), plain %.3f, "
-          "cuDNN %.3f, bound %.3f | kernel 2 (12 wgrads) %.3f ms (%.1f "
-          "TFLOP/s), plain %.3f, cuDNN %.3f, bound %.3f"
-          % (sums["k1"]["ms"], sums["k1"]["tflops"], sums["k1"]["plain_ms"],
-             sums["k1"]["library_ms"], sums["k1"]["bound_ms"],
-             sums["k2"]["ms"], sums["k2"]["tflops"], sums["k2"]["plain_ms"],
-             sums["k2"]["library_ms"], sums["k2"]["bound_ms"]))
+    _print_kernel_sums("FCN", fcn_kernel_sums(records),
+                       "FCN-8s step (batch 1, 500 px)")
     return records
 
 
 def fcn_kernel_sums(records):
     """Kernel 1's (forward and dgrad) and kernel 2's (wgrad) times summed
-    over one FCN-8s step's calls, with their TFLOP/s and the largest
-    error."""
+    over one step's calls (FCN-8s's or DenseNet-121's), with their TFLOP/s
+    and the largest error; kernel 1's also through its wrappers, with the
+    layout rewrites (``wrapper_ms``)."""
     out = {}
     for key, parts in (("k1", ("forward", "dgrad")), ("k2", ("wgrad",))):
+        timed = ("ms", "plain_ms", "library_ms") \
+            + (("wrapper_ms",) if key == "k1" else ())
         s = {k: sum(r[p][k] * r["instances_per_step"] for r in records
                     for p in parts)
-             for k in ("ms", "plain_ms", "library_ms")}
+             for k in timed}
+        s["calls"] = sum(r["instances_per_step"] for r in records)
         s["bound_ms"] = sum(r["bound_ms"] * r["instances_per_step"]
                             * len(parts) for r in records)
         s["bound_by"] = "operations" if all(
@@ -7162,7 +7269,7 @@ def phase_fcn(card):
 
     times = timed_steps(step, timed=5)
     step_ms = float(np.median(times)) * 1e3
-    kernels, wall_ms = profiled_kernels(step, 2)
+    kernels, wall_ms = profiled_kernels(step, 2, "fcn-profile")
     groups, counts, names = {}, {}, {}
     for e in kernels:
         g = _fcn_group(e.name)
@@ -7197,6 +7304,579 @@ def phase_fcn(card):
         "groups_ms": {g: us / 2 / 1e3 for g, us in groups.items()},
         "top_ops_ms": {k: us / 2 / 1e3 for k, us in top},
         "params": n_params, "cpu_check": cpu_check}
+
+
+# --------------------------------------------------------------------------
+DENSE = dict(batch=32, size=224, classes=1000, C=128, O=32, seed=19,
+             lr=0.0125, momentum=0.9, wd=1e-4, workers=4, subset=64,
+             epochs=5, cpu_batch=2, images=1024,
+             mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225))
+# DenseNet-121's 3x3 / pad-1 convolutions, 128 to 32 channels: (H = W,
+# instances a step), 58 in all
+DENSENET_3X3 = [(56, 6), (28, 12), (14, 24), (7, 16)]
+DENSE_LOSS_RTOL = 1e-4   # first step's mean loss, card vs CPU, relative
+DENSE_UPDATE_TOL = 0.05  # each weight's first update, card vs CPU, in norm
+DENSE_LOGIT_TOL = 1e-5   # reloaded / exported logits vs the trained net's,
+                         # of the largest |logit|
+ZOO_TOL = 1e-4           # a zoo net's card logits vs the CPU's, of max |logit|
+# benchmark_score.py's default networks (batch 1 and 32), then one net of
+# each other family (batch 32), with their image sides
+ZOO_DEFAULT = ("resnet18_v1", "resnet50_v1", "mobilenet1_0", "squeezenet1_0")
+ZOO_MORE = (("resnet50_v2", 224), ("vgg16_bn", 224), ("alexnet", 224),
+            ("densenet121", 224), ("inception_v3", 299),
+            ("mobilenet_v2_1_0", 224))
+# the nets whose routed 3x3s must launch kernel 1
+ZOO_KERNEL1 = ("resnet18_v1", "squeezenet1_0", "vgg16_bn", "densenet121",
+               "inception_v3")
+DATALOADER_THREADS = "dataloader-worker"
+
+
+def densenet_step_launches(hc, sms, batch=DENSE["batch"]):
+    """Kernels 1 and 2's launches in one DenseNet-121 training step, from
+    their plans: a forward (128 to 32 channels) and a dgrad (32 to 128) of
+    kernel 1 a 3x3, each with its split sum where its plan splits, and
+    kernel 2's partial pass and its reduction where the plan splits."""
+    want = dict.fromkeys(("implicit_gemm_conv", "implicit_gemm_conv "
+                          "reduction", "taps_wgrad", "taps_wgrad reduction"),
+                         0)
+    C, O = DENSE["C"], DENSE["O"]
+    for H, count in DENSENET_3X3:
+        M = batch * H * H
+        for cin, cout in ((C, O), (O, C)):
+            want["implicit_gemm_conv"] += count
+            want["implicit_gemm_conv reduction"] += count * (
+                hc.conv_fp32_plan(M, cin, cout, 3, 3, sms).splits > 1)
+        want["taps_wgrad"] += count
+        want["taps_wgrad reduction"] += count * (
+            hc.wgrad_fp32_plan(M, C, O, 3, 3, sms).splits > 1)
+    return want
+
+
+def _forced_conv_tiles(hc, a, t, base, label):
+    """Kernel 1 fp32 at each tile with one split and with ``base``'s
+    splits, each checked against the plain version and timed: where the
+    plan's pick stands among them."""
+    N, H, W, C = a.shape
+    rows = []
+    for tile in hc._CONV_FP32_TILES:
+        for splits in sorted({1, base.splits}):
+            plan = hc.conv_fp32_plan(N * H * W, C, t.shape[2], 3, 3,
+                                     _sms(a.device),
+                                     (a.data_ptr(), t.data_ptr(), 0),
+                                     tile=tile[:2], splits=splits)
+            _conv_fp32_call(hc, a, t, 1, plan, "%s tile %dx%d %d splits"
+                            % ((label,) + tile[:2] + (splits,)))
+            rows.append({"tile": list(tile[:2]), "splits": splits,
+                         "ms": time_ms(lambda: hc._taps_conv_cuda(
+                             a, t, hc.S1_PADS, 3, 3, 1, plan=plan)),
+                         "plan": (tuple(tile[:2]) == tuple(base.tile)
+                                  and splits == base.splits)})
+    return rows
+
+
+def phase_densenet_kernels():
+    """Kernels 1 and 2 (fp32) against their plain versions at DenseNet-121's
+    3x3 shapes at batch 32 (C 128, O 32 at 56, 28, 14 and 7 px; the dgrad C
+    32, O 128), each checked and timed (20 calls after 3 warm-ups) by
+    ``_fp32_3x3_shape``; each tile forced beside the plan's pick; one
+    misaligned operand a kernel.  Returns (per-shape records, misaligned
+    errors)."""
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    fp32_exact()
+    gen = torch.Generator(device=torch.device("cuda", 0)) \
+        .manual_seed(DENSE["seed"])
+    N, C, O = DENSE["batch"], DENSE["C"], DENSE["O"]
+    records, misaligned = [], {}
+    for H, count in DENSENET_3X3:
+        rec, (xh, taps, dy, dtaps, fplan, dplan) = _fp32_3x3_shape(
+            hc, gen, N, C, O, H, count, "DenseNet", 20)
+        label = "C=%d O=%d %dx%d N=%d" % (C, O, H, H, N)
+        if H == 14:
+            # the element paths: an operand 4 bytes off a 16-byte boundary
+            xm, dym = _at_offset_1(xh), _at_offset_1(dy)
+            _, p, misaligned["forward " + label] = _conv_fp32_call(
+                hc, xm, taps, 1, None, "DenseNet offset 1 " + label)
+            check(not p.vec, "kernel 1 took the 16-byte path at offset 1")
+            _, p, misaligned["dgrad " + label] = _conv_fp32_call(
+                hc, dym, dtaps, 1, None, "DenseNet dgrad offset 1 " + label)
+            check(not p.vec, "kernel 1 took the 16-byte path at offset 1")
+            _, e, s = _wgrad_fp32_check(hc, xm, dy, hc.S1_PADS, 3, 3,
+                                        "DenseNet offset 1 " + label)
+            misaligned["wgrad " + label] = e / s
+            del xm, dym
+        rec["forward"]["forced"] = _forced_conv_tiles(
+            hc, xh, taps, fplan, "DenseNet " + label)
+        rec["dgrad"]["forced"] = _forced_conv_tiles(
+            hc, dy, dtaps, dplan, "DenseNet dgrad " + label)
+        records.append(rec)
+        for part in ("forward", "dgrad"):
+            print("[densenet-kernels]   %s %s forced: %s" % (
+                label, part, ", ".join(
+                    "%dx%d/%d %.4f ms%s" % (r["tile"][0], r["tile"][1],
+                                            r["splits"], r["ms"],
+                                            " (plan)" if r["plan"] else "")
+                    for r in rec[part]["forced"])))
+        del xh, taps, dy, dtaps
+        torch.cuda.empty_cache()
+    print("[densenet-kernels] misaligned (offset 1, element paths): %s"
+          % ", ".join("%s %.3g" % kv for kv in misaligned.items()))
+    _print_kernel_sums("DenseNet", fcn_kernel_sums(records),
+                       "DenseNet-121 step (batch 32, 224 px)")
+    return records, misaligned
+
+
+def _densenet121(mx, classes=DENSE["classes"]):
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    with mx.name.NameManager():
+        return vision.get_model("densenet121", classes=classes)
+
+
+def _dense_pipeline(mx, train=True):
+    """The training transforms (a random 224 crop of 8-100% of the area,
+    a random mirror, ImageNet's mean and std), or with ``train=False`` the
+    centred 224 crop."""
+    T = mx.gluon.data.vision.transforms
+    crop = [T.RandomResizedCrop(DENSE["size"]), T.RandomFlipLeftRight()] \
+        if train else [T.CenterCrop(DENSE["size"])]
+    return T.Compose(crop + [T.ToTensor(),
+                             T.Normalize(DENSE["mean"], DENSE["std"])])
+
+
+def _dataloader_threads():
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(DATALOADER_THREADS)]
+
+
+def _check_no_loader_threads(what):
+    check(not _dataloader_threads(), "%s left DataLoader threads alive: %s"
+          % (what, _dataloader_threads()))
+
+
+def _dense_step(net, batch):
+    """An imperative step with ``Trainer("nag")`` at DENSE's learning rate,
+    momentum and weight decay."""
+    return _EagerStep(net, batch, DENSE["lr"], DENSE["momentum"], "nag",
+                      DENSE["wd"])
+
+
+def _dense_vs_cpu(mx, tmp):
+    """The first training step of full-depth DenseNet-121 at batch 2 x 224
+    on the card and on the CPU from the same weights (``save_parameters``
+    on the CPU, ``load_parameters`` onto the card) and the same batch:
+    the mean loss within DENSE_LOSS_RTOL, every weight's update (conv and
+    dense, 121) within DENSE_UPDATE_TOL of its norm."""
+    n = DENSE["cpu_batch"]
+    r = np.random.default_rng(DENSE["seed"] + 1)
+    x = r.standard_normal((n, 3, DENSE["size"], DENSE["size"])) \
+        .astype(np.float32)
+    y = r.integers(0, DENSE["classes"], (n,)).astype(np.float32)
+    path = os.path.join(tmp, "densenet121-first.params")
+    res = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        net = _densenet121(mx)
+        if ctx == mx.cpu():
+            mx.random.seed(DENSE["seed"])
+            net.initialize(mx.init.Xavier(), ctx=ctx)
+            net(mx.nd.array(x, ctx=ctx))
+            net.save_parameters(path)
+        else:
+            net.load_parameters(path, ctx=ctx)
+        net.hybridize()
+        weights = sorted(k for k in net.collect_params()
+                         if k.endswith("_weight"))
+        w0 = {k: net.collect_params()[k].data().asnumpy() for k in weights}
+        step = _dense_step(net, n)
+        t0 = time.perf_counter()
+        loss = _mean_loss(step.step(mx.nd.array(x, ctx=ctx),
+                                    mx.nd.array(y, ctx=ctx)))
+        secs = time.perf_counter() - t0
+        res.append((loss, {k: net.collect_params()[k].data().asnumpy()
+                           - w0[k] for k in weights}, secs))
+        del net, step
+    (lc, uc, tc), (lg, ug, tg) = res
+    loss_err = abs(lg - lc) / abs(lc)
+    upd = {k: float(np.linalg.norm(ug[k] - uc[k]) / np.linalg.norm(uc[k]))
+           for k in uc}
+    worst = max(upd, key=upd.get)
+    print("[densenet-vs-cpu] first step of full-depth DenseNet-121, %d x 3 x "
+          "%d x %d, Trainer('nag'): loss %.7f on the card, %.7f on the CPU "
+          "(rel err %.3g, tol %g); %d weight updates within %.3g of their "
+          "norm (worst %s; tol %g; median %.3g); step %.2f s on the CPU, "
+          "%.2f s on the card (first, with its graph)"
+          % (n, DENSE["size"], DENSE["size"], lg, lc, loss_err,
+             DENSE_LOSS_RTOL, len(upd), upd[worst], worst, DENSE_UPDATE_TOL,
+             float(np.median(list(upd.values()))), tc, tg))
+    check(loss_err <= DENSE_LOSS_RTOL, "DenseNet-121's first loss on the "
+          "card is %.3g from the CPU's (tol %g)" % (loss_err,
+                                                     DENSE_LOSS_RTOL))
+    check(upd[worst] <= DENSE_UPDATE_TOL, "DenseNet-121's first update of "
+          "%s on the card is %.3g from the CPU's in norm (tol %g)"
+          % (worst, upd[worst], DENSE_UPDATE_TOL))
+    return {"loss_card": lg, "loss_cpu": lc, "loss_rel_err": loss_err,
+            "update_rel_err_max": upd[worst], "update_worst": worst,
+            "update_rel_err_median": float(np.median(list(upd.values()))),
+            "cpu_step_s": tc, "batch": n}
+
+
+def _dense_group(name):
+    kind = _k1_kind(name)
+    if kind is not None:
+        return "kernel 1 (fp32)" if kind == "fp32" else "kernel 1 bf16"
+    if "CatArray" in name:
+        return "concatenation"
+    return _train_group(name)
+
+
+def _dense_profile(card, step, step_ms, tag, batch):
+    """Device time by group, launches and the busy share of two calls of
+    ``step`` under torch.profiler, against ``step_ms`` unprofiled."""
+    kernels, wall_ms = profiled_kernels(step, 2, tag)
+    groups, counts, names = {}, {}, {}
+    for e in kernels:
+        g = _dense_group(e.name)
+        us = e.time_range.elapsed_us()
+        groups[g] = groups.get(g, 0.0) + us
+        counts[g] = counts.get(g, 0) + 1
+        names[e.name] = names.get(e.name, 0.0) + us
+    device_ms = sum(groups.values()) / 2 / 1e3
+    check(device_ms > 0, "the profiler recorded no device time")
+    busy = min(1.0, device_ms / step_ms)
+    print("[%s] one batch-%d step: %.2f ms, %.2f ms device busy (%.1f%% "
+          "busy, %.1f%% idle), %.2f ms wall profiled, %d launches a step on "
+          "%s" % (tag, batch, step_ms, device_ms, 100 * busy,
+                  100 * (1 - busy), wall_ms, len(kernels) // 2, card))
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print("[%s]   %-36s %8.3f ms/step (%.1f%%), %4d launches"
+              % (tag, g, us / 2 / 1e3, 100.0 * us / 2 / 1e3 / device_ms,
+                 counts[g] // 2))
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    for name, us in top:
+        print("[%s]   top: %8.3f ms/step  %s" % (tag, us / 2 / 1e3,
+                                                name[:110]))
+    return {"step_ms": step_ms, "device_ms": device_ms, "busy_share": busy,
+            "idle_share": 1 - busy, "step_wall_ms_profiled": wall_ms,
+            "launches_per_step": len(kernels) // 2,
+            "device_ms_by_group": {g: us / 2 / 1e3
+                                   for g, us in groups.items()},
+            "launches_by_group": {g: c // 2 for g, c in counts.items()},
+            "top_ops_ms": {k: us / 2 / 1e3 for k, us in top}}
+
+
+def _rel_max(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _dense_reloads(mx, net, xb, tmp):
+    """The trained net's logits on ``xb`` (inference), then those of a
+    fresh densenet121 on the CPU after ``load_parameters`` of the card's
+    ``save_parameters``, of a fresh one on the card likewise, and of
+    ``SymbolBlock.imports`` of the card's ``export``: each within
+    DENSE_LOGIT_TOL of the largest |logit|."""
+    gpu = mx.gpu(0)
+    want = net(xb.as_in_context(gpu)).asnumpy()
+    path = os.path.join(tmp, "densenet121-trained.params")
+    net.save_parameters(path)
+    net.export(os.path.join(tmp, "densenet121"), epoch=1)
+    got = {}
+    for name, ctx in (("load_parameters on the CPU", mx.cpu()),
+                      ("load_parameters on the card", gpu)):
+        fresh = _densenet121(mx)
+        fresh.load_parameters(path, ctx=ctx)
+        got[name] = fresh(xb.as_in_context(ctx)).asnumpy()
+        del fresh
+    sb = mx.gluon.SymbolBlock.imports(
+        os.path.join(tmp, "densenet121-symbol.json"), ["data"],
+        os.path.join(tmp, "densenet121-0001.params"), ctx=gpu)
+    got["export -> SymbolBlock.imports on the card"] = \
+        sb(xb.as_in_context(gpu)).asnumpy()
+    errs = {k: _rel_max(v, want) for k, v in got.items()}
+    print("[densenet] the trained net's logits on %d images (max |logit| "
+          "%.4g) reproduced, error of the largest |logit| (tol %g): %s"
+          % (xb.shape[0], float(np.abs(want).max()), DENSE_LOGIT_TOL,
+             ", ".join("%s %.3g" % kv for kv in errs.items())))
+    check(all(e <= DENSE_LOGIT_TOL for e in errs.values()),
+          "reloaded DenseNet-121 logits differ: %s (tol %g)"
+          % (errs, DENSE_LOGIT_TOL))
+    return errs
+
+
+def phase_densenet(card):
+    """DenseNet-121 at full width through DataLoader and gluon.Trainer on
+    the card (see the module docstring, phase 22); returns kernels 1 and
+    2's launches over the run and the phase's record."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data import (BatchSampler, DataLoader,
+                                            RandomSampler)
+    from mxnet_tpu_torch.gluon.data.vision import ImageRecordDataset
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    fp32_exact()
+    gpu = mx.gpu(0)
+    batch = DENSE["batch"]
+    want = densenet_step_launches(hc, _sms(torch.device("cuda", 0)))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_densenet_") as tmp:
+        cpu_check = _dense_vs_cpu(mx, tmp)
+        t0 = time.perf_counter()
+        rec, _, _ = write_imgrec(os.path.join(tmp, "synthetic"),
+                                 DENSE["images"], DENSE["seed"])
+        write_s = time.perf_counter() - t0
+        ds = ImageRecordDataset(rec).transform_first(_dense_pipeline(mx))
+        loader = DataLoader(ds, batch_size=batch, shuffle=True,
+                            num_workers=DENSE["workers"],
+                            last_batch="discard")
+        net = _densenet121(mx)
+        mx.random.seed(DENSE["seed"])
+        net.initialize(mx.init.Xavier(), ctx=gpu)
+        net.hybridize()
+        step = _dense_step(net, batch)
+        per_step, losses = [], []
+
+        def counted(x, y):
+            before = _conv_counts(hc)
+            loss = step.step(x, y)
+            after = _conv_counts(hc)
+            per_step.append({k: after[k] - before[k]
+                             for k in after})
+            return loss
+
+        # a batch already on the card: the first from the loader, whose
+        # iterator is then dropped
+        it = iter(loader)
+        b = next(it)
+        del it
+        gc.collect()
+        _check_no_loader_threads("a dropped DataLoader iterator")
+        x, y = b[0].as_in_context(gpu), b[1].as_in_context(gpu)
+        check(tuple(x.shape) == (batch, 3, DENSE["size"], DENSE["size"])
+              and b[0].context == mx.cpu(), "the loader's batch is %s on %s"
+              % (tuple(b[0].shape), b[0].context))
+        torch.cuda.reset_peak_memory_stats()
+        _zero_conv_counts(hc)
+        t0 = time.perf_counter()
+        losses.append(counted(x, y))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        n_params = sum(int(np.prod(p.shape))
+                       for p in net.collect_params().values())
+        times = timed_steps(lambda: counted(x, y), losses.append)
+        step_ms = float(np.median(times)) * 1e3
+        # one epoch through the loader
+        waits = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = iter(loader)
+        while True:
+            tw = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                break
+            waits.append(time.perf_counter() - tw)
+            losses.append(counted(b[0].as_in_context(gpu),
+                                  b[1].as_in_context(gpu)))
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        del it
+        _check_no_loader_threads("the DataLoader's epoch")
+        epoch_steps = len(waits)
+        check(epoch_steps == DENSE["images"] // batch, "the epoch ran %d "
+              "steps" % epoch_steps)
+        launches = _conv_counts(hc)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for i, c in enumerate(per_step):
+            got = {k: c[k] for k in want}
+            check(got == want, "DenseNet-121 step %d launched %s of kernels "
+                  "1 and 2, the plans say %s" % (i, got, want))
+            check(c["taps_conv_bf16"] == 0 and c["taps_wgrad_bf16"] == 0,
+                  "DenseNet-121 launched the bf16 kernels")
+        losses = [_mean_loss(v) for v in losses]
+        check(all(math.isfinite(v) for v in losses), "DenseNet-121's loss "
+              "is not finite: %s" % losses)
+        ips = batch / (step_ms / 1e3)
+        epoch_ips = epoch_steps * batch / epoch_s
+        wait_share = sum(waits) / epoch_s
+        print("[densenet] DenseNet-121 (%d classes, %.2f M parameters), "
+              "hybridized, fp32, batch %d x 3 x %d x %d, Trainer('nag', lr "
+              "%g, momentum %g, wd %g) on %s" % (
+                  DENSE["classes"], n_params / 1e6, batch, DENSE["size"],
+                  DENSE["size"], DENSE["lr"], DENSE["momentum"], DENSE["wd"],
+                  card))
+        print("[densenet] a batch on the card: first step %.1f ms, %d timed "
+              "steps median %.2f ms (min %.2f, max %.2f): %.1f images/s"
+              % (first_s * 1e3, TIMED_STEPS, step_ms, min(times) * 1e3,
+                 max(times) * 1e3, ips))
+        print("[densenet] one epoch of the .rec (%d images written in %.1f "
+              "s) through DataLoader(%d workers, RandomResizedCrop, mirror, "
+              "ToTensor, Normalize): %d steps in %.2f s, %.1f images/s, "
+              "%.1f%% of it waiting in next() (median wait %.2f ms, max "
+              "%.2f); a step %.2f ms with the loader, %.2f without"
+              % (DENSE["images"], write_s, DENSE["workers"], epoch_steps,
+                 epoch_s, epoch_ips, 100 * wait_share,
+                 float(np.median(waits)) * 1e3, max(waits) * 1e3,
+                 epoch_s / epoch_steps * 1e3, step_ms))
+        print("[densenet] kernels 1 and 2 a step (the plans'): %s, held "
+              "each of %d steps; over the run: %s; peak %.2f GB"
+              % (want, len(per_step), launches, peak_gb))
+        profile = _dense_profile(card, lambda: step.step(x, y), step_ms,
+                                 "densenet-profile", batch)
+        # learning: 5 epochs of a 64-image subset, centred crops
+        sub = DataLoader(
+            ImageRecordDataset(rec).transform_first(_dense_pipeline(mx,
+                                                                    False)),
+            batch_sampler=BatchSampler(RandomSampler(DENSE["subset"]), batch,
+                                       "discard"),
+            num_workers=DENSE["workers"])
+        epoch_means = []
+        for _ in range(DENSE["epochs"]):
+            vals = [step.step(b[0].as_in_context(gpu),
+                              b[1].as_in_context(gpu)) for b in sub]
+            epoch_means.append(float(np.mean([_mean_loss(v)
+                                              for v in vals])))
+        _check_no_loader_threads("the subset's DataLoader")
+        print("[densenet] %d epochs of a %d-image subset (centred crops): "
+              "epoch mean losses %s" % (DENSE["epochs"], DENSE["subset"],
+                                        ", ".join("%.4f" % v
+                                                  for v in epoch_means)))
+        check(all(math.isfinite(v) for v in epoch_means)
+              and epoch_means[-1] < epoch_means[0],
+              "DenseNet-121's loss did not fall over the subset: %s"
+              % epoch_means)
+        reloads = _dense_reloads(mx, net, x[:DENSE["cpu_batch"]], tmp)
+        del step, net, x, y, b, ds, loader, sub
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {
+        "params": n_params, "step_launches": want, "steps": len(per_step),
+        "first_step_ms": first_s * 1e3, "step_ms": step_ms,
+        "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
+        "images_per_s": ips, "epoch_images_per_s": epoch_ips,
+        "epoch_s": epoch_s, "epoch_step_ms": epoch_s / epoch_steps * 1e3,
+        "wait_share": wait_share, "peak_gb": peak_gb,
+        "losses": losses, "subset_epoch_means": epoch_means,
+        "profile": profile, "cpu_check": cpu_check, "reloads": reloads}
+
+
+def zoo_routed_convs(sym, shape):
+    """(kernel-1 calls, their (M, C, O)) of one forward of ``sym`` on data
+    of ``shape``: the convolutions the dispatch routes to kernel 1 (3x3 /
+    pad 1 at stride 1, or 2 on even sides; one group)."""
+    from mxnet_tpu_torch.ops.nn import hopper_conv_mode
+    internals = sym.get_internals()
+    _, shapes, _ = internals.infer_shape(data=shape)
+    shape_of = {(id(n), i): s for (n, i), s in zip(internals._outputs,
+                                                  shapes)}
+    calls = []
+    for node in sym._topo():
+        if node.is_var or node.op.name != "Convolution":
+            continue
+        parent, idx = node.inputs[0]
+        in_shape = shape if parent.is_var else shape_of[(id(parent), idx)]
+        attrs = node.parsed_attrs()
+        t = torch.empty(in_shape, device="meta")
+        if hopper_conv_mode(attrs, t) in ("s1", "s2"):
+            s = 1 if hopper_conv_mode(attrs, t) == "s1" else 2
+            ho, wo = in_shape[2] // s, in_shape[3] // s
+            calls.append((in_shape[0] * ho * wo, in_shape[1],
+                          attrs["num_filter"]))
+    return calls
+
+
+def _zoo_score(mx, net, batch, size, warmup=3, iters=10):
+    """``benchmark_score.py``'s ``score()`` on the port: images/s of
+    ``iters`` hybridized forwards of a uniform batch after ``warmup``."""
+    x = mx.nd.random.uniform(shape=(batch, 3, size, size), ctx=mx.gpu(0))
+    for _ in range(warmup):
+        net(x).wait_to_read()
+    tic = time.time()
+    for _ in range(iters):
+        net(x).wait_to_read()
+    return iters * batch / (time.time() - tic)
+
+
+def phase_zoo(card):
+    """The model zoo served through benchmark_score.py's loop (see the
+    module docstring, phase 23); returns kernel 1's launches over the
+    counted forwards and the phase's record."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import hopper_conv as hc
+    fp32_exact()
+    gpu = mx.gpu(0)
+    sms = _sms(torch.device("cuda", 0))
+    nets = [(n, 224, (1, 32)) for n in ZOO_DEFAULT] + \
+        [(n, s, (32,)) for n, s in ZOO_MORE]
+    total = dict.fromkeys(("implicit_gemm_conv",
+                           "implicit_gemm_conv reduction", "taps_wgrad",
+                           "taps_wgrad reduction"), 0)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+        for k, (name, size, batches) in enumerate(nets):
+            with mx.name.NameManager():
+                net = getattr(vision, name)()
+            mx.random.seed(SEED + k)
+            net.initialize(mx.init.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2),
+                           ctx=gpu)
+            net.hybridize()
+            r = np.random.default_rng(SEED + k)
+            x1 = r.uniform(size=(1, 3, size, size)).astype(np.float32)
+            logits = net(mx.nd.array(x1, ctx=gpu)).asnumpy()
+            path = os.path.join(tmp, name + ".params")
+            net.save_parameters(path)
+            with mx.name.NameManager():
+                cnet = getattr(vision, name)()
+            cnet.load_parameters(path, ctx=mx.cpu())
+            cnet.hybridize()
+            cpu_logits = cnet(mx.nd.array(x1, ctx=mx.cpu())).asnumpy()
+            del cnet
+            err = _rel_max(logits, cpu_logits)
+            same_top1 = int(logits.argmax()) == int(cpu_logits.argmax())
+            rec = {"size": size, "logit_rel_err": err,
+                   "top1_equal": same_top1, "images_per_s": {},
+                   "kernel1_per_forward": {}}
+            for b in batches:
+                calls = zoo_routed_convs(net._cached_graph[1],
+                                         (b, 3, size, size))
+                sums = sum(hc.conv_fp32_plan(M, C, O, 3, 3, sms).splits > 1
+                           for M, C, O in calls)
+                x = mx.nd.random.uniform(shape=(b, 3, size, size), ctx=gpu)
+                before = _conv_counts(hc)
+                net(x).wait_to_read()
+                after = _conv_counts(hc)
+                got = {kk: after[kk] - before[kk] for kk in total}
+                for kk in total:
+                    total[kk] += got[kk]
+                check(got["implicit_gemm_conv"] == len(calls)
+                      and got["implicit_gemm_conv reduction"] == sums
+                      and got["taps_wgrad"] == 0,
+                      "%s at batch %d launched %s of kernels 1 and 2, its "
+                      "routed 3x3s %d with %d split sums"
+                      % (name, b, got, len(calls), sums))
+                rec["kernel1_per_forward"][b] = {"launches": len(calls),
+                                                 "split_sums": sums}
+                rec["images_per_s"][b] = _zoo_score(mx, net, b, size)
+            n1 = rec["kernel1_per_forward"][batches[0]]["launches"]
+            print("[zoo] %s (%d px): %s images/s; kernel 1 %d launches a "
+                  "forward (%s split sums); batch-1 logits vs the CPU %.3g "
+                  "of max |logit| (tol %g), top-1 %s on %s"
+                  % (name, size, ", ".join(
+                      "batch %d %.1f" % kv
+                      for kv in rec["images_per_s"].items()), n1,
+                     "/".join(str(v["split_sums"]) for v in
+                              rec["kernel1_per_forward"].values()),
+                     err, ZOO_TOL, "equal" if same_top1 else "DIFFERS",
+                     card))
+            check(err <= ZOO_TOL and same_top1, "%s's card logits differ "
+                  "from the CPU's: %.3g, top-1 equal %s" % (name, err,
+                                                           same_top1))
+            if name in ZOO_KERNEL1:
+                check(n1 > 0, "%s launched no kernel-1 call" % name)
+            out[name] = rec
+            del net
+            gc.collect()
+            torch.cuda.empty_cache()
+    return total, out
 
 
 def _ring_entries(k4, k10, launches):
@@ -7378,6 +8058,7 @@ def main() -> int:
     bf16_kernels = phase_bf16_kernels()
     block_kernels, block_forced = phase_fused_block_kernels()
     fcn_kernels = phase_fcn_kernels()
+    dense_kernels, dense_misaligned = phase_densenet_kernels()
     serving_launches, served = phase_serving(card)
     served["profile"] = phase_profile(card)
     print("[serving] summary " + json.dumps(dict(served, card=card)))
@@ -7436,6 +8117,10 @@ def main() -> int:
     print("[new-ops] summary " + json.dumps(dict(new_ops, card=card)))
     fcn_launches, fcn = phase_fcn(card)
     print("[fcn] summary " + json.dumps(dict(fcn, card=card)))
+    dense_launches, dense = phase_densenet(card)
+    print("[densenet] summary " + json.dumps(dict(dense, card=card)))
+    zoo_launches, zoo = phase_zoo(card)
+    print("[zoo] summary " + json.dumps(dict(zoo, card=card)))
     for k in lstm:
         k["lm_launches"] = k["launches"]
         k["bucketing_launches"] = bucket_launches[k["name"]]
@@ -7469,6 +8154,24 @@ def main() -> int:
         k["fcn"] = dict(fcn_sums[key], launches=k["fcn_launches"],
                         shapes=fcn_kernels)
         k["max_abs_err"] = max(k["max_abs_err"], fcn_sums[key]["max_abs_err"])
+    dense_sums = fcn_kernel_sums(dense_kernels)
+    for k, pre, key in ((k1, "implicit_gemm_conv", "k1"),
+                        (k2, "taps_wgrad", "k2")):
+        k["densenet_launches"] = dense_launches[pre] + dense_launches[
+            pre + " reduction"]
+        k["zoo_launches"] = zoo_launches[pre] + zoo_launches[
+            pre + " reduction"]
+        k["densenet"] = dict(dense_sums[key], launches=k["densenet_launches"],
+                             shapes=dense_kernels,
+                             misaligned=dense_misaligned)
+        errs = [k["max_abs_err"], dense_sums[key]["max_abs_err"]]
+        if key == "k1":
+            errs += [v for n, v in dense_misaligned.items()
+                     if not n.startswith("wgrad")]
+        k["max_abs_err"] = max(errs)
+    check(dense_launches["implicit_gemm_conv"] > 0
+          and dense_launches["taps_wgrad"] > 0,
+          "kernels 1 and 2 were not launched on the DenseNet-121 path")
     k12, k1b, k2b = _bf16_entries(k1, k2, bf16_kernels, bf16_launches)
     k13 = _block_entry(block_kernels, infer_launches)
     k13["forced_arms"] = block_forced

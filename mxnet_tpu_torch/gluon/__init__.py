@@ -1,11 +1,16 @@
 """Gluon (counterpart of ``mxnet_tpu/gluon``): Blocks that run op by op
-under ``autograd`` or as Symbol graphs once hybridized, the losses,
-``Trainer``, and what the ResNet v1 model zoo and the LSTM language model
-need."""
-from .parameter import DeferredInitializationError, Parameter, ParameterDict
-from .block import Block, HybridBlock
-from . import nn
-from . import rnn
-from . import loss
-from . import model_zoo
+under ``autograd`` or as Symbol graphs once hybridized, with their save,
+load and export; the layers, ``contrib.nn``, the losses, ``Trainer``, the
+data API and the vision model zoo."""
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
+from .block import Block, HybridBlock, SymbolBlock
 from .trainer import Trainer
+from . import nn
+from . import loss
+from . import rnn
+from . import data
+from . import model_zoo
+from . import contrib
+from . import utils
+from .utils import clip_global_norm, split_and_load, split_data

@@ -1,16 +1,21 @@
-"""ResNet v1 (counterpart of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``;
-v2 is not ported yet).  Block structure and naming are the reference's, so
-``resnet50_v1()`` here and there have the same 299 parameters and aux
-states, by name and shape.  ``BottleneckV1`` puts the stride on its first
-1x1 convolution, so every 3x3 convolution of ``resnet50_v1`` is stride 1,
-pad 1: the hand-written kernels' class, forward and backward."""
+"""ResNet v1 and v2 (counterpart of
+``mxnet_tpu/gluon/model_zoo/vision/resnet.py``).  Block structure and
+naming are the reference's, so ``resnet50_v1()`` here and there have the
+same 299 parameters and aux states, by name and shape.  ``BottleneckV1``
+puts the stride on its first 1x1 convolution, so every 3x3 convolution of
+``resnet50_v1`` is stride 1, pad 1: the hand-written kernels' class,
+forward and backward.  The v2 blocks (pre-activation) stride their 3x3,
+which takes kernel 1's stride-2 arm where the input's sides are even."""
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
-           "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1"]
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
+           "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
+           "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
+           "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
+           "get_resnet"]
 
 
 def _conv3x3(channels, stride, in_channels):
@@ -79,13 +84,87 @@ class BottleneckV1(HybridBlock):
         return F.Activation(x + residual, act_type="relu")
 
 
+class BasicBlockV2(HybridBlock):
+    """ResNet v2 basic block: BN-ReLU-3x3 twice (pre-activation)."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = nn.BatchNorm()
+        self.conv1 = _conv3x3(channels, stride, in_channels)
+        self.bn2 = nn.BatchNorm()
+        self.conv2 = _conv3x3(channels, 1, channels)
+        self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                    in_channels=in_channels) \
+            if downsample else None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
+        return self.conv2(x) + residual
+
+
+class BottleneckV2(HybridBlock):
+    """ResNet v2 bottleneck: BN-ReLU before each of 1x1 - 3x3 (strided) -
+    1x1."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = nn.BatchNorm()
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                               use_bias=False)
+        self.bn2 = nn.BatchNorm()
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4)
+        self.bn3 = nn.BatchNorm()
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False)
+        self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                    in_channels=in_channels) \
+            if downsample else None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.conv2(F.Activation(self.bn2(x), act_type="relu"))
+        x = self.conv3(F.Activation(self.bn3(x), act_type="relu"))
+        return x + residual
+
+
+def _check_spec(layers, channels):
+    if len(layers) != len(channels) - 1:
+        raise ValueError("%d stages need %d widths, got %d"
+                         % (len(layers), len(layers) + 1, len(channels)))
+
+
+def _make_layer(block, layers, channels, stride, stage_index,
+                in_channels=0):
+    """Stage ``stage_index``: ``layers`` blocks, the first strided (and
+    projecting where the width changes)."""
+    layer = nn.HybridSequential(prefix="stage%d_" % stage_index)
+    with layer.name_scope():
+        layer.add(block(channels, stride, channels != in_channels,
+                        in_channels=in_channels, prefix=""))
+        for _ in range(layers - 1):
+            layer.add(block(channels, 1, False, in_channels=channels,
+                            prefix=""))
+    return layer
+
+
 class ResNetV1(HybridBlock):
     """ResNet v1: stem, four stages of ``block``, global pool, Dense."""
 
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, **kwargs):
         super().__init__(**kwargs)
-        assert len(layers) == len(channels) - 1
+        _check_spec(layers, channels)
         with self.name_scope():
             self.features = nn.HybridSequential(prefix="")
             if thumbnail:
@@ -98,22 +177,47 @@ class ResNetV1(HybridBlock):
                 self.features.add(nn.MaxPool2D(3, 2, 1))
             for i, num_layer in enumerate(layers):
                 stride = 1 if i == 0 else 2
-                self.features.add(self._make_layer(
+                self.features.add(_make_layer(
                     block, num_layer, channels[i + 1], stride, i + 1,
                     in_channels=channels[i]))
             self.features.add(nn.GlobalAvgPool2D())
             self.output = nn.Dense(classes, in_units=channels[-1])
 
-    def _make_layer(self, block, layers, channels, stride, stage_index,
-                    in_channels=0):
-        layer = nn.HybridSequential(prefix="stage%d_" % stage_index)
-        with layer.name_scope():
-            layer.add(block(channels, stride, channels != in_channels,
-                            in_channels=in_channels, prefix=""))
-            for _ in range(layers - 1):
-                layer.add(block(channels, 1, False, in_channels=channels,
-                                prefix=""))
-        return layer
+    def hybrid_forward(self, F, x):
+        return self.output(self.features(x))
+
+
+class ResNetV2(HybridBlock):
+    """ResNet v2: a BN on the input, the stem, four stages of ``block``,
+    BN-ReLU, global pool, Dense."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, **kwargs):
+        super().__init__(**kwargs)
+        _check_spec(layers, channels)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.BatchNorm(scale=False, center=False))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False))
+                self.features.add(nn.BatchNorm())
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(_make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels=in_channels))
+                in_channels = channels[i + 1]
+            self.features.add(nn.BatchNorm())
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D())
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
 
     def hybrid_forward(self, F, x):
         return self.output(self.features(x))
@@ -124,20 +228,35 @@ resnet_spec = {
     34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
     50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
     101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
+    152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
-_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+resnet_net_versions = [ResNetV1, ResNetV2]
+resnet_block_versions = [
+    {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+    {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2},
+]
 
 
-def get_resnet(version, num_layers, **kwargs):
-    """A ResNet of ``num_layers`` (18, 34, 50, 101); version 1 only."""
-    if version != 1:
-        raise ValueError("only ResNet v1 is ported, got version %r"
-                         % (version,))
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
+    """A ResNet of ``version`` (1 or 2) and ``num_layers`` (18, 34, 50,
+    101, 152); ``pretrained`` loads ``resnet<n>_v<version>``'s local file
+    (``model_store``) onto ``ctx``."""
     if num_layers not in resnet_spec:
         raise ValueError("invalid number of layers %r (options: %s)"
                          % (num_layers, sorted(resnet_spec)))
+    if version not in (1, 2):
+        raise ValueError("invalid resnet version %r (options: 1 and 2)"
+                         % (version,))
     block_type, layers, channels = resnet_spec[num_layers]
-    return ResNetV1(_BLOCKS[block_type], layers, channels, **kwargs)
+    net = resnet_net_versions[version - 1](
+        resnet_block_versions[version - 1][block_type], layers, channels,
+        **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_parameters(get_model_file(
+            "resnet%d_v%d" % (num_layers, version), root=root), ctx=ctx)
+    return net
 
 
 def resnet18_v1(**kwargs):
@@ -154,3 +273,27 @@ def resnet50_v1(**kwargs):
 
 def resnet101_v1(**kwargs):
     return get_resnet(1, 101, **kwargs)
+
+
+def resnet152_v1(**kwargs):
+    return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

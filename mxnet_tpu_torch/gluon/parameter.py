@@ -6,7 +6,9 @@ array is marked for ``autograd`` with it (``write`` or ``add``), so a
 ``backward`` under ``autograd.record`` fills it, and ``gluon.Trainer``
 reads it with ``lr_mult``/``wd_mult``.  ``FusedTrainer`` trains every
 argument of the graph on its own copies and writes the values back with
-``sync_params``.
+``sync_params``.  ``ParameterDict.save``/``load`` write and read the
+reference's npz container (``nd.save``), so a file moves between the two
+packages; ``Constant`` is a parameter that no trainer updates.
 
 A shape that does not fit the known dims raises ``MXNetError`` (the
 ``shape`` setter) where the reference raises ``AssertionError``.
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 import numpy as np
+import torch
 
 from ..base import MXNetError
 from ..context import Context, cpu, current_context
@@ -22,7 +25,8 @@ from .. import autograd
 from .. import initializer
 from ..ndarray import ndarray as nd
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -52,6 +56,10 @@ class Parameter:
         self._data = None               # OrderedDict: Context -> NDArray
         self._grad = None               # OrderedDict: Context -> NDArray
         self._deferred_init = ()
+        if stype != "default":
+            raise MXNetError("parameter %s: stype %r is not ported yet "
+                             "(Queue 1 item 9)" % (name, stype))
+        self._stype = stype
         self._grad_req = None
         self.grad_req = grad_req if differentiable else "null"
 
@@ -95,6 +103,11 @@ class Parameter:
             for c, a in self._data.items())
         autograd.mark_variables(list(self._data.values()),
                                 list(self._grad.values()), self._grad_req)
+
+    @property
+    def stype(self):
+        """The storage type, ``"default"`` (dense): the only one ported."""
+        return self._stype
 
     @property
     def shape(self):
@@ -155,13 +168,38 @@ class Parameter:
             (c, nd.array(value, ctx=c, dtype=self.dtype)) for c in ctx_list)
         self._init_grad()
 
-    def _load_init(self, value, ctx_list):
-        """Make the arrays from ``value`` (numpy) on each context, in place
-        of an initializer's draw; the shape must fit the known dims (else
-        ``MXNetError``, through the ``shape`` setter)."""
+    def _load_init(self, value, ctx=None):
+        """Take ``value`` (numpy, a tensor or an NDArray) in place of an
+        initializer's draw (``parameter.py:173``): the shape must fit the
+        known dims (else ``MXNetError``, through the ``shape`` setter).
+        Made on ``ctx`` (a Context or a list), by default where it lives
+        or will live, else on the current context; written in place when
+        it already lives on those contexts."""
+        value = nd._as_tensor(value, None)
         self.shape = tuple(value.shape)
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        if self._data is not None and (ctx is None
+                                       or set(ctx) == set(self._data)):
+            with torch.no_grad():
+                for arr in self._data.values():
+                    arr._data.copy_(value)
+            return
+        if ctx is None:
+            ctx = (list(self._deferred_init[1]) if self._deferred_init
+                   else [current_context()])
         self._deferred_init = ()
-        self._init_impl(value, ctx_list)
+        self._init_impl(value, ctx)
+
+    def _reduce(self):
+        """The value on the CPU: the one array's copy, or the mean over
+        the contexts (``parameter.py:312``)."""
+        arrays = self.list_data()
+        if len(arrays) == 1:
+            return arrays[0].copyto(cpu())
+        mean = sum(a._data.detach().double().cpu() for a in arrays) \
+            / len(arrays)
+        return nd.array(mean, ctx=cpu(), dtype=self.dtype)
 
     def _arrays(self, grad=False):
         """The data (or gradient) arrays by context; raises while the
@@ -270,15 +308,45 @@ class Parameter:
         return self._var
 
 
-class ParameterDict:
-    """Parameters by full name, all starting with ``prefix``."""
+class Constant(Parameter):
+    """A parameter that holds ``value`` and that no trainer updates
+    (``grad_req`` null; ``parameter.py:343``).  Its initializer writes the
+    value whatever the name says, as upstream MXNet's does."""
 
-    def __init__(self, prefix=""):
+    def __init__(self, name, value):
+        if not isinstance(value, nd.NDArray):
+            value = nd.array(np.asarray(value), ctx=cpu())
+        self.value = value
+
+        class Init(initializer.Initializer):
+            def __call__(self, _name, arr):
+                arr[:] = value.as_in_context(arr.context)
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype,
+                         init=Init(), differentiable=False)
+
+
+class ParameterDict:
+    """Parameters by full name, all starting with ``prefix``; ``shared``
+    is another ParameterDict whose Parameters ``get`` hands out in place
+    of new ones (a Block built with ``params=``)."""
+
+    def __init__(self, prefix="", shared=None):
         self._prefix = prefix
         self._params = OrderedDict()
+        self._shared = shared
+
+    def __repr__(self):
+        name = self._prefix + " " if self._prefix else ""
+        return "%s(\n%s\n)" % (
+            name, "\n".join("  " + repr(v) for v in self.values()))
 
     def __getitem__(self, key):
         return self._params[key]
+
+    def __iter__(self):
+        return iter(self._params)
 
     def __contains__(self, key):
         return key in self._params
@@ -299,12 +367,54 @@ class ParameterDict:
     def prefix(self):
         return self._prefix
 
+    def _get_impl(self, name):
+        if name in self._params:
+            return self._params[name]
+        if self._shared is not None and name in self._shared._params:
+            self._params[name] = self._shared._params[name]
+            return self._params[name]
+        return None
+
     def get(self, name, **kwargs) -> Parameter:
-        """The Parameter ``prefix + name``, made with ``kwargs`` if new."""
+        """The Parameter ``prefix + name``, made with ``kwargs`` if new.
+        An existing one takes the unknown dims of a given ``shape``, and a
+        new ``lr_mult``, ``wd_mult`` or ``grad_req``; another value of any
+        other attribute raises (``parameter.py:425-446``)."""
         full = self._prefix + name
-        if full not in self._params:
-            self._params[full] = Parameter(full, **kwargs)
-        return self._params[full]
+        param = self._get_impl(full)
+        if param is None:
+            param = self._params[full] = Parameter(full, **kwargs)
+            return param
+        for k, v in kwargs.items():
+            existing = getattr(param, k, None)
+            if existing is None:
+                setattr(param, k, v)
+            elif k == "shape" and v is not None and len(v) == len(existing):
+                param._shape = tuple(e if e not in (0, -1) else n
+                                     for e, n in zip(existing, v))
+            elif k in ("lr_mult", "wd_mult", "grad_req"):
+                if v is not None and v != existing:
+                    setattr(param, k, v)
+            elif v is not None and v != existing:
+                raise MXNetError(
+                    "cannot retrieve parameter %s: attribute %s is %r, not "
+                    "the desired %r" % (full, k, existing, v))
+        return param
+
+    def get_constant(self, name, value=None) -> Constant:
+        """The Constant ``prefix + name``, made from ``value`` if new
+        (``parameter.py:447``)."""
+        full = self._prefix + name
+        param = self._get_impl(full)
+        if param is None:
+            if value is None:
+                raise MXNetError("no constant named %s: give a value to make "
+                                 "one" % full)
+            param = self._params[full] = Constant(full, value)
+        elif value is not None and not isinstance(param, Constant):
+            raise MXNetError("parameter %s exists and is not a constant"
+                             % full)
+        return param
 
     def update(self, other):
         """Add every Parameter of ``other``; a name bound to another
@@ -329,10 +439,54 @@ class ParameterDict:
         for p in self.values():
             setattr(p, name, value)
 
-    def initialize(self, init=None, ctx=None, force_reinit=False):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
         """Initialize every Parameter; ``init`` is the default for those
-        that name none."""
+        that name none.  ``verbose`` is accepted, as in the reference."""
         default = initializer.create(init) if init is not None \
             else initializer.Uniform()
         for p in self.values():
             p.initialize(None, ctx, default, force_reinit=force_reinit)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every value, named without ``strip_prefix``, to
+        ``filename`` in the reference's npz container
+        (``parameter.py:495``)."""
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise MXNetError("cannot strip prefix %r from parameter %s"
+                                 % (strip_prefix, param.name))
+            arg_dict[param.name[len(strip_prefix):]] = param._reduce()
+        nd.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Read the values of a file that ``save`` (or ``export``, whose
+        names start with ``arg:`` and ``aux:``) wrote, the names prefixed
+        with ``restore_prefix``, onto ``ctx`` (``parameter.py:508``)."""
+        if restore_prefix:
+            for name in self.keys():
+                if not name.startswith(restore_prefix):
+                    raise MXNetError("restore_prefix is %r but parameter %s "
+                                     "does not start with it"
+                                     % (restore_prefix, name))
+        lprefix = len(restore_prefix)
+        arg_dict = {}
+        for k, v in nd.load(filename, ctx=cpu()).items():
+            if k.startswith("arg:") or k.startswith("aux:"):
+                k = k[4:]
+            arg_dict[restore_prefix + k] = v
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise MXNetError("parameter %s is missing in file %s"
+                                     % (name[lprefix:], filename))
+        for name, value in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError("parameter %s loaded from file %s is "
+                                     "not present in this ParameterDict"
+                                     % (name[lprefix:], filename))
+                continue
+            self._params[name]._load_init(value, ctx)

@@ -2,6 +2,7 @@
 package registers them."""
 from . import registry  # noqa: F401
 from . import elemwise  # noqa: F401
+from . import image_ops  # noqa: F401
 from . import init_random  # noqa: F401
 from . import matrix  # noqa: F401
 from . import misc_parity  # noqa: F401

@@ -16,6 +16,9 @@ from .context import Context, current_context
 __all__ = ["seed", "generator", "next_seed"]
 
 _lock = threading.Lock()
+#: the seed until :func:`seed` is called: the reference's global seed
+#: starts at 0 (``mxnet_tpu/resource.py``), so an unseeded run repeats
+DEFAULT_SEED = 0
 _seed: Optional[int] = None
 _gens: Dict[Tuple[int, int], torch.Generator] = {}
 _seeds: Optional[torch.Generator] = None     # host stream behind next_seed
@@ -39,16 +42,15 @@ def seed(seed_state: int, ctx: Optional[Context] = None):
 
 def generator(ctx: Optional[Context] = None) -> torch.Generator:
     """The generator of ``ctx`` (default: the current context), made at
-    first use from the global seed, or from PyTorch's initial seed when
-    ``seed`` was never called."""
+    first use from the global seed, or from ``DEFAULT_SEED`` when ``seed``
+    was never called."""
     ctx = ctx or current_context()
     key = (ctx.device_typeid, ctx.device_id)
     with _lock:
         gen = _gens.get(key)
         if gen is None:
             gen = torch.Generator(device=ctx.torch_device)
-            gen.manual_seed(_seed if _seed is not None
-                            else torch.initial_seed())
+            gen.manual_seed(_seed if _seed is not None else DEFAULT_SEED)
             _gens[key] = gen
         return gen
 
@@ -61,5 +63,5 @@ def next_seed() -> int:
     with _lock:
         if _seeds is None:
             _seeds = torch.Generator().manual_seed(
-                _seed if _seed is not None else torch.initial_seed())
+                _seed if _seed is not None else DEFAULT_SEED)
         return int(torch.randint(0, 2 ** 62, (1,), generator=_seeds))

@@ -80,10 +80,13 @@ def test_utils_zeros_like_fn():
 
 
 def _both(build, **arrays):
-    """``build(sym)`` evaluated in both packages on the same arrays."""
+    """``build(sym)`` evaluated in both packages on the same arrays, each
+    built under a fresh ``NameManager``, so that the names compared do not
+    depend on how far earlier tests advanced either package's counters."""
     out = {}
     for pkg, ctx in ((mx, None), (tmx, cpu())):
-        s = build(pkg.sym)
+        with pkg.name.NameManager():
+            s = build(pkg.sym)
         kw = {k: pkg.nd.array(v, **({} if pkg is mx else {"ctx": ctx}))
               for k, v in arrays.items()}
         res = s.eval(ctx, **kw) if pkg is tmx else s.eval(**kw)

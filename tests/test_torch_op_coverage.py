@@ -16,7 +16,7 @@ from mxnet_tpu_torch.ops.registry import OPS
 
 #: the reference's names the port does not register yet, by defining
 #: module: item 9's operators (detection, contrib extras, control flow,
-#: image, linalg, int8, spatial, the fork's vision ops, ``Custom``)
+#: linalg, int8, spatial, the fork's vision ops, ``Custom``)
 ITEM_9 = {
     "mxnet_tpu.operator": (
         "Custom",),
@@ -42,8 +42,6 @@ ITEM_9 = {
         "div_sqrt_dim", "fft", "ifft", "khatri_rao", "quadratic",),
     "mxnet_tpu.ops.control_flow": (
         "_foreach",),
-    "mxnet_tpu.ops.image_ops": (
-        "_image_normalize", "_image_to_tensor", "normalize", "to_tensor",),
     "mxnet_tpu.ops.linalg": (
         "_linalg_gelqf", "_linalg_gemm", "_linalg_gemm2", "_linalg_potrf",
         "_linalg_potri", "_linalg_sumlogdiag", "_linalg_syevd",
@@ -96,4 +94,4 @@ def test_only_item_9_is_missing():
 def test_item_9_names_are_still_reference_ops():
     listed = {n for v in ITEM_9.values() for n in v}
     assert listed <= set(ref_registry.list_ops())
-    assert len(listed) == 105
+    assert len(listed) == 101
